@@ -1,0 +1,262 @@
+"""The IQ model (counterpart of ``blt_vqg_tpu/models/iq.py``): the serving
+half.
+
+Every submodule of the JAX ``IQ.setup`` is built under the same name, so
+every parameter of a JAX checkpoint has a home (``convert.py``).  Ported:
+``embed_tokens``, ``encode_context`` and greedy KV-cache decoding
+(:meth:`IQ.decode_greedy`) on the plain and the streaming decode paths,
+with the fused int8/bf16 head.  The training forward, beam search,
+full-prefix logits, sampling and posterior z sources raise
+``NotImplementedError`` (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from blt_vqg_tpu_torch.core.config import Config
+from blt_vqg_tpu_torch.ops.kernels import decode_head, decode_stream
+from blt_vqg_tpu_torch.ops.latent import Latent
+from blt_vqg_tpu_torch.ops.layers import Dense, Embed, cached, init_weights_
+from blt_vqg_tpu_torch.ops.masks import pad_mask
+from blt_vqg_tpu_torch.ops.mlp import MLP
+from blt_vqg_tpu_torch.ops.resnet import EncoderCNN
+from blt_vqg_tpu_torch.ops.transformer import (TransformerDecoder,
+                                               TransformerEncoder)
+
+PAD, START, END, UNK = 0, 1, 3, 4  # reserved ids (text/vocabulary.py contract)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _unported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1)")
+
+
+class IQ(nn.Module):
+    def __init__(self, cfg: Config, vocab_size: int):
+        super().__init__()
+        if cfg.image_encoder != "resnet18":
+            raise _unported(f"image_encoder={cfg.image_encoder!r}")
+        if cfg.sequence_parallel:
+            raise NotImplementedError(
+                "ring attention is not ported yet (ROADMAP.md queue 2)")
+        self.cfg, self.vocab_size = cfg, vocab_size
+        dtype = self.dtype = _DTYPES[cfg.dtype]
+        d = cfg.hidden_dim
+        self.embed = Embed(vocab_size, cfg.emb_dim, dtype, init_std=0.01)
+        self.embed_proj = Dense(cfg.emb_dim, d, dtype=dtype)
+        self.encoder_cnn = EncoderCNN(d, dtype)
+        enc_kw = dict(hidden_dim=d, num_layers=cfg.num_layers,
+                      num_heads=cfg.num_heads, pwffn_dim=cfg.pwffn_dim,
+                      dtype=dtype, use_pallas=cfg.use_pallas_attention,
+                      compat_trailing_relu=cfg.compat_trailing_relu,
+                      moe_num_experts=cfg.moe_num_experts)
+        self.context_encoder = TransformerEncoder(**enc_kw)
+        self.posterior_encoder = TransformerEncoder(**enc_kw)
+        self.latent = Latent(d, cfg.latent_dim, dtype)
+        self.latent_projection = Dense(cfg.latent_dim, d, dtype=dtype)
+        self.decoder = TransformerDecoder(
+            **enc_kw,
+            max_decode_len=max(cfg.max_decode_length + 1, cfg.max_target_len),
+            use_pallas_decode=cfg.use_pallas_decode,
+            use_stream_decode=cfg.use_stream_decode,
+            stream_weight_dtype=cfg.stream_weight_dtype,
+            pipeline_stages=cfg.pipeline_stages)
+        self.output_proj = Dense(d, vocab_size, dtype=torch.float32)
+        # tie_output_z: one [hidden, vocab] head serves both roles, and the
+        # JAX tree then has no z_classifier entry
+        if not cfg.tie_output_z:
+            self.z_classifier = Dense(d, vocab_size, dtype=torch.float32)
+        self.image_reconstructor = MLP(d, cfg.pwffn_dim, d, num_layers=2,
+                                       dtype=dtype)
+
+    @property
+    def z_head(self) -> Dense:
+        return self.output_proj if self.cfg.tie_output_z else self.z_classifier
+
+    def init_weights(self, generator: torch.Generator) -> "IQ":
+        """Seed-made weights at the JAX initializers' scales."""
+        return init_weights_(self, generator)
+
+    # ------------------------------------------------------------------
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Shared embedding + projection to hidden."""
+        return self.embed_proj(self.embed(tokens))
+
+    def encode_context(self, context: torch.Tensor,
+                       image_features: torch.Tensor):
+        """Context encoder + image features added at position 0."""
+        src_mask = pad_mask(context, PAD)
+        enc = self.context_encoder(self.embed_tokens(context), src_mask)
+        enc = enc.clone()
+        enc[:, 0] += image_features.to(enc.dtype)
+        return enc, src_mask
+
+    def forward(self, *args, **kwargs):
+        raise _unported("IQ's training forward")
+
+    def decode_beam(self, *args, **kwargs):
+        raise _unported("beam search")
+
+    def inference_logits(self, *args, **kwargs):
+        raise _unported("full-prefix decode logits")
+
+    # ------------------------------------------------------------------
+    def fused_head_engaged(self, with_probe: bool) -> bool:
+        """Whether greedy decode takes the fused LN+projection+argmax head:
+        on the streaming path without the probe, when forced "on", or on
+        "auto" when the head streams int8."""
+        cfg = self.cfg
+        return (cfg.use_stream_decode and not with_probe
+                and (cfg.stream_fused_head == "on"
+                     or (cfg.stream_fused_head == "auto"
+                         and self.head_dtype == "int8")))
+
+    @property
+    def head_dtype(self) -> str:
+        hd = self.cfg.stream_head_dtype
+        return self.cfg.stream_weight_dtype if hd == "auto" else hd
+
+    def fused_head(self) -> dict:
+        """The fused head's weights: [D, Vp] padded to a chunk multiple,
+        int8 with per-column scales (padded with 1.0) or in the compute
+        dtype, the f32 bias (padded with ``PAD_BIAS``) and the final LN.
+        Built on first use and kept until one of those parameters changes."""
+        params = [*self.output_proj.parameters(),
+                  *self.decoder.final_ln.parameters()]
+        return cached(self, "_fused_head", self._build_fused_head, params)
+
+    @torch.no_grad()
+    def _build_fused_head(self) -> dict:
+        head_w = self.output_proj.weight.float().T            # [D, V]
+        head_b = self.output_proj.bias.float()
+        chunk = decode_head.head_chunk(head_w.shape[1])
+        scales = None
+        if self.head_dtype == "int8":
+            head_w, scales = decode_stream.quantize_stack(head_w)
+            head_w, head_b = decode_head.pad_head(head_w, head_b, chunk)
+            scales = F.pad(scales, (0, head_w.shape[1] - scales.shape[1]),
+                           value=1.0).contiguous()
+        else:
+            head_w, head_b = decode_head.pad_head(head_w.to(self.dtype),
+                                                  head_b, chunk)
+        ln = self.decoder.final_ln
+        return {"w": head_w.contiguous(), "b": head_b.contiguous(),
+                "scales": scales, "chunk": chunk,
+                "ln_scale": ln.weight.float().contiguous(),
+                "ln_bias": ln.bias.float().contiguous()}
+
+    def prepare_decode(self, images: torch.Tensor, context: torch.Tensor,
+                       max_decode_length: int = 50, latent_mode: bool = False,
+                       with_probe: bool = True,
+                       z_source: str = "prior_sample",
+                       generator: Optional[torch.Generator] = None) -> dict:
+        """Everything a decode loop holds fixed: the image(+z) injection,
+        the cross K/V, the source mask, the streaming bundle and the fused
+        head (None where not engaged).  The weight stacks of the bundle and
+        the fused head are the model's own, built once (:func:`cached`);
+        the rest is this request batch's."""
+        if z_source not in ("prior_sample", "prior_mean"):
+            raise _unported(f"z_source={z_source!r}")
+        image_features = self.encoder_cnn(images)
+        enc, src_mask = self.encode_context(context, image_features)
+        z_proj = torch.zeros_like(image_features)
+        if latent_mode:
+            _, z, _ = self.latent(enc[:, 0], None, generator=generator,
+                                  use_mean=z_source == "prior_mean")
+            z_proj = self.latent_projection(z)
+        cross_kvs = self.decoder.precompute_cross(enc)
+        b = context.shape[0]
+        return {
+            "batch": b, "steps": max_decode_length + 1,
+            "inject": (image_features + z_proj).to(self.dtype),
+            "cross_kvs": cross_kvs, "src_mask": src_mask,
+            "stream": (self.decoder.stream_prep(cross_kvs, src_mask, b)
+                       if self.cfg.use_stream_decode else None),
+            "head": (self.fused_head() if self.fused_head_engaged(with_probe)
+                     else None),
+        }
+
+    def decode_step(self, plan: dict, token: torch.Tensor, caches,
+                    pos: int, key_pad=None, with_probe: bool = False):
+        """One greedy step: embed ``token`` [B], inject at position 0, run
+        the decoder stack (caches updated in place) and pick the next token.
+        Returns (next_token [B] int32, probe or None), the probe being the
+        top-6 (tokens, probabilities) of the softmax."""
+        x_t = self.embed_tokens(token[:, None])
+        if pos == 0:
+            x_t = x_t + plan["inject"][:, None, :]
+        if key_pad is not None:
+            key_pad[:, pos] = token == PAD
+        head = plan["head"]
+        y_t, _ = self.decoder.step(x_t, caches, plan["cross_kvs"], pos,
+                                   plan["src_mask"], key_pad,
+                                   skip_final_ln=head is not None,
+                                   stream=plan["stream"])
+        if head is not None:
+            return decode_head.head_argmax(
+                y_t[:, 0], head["ln_scale"], head["ln_bias"], head["w"],
+                head["b"], chunk=head["chunk"], scales=head["scales"]), None
+        logits = self.output_proj(y_t[:, 0].float())
+        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+        if not with_probe:
+            return next_token, None
+        top_p, top_t = torch.topk(torch.softmax(logits, dim=-1), 6, dim=-1)
+        return next_token, (top_t.to(torch.int32), top_p)
+
+    def decode_greedy(self, images: torch.Tensor, context: torch.Tensor,
+                      max_decode_length: int = 50, latent_mode: bool = False,
+                      early_stop: bool = False, with_probe: bool = True,
+                      z_source: str = "prior_sample", posterior=None,
+                      sample: bool = False,
+                      generator: Optional[torch.Generator] = None) -> dict:
+        """Greedy KV-cache decoding of ``max_decode_length + 1`` tokens.
+
+        images [B, H, W, 3] NHWC; context [B, Tc].  Returns ``tokens``
+        [B, L] int32 and, with ``with_probe``, ``top_tokens``/``top_probs``
+        [B, L, 6].  ``early_stop`` leaves the loop once every row has
+        emitted ``<end>``; finished rows emit ``<pad>``, as do the positions
+        never reached.  In latent mode z comes from the prior: a sample
+        drawn from ``generator`` ("prior_sample") or its mean ("prior_mean").
+        """
+        if sample:
+            raise _unported("sampled decoding")
+        if posterior is not None:
+            raise _unported("posterior z sources")
+        plan = self.prepare_decode(images, context, max_decode_length,
+                                   latent_mode, with_probe, z_source,
+                                   generator)
+        b, steps = plan["batch"], plan["steps"]
+        dev = context.device
+        caches = self.decoder.init_cache(b, steps, dev)
+        token = torch.full((b,), PAD if self.cfg.compat_pad_seed else START,
+                           dtype=torch.int32, device=dev)
+        key_pad = (torch.zeros((b, steps), dtype=torch.bool, device=dev)
+                   if self.cfg.compat_decode_pad_mask else None)
+        tokens = torch.zeros((b, steps), dtype=torch.int32, device=dev)
+        if with_probe:
+            top_tokens = torch.zeros((b, steps, 6), dtype=torch.int32,
+                                     device=dev)
+            top_probs = torch.zeros((b, steps, 6), dtype=torch.float32,
+                                    device=dev)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        for pos in range(steps):
+            if early_stop and bool(done.all()):
+                break
+            token, probe = self.decode_step(plan, token, caches, pos, key_pad,
+                                            with_probe)
+            if early_stop:
+                token = torch.where(done, torch.full_like(token, PAD), token)
+                done |= token == END
+            tokens[:, pos] = token
+            if with_probe:
+                top_tokens[:, pos], top_probs[:, pos] = probe
+        if not with_probe:
+            return {"tokens": tokens}
+        return {"tokens": tokens, "top_tokens": top_tokens,
+                "top_probs": top_probs}

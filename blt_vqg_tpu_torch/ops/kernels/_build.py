@@ -1,0 +1,119 @@
+"""Builds the CUDA sources of ``blt_vqg_tpu_torch/csrc`` and loads them.
+
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, at first use, under
+``blt_vqg_tpu_torch/build/`` with a name keyed by a hash of the sources and
+flags (a changed source builds a new library).  The library is loaded with
+``ctypes``; every C entry point returns a ``cudaError_t`` and :func:`check`
+raises on anything but 0.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+L = ctypes.c_long
+F = ctypes.c_float
+
+
+class StackArgs(ctypes.Structure):
+    """Mirror of ``bvq::StackArgs`` in csrc/decode_stream.cu."""
+    _fields_ = [("act_bf16", I), ("batch", I), ("dim", I), ("layers", I),
+                ("heads", I), ("head_dim", I), ("lmax", I), ("pos", I),
+                ("tc", I), ("hc", I), ("fc", I), ("ffn", I),
+                ("w_i8", I * 6), ("q_scale", F),
+                ("x", P), ("lns", P), ("w", P * 6), ("s", P * 6),
+                ("cache_k", P), ("cache_v", P), ("ckc", P), ("cvc", P),
+                ("smask", P), ("b1", P), ("b2", P), ("key_pad", P),
+                ("key_pad_cur", P), ("x_out", P), ("k_new", P), ("v_new", P),
+                ("xn", P), ("qkv", P), ("ctx", P), ("qc", P), ("ctxc", P),
+                ("h1", P), ("part", P)]
+
+
+class HeadArgs(ctypes.Structure):
+    """Mirror of ``bvq::HeadArgs`` in csrc/decode_head.cu."""
+    _fields_ = [("act_bf16", I), ("w_i8", I), ("batch", I), ("dim", I),
+                ("vocab", I), ("x", P), ("ln_scale", P), ("ln_bias", P),
+                ("w", P), ("scales", P), ("bias", P), ("xn", P), ("part", P),
+                ("tokens", P)]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH): the CUDA kernels cannot be built")
+    return found
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+        with open(f, "rb") as fh:
+            h.update(os.path.basename(f).encode() + fh.read())
+    return os.path.join(BUILD, f"libbvq_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compiles the library if it is not built yet; returns its path.  The
+    compiler's report (registers, spills) is kept beside it as ``.log``."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    with open(out + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(build())
+    lib.bvq_decode_stack_step.argtypes = [ctypes.POINTER(StackArgs), P]
+    lib.bvq_decode_stack_step.restype = I
+    lib.bvq_head_argmax.argtypes = [ctypes.POINTER(HeadArgs), P]
+    lib.bvq_head_argmax.restype = I
+    lib.bvq_decode_stack_workspace.argtypes = [ctypes.POINTER(StackArgs)]
+    lib.bvq_decode_stack_workspace.restype = L
+    lib.bvq_head_workspace.argtypes = [ctypes.POINTER(HeadArgs)]
+    lib.bvq_head_workspace.restype = L
+    lib.bvq_error_string.argtypes = [I]
+    lib.bvq_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.bvq_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,339 @@
+"""Pre-LN transformer encoder and decoder stacks (counterpart of
+``blt_vqg_tpu/ops/transformer.py``), eval mode.
+
+The decoder exposes the KV-cache decode step in two forms that compute the
+same function:
+
+- the plain step (``use_stream_decode=False``): per layer,
+  :meth:`DecoderLayer.step` over caches [B, L, H, Dh];
+- the streaming step (``use_stream_decode=True``): the whole stack in one
+  call of ``ops/kernels/decode_stream.decode_stack_step`` over one stacked
+  cache pair [Layers, H, L, B, Dh], with the loop-invariant stacked weights
+  from :meth:`TransformerDecoder.stream_prep`.
+
+Both write the caches in place.  Not ported yet (ROADMAP.md): the decoder's
+training forward, MoE FFNs, GPipe and the per-layer Pallas decode kernel;
+asking for them raises.  Dropout is absent: everything here is eval mode.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from blt_vqg_tpu_torch.ops.attention import MultiHeadAttention
+from blt_vqg_tpu_torch.ops.kernels import decode_stream
+from blt_vqg_tpu_torch.ops.layers import Dense, LayerNorm, cached
+from blt_vqg_tpu_torch.ops.timing import timing_signal
+
+
+class PositionwiseFeedForward(nn.Module):
+    def __init__(self, hidden_dim: int, pwffn_dim: int, dtype,
+                 compat_trailing_relu: bool = False):
+        super().__init__()
+        self.ffn_in = Dense(hidden_dim, pwffn_dim, dtype=dtype)
+        self.ffn_out = Dense(pwffn_dim, hidden_dim, dtype=dtype)
+        self.compat_trailing_relu = compat_trailing_relu
+
+    def forward(self, x):
+        h = self.ffn_out(torch.relu(self.ffn_in(x)))
+        return torch.relu(h) if self.compat_trailing_relu else h
+
+
+def _check_unported(moe_num_experts=0, use_pallas_decode=False,
+                    pipeline_stages=1):
+    if moe_num_experts > 1:
+        raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP.md)")
+    if use_pallas_decode:
+        raise NotImplementedError(
+            "the per-layer Pallas decode kernel is not ported yet "
+            "(ROADMAP.md queue 2, kernel 4)")
+    if pipeline_stages > 1:
+        raise NotImplementedError("GPipe is not ported yet (ROADMAP.md)")
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, hidden_dim, num_heads, pwffn_dim, dtype,
+                 use_pallas=False, compat_trailing_relu=False, ring_mesh=None,
+                 moe_num_experts=0):
+        super().__init__()
+        _check_unported(moe_num_experts)
+        self.ln_mha = LayerNorm(hidden_dim, dtype)
+        self.mha = MultiHeadAttention(hidden_dim, num_heads, dtype,
+                                      use_pallas=use_pallas,
+                                      ring_mesh=ring_mesh)
+        self.ln_ffn = LayerNorm(hidden_dim, dtype)
+        self.ffn = PositionwiseFeedForward(hidden_dim, pwffn_dim, dtype,
+                                           compat_trailing_relu)
+
+    def forward(self, x, mask=None):
+        xn = self.ln_mha(x)
+        x = x + self.mha(xn, xn, mask)
+        return x + self.ffn(self.ln_ffn(x))
+
+
+class TransformerEncoder(nn.Module):
+    """Stack of pre-LN encoder layers + input timing signal + final LN.
+    Layers are registered as ``layer_{i}``, the JAX parameter names."""
+
+    def __init__(self, hidden_dim, num_layers, num_heads, pwffn_dim,
+                 dtype=torch.bfloat16, use_pallas=False,
+                 compat_trailing_relu=False, ring_mesh=None,
+                 moe_num_experts=0):
+        super().__init__()
+        self.hidden_dim, self.num_layers = hidden_dim, num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", EncoderLayer(
+                hidden_dim, num_heads, pwffn_dim, dtype, use_pallas,
+                compat_trailing_relu, ring_mesh, moe_num_experts))
+        self.final_ln = LayerNorm(hidden_dim, dtype)
+
+    @property
+    def layers(self):
+        return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def forward(self, x, mask=None):
+        x = x + timing_signal(x.shape[1], self.hidden_dim, dtype=x.dtype,
+                              device=x.device)
+        for layer in self.layers:
+            x = layer(x, mask)
+        return self.final_ln(x)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, hidden_dim, num_heads, pwffn_dim, dtype,
+                 use_pallas=False, compat_trailing_relu=False, ring_mesh=None,
+                 moe_num_experts=0):
+        super().__init__()
+        _check_unported(moe_num_experts)
+        self.ln_self = LayerNorm(hidden_dim, dtype)
+        self.self_attn = MultiHeadAttention(hidden_dim, num_heads, dtype,
+                                            causal=True,
+                                            use_pallas=use_pallas,
+                                            ring_mesh=ring_mesh)
+        self.ln_cross = LayerNorm(hidden_dim, dtype)
+        self.cross_attn = MultiHeadAttention(hidden_dim, num_heads, dtype,
+                                             use_pallas=use_pallas)
+        self.ln_ffn = LayerNorm(hidden_dim, dtype)
+        self.ffn = PositionwiseFeedForward(hidden_dim, pwffn_dim, dtype,
+                                           compat_trailing_relu)
+
+    def cross_kv(self, enc_out):
+        return self.cross_attn.kv(enc_out)
+
+    def step(self, x_t, cache_k, cache_v, ck, cv, pos: int, src_mask,
+             key_pad=None):
+        """One decode step. x_t [B,1,D]; caches [B,L,H,Dh] (written in place
+        at ``pos``); (ck, cv) this layer's precomputed cross K/V.
+        ``key_pad`` [B, L] must never mark a position > ``pos``."""
+        xn = self.ln_self(x_t)
+        y, cache_k, cache_v = self.self_attn.step(xn, cache_k, cache_v, pos,
+                                                  key_pad)
+        x_t = x_t + y
+        x_t = x_t + self.cross_attn.attend_cached(self.ln_cross(x_t), ck, cv,
+                                                  src_mask)
+        return x_t + self.ffn(self.ln_ffn(x_t)), cache_k, cache_v
+
+
+class TransformerDecoder(nn.Module):
+    """Stack of pre-LN decoder layers (self + cross attention + FFN)."""
+
+    def __init__(self, hidden_dim, num_layers, num_heads, pwffn_dim,
+                 dtype=torch.bfloat16, max_decode_len: int = 64,
+                 use_pallas=False, compat_trailing_relu=False, ring_mesh=None,
+                 use_pallas_decode=False, use_stream_decode=False,
+                 stream_weight_dtype="bfloat16", pipeline_stages=1,
+                 moe_num_experts=0):
+        super().__init__()
+        _check_unported(moe_num_experts, use_pallas_decode, pipeline_stages)
+        self.hidden_dim, self.num_layers = hidden_dim, num_layers
+        self.num_heads, self.pwffn_dim, self.dtype = num_heads, pwffn_dim, dtype
+        self.use_stream_decode = use_stream_decode
+        self.stream_weight_dtype = stream_weight_dtype
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", DecoderLayer(
+                hidden_dim, num_heads, pwffn_dim, dtype, use_pallas,
+                compat_trailing_relu, ring_mesh, moe_num_experts))
+        self.final_ln = LayerNorm(hidden_dim, dtype)
+        self.register_buffer(
+            "timing", timing_signal(max_decode_len, hidden_dim)[0],
+            persistent=False)
+
+    @property
+    def layers(self):
+        return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the decoder's training forward is not ported yet (ROADMAP.md "
+            "queue 1); decode with precompute_cross/init_cache/step")
+
+    # ---- decode path ----
+    def precompute_cross(self, enc_out) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        return [layer.cross_kv(enc_out) for layer in self.layers]
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        """Zeroed KV caches: a list of per-layer (k, v) [B,L,H,Dh], or on the
+        streaming path one stacked pair [Layers,H,L,B,Dh] in a list."""
+        dh = self.hidden_dim // self.num_heads
+        if self.use_stream_decode:
+            shape = (self.num_layers, self.num_heads, max_len, batch, dh)
+            return [(torch.zeros(shape, dtype=self.dtype, device=device),
+                     torch.zeros(shape, dtype=self.dtype, device=device))]
+        shape = (batch, max_len, self.num_heads, dh)
+        return [(torch.zeros(shape, dtype=self.dtype, device=device),
+                 torch.zeros(shape, dtype=self.dtype, device=device))
+                for _ in range(self.num_layers)]
+
+    def step(self, x_t, caches, cross_kvs, pos: int, src_mask=None,
+             key_pad=None, skip_final_ln: bool = False, stream=None):
+        """One decode step: x_t [B,1,D] at position ``pos``.  ``key_pad``
+        [B, L] bool (optional) masks pad-token keys and must never mark a
+        position > ``pos``.  ``skip_final_ln`` returns the raw stack output
+        (the fused head applies the final LN itself).  ``stream`` is the
+        bundle from :meth:`stream_prep` (built here when None).  Returns
+        (output [B,1,D], caches), the caches updated in place."""
+        x_t = x_t + self.timing[pos].to(x_t.dtype)
+        if self.use_stream_decode:
+            if stream is None:
+                stream = self.stream_prep(cross_kvs, src_mask, x_t.shape[0])
+            return self._step_stream(x_t, caches, stream, pos,
+                                     skip_final_ln, key_pad=key_pad)
+        for layer, (cache_k, cache_v), (ck, cv) in zip(
+                self.layers, caches, cross_kvs):
+            x_t, _, _ = layer.step(x_t, cache_k, cache_v, ck, cv, pos,
+                                   src_mask, key_pad)
+        if skip_final_ln:
+            return x_t, caches
+        return self.final_ln(x_t), caches
+
+    @torch.no_grad()
+    def stream_prep(self, cross_kvs, src_mask, batch: int) -> dict:
+        """Loop-invariant tensors of the streaming step, in the layouts of
+        ``decode_stack_step``: the model's weight bundle
+        (:meth:`stream_weights`) with this request batch's regrouped cross
+        K/V and source mask."""
+        h, dt = self.num_heads, self.dtype
+        dh = self.hidden_dim // h
+        hc, _ = decode_stream.pick_stages(h, self.pwffn_dim)
+        hpc = h // hc
+
+        def ckv(xs):      # list of [B,Tc,H,Dh] -> [L,Hc,Tc,B,hpc*Dh]
+            stacked = torch.stack(xs)                    # [L, B, Tc, H, Dh]
+            nl, b, tc = stacked.shape[:3]
+            out = stacked.transpose(1, 2).reshape(nl, tc, b, hc, hpc * dh)
+            return out.permute(0, 3, 1, 2, 4).to(dt).contiguous()
+
+        tc = cross_kvs[0][0].shape[1]
+        dev = cross_kvs[0][0].device
+        smask = (src_mask[:, 0, 0, :].expand(batch, tc).T
+                 if src_mask is not None
+                 else torch.zeros((tc, batch), dtype=torch.bool, device=dev))
+        return {
+            **self.stream_weights(),
+            "ckc": ckv([ck for ck, _ in cross_kvs]),
+            "cvc": ckv([cv for _, cv in cross_kvs]),
+            "smask": smask.to(torch.int32).contiguous(),
+        }
+
+    def stream_weights(self) -> dict:
+        """The model-constant part of the streaming bundle: per-layer weight
+        stacks (int8-quantized under ``stream_weight_dtype="int8"``) and the
+        LayerNorm and bias stacks.  Built on first use and kept until a
+        parameter changes (:func:`~blt_vqg_tpu_torch.ops.layers.cached`)."""
+        return cached(self, "_stream_weights", self._build_stream_weights)
+
+    @torch.no_grad()
+    def _build_stream_weights(self) -> dict:
+        h, d, dt = self.num_heads, self.hidden_dim, self.dtype
+        dh = d // h
+        hc, fc = decode_stream.pick_stages(h, self.pwffn_dim)
+        hpc = h // hc
+        fchunk = self.pwffn_dim // fc
+
+        def per_layer(fn):
+            return torch.stack([fn(layer) for layer in self.layers]).contiguous()
+
+        def kernel(dense):   # flax kernel layout [in, out]
+            return dense.weight.float().T
+
+        def lns(layer):
+            return torch.stack([
+                layer.ln_self.weight, layer.ln_self.bias,
+                layer.ln_cross.weight, layer.ln_cross.bias,
+                layer.ln_ffn.weight, layer.ln_ffn.bias]).float()
+
+        def wqkv(layer):  # [H, D, 3*Dh]: head-h column slices of q|k|v
+            sa = layer.self_attn
+            ws = [kernel(sa.q_proj), kernel(sa.k_proj), kernel(sa.v_proj)]
+            return torch.stack([
+                torch.cat([w[:, i * dh:(i + 1) * dh] for w in ws], dim=1)
+                for i in range(h)]).to(dt)
+
+        def wout(layer):  # [H, Dh, D]: head-h row slices
+            w = kernel(layer.self_attn.out_proj)
+            return torch.stack([w[i * dh:(i + 1) * dh] for i in range(h)]).to(dt)
+
+        def wqc(layer):   # [Hc, D, hpc*Dh]: head-group column slices
+            w = kernel(layer.cross_attn.q_proj)
+            return torch.stack([w[:, j * hpc * dh:(j + 1) * hpc * dh]
+                                for j in range(hc)]).to(dt)
+
+        def woc(layer):   # [Hc, hpc*Dh, D]: head-group row slices
+            w = kernel(layer.cross_attn.out_proj)
+            return torch.stack([w[j * hpc * dh:(j + 1) * hpc * dh]
+                                for j in range(hc)]).to(dt)
+
+        def w1(layer):    # [Fc, D, F/Fc]
+            w = kernel(layer.ffn.ffn_in)
+            return torch.stack([w[:, c * fchunk:(c + 1) * fchunk]
+                                for c in range(fc)]).to(dt)
+
+        def b1(layer):    # [Fc, 1, F/Fc] f32
+            bv = layer.ffn.ffn_in.bias.float()
+            return torch.stack([bv[None, c * fchunk:(c + 1) * fchunk]
+                                for c in range(fc)])
+
+        def w2(layer):    # [Fc, F/Fc, D]
+            w = kernel(layer.ffn.ffn_out)
+            return torch.stack([w[c * fchunk:(c + 1) * fchunk]
+                                for c in range(fc)]).to(dt)
+
+        def b2(layer):    # [1, D] f32
+            return layer.ffn.ffn_out.bias.float()[None]
+
+        stacks = [per_layer(wqkv), per_layer(wout), per_layer(wqc),
+                  per_layer(woc), per_layer(w1), per_layer(w2)]
+        scales = None
+        if self.stream_weight_dtype == "int8":
+            stacks, scales = map(list, zip(*[decode_stream.quantize_stack(w)
+                                             for w in stacks]))
+            scales = tuple(s.contiguous() for s in scales)
+        return {"lns": per_layer(lns), "stacks": tuple(stacks),
+                "scales": scales, "b1": per_layer(b1), "b2": per_layer(b2)}
+
+    def _step_stream(self, x_t, caches, prep, pos: int,
+                     skip_final_ln: bool = False, key_pad=None):
+        """Whole-stack step through ``decode_stack_step``; the kernel reads
+        the caches and returns the current position's K/V, which are then
+        written into the caches at ``pos`` in place."""
+        k_all, v_all = caches[0]
+        hc, fc = decode_stream.pick_stages(self.num_heads, self.pwffn_dim)
+        s_wqkv, s_wout, s_wqc, s_woc, s_w1, s_w2 = prep["stacks"]
+        kp = kp_cur = None
+        if key_pad is not None:
+            kp = key_pad.float().T.contiguous()              # [Lmax, B]
+            kp_cur = kp[pos:pos + 1].contiguous()
+        x_out, k_new, v_new = decode_stream.decode_stack_step(
+            x_t[:, 0].contiguous(), pos, prep["lns"], s_wqkv, s_wout, k_all,
+            v_all, s_wqc, s_woc, prep["ckc"], prep["cvc"], prep["smask"],
+            s_w1, prep["b1"], s_w2, prep["b2"], num_heads=self.num_heads,
+            cross_stages=hc, ffn_stages=fc, weight_scales=prep["scales"],
+            key_pad=kp, key_pad_cur=kp_cur)
+        k_all[:, :, pos] = k_new
+        v_all[:, :, pos] = v_new
+        if skip_final_ln:
+            return x_out[:, None], caches
+        return self.final_ln(x_out[:, None]), caches

@@ -1,0 +1,155 @@
+"""The CUDA kernels of the PyTorch port against their plain versions, on
+the card.
+
+These tests need a CUDA card and ``nvcc`` (the kernels are built at first
+use) and skip without one.  They import no jax, so they also run on a
+machine without it; there run them without the repository's conftest,
+which imports jax:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+Shapes are small and deliberately ragged (rows beyond one 64-row tile,
+widths that are not multiples of a tile or of a 16-byte load, a vocab that
+ends inside a tile), in f32 and bf16 activations, with bf16/f32 or int8
+weights.  Tolerances: f32 differs from the plain version only in the order
+of f32 sums (1e-4 relative to the output's scale); bf16 rounds every
+LayerNorm output and residual to bf16 after sums taken in another order,
+so one-ulp flips propagate (2e-2 relative max error, 1e-2 relative norm
+error).  A head token must have a plain logit within 1e-4 (f32) or 1e-3
+(bf16) times max|logit| of the row maximum.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from blt_vqg_tpu_torch.ops.kernels import decode_head as tdh
+from blt_vqg_tpu_torch.ops.kernels import decode_stream as tds
+
+pytestmark = pytest.mark.cuda
+
+KINDS = ("wqkv", "wout", "wqc", "woc", "w1", "w2")
+STACK_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+HEAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    # the plain versions' f32 products in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _stack_inputs(dev, dt, quant, b, h, dh, f, nl, lmax, seed):
+    hc, fc = tds.pick_stages(h, f)
+    d, hpc, fch = h * dh, h // hc, f // fc
+    tc = 3
+    r = np.random.RandomState(seed)
+
+    def n(*s, sc=1.0):
+        return torch.from_numpy((r.randn(*s) * sc).astype(np.float32))
+
+    w = {"wqkv": n(nl, h, d, 3 * dh, sc=d ** -0.5),
+         "wout": n(nl, h, dh, d, sc=d ** -0.5),
+         "wqc": n(nl, hc, d, hpc * dh, sc=d ** -0.5),
+         "woc": n(nl, hc, hpc * dh, d, sc=d ** -0.5),
+         "w1": n(nl, fc, d, fch, sc=d ** -0.5),
+         "w2": n(nl, fc, fch, d, sc=f ** -0.5)}
+    scales = [None] * 6
+    for i, k in enumerate(KINDS):
+        if quant in ("all", k):
+            w[k], scales[i] = tds.quantize_stack(w[k])
+        else:
+            w[k] = w[k].to(dt)
+    lns = torch.stack([1.0 + n(nl, d, sc=0.1) if i % 2 == 0
+                       else n(nl, d, sc=0.1) for i in range(6)], dim=1)
+    smask = torch.zeros((tc, b), dtype=torch.int32)
+    smask[2, ::3] = 1
+    kp = torch.from_numpy((r.rand(lmax, b) < 0.3).astype(np.float32))
+    kp[0] = 1.0
+    args = [n(b, d, sc=2.0).to(dt), lns, w["wqkv"], w["wout"],
+            n(nl, h, lmax, b, dh).to(dt), n(nl, h, lmax, b, dh).to(dt),
+            w["wqc"], w["woc"], n(nl, hc, tc, b, hpc * dh).to(dt),
+            n(nl, hc, tc, b, hpc * dh).to(dt), smask, w["w1"],
+            n(nl, fc, 1, fch, sc=0.1), w["w2"], n(nl, 1, d, sc=0.1)]
+    args = [a.to(dev).contiguous() for a in args]
+    kw = dict(num_heads=h, cross_stages=hc, ffn_stages=fc,
+              weight_scales=(None if quant == "none" else
+                             tuple(None if s is None else s.to(dev)
+                                   for s in scales)))
+    return args, kw, kp.to(dev)
+
+
+# (batch, heads, head_dim, ffn, layers, lmax, pos, key_pad, weights)
+STACK_CASES = [
+    (3, 4, 16, 72, 2, 7, 0, False, "none"),
+    (3, 4, 16, 72, 2, 7, 3, True, "all"),
+    (70, 2, 40, 64, 1, 5, 4, True, "none"),
+    (70, 2, 40, 64, 1, 5, 2, False, "w2"),
+    (8, 8, 128, 2048, 1, 9, 5, True, "all"),
+]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", STACK_CASES,
+                         ids=[f"case{i}" for i in range(len(STACK_CASES))])
+def test_decode_stack_step_kernel(dev, dt, case):
+    b, h, dh, f, nl, lmax, pos, with_kp, quant = case
+    args, kw, kp = _stack_inputs(dev, dt, quant, b, h, dh, f, nl, lmax,
+                                 seed=pos + 11)
+    if with_kp:
+        kw.update(key_pad=kp, key_pad_cur=kp[pos:pos + 1].contiguous())
+    x, rest = args[0], args[1:]
+    before = tds.decode_stack_step.launches
+    got = tds.decode_stack_step(x, pos, *rest, **kw)
+    torch.cuda.synchronize()
+    assert tds.decode_stack_step.launches == before + 1
+    want = tds.decode_stack_step_ref(x, pos, *rest, **kw)
+    rel_max_tol, rel_norm_tol = STACK_TOL[dt]
+    for name, g, wv in zip(("x_out", "k_new", "v_new"), got, want):
+        assert g.shape == wv.shape and g.dtype == wv.dtype, name
+        g, wv = g.float(), wv.float()
+        assert bool(torch.isfinite(g).all()), name
+        err = (g - wv).abs()
+        assert float(err.max() / wv.abs().max()) <= rel_max_tol, name
+        assert float(err.norm() / wv.norm()) <= rel_norm_tol, name
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,d,v,quantized", [(3, 40, 300, False),
+                                             (3, 40, 300, True),
+                                             (70, 96, 1000, True),
+                                             (64, 1024, 12000, True)])
+def test_head_argmax_kernel(dev, dt, b, d, v, quantized):
+    r = np.random.RandomState(v + b)
+    t = lambda a: torch.from_numpy(a.astype(np.float32))
+    x = t(r.randn(b, d) * 3.0).to(dt)
+    ln_s, ln_b = t(1.0 + 0.1 * r.randn(d)), t(0.1 * r.randn(d))
+    w, bias = t(r.randn(d, v) * d ** -0.5), t(r.randn(v))
+    chunk = tdh.head_chunk(v)
+    scales = None
+    if quantized:
+        w, scales = tds.quantize_stack(w)
+        w, bias = tdh.pad_head(w, bias, chunk)
+        scales = torch.nn.functional.pad(
+            scales, (0, w.shape[1] - scales.shape[1]), value=1.0)
+    else:
+        w, bias = tdh.pad_head(w.to(dt), bias, chunk)
+    x, ln_s, ln_b, w, bias = (a.to(dev).contiguous()
+                              for a in (x, ln_s, ln_b, w, bias))
+    if scales is not None:
+        scales = scales.to(dev).contiguous()
+    before = tdh.head_argmax.launches
+    tok = tdh.head_argmax(x, ln_s, ln_b, w, bias, chunk=chunk, scales=scales)
+    torch.cuda.synchronize()
+    assert tdh.head_argmax.launches == before + 1
+    assert tok.shape == (b,) and tok.dtype == torch.int32
+    assert bool(((tok >= 0) & (tok < v)).all())
+    logits = tdh.head_logits_ref(x, ln_s, ln_b, w, bias, scales)
+    short = logits.max(-1).values - logits.gather(1, tok.long()[:, None])[:, 0]
+    assert float(short.max()) <= HEAD_TOL[dt] * float(logits.abs().max())
