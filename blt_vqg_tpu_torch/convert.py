@@ -7,6 +7,12 @@
   ``scale`` to ``weight``, ``embedding`` to ``weight``, batch-stat
   ``mean``/``var`` to ``running_mean``/``running_var``.
 - :func:`to_flax` is the inverse.
+- :func:`load_train_state` carries a JAX ``TrainState`` (step, kliter,
+  params, batch stats and the ``FusedAdamState`` count and mu/nu/master
+  trees, whose frozen leaves hold ``optax.MaskedNode``) into the port's
+  :class:`~blt_vqg_tpu_torch.train.state.TrainState`;
+  :func:`train_state_to_flax` is the inverse.  A factored second moment's
+  (r, c) pair swaps at a Dense kernel, whose port layout is transposed.
 - :func:`load_npz` reads a JAX npz checkpoint (``<dir>/step_N/state.npz``,
   keys ``params/...`` and ``batch_stats/...``) without jax.  bf16 leaves
   are stored there as raw void bytes beside a ``__dtype__/<key>`` entry;
@@ -45,22 +51,26 @@ def _tensor(v) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+def _port_name(mods, leaf: str) -> str:
+    if leaf in ("kernel", "scale", "embedding"):
+        return ".".join(mods + ["weight"])
+    if leaf == "bias":
+        return ".".join(mods + ["bias"])
+    raise KeyError(f"unknown flax parameter {'/'.join(mods + [leaf])}")
+
+
+def _port_layout(leaf: str, t: torch.Tensor) -> torch.Tensor:
+    if leaf == "kernel":
+        t = t.T if t.ndim == 2 else t.permute(3, 2, 0, 1)  # HWIO->OIHW
+    return t.contiguous()
+
+
 def from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
               ) -> Dict[str, torch.Tensor]:
     """flax ``params`` (+ ``batch_stats``) -> the port's ``state_dict``."""
     sd: Dict[str, torch.Tensor] = {}
     for (*mods, leaf), v in _leaves(params):
-        t = _tensor(v)
-        if leaf == "kernel":
-            t = t.T if t.ndim == 2 else t.permute(3, 2, 0, 1)  # HWIO->OIHW
-            name = "weight"
-        elif leaf in ("scale", "embedding"):
-            name = "weight"
-        elif leaf == "bias":
-            name = "bias"
-        else:
-            raise KeyError(f"unknown flax parameter {'/'.join(mods + [leaf])}")
-        sd[".".join(mods + [name])] = t.contiguous()
+        sd[_port_name(mods, leaf)] = _port_layout(leaf, _tensor(v))
     for (*mods, leaf), v in _leaves(batch_stats or {}):
         sd[".".join(mods + [_STATS[leaf]])] = _tensor(v).contiguous()
     return sd
@@ -72,34 +82,126 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def _put(tree, mods, leaf, value):
+    for m in mods:
+        tree = tree.setdefault(m, {})
+    tree[leaf] = value
+
+
+def _flax_leaf(key: str, t: torch.Tensor):
+    """(module path, flax leaf name, the tensor in flax layout) of a port
+    parameter."""
+    *mods, name = key.split(".")
+    if name == "bias":
+        return mods, "bias", t
+    if name == "weight" and t.ndim == 4:
+        return mods, "kernel", t.permute(2, 3, 1, 0)
+    if name == "weight" and t.ndim == 2:
+        if mods[-1] in _EMBED_MODULES:
+            return mods, "embedding", t
+        return mods, "kernel", t.T
+    if name == "weight" and t.ndim == 1:
+        return mods, "scale", t
+    raise KeyError(f"unknown state_dict entry {key}")
+
+
 def to_flax(state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
     """The port's ``state_dict`` -> (flax ``params``, ``batch_stats``)."""
     params: dict = {}
     stats: dict = {}
-
-    def put(tree, mods, leaf, arr):
-        for m in mods:
-            tree = tree.setdefault(m, {})
-        tree[leaf] = arr
-
     for key, t in state_dict.items():
         *mods, name = key.split(".")
         if name in _STATS_BACK:
-            put(stats, mods, _STATS_BACK[name], _numpy(t))
-        elif name == "bias":
-            put(params, mods, "bias", _numpy(t))
-        elif name == "weight" and t.ndim == 4:
-            put(params, mods, "kernel", _numpy(t.permute(2, 3, 1, 0)))
-        elif name == "weight" and t.ndim == 2:
-            if mods[-1] in _EMBED_MODULES:
-                put(params, mods, "embedding", _numpy(t))
-            else:
-                put(params, mods, "kernel", _numpy(t.T))
-        elif name == "weight" and t.ndim == 1:
-            put(params, mods, "scale", _numpy(t))
+            _put(stats, mods, _STATS_BACK[name], _numpy(t))
         else:
-            raise KeyError(f"unknown state_dict entry {key}")
+            mods, leaf, t = _flax_leaf(key, t)
+            _put(params, mods, leaf, _numpy(t))
     return params, stats
+
+
+# ---------------------------------------------------------------------------
+# train state
+
+def _is_masked(v) -> bool:
+    """``optax.MaskedNode``: an empty named tuple (no jax import here)."""
+    return isinstance(v, tuple) and len(v) == 0
+
+
+def _moments_from_flax(tree, order) -> dict:
+    """A JAX moment tree -> {port name: tensor or FactoredNu}, in the order
+    of the port parameter names ``order``; masked leaves are dropped."""
+    from blt_vqg_tpu_torch.train.fused_adam import FactoredNu
+
+    out = {}
+    for (*mods, leaf), v in _leaves(tree):
+        if _is_masked(v):
+            continue
+        if hasattr(v, "r") and hasattr(v, "c"):
+            r, c = _tensor(v.r).contiguous(), _tensor(v.c).contiguous()
+            if leaf == "kernel" and r.dim() == 1:   # transposed Dense kernel
+                r, c = c, r
+            out[_port_name(mods, leaf)] = FactoredNu(r, c)
+        else:
+            out[_port_name(mods, leaf)] = _port_layout(leaf, _tensor(v))
+    return {n: out[n] for n in order if n in out}
+
+
+def load_train_state(state, jax_state):
+    """Loads a JAX ``TrainState`` (anything with ``step``, ``kliter``,
+    ``params``, ``batch_stats`` and a ``FusedAdamState`` ``opt_state``;
+    arrays or numpy) into the port's ``state``, in place; returns it."""
+    from blt_vqg_tpu_torch.train.fused_adam import FactoredNu, FusedAdamState
+
+    model = state.model
+    model.load_state_dict(from_flax(jax_state.params, jax_state.batch_stats))
+    device = next(model.parameters()).device
+    order = [n for n, _ in model.named_parameters()]
+
+    def moved(tree):
+        return {n: (FactoredNu(v.r.to(device), v.c.to(device))
+                    if isinstance(v, FactoredNu) else v.to(device))
+                for n, v in _moments_from_flax(tree, order).items()}
+
+    opt = jax_state.opt_state
+    state.step, state.kliter = int(jax_state.step), int(jax_state.kliter)
+    state.opt_state = FusedAdamState(int(opt.count), moved(opt.mu),
+                                     moved(opt.nu), moved(opt.master))
+    return state
+
+
+def train_state_to_flax(state, masked=None, factored=None) -> dict:
+    """The port's ``TrainState`` -> a dict of the JAX ``TrainState`` fields
+    (``step``, ``kliter``, ``params``, ``batch_stats``) and its
+    ``FusedAdamState`` (``count``, ``mu``, ``nu``, ``master``) as numpy
+    trees.  Leaves without a moment hold ``masked`` (pass
+    ``optax.MaskedNode()``); a factored moment becomes ``factored(r, c)``
+    (default: the port's ``FactoredNu``).  bf16 values widen to f32."""
+    from blt_vqg_tpu_torch.train.fused_adam import FactoredNu
+
+    params, stats = to_flax(state.model.state_dict())
+    make_factored = factored or FactoredNu
+
+    def tree(values):
+        out: dict = {}
+        for name, p in state.model.named_parameters():
+            mods, leaf, _ = _flax_leaf(name, p)
+            v = values.get(name)
+            if v is None:
+                value = masked
+            elif isinstance(v, FactoredNu):
+                r, c = _numpy(v.r), _numpy(v.c)
+                if leaf == "kernel" and p.dim() == 2:
+                    r, c = c, r
+                value = make_factored(r, c)
+            else:
+                value = _numpy(_flax_leaf(name, v)[2])
+            _put(out, mods, leaf, value)
+        return out
+
+    opt = state.opt_state
+    return {"step": state.step, "kliter": state.kliter, "params": params,
+            "batch_stats": stats, "count": opt.count, "mu": tree(opt.mu),
+            "nu": tree(opt.nu), "master": tree(opt.master)}
 
 
 _STEP_RE = re.compile(r"^step_(\d+)$")

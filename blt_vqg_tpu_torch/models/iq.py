@@ -1,13 +1,13 @@
-"""The IQ model (counterpart of ``blt_vqg_tpu/models/iq.py``): the serving
-half.
+"""The IQ model (counterpart of ``blt_vqg_tpu/models/iq.py``).
 
 Every submodule of the JAX ``IQ.setup`` is built under the same name, so
 every parameter of a JAX checkpoint has a home (``convert.py``).  Ported:
+the training/validation forward (:meth:`IQ.forward`, both phases),
 ``embed_tokens``, ``encode_context`` and greedy KV-cache decoding
 (:meth:`IQ.decode_greedy`) on the plain and the streaming decode paths,
-with the fused int8/bf16 head.  The training forward, beam search,
-full-prefix logits, sampling and posterior z sources raise
-``NotImplementedError`` (ROADMAP.md queue 1).
+with the fused int8/bf16 head.  Beam search, full-prefix logits, sampling
+and posterior z sources raise ``NotImplementedError``; ``latent_diagnostics``
+is not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -33,6 +33,11 @@ PAD, START, END, UNK = 0, 1, 3, 4  # reserved ids (text/vocabulary.py contract)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _add_at_0(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """x [B, T, D] with v [B, D] added at position 0 (a new tensor)."""
+    return torch.cat([x[:, :1] + v.to(x.dtype)[:, None], x[:, 1:]], dim=1)
+
+
 def _unported(what: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1)")
 
@@ -55,7 +60,11 @@ class IQ(nn.Module):
                       num_heads=cfg.num_heads, pwffn_dim=cfg.pwffn_dim,
                       dtype=dtype, use_pallas=cfg.use_pallas_attention,
                       compat_trailing_relu=cfg.compat_trailing_relu,
-                      moe_num_experts=cfg.moe_num_experts)
+                      moe_num_experts=cfg.moe_num_experts,
+                      attention_dropout=cfg.attention_dropout,
+                      relu_dropout=cfg.relu_dropout,
+                      layer_dropout=cfg.layer_dropout,
+                      input_dropout=cfg.input_dropout)
         self.context_encoder = TransformerEncoder(**enc_kw)
         self.posterior_encoder = TransformerEncoder(**enc_kw)
         self.latent = Latent(d, cfg.latent_dim, dtype)
@@ -89,16 +98,67 @@ class IQ(nn.Module):
         return self.embed_proj(self.embed(tokens))
 
     def encode_context(self, context: torch.Tensor,
-                       image_features: torch.Tensor):
+                       image_features: torch.Tensor, generator=None):
         """Context encoder + image features added at position 0."""
         src_mask = pad_mask(context, PAD)
-        enc = self.context_encoder(self.embed_tokens(context), src_mask)
-        enc = enc.clone()
-        enc[:, 0] += image_features.to(enc.dtype)
-        return enc, src_mask
+        enc = self.context_encoder(self.embed_tokens(context), src_mask,
+                                   generator)
+        return _add_at_0(enc, image_features), src_mask
 
-    def forward(self, *args, **kwargs):
-        raise _unported("IQ's training forward")
+    def forward(self, images: torch.Tensor, context: torch.Tensor,
+                posterior: torch.Tensor, target: torch.Tensor,
+                latent_mode: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None):
+        """Training/validation forward: ``(logits [B, T, V] f32, z_logit
+        [B, V] f32 or None, kld f32, (image features, reconstruction) f32)``.
+
+        images [B, H, W, 3] NHWC; context [B, Tc]; posterior [B, Tp];
+        target [B, T].  ``latent_mode`` adds the posterior encoder, the
+        latent sample and the z head.  ``train`` normalises the image
+        features with the batch statistics (updating the running ones in
+        place) and draws every dropout from ``generator``.  The posterior
+        noise ``eps`` [B, latent] is drawn from ``generator`` unless given.
+        """
+        gen = generator if train else None
+        image_features = self.encoder_cnn(images, train=train)
+        enc, src_mask = self.encode_context(context, image_features, gen)
+
+        kld = torch.zeros((), dtype=torch.float32, device=images.device)
+        z_proj = z_logit = None
+        if latent_mode:
+            post_enc = self.posterior_encoder(
+                self.embed_tokens(posterior), pad_mask(posterior, PAD), gen)
+            kld, z, _ = self.latent(enc[:, 0], post_enc[:, 0], eps=eps,
+                                    generator=generator, train=train)
+            z_proj = self.latent_projection(z)
+            z_logit = self.z_head((z_proj + image_features).float())
+
+        # shift right with <start>; the key-padding mask is taken on the
+        # clean sequence, causality is structural in the self-attention
+        b = target.shape[0]
+        sos = torch.full((b, 1), START, dtype=target.dtype,
+                         device=target.device)
+        shifted = torch.cat([sos, target[:, :-1]], dim=1)
+        trg_mask = pad_mask(shifted, PAD)
+        rate = self.cfg.target_word_dropout
+        if train and latent_mode and rate > 0.0:
+            # latent-phase word dropout: <unk> for kept-out words, never at
+            # the <start>/injection slot, never at pads
+            keep = torch.rand(shifted.shape, generator=generator,
+                              device=shifted.device) < 1.0 - rate
+            droppable = shifted != PAD
+            droppable[:, 0] = False
+            shifted = torch.where(droppable & ~keep,
+                                  torch.full_like(shifted, UNK), shifted)
+        inject = image_features if z_proj is None else image_features + z_proj
+        temb = _add_at_0(self.embed_tokens(shifted), inject)
+        dec_out = self.decoder(temb, enc, src_mask, trg_mask, gen)
+        logits = self.output_proj(dec_out.float())
+
+        recon_in = enc[:, 0] if z_proj is None else enc[:, 0] + z_proj
+        recon = self.image_reconstructor(recon_in, gen)
+        return logits, z_logit, kld, (image_features.float(), recon.float())
 
     def decode_beam(self, *args, **kwargs):
         raise _unported("beam search")

@@ -6,8 +6,13 @@ path keeps explicit KV caches [B, L, H, Dh]; unlike the JAX package, which
 returns updated arrays, :meth:`MultiHeadAttention.step` writes the caches
 in place and returns them.
 
-The Pallas flash-attention and ring-attention routes of the JAX module are
-not ported yet (ROADMAP queue 2); asking for them raises.
+Full attention takes the flash-attention kernel
+(``ops/kernels/flash_attention.py``) under the JAX module's gate: with
+``use_pallas``, a key-padding mask (or none), and no active attention
+dropout.  Otherwise it runs the einsum path, whose softmax weights take
+attention dropout from an explicit ``torch.Generator`` (no generator means
+deterministic).  Ring attention is not ported yet (ROADMAP queue 2);
+asking for it raises.
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from blt_vqg_tpu_torch.ops.layers import Dense
+from blt_vqg_tpu_torch.ops.kernels.flash_attention import flash_attention
+from blt_vqg_tpu_torch.ops.layers import Dense, dropout
 from blt_vqg_tpu_torch.ops.masks import FUTURE_FILL, MASK_FILL, causal_mask
 
 
@@ -31,14 +37,15 @@ def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class MultiHeadAttention(nn.Module):
     def __init__(self, hidden_dim: int, num_heads: int, dtype=torch.bfloat16,
                  causal: bool = False, use_pallas: bool = False,
-                 ring_mesh=None):
+                 ring_mesh=None, dropout_rate: float = 0.1):
         super().__init__()
-        if use_pallas or ring_mesh is not None:
+        if ring_mesh is not None:
             raise NotImplementedError(
-                "flash/ring attention kernels are not ported yet "
-                "(ROADMAP.md queue 2, kernels 3 and 6)")
+                "ring attention is not ported yet (ROADMAP.md queue 2, "
+                "kernel 6)")
         self.hidden_dim, self.num_heads = hidden_dim, num_heads
         self.dtype, self.causal = dtype, causal
+        self.use_pallas, self.dropout_rate = use_pallas, dropout_rate
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, Dense(hidden_dim, hidden_dim, bias=False,
                                         dtype=dtype))
@@ -51,25 +58,36 @@ class MultiHeadAttention(nn.Module):
         b, t, _ = x.shape
         return x.reshape(b, t, self.num_heads, self.head_dim)
 
-    def _attend(self, q, k, v, mask, tq):
+    def _attend(self, q, k, v, mask, tq, generator=None):
         logits = _f32_einsum("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
             logits = logits.masked_fill(mask, MASK_FILL)
         weights = torch.softmax(logits, dim=-1).to(self.dtype)
+        weights = dropout(weights, self.dropout_rate, generator)
         ctx = torch.einsum("bhqk,bkhd->bqhd", weights, v.to(self.dtype))
         return self.out_proj(ctx.reshape(q.shape[0], tq, self.hidden_dim))
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Full attention. q_in [B,Tq,D], kv_in [B,Tk,D]; ``mask`` is a
-        key-padding mask [B|1, 1, 1, Tk] (True = masked)."""
+        key-padding mask [B|1, 1, 1, Tk] (True = masked); ``generator``
+        draws the attention dropout (None: deterministic).  When ``causal``
+        the j > i constraint is added: structurally on the flash path, as
+        an OR-ed mask on the einsum path."""
         q = self._split(self.q_proj(q_in)) * (self.head_dim ** -0.5)
         k = self._split(self.k_proj(kv_in))
         v = self._split(self.v_proj(kv_in))
+        b, tq, tk = q_in.shape[0], q_in.shape[1], kv_in.shape[1]
+        if (self.use_pallas and (mask is None or mask.shape[2] == 1)
+                and (self.dropout_rate == 0.0 or generator is None)):
+            kv_pad = None if mask is None else mask[:, 0, 0, :].expand(b, tk)
+            ctx = flash_attention(q, k, v, kv_pad, causal=self.causal)
+            return self.out_proj(ctx.reshape(b, tq, self.hidden_dim))
         if self.causal:
-            cm = causal_mask(kv_in.shape[1], q_in.device)[:, :, :q_in.shape[1]]
+            cm = causal_mask(tk, q_in.device)[:, :, :tq]
             mask = cm if mask is None else (mask | cm)
-        return self._attend(q, k, v, mask, q_in.shape[1])
+        return self._attend(q, k, v, mask, tq, generator)
 
     # ---- decode path: explicit KV cache ----
 

@@ -53,6 +53,14 @@ class HeadArgs(ctypes.Structure):
                 ("tokens", P)]
 
 
+class FlashArgs(ctypes.Structure):
+    """Mirror of ``bvq::FlashArgs`` in csrc/flash_attention.cu."""
+    _fields_ = [("act_bf16", I), ("causal", I), ("batch", I), ("heads", I),
+                ("tq", I), ("tk", I), ("dim", I), ("q", P), ("k", P),
+                ("v", P), ("kv_pad", P), ("o", P), ("m", P), ("l", P),
+                ("dout", P), ("delta", P), ("dq", P), ("dk", P), ("dv", P)]
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     path = os.path.join(home, "bin", "nvcc")
@@ -108,6 +116,10 @@ def library() -> ctypes.CDLL:
     lib.bvq_decode_stack_workspace.restype = L
     lib.bvq_head_workspace.argtypes = [ctypes.POINTER(HeadArgs)]
     lib.bvq_head_workspace.restype = L
+    for name in ("bvq_flash_fwd", "bvq_flash_bwd_dkdv", "bvq_flash_bwd_dq"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(FlashArgs), P]
+        fn.restype = I
     lib.bvq_error_string.argtypes = [I]
     lib.bvq_error_string.restype = ctypes.c_char_p
     return lib

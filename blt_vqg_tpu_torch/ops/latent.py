@@ -1,10 +1,11 @@
 """Variational latent module (counterpart of ``blt_vqg_tpu/ops/latent.py``).
 
 A prior net hidden→2·latent and a posterior net 2·hidden→2·latent, each a
-3-Linear MLP with ReLUs, reparameterized sampling and the Gaussian KL.  The
-noise is either injected (``eps``) or drawn from an explicit
-``torch.Generator``; the JAX package draws it from a flax RNG stream, so
-tests hand both packages the same eps.
+3-Linear MLP with ReLUs (dropout after each ReLU, rate 0 by default, as in
+the JAX package), reparameterized sampling and the Gaussian KL.  The noise
+is either injected (``eps``) or drawn from an explicit ``torch.Generator``;
+the JAX package draws it from a flax RNG stream, so tests hand both
+packages the same eps.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from blt_vqg_tpu_torch.ops.layers import Dense
+from blt_vqg_tpu_torch.ops.layers import Dense, dropout
 
 
 def gaussian_kld(mu_q, logvar_q, mu_p, logvar_p) -> torch.Tensor:
@@ -29,40 +30,47 @@ def gaussian_kld(mu_q, logvar_q, mu_p, logvar_p) -> torch.Tensor:
 
 
 class _MeanLogvarNet(nn.Module):
-    """Linear(in→2L) then 2×(ReLU→Linear(2L→2L))."""
+    """Linear(in→2L) then 2×(ReLU→Dropout→Linear(2L→2L))."""
 
-    def __init__(self, in_dim: int, latent_dim: int, dtype):
+    def __init__(self, in_dim: int, latent_dim: int, dtype,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.in_proj = Dense(in_dim, 2 * latent_dim, dtype=dtype)
         self.hidden_0 = Dense(2 * latent_dim, 2 * latent_dim, dtype=dtype)
         self.hidden_1 = Dense(2 * latent_dim, 2 * latent_dim, dtype=dtype)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h = self.in_proj(x)
-        h = self.hidden_0(torch.relu(h))
-        return self.hidden_1(torch.relu(h))
+        for layer in (self.hidden_0, self.hidden_1):
+            h = layer(dropout(torch.relu(h), self.dropout_rate, generator))
+        return h
 
 
 class Latent(nn.Module):
     def __init__(self, hidden_dim: int, latent_dim: int,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, dropout_rate: float = 0.0):
         super().__init__()
         self.latent_dim, self.dtype = latent_dim, dtype
-        self.prior = _MeanLogvarNet(hidden_dim, latent_dim, dtype)
-        self.posterior = _MeanLogvarNet(2 * hidden_dim, latent_dim, dtype)
+        self.prior = _MeanLogvarNet(hidden_dim, latent_dim, dtype,
+                                    dropout_rate)
+        self.posterior = _MeanLogvarNet(2 * hidden_dim, latent_dim, dtype,
+                                        dropout_rate)
 
     def forward(self, x: torch.Tensor, x_p: Optional[torch.Tensor],
                 eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                use_mean: bool = False):
+                use_mean: bool = False, train: bool = False):
         """x [B, H] context summary; x_p [B, H] posterior summary or None.
 
         Returns (kld, z [B, latent] in ``dtype``, (mean_post, logvar_post)).
         With ``x_p`` None, z comes from the prior and kld is 0.  ``eps``
         [B, latent] f32 is drawn from ``generator`` when not given;
-        ``use_mean`` zeroes it (the distribution mean).
+        ``use_mean`` zeroes it (the distribution mean).  ``train`` draws the
+        dropout from ``generator`` too.
         """
-        ml_prior = self.prior(x)
+        drop = generator if train else None
+        ml_prior = self.prior(x, drop)
         mean_prior = ml_prior[:, :self.latent_dim]
         logvar_prior = ml_prior[:, self.latent_dim:]
         if eps is None:
@@ -78,7 +86,7 @@ class Latent(nn.Module):
             kld = torch.zeros((), dtype=torch.float32, device=x.device)
             return kld, z.to(self.dtype), (None, None)
 
-        ml_post = self.posterior(torch.cat([x_p, x], dim=-1))
+        ml_post = self.posterior(torch.cat([x_p, x], dim=-1), drop)
         mean_post = ml_post[:, :self.latent_dim]
         logvar_post = ml_post[:, self.latent_dim:]
         kld = torch.mean(gaussian_kld(mean_post, logvar_post, mean_prior,

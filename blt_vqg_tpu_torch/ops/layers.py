@@ -8,8 +8,14 @@ Each keeps flax's numerics where they differ from torch's defaults:
   the same cast once after loading, which is the same arithmetic.
 - ``LayerNorm`` uses eps 1e-6 (flax) and f32 statistics, then casts to
   ``dtype``.
-- ``BatchNorm`` runs in eval mode only (running statistics, eps 1e-5), in
-  f32, then casts to ``dtype``.
+- ``BatchNorm`` normalises in f32 with eps 1e-5, then casts to ``dtype``:
+  with its running statistics in eval mode, with the batch's in train mode
+  (variance as E[x^2] - E[x]^2 clipped at 0, flax's fast variance), where it
+  also updates the running statistics flax's way, new = momentum * old +
+  (1 - momentum) * batch, with the *biased* batch variance.
+- :func:`dropout` is flax's ``nn.Dropout``: keep with probability 1 - rate,
+  scale the kept values by 1 / (1 - rate), in the input dtype.  Its bits come
+  from an explicit ``torch.Generator``; no generator means deterministic.
 - ``init_std`` on each layer is the standard deviation of the normal draw
   that seed-made weights use (flax's initializer scale, not its exact draw).
 """
@@ -89,22 +95,50 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over dim 1 ([B, C] or [B, C, H, W])."""
+    """Batch norm over dim 1 ([B, C] or [B, C, H, W]); ``momentum`` is
+    flax's (the weight of the old running statistic)."""
 
     def __init__(self, num_features: int, dtype=torch.bfloat16,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
-        self.dtype, self.eps = dtype, eps
+        self.dtype, self.eps, self.momentum = dtype, eps, momentum
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.float(), self.running_mean.float(),
-                         self.running_var.float(), self.weight.float(),
-                         self.bias.float(), False, 0.0, self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.float()
+        if not train:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        else:
+            axes = [0] + list(range(2, x.dim()))
+            mean = x.mean(dim=axes)
+            var = ((x * x).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (x - mean.view(shape)) * mul.view(shape) + self.bias.float().view(
+            shape)
         return y.to(self.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``; deterministic when ``rate`` is 0 or there is no
+    ``generator``."""
+    if rate == 0.0 or generator is None:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 def cast_to_compute_dtype_(model: nn.Module) -> nn.Module:

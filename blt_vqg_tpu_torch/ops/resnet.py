@@ -1,5 +1,10 @@
-"""ResNet-18 image encoder (counterpart of ``blt_vqg_tpu/ops/resnet.py``),
-eval mode: the backbone's batch norms use their running statistics.
+"""ResNet-18 image encoder (counterpart of ``blt_vqg_tpu/ops/resnet.py``).
+
+``train=True`` normalises with the batch statistics and updates the running
+statistics (flax momentum 0.9 in the backbone, 0.99 in ``feat_bn``); the
+default eval mode uses the running statistics.  The backbone is frozen in
+training (the train state turns off its gradients), but its batch-norm
+statistics still update, as in the JAX package.
 
 The public input stays NHWC [B, H, W, 3], as in the JAX package; it is
 transposed to NCHW once for ``torch.nn.functional.conv2d``.  Convolutions
@@ -29,10 +34,11 @@ class BasicBlock(nn.Module):
             self.down_conv = Conv(cin, filters, 1, stride, 0, dtype)
             self.down_bn = BatchNorm(filters, dtype)
 
-    def forward(self, x):
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        residual = self.down_bn(self.down_conv(x)) if self.has_down else x
+    def forward(self, x, train: bool = False):
+        y = torch.relu(self.bn1(self.conv1(x), train))
+        y = self.bn2(self.conv2(y), train)
+        residual = (self.down_bn(self.down_conv(x), train) if self.has_down
+                    else x)
         return torch.relu(y + residual)
 
 
@@ -56,11 +62,11 @@ class ResNet18Backbone(nn.Module):
                 self.block_names.append(name)
                 cin = filters
 
-    def forward(self, x):
-        x = torch.relu(self.stem_bn(self.stem_conv(x)))
+    def forward(self, x, train: bool = False):
+        x = torch.relu(self.stem_bn(self.stem_conv(x), train))
         x = F.max_pool2d(x, 3, 2, 1)   # pads with -inf, as flax max_pool
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
         return x.mean(dim=(2, 3))
 
 
@@ -71,10 +77,11 @@ class EncoderCNN(nn.Module):
         super().__init__()
         self.backbone = ResNet18Backbone(dtype)
         self.fc = Dense(512, hidden_dim, dtype=dtype, init_std=0.02)
-        self.feat_bn = BatchNorm(hidden_dim, dtype)
+        self.feat_bn = BatchNorm(hidden_dim, dtype, momentum=0.99)
         self.dtype = dtype
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, train: bool = False
+                ) -> torch.Tensor:
         """images [B, H, W, 3] NHWC float -> [B, hidden] in ``dtype``."""
         x = images.permute(0, 3, 1, 2).to(self.dtype)
-        return self.feat_bn(self.fc(self.backbone(x)))
+        return self.feat_bn(self.fc(self.backbone(x, train)), train)

@@ -1,5 +1,10 @@
 """Pre-LN transformer encoder and decoder stacks (counterpart of
-``blt_vqg_tpu/ops/transformer.py``), eval mode.
+``blt_vqg_tpu/ops/transformer.py``).
+
+The full-sequence forwards (the encoders, and the teacher-forced decoder)
+take a ``generator``: with one, input, attention, ReLU and layer dropout
+are drawn from it at the configured rates (train mode); without one they
+are deterministic.
 
 The decoder exposes the KV-cache decode step in two forms that compute the
 same function:
@@ -11,9 +16,10 @@ same function:
   cache pair [Layers, H, L, B, Dh], with the loop-invariant stacked weights
   from :meth:`TransformerDecoder.stream_prep`.
 
-Both write the caches in place.  Not ported yet (ROADMAP.md): the decoder's
-training forward, MoE FFNs, GPipe and the per-layer Pallas decode kernel;
-asking for them raises.  Dropout is absent: everything here is eval mode.
+Both write the caches in place.  Not ported yet (ROADMAP.md): MoE FFNs,
+GPipe and the per-layer Pallas decode kernel; asking for them raises.
+``remat`` (the JAX package's activation recompute) is not carried: it
+changes memory, not values.
 """
 
 from __future__ import annotations
@@ -25,21 +31,29 @@ from torch import nn
 
 from blt_vqg_tpu_torch.ops.attention import MultiHeadAttention
 from blt_vqg_tpu_torch.ops.kernels import decode_stream
-from blt_vqg_tpu_torch.ops.layers import Dense, LayerNorm, cached
+from blt_vqg_tpu_torch.ops.layers import Dense, LayerNorm, cached, dropout
 from blt_vqg_tpu_torch.ops.timing import timing_signal
 
 
 class PositionwiseFeedForward(nn.Module):
+    """linear -> ReLU -> dropout -> linear; ``compat_trailing_relu`` adds
+    the reference's ReLU + dropout after the last linear too."""
+
     def __init__(self, hidden_dim: int, pwffn_dim: int, dtype,
-                 compat_trailing_relu: bool = False):
+                 compat_trailing_relu: bool = False,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.ffn_in = Dense(hidden_dim, pwffn_dim, dtype=dtype)
         self.ffn_out = Dense(pwffn_dim, hidden_dim, dtype=dtype)
         self.compat_trailing_relu = compat_trailing_relu
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x):
-        h = self.ffn_out(torch.relu(self.ffn_in(x)))
-        return torch.relu(h) if self.compat_trailing_relu else h
+    def forward(self, x, generator=None):
+        h = dropout(torch.relu(self.ffn_in(x)), self.dropout_rate, generator)
+        h = self.ffn_out(h)
+        if self.compat_trailing_relu:
+            h = dropout(torch.relu(h), self.dropout_rate, generator)
+        return h
 
 
 def _check_unported(moe_num_experts=0, use_pallas_decode=False,
@@ -57,21 +71,26 @@ def _check_unported(moe_num_experts=0, use_pallas_decode=False,
 class EncoderLayer(nn.Module):
     def __init__(self, hidden_dim, num_heads, pwffn_dim, dtype,
                  use_pallas=False, compat_trailing_relu=False, ring_mesh=None,
-                 moe_num_experts=0):
+                 moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
+                 layer_dropout=0.0):
         super().__init__()
         _check_unported(moe_num_experts)
         self.ln_mha = LayerNorm(hidden_dim, dtype)
         self.mha = MultiHeadAttention(hidden_dim, num_heads, dtype,
                                       use_pallas=use_pallas,
-                                      ring_mesh=ring_mesh)
+                                      ring_mesh=ring_mesh,
+                                      dropout_rate=attention_dropout)
         self.ln_ffn = LayerNorm(hidden_dim, dtype)
         self.ffn = PositionwiseFeedForward(hidden_dim, pwffn_dim, dtype,
-                                           compat_trailing_relu)
+                                           compat_trailing_relu, relu_dropout)
+        self.layer_dropout = layer_dropout
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, generator=None):
         xn = self.ln_mha(x)
-        x = x + self.mha(xn, xn, mask)
-        return x + self.ffn(self.ln_ffn(x))
+        x = dropout(x + self.mha(xn, xn, mask, generator),
+                    self.layer_dropout, generator)
+        return dropout(x + self.ffn(self.ln_ffn(x), generator),
+                       self.layer_dropout, generator)
 
 
 class TransformerEncoder(nn.Module):
@@ -81,44 +100,65 @@ class TransformerEncoder(nn.Module):
     def __init__(self, hidden_dim, num_layers, num_heads, pwffn_dim,
                  dtype=torch.bfloat16, use_pallas=False,
                  compat_trailing_relu=False, ring_mesh=None,
-                 moe_num_experts=0):
+                 moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
+                 layer_dropout=0.0, input_dropout=0.0):
         super().__init__()
         self.hidden_dim, self.num_layers = hidden_dim, num_layers
+        self.input_dropout = input_dropout
         for i in range(num_layers):
             self.add_module(f"layer_{i}", EncoderLayer(
                 hidden_dim, num_heads, pwffn_dim, dtype, use_pallas,
-                compat_trailing_relu, ring_mesh, moe_num_experts))
+                compat_trailing_relu, ring_mesh, moe_num_experts,
+                attention_dropout, relu_dropout, layer_dropout))
         self.final_ln = LayerNorm(hidden_dim, dtype)
 
     @property
     def layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, generator=None):
+        x = dropout(x, self.input_dropout, generator)
         x = x + timing_signal(x.shape[1], self.hidden_dim, dtype=x.dtype,
                               device=x.device)
         for layer in self.layers:
-            x = layer(x, mask)
+            x = layer(x, mask, generator)
         return self.final_ln(x)
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, hidden_dim, num_heads, pwffn_dim, dtype,
                  use_pallas=False, compat_trailing_relu=False, ring_mesh=None,
-                 moe_num_experts=0):
+                 moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
+                 layer_dropout=0.0):
         super().__init__()
         _check_unported(moe_num_experts)
         self.ln_self = LayerNorm(hidden_dim, dtype)
         self.self_attn = MultiHeadAttention(hidden_dim, num_heads, dtype,
                                             causal=True,
                                             use_pallas=use_pallas,
-                                            ring_mesh=ring_mesh)
+                                            ring_mesh=ring_mesh,
+                                            dropout_rate=attention_dropout)
         self.ln_cross = LayerNorm(hidden_dim, dtype)
         self.cross_attn = MultiHeadAttention(hidden_dim, num_heads, dtype,
-                                             use_pallas=use_pallas)
+                                             use_pallas=use_pallas,
+                                             dropout_rate=attention_dropout)
         self.ln_ffn = LayerNorm(hidden_dim, dtype)
         self.ffn = PositionwiseFeedForward(hidden_dim, pwffn_dim, dtype,
-                                           compat_trailing_relu)
+                                           compat_trailing_relu, relu_dropout)
+        self.layer_dropout = layer_dropout
+
+    def forward(self, x, enc_out, src_mask=None, trg_mask=None,
+                generator=None):
+        """Teacher-forced layer.  ``trg_mask`` is the target key-padding
+        mask [B, 1, 1, T]; causality comes from ``self_attn.causal``."""
+        rate = self.layer_dropout
+        xn = self.ln_self(x)
+        x = dropout(x + self.self_attn(xn, xn, trg_mask, generator), rate,
+                    generator)
+        x = dropout(x + self.cross_attn(self.ln_cross(x), enc_out, src_mask,
+                                        generator), rate, generator)
+        return dropout(x + self.ffn(self.ln_ffn(x), generator), rate,
+                       generator)
 
     def cross_kv(self, enc_out):
         return self.cross_attn.kv(enc_out)
@@ -145,17 +185,20 @@ class TransformerDecoder(nn.Module):
                  use_pallas=False, compat_trailing_relu=False, ring_mesh=None,
                  use_pallas_decode=False, use_stream_decode=False,
                  stream_weight_dtype="bfloat16", pipeline_stages=1,
-                 moe_num_experts=0):
+                 moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
+                 layer_dropout=0.0, input_dropout=0.0):
         super().__init__()
         _check_unported(moe_num_experts, use_pallas_decode, pipeline_stages)
         self.hidden_dim, self.num_layers = hidden_dim, num_layers
         self.num_heads, self.pwffn_dim, self.dtype = num_heads, pwffn_dim, dtype
         self.use_stream_decode = use_stream_decode
         self.stream_weight_dtype = stream_weight_dtype
+        self.input_dropout = input_dropout
         for i in range(num_layers):
             self.add_module(f"layer_{i}", DecoderLayer(
                 hidden_dim, num_heads, pwffn_dim, dtype, use_pallas,
-                compat_trailing_relu, ring_mesh, moe_num_experts))
+                compat_trailing_relu, ring_mesh, moe_num_experts,
+                attention_dropout, relu_dropout, layer_dropout))
         self.final_ln = LayerNorm(hidden_dim, dtype)
         self.register_buffer(
             "timing", timing_signal(max_decode_len, hidden_dim)[0],
@@ -165,10 +208,15 @@ class TransformerDecoder(nn.Module):
     def layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the decoder's training forward is not ported yet (ROADMAP.md "
-            "queue 1); decode with precompute_cross/init_cache/step")
+    def forward(self, x, enc_out, src_mask=None, trg_mask=None,
+                generator=None):
+        """Teacher-forced decoder over the whole target: x [B, T, D]."""
+        x = dropout(x, self.input_dropout, generator)
+        x = x + timing_signal(x.shape[1], self.hidden_dim, dtype=x.dtype,
+                              device=x.device)
+        for layer in self.layers:
+            x = layer(x, enc_out, src_mask, trg_mask, generator)
+        return self.final_ln(x)
 
     # ---- decode path ----
     def precompute_cross(self, enc_out) -> List[Tuple[torch.Tensor, torch.Tensor]]:

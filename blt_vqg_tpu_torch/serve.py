@@ -7,7 +7,8 @@ Usage:
     python -m blt_vqg_tpu_torch.serve --seed 0 --stream   # seed-made weights
 
 ``--model-dir`` holds the JAX trainer's ``args.json`` and its npz
-checkpoints under ``checkpoints/``.  Without it the model is the flagship
+checkpoints under ``checkpoints/``.  The model runs on the CUDA card unless
+``--device cpu`` asks for the CPU; without a card the default fails.  Without it the model is the flagship
 configuration (hidden 1024, 6 layers, 8 heads, FFN 2048, vocab 12,000,
 bf16, int8 fused head) with weights made from ``--seed``.  ``--stream``
 takes the streaming decode path through the stack kernel;
@@ -27,10 +28,9 @@ from blt_vqg_tpu_torch.convert import from_flax, load_npz
 from blt_vqg_tpu_torch.core.config import Config
 from blt_vqg_tpu_torch.models.iq import IQ
 from blt_vqg_tpu_torch.ops.layers import cast_to_compute_dtype_
-from blt_vqg_tpu_torch.train.step import make_decode_step
+from blt_vqg_tpu_torch.train.step import NUM_CATEGORIES, make_decode_step
 
 FLAGSHIP_VOCAB = 12000
-NUM_CATEGORIES = 8   # synthetic categories map to word ids 6 + cat
 
 
 def flagship_config() -> Config:
@@ -42,10 +42,22 @@ def flagship_config() -> Config:
         image_size=224, stream_head_dtype="int8")
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises instead of quietly running elsewhere."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} asked for, but torch sees no "
+                           f"CUDA card (pass device='cpu' to run on the CPU)")
+    return device
+
+
 def build_model(model_dir=None, seed: int = 0, stream: bool = False,
-                stream_weight_dtype: str = "bfloat16", device="cpu"):
+                stream_weight_dtype: str = "bfloat16", device="cuda"):
     """Returns (cfg, model, latent_mode), the model in eval mode on
-    ``device`` with its weights cast once to the compute dtype."""
+    ``device`` (the card unless the caller asks for the CPU) with its
+    weights cast once to the compute dtype."""
+    device = check_device(device)
     over = dict(use_stream_decode=stream,
                 stream_weight_dtype=stream_weight_dtype)
     if model_dir is not None:
@@ -65,7 +77,7 @@ def build_model(model_dir=None, seed: int = 0, stream: bool = False,
 
 
 def make_requests(rng: np.random.RandomState, batch: int, cfg: Config,
-                  device):
+                  device="cuda"):
     """A batch of random images [B, S, S, 3] and category contexts
     ``[<start>, cat_word, <end>]``."""
     images = rng.rand(batch, cfg.image_size, cfg.image_size, 3
@@ -104,7 +116,7 @@ def serve_rounds(cfg: Config, model, latent: bool, batch: int, rounds: int,
     return out
 
 
-def main(argv=None):
+def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model-dir", default=None)
     parser.add_argument("--seed", type=int, default=0)
@@ -114,9 +126,14 @@ def main(argv=None):
                         help="whole-stack streaming decode kernel")
     parser.add_argument("--stream-weight-dtype", default="bfloat16",
                         choices=("bfloat16", "int8"))
-    parser.add_argument("--device",
-                        default="cuda" if torch.cuda.is_available() else "cpu")
-    args = parser.parse_args(argv)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default: the CUDA card; there "
+                        "is no fallback to the CPU)")
+    return parser
+
+
+def main(argv=None):
+    args = make_parser().parse_args(argv)
     cfg, model, latent = build_model(args.model_dir, args.seed, args.stream,
                                      args.stream_weight_dtype, args.device)
     return serve_rounds(cfg, model, latent, args.batch, args.rounds,

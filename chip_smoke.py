@@ -1,5 +1,5 @@
-"""Drives the PyTorch port's serving path on one CUDA card and checks the
-hand-written kernels it runs.
+"""Drives the PyTorch port's serving and training paths on one CUDA card
+and checks the hand-written kernels they run.
 
 Run from the repository root, on a machine with an NVIDIA H100 (sm_90a),
 ``nvcc`` and PyTorch built for CUDA:
@@ -19,14 +19,29 @@ only when every phase passed):
    times per round, and replays one round step by step against the plain
    versions;
 4. times decode questions/s at batch 64 on the kernel path and on the
-   port's plain decode path, and each kernel against its plain version.
+   port's plain decode path, and each kernel against its plain version;
+5. holds the three flash-attention kernels (forward, dK/dV, dQ) against
+   their plain versions in bf16 at the four attention shapes of the
+   flagship train step, at a causal multi-tile shape with unaligned
+   padding and at a shape with dead rows, and checks that the plain
+   version without its key-pad mask fails the check;
+6. trains the flagship configuration with ``use_pallas_attention`` and no
+   attention dropout (batch 64, seed-made weights): 3 pretrain steps, the
+   optimizer reset, 3 latent steps and an eval step, checking the losses
+   and the exact flash launch counts, and runs the same steps on the
+   port's einsum attention path from the same weights, batch and
+   generator seeds, holding loss, gradient norm and parameters to limits;
+7. times train samples/s on both paths, each flash kernel against its
+   plain version and ``scaled_dot_product_attention`` (a yardstick the
+   port never calls), and the device time of a train step by profiler.
 
-The line before the last is ``{"kernels": [...]}``, the last
-``{"ok": true, "device": {...}}``.
+TF32 is off for matmuls and cuDNN throughout.  The line before the last is
+``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import re
@@ -39,7 +54,11 @@ import torch
 from blt_vqg_tpu_torch import serve
 from blt_vqg_tpu_torch.models.iq import IQ, PAD
 from blt_vqg_tpu_torch.ops.kernels import _build, decode_head, decode_stream
+from blt_vqg_tpu_torch.ops.kernels import flash_attention as fa
 from blt_vqg_tpu_torch.ops.layers import cast_to_compute_dtype_
+from blt_vqg_tpu_torch.train.state import create_train_state
+from blt_vqg_tpu_torch.train.step import (make_batch, make_eval_step,
+                                          make_train_step)
 
 BATCH, ROUNDS, SEED = 64, 3, 0
 POSITIONS = (0, 1, 25, 50)
@@ -59,6 +78,47 @@ HEAD_TPU = "blt_vqg_tpu/ops/pallas/decode_head.py:114"
 STACK_MAX_ULPS = 8.0     # max |kernel - plain| / bf16 ulp of max |plain|
 STACK_REL_NORM = 8e-3    # ||kernel - plain|| / ||plain||
 HEAD_TOL = 1e-3          # token logit within 1e-3 * max|logit| of the max
+
+FLASH_SRC = "blt_vqg_tpu_torch/csrc/flash_attention.cu"
+FLASH_TPU = {"flash_attention_fwd": "blt_vqg_tpu/ops/pallas/flash_attention.py:45",
+             "flash_attention_bwd_dkdv":
+                 "blt_vqg_tpu/ops/pallas/flash_attention.py:110",
+             "flash_attention_bwd_dq":
+                 "blt_vqg_tpu/ops/pallas/flash_attention.py:169"}
+FLASH_KERNELS = tuple(FLASH_TPU)
+# the attention calls of one flagship latent train step (B 64, H 8, Dh 128):
+# (what, Tq, Tk, causal, calls per step)
+FLASH_SHAPES = (("context encoder", 3, 3, False, 6),
+                ("posterior encoder", 21, 21, False, 6),
+                ("decoder self-attention", 20, 20, True, 6),
+                ("decoder cross-attention", 20, 3, False, 6))
+# o, dq, dk, dv are bf16: the kernel and the plain version round p and every
+# output to bf16 after f32 sums taken in other orders.  Readings over 8
+# seeds x 6 cases (48; NVIDIA H100 80GB HBM3, 700 W): max error up to 1
+# bf16 ulp of max|plain| (0.5 or less in 47), relative norm error up to
+# 1.13e-3 (the 512-long causal case; 1.7e-5 at the training shapes), m and
+# l up to 1.82e-7.  The plain version without its key-pad mask reads 132
+# ulps and 0.79.
+FLASH_MAX_ULPS = 2.0     # max |kernel - plain| / bf16 ulp of max |plain|
+FLASH_REL_NORM = 2e-3    # ||kernel - plain|| / ||plain||
+FLASH_ML_REL = 4e-7      # m and l (f32) on live rows, relative max error
+# launches of the training phase: 3 pretrain steps (6 context + 12 decoder
+# attention calls each), 3 latent steps (+6 posterior) and a latent eval
+# step (forward only)
+TRAIN_LAUNCHES = {"flash_attention_fwd": 3 * 18 + 3 * 24 + 24,
+                  "flash_attention_bwd_dkdv": 3 * 18 + 3 * 24,
+                  "flash_attention_bwd_dq": 3 * 18 + 3 * 24}
+# kernel path against the einsum path after each train step and the eval
+# step (bf16 compute; the two round the attention weights at different
+# places, and Adam turns small gradient differences into sign flips of
+# small updates).  Readings over 4 weight/batch seeds x 7 steps (NVIDIA H100
+# 80GB HBM3, 700 W): loss up to 5.56e-5 relative, grad_norm 1.33e-3,
+# parameters 0.159 of their motion.
+TRAIN_LOSS_REL = 1.2e-4
+TRAIN_GNORM_REL = 3e-3
+TRAIN_PARAM_REL = 0.25   # ||theta_k - theta_e|| / ||theta_e - theta_0||
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core peak
 
 
 def log(*a):
@@ -203,8 +263,394 @@ def head_logits(h, x):
                                        h["w"], h["b"], h["scales"])
 
 
+def bound(nbytes: float, flops: float):
+    """(least ms the card could take, what bounds it) for work that moves
+    ``nbytes`` and does ``flops`` bf16 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stack_bound(args, kw, pos: int):
+    """Bytes and operations one decode_stack_step call needs: every weight,
+    bias, LayerNorm and cross K/V once, the cache rows below ``pos``, x in
+    and x, k, v out."""
+    caches = (args[5], args[6])
+    nbytes = sum(t.numel() * t.element_size() for i, t in enumerate(args)
+                 if isinstance(t, torch.Tensor) and i not in (5, 6))
+    nbytes += sum(c.numel() * c.element_size() * pos / c.shape[2]
+                  for c in caches)
+    x = args[0]   # x_out [B, D] and k_new, v_new [L, H, B, Dh] written
+    nbytes += x.numel() * x.element_size() * (1 + 2 * args[3].shape[0])
+    scales = kw["weight_scales"] or ()
+    nbytes += sum(t.numel() * 4 for t in scales if t is not None)
+    b = args[0].shape[0]
+    weights = sum(args[i].numel() for i in (3, 4, 7, 8, 12, 14))
+    nl, nh, _, _, dh = caches[0].shape
+    attn = 4 * b * nl * nh * dh * (pos + 1 + args[9].shape[2])
+    return nbytes, 2 * b * weights + attn
+
+
+def head_bound(h, x):
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (x, h["w"], h["b"], h["ln_scale"], h["ln_bias"])
+                 if t is not None)
+    if h["scales"] is not None:
+        nbytes += h["scales"].numel() * 4
+    nbytes += x.shape[0] * 4
+    return nbytes, 2 * x.shape[0] * h["w"].shape[0] * h["w"].shape[1]
+
+
 # ---------------------------------------------------------------------------
-def main():
+# flash attention
+
+def flash_inputs(dev, b, h, d, tq, tk, causal, seed, pad="tail"):
+    """bf16 q (scaled), k, v, dO and a key-pad mask: trailing pads of
+    random lengths ("tail"), scattered keys ("random"), or "random" with
+    every key of batch row 1 masked ("dead")."""
+    g = torch.Generator(dev).manual_seed(seed)
+    n = lambda *s: torch.randn(s, generator=g, device=dev)
+    q = (n(b, tq, h, d) * d ** -0.5).to(torch.bfloat16)
+    k, v = n(b, tk, h, d).to(torch.bfloat16), n(b, tk, h, d).to(torch.bfloat16)
+    do = n(b, tq, h, d).to(torch.bfloat16)
+    if pad == "tail":
+        lengths = torch.randint(1, tk + 1, (b,), generator=g, device=dev)
+        kv_pad = torch.arange(tk, device=dev)[None, :] >= lengths[:, None]
+    else:
+        kv_pad = torch.rand((b, tk), generator=g, device=dev) < 0.3
+        kv_pad[:, 0] = False
+        if pad == "dead":
+            kv_pad[1] = True
+    return q, k, v, kv_pad.contiguous(), do
+
+
+def flash_visible_pairs(kv_pad, tq, causal) -> int:
+    """(query, key) pairs the data needs, summed over the batch rows."""
+    tk = kv_pad.shape[1]
+    vis = ~kv_pad[:, None, :].expand(-1, tq, tk)
+    if causal:
+        vis = vis & ~torch.ones((tq, tk), dtype=torch.bool,
+                                device=kv_pad.device).triu(1)
+    return int(vis.sum())
+
+
+def flash_bounds(q, k, kv_pad, causal):
+    """{kernel: (bytes, operations)} of one call each at this shape."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    pairs = flash_visible_pairs(kv_pad, tq, causal) * h
+    act_q, act_k = b * tq * h * d * 2, b * tk * h * d * 2
+    rows = b * h * tq * 4
+    pad = kv_pad.numel()
+    return {"flash_attention_fwd": (2 * act_q + 2 * act_k + 2 * rows + pad,
+                                    4 * pairs * d),
+            "flash_attention_bwd_dkdv": (2 * act_q + 4 * act_k + 3 * rows
+                                         + pad, 8 * pairs * d),
+            "flash_attention_bwd_dq": (3 * act_q + 2 * act_k + 3 * rows
+                                       + pad, 6 * pairs * d)}
+
+
+def rel_max(got, want) -> float:
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        return math.inf
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def check_flash_case(q, k, v, kv_pad, do, causal, what: str):
+    """Runs the three kernels and the plain versions on the same tensors;
+    raises unless every output is within the limits.  Returns ({kernel:
+    max abs error of its own outputs: o; dk and dv; dq}, worst ulps, worst
+    norm error, worst m/l error)."""
+    got = fa.flash_attention_fwd(q, k, v, kv_pad, causal)
+    want = fa.flash_attention_fwd_ref(q, k, v, kv_pad, causal)
+    o, m, l = want
+    delta = fa.row_delta(do, o)
+    dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, kv_pad, m, l, do, delta,
+                                         causal)
+    dq = fa.flash_attention_bwd_dq(q, k, v, kv_pad, m, l, do, delta, causal)
+    ref = fa.flash_attention_bwd_ref(q, k, v, kv_pad, o, m, l, do, causal)
+    outs = [got[0], dq, dk, dv]
+    wants = [o, *ref]
+    ulps, norm = stack_errors(outs, wants)
+    live = m > 0.5 * fa.NEG_INF
+    ml = max(rel_max(got[1][live], m[live]), rel_max(got[2][live], l[live]))
+    if not (ulps <= FLASH_MAX_ULPS and norm <= FLASH_REL_NORM
+            and ml <= FLASH_ML_REL):
+        raise AssertionError(f"flash attention {what}: max err {ulps:.3g} "
+                             f"bf16 ulps, rel norm err {norm:.3g}, m/l rel "
+                             f"err {ml:.3g}")
+    dead = ~live.any(dim=(1, 2))            # batch rows with no live row
+    if bool(dead.any()):
+        for t in outs:
+            if bool(t[dead].any()):
+                raise AssertionError(f"flash attention {what}: a dead row "
+                                     f"has nonzero output or gradient")
+    abs_err = [float((g.float() - w.float()).abs().max())
+               for g, w in zip(outs, wants)]
+    errs = {"flash_attention_fwd": abs_err[0],
+            "flash_attention_bwd_dq": abs_err[1],
+            "flash_attention_bwd_dkdv": max(abs_err[2:])}
+    return errs, ulps, norm, ml
+
+
+def flash_phase(dev, log, seeds: int):
+    """Phase 5: the flash kernels against their plain versions, each case
+    from ``seeds`` seeds."""
+    worst = {"err": dict.fromkeys(FLASH_KERNELS, 0.0), "ulps": 0.0,
+             "norm": 0.0, "ml": 0.0}
+    cases = [(f"{what} Tq {tq} Tk {tk}{' causal' if causal else ''}",
+              (BATCH, 8, 128, tq, tk, causal), "tail")
+             for what, tq, tk, causal, _ in FLASH_SHAPES]
+    cases += [("multi-tile B 8 H 8 T 512 causal, scattered pads",
+               (8, 8, 128, 512, 512, True), "random"),
+              ("ragged Tq 130 Tk 77, dead rows", (4, 8, 64, 130, 77, False),
+               "dead")]
+    for seed in range(seeds):
+        for what, (b, h, d, tq, tk, causal), pad in cases:
+            q, k, v, kv_pad, do = flash_inputs(dev, b, h, d, tq, tk, causal,
+                                               SEED + 10 * seed, pad)
+            errs, ulps, norm, ml = check_flash_case(q, k, v, kv_pad, do,
+                                                    causal, what)
+            for key, val in zip(("ulps", "norm", "ml"), (ulps, norm, ml)):
+                worst[key] = max(worst[key], val)
+            for name, val in errs.items():
+                worst["err"][name] = max(worst["err"][name], val)
+            log(f"[5] flash {what}, seed {seed}: max err {ulps:.3g} bf16 "
+                f"ulps, relative norm error {norm:.3g}, m/l relative error "
+                f"{ml:.3g}; max abs err: o {errs['flash_attention_fwd']:.3g},"
+                f" dk/dv {errs['flash_attention_bwd_dkdv']:.3g}, dq "
+                f"{errs['flash_attention_bwd_dq']:.3g}")
+    # the check must tell a wrong attention apart: the plain version
+    # without its key-pad mask has to fail it
+    q, k, v, kv_pad, do = flash_inputs(dev, BATCH, 8, 128, 20, 20, True, SEED)
+    got = fa.flash_attention_fwd(q, k, v, kv_pad, True)[0]
+    unmasked = fa.flash_attention_fwd_ref(q, k, v, None, True)[0]
+    ulps, norm = stack_errors([got], [unmasked])
+    if ulps <= FLASH_MAX_ULPS and norm <= FLASH_REL_NORM:
+        raise AssertionError("the flash check passes a plain version "
+                             "without its key-pad mask")
+    log(f"[5] control: the plain version without its key-pad mask reads "
+        f"{ulps:.3g} bf16 ulps, relative norm error {norm:.3g} (fails the "
+        f"check, as it must)")
+    return worst
+
+
+def flash_timings(dev, card, log):
+    """Phase 7 (kernels): per-call times at the four training shapes, and
+    the totals of one latent train step's calls.  The two backward rows
+    share their plain and library times: the plain backward and SDPA's
+    backward each compute dq, dk and dv in one call."""
+    totals = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                  "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+              for n in FLASH_KERNELS}
+    for what, tq, tk, causal, calls in FLASH_SHAPES:
+        q, k, v, kv_pad, do = flash_inputs(dev, BATCH, 8, 128, tq, tk, causal,
+                                           SEED + 1)
+        o, m, l = fa.flash_attention_fwd_ref(q, k, v, kv_pad, causal)
+        delta = fa.row_delta(do, o)
+        t = {"flash_attention_fwd": cuda_ms(
+                lambda: fa.flash_attention_fwd(q, k, v, kv_pad, causal), 50),
+             "flash_attention_bwd_dkdv": cuda_ms(
+                lambda: fa.flash_attention_bwd_dkdv(q, k, v, kv_pad, m, l, do,
+                                                    delta, causal), 50),
+             "flash_attention_bwd_dq": cuda_ms(
+                lambda: fa.flash_attention_bwd_dq(q, k, v, kv_pad, m, l, do,
+                                                  delta, causal), 50)}
+        plain_fwd = cuda_ms(
+            lambda: fa.flash_attention_fwd_ref(q, k, v, kv_pad, causal), 20)
+        plain_bwd = cuda_ms(
+            lambda: fa.flash_attention_bwd_ref(q, k, v, kv_pad, o, m, l, do,
+                                               causal), 20)
+        # the library yardstick: one SDPA call on the same tensors (its
+        # mask: True = attend), forward, and its backward from saved state
+        allowed = ~kv_pad[:, None, None, :]
+        if causal:
+            allowed = allowed & ~torch.ones((tq, tk), dtype=torch.bool,
+                                            device=dev).triu(1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=allowed, scale=1.0)
+        sdpa_fwd = cuda_ms(sdpa, 50)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=allowed, scale=1.0)
+        dot = do.transpose(1, 2)
+        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), dot, retain_graph=True), 50)
+        for name, (nbytes, flops) in flash_bounds(q, k, kv_pad,
+                                                  causal).items():
+            b_ms, _ = bound(nbytes, flops)
+            fwd = name.endswith("fwd")
+            tot = totals[name]
+            tot["ms"] += calls * t[name]
+            tot["plain_ms"] += calls * (plain_fwd if fwd else plain_bwd)
+            tot["library_ms"] += calls * (sdpa_fwd if fwd else sdpa_bwd)
+            tot["bound_ms"] += calls * b_ms
+            tot["bytes"] += calls * nbytes
+            tot["flops"] += calls * flops
+        log(f"[7] {card}: flash {what} (B {BATCH}, H 8, Dh 128, Tq {tq}, "
+            f"Tk {tk}{', causal' if causal else ''}), per call: fwd kernel "
+            f"{t['flash_attention_fwd'] * 1e3:.1f} us, plain "
+            f"{plain_fwd * 1e3:.1f} us, SDPA {sdpa_fwd * 1e3:.1f} us; dK/dV "
+            f"kernel {t['flash_attention_bwd_dkdv'] * 1e3:.1f} us + dQ kernel "
+            f"{t['flash_attention_bwd_dq'] * 1e3:.1f} us, plain backward "
+            f"{plain_bwd * 1e3:.1f} us, SDPA backward {sdpa_bwd * 1e3:.1f} "
+            f"us")
+    for name, tot in totals.items():
+        tot["bound_by"] = bound(tot["bytes"], tot["flops"])[1]
+        shared = ("" if name.endswith("fwd") else
+                  " (shared by both backward rows: dq, dk and dv in one call)")
+        log(f"[7] {card}: {name}, the 24 calls of a latent train step: "
+            f"kernel {tot['ms'] * 1e3:.1f} us, bound "
+            f"{tot['bound_ms'] * 1e3:.2f} us ({tot['bound_by']}); plain "
+            f"{tot['plain_ms'] * 1e3:.1f} us and SDPA "
+            f"{tot['library_ms'] * 1e3:.1f} us{shared}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# training
+
+def flat_params(model) -> torch.Tensor:
+    return torch.cat([p.detach().float().flatten()
+                      for p in model.parameters()])
+
+
+def train_compare(dev, seed: int, log):
+    """Phase 6: flagship training on the kernel path and the einsum path
+    from the same weights (made from ``seed``), batch and generator seeds.
+    Returns (the flash launch counts of the kernel path, the worst
+    differences, the run's (cfg, kernel state, einsum cfg, einsum state,
+    batch))."""
+    cfg = serve.flagship_config().replace(use_pallas_attention=True,
+                                          attention_dropout=0.0)
+    t0 = time.perf_counter()
+    kmodel = IQ(cfg, serve.FLAGSHIP_VOCAB).to(dev)
+    kstate = create_train_state(cfg, kmodel, seed=seed)
+    ecfg = cfg.replace(use_pallas_attention=False)
+    emodel = IQ(ecfg, serve.FLAGSHIP_VOCAB).to(dev)
+    emodel.load_state_dict(kmodel.state_dict())
+    estate = create_train_state(ecfg, emodel, seed=None)
+    batch = make_batch(cfg, serve.FLAGSHIP_VOCAB, BATCH,
+                       np.random.RandomState(seed + 200), dev)
+    nparams = sum(p.numel() for p in kstate.trainable().values())
+    torch.cuda.synchronize()
+    log(f"[6] seed {seed}: two flagship train states ready in "
+        f"{time.perf_counter() - t0:.1f} s: {nparams / 1e6:.1f} M trainable "
+        f"parameters, {cfg.dtype} compute, f32 parameters, use_pallas_"
+        f"attention on / off, attention_dropout {cfg.attention_dropout}, "
+        f"relu_dropout {cfg.relu_dropout}; TF32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 "
+        f"{torch.backends.cudnn.allow_tf32}; target lengths "
+        f"{(batch['target'] != 0).sum(1).min().item()}-"
+        f"{(batch['target'] != 0).sum(1).max().item()}")
+    theta0 = flat_params(emodel)
+    gens = [torch.Generator(dev).manual_seed(seed + 300) for _ in range(2)]
+    worst = {"loss": 0.0, "gnorm": 0.0, "param": 0.0}
+    for fn in FLASH_KERNELS:
+        getattr(fa, fn).launches = 0
+    for i, latent_mode in enumerate((False,) * 3 + (True,) * 3):
+        if i == 3:
+            kstate.reset_optimizer()
+            estate.reset_optimizer()
+        _, mk = make_train_step(cfg, latent_mode)(kstate, batch, gens[0])
+        _, me = make_train_step(ecfg, latent_mode)(estate, batch, gens[1])
+        mk = {n: float(v) for n, v in mk.items()}
+        me = {n: float(v) for n, v in me.items()}
+        if not all(math.isfinite(v) for v in (*mk.values(), *me.values())):
+            raise AssertionError(f"train step {i}: non-finite metrics {mk}")
+        if latent_mode != (mk["kld"] > 0.0):
+            raise AssertionError(f"train step {i}: kld {mk['kld']}")
+        if not latent_mode and (mk["kld"] != 0.0 or mk["aux"] != 0.0):
+            raise AssertionError(f"pretrain step {i}: kld/aux not zero")
+        loss_rel = abs(mk["loss"] - me["loss"]) / abs(me["loss"])
+        gnorm_rel = abs(mk["grad_norm"] - me["grad_norm"]) / me["grad_norm"]
+        theta_k, theta_e = flat_params(kmodel), flat_params(emodel)
+        param_rel = float((theta_k - theta_e).norm()
+                          / (theta_e - theta0).norm().clamp_min(1e-30))
+        del theta_k, theta_e
+        for key, val in zip(worst, (loss_rel, gnorm_rel, param_rel)):
+            worst[key] = max(worst[key], val)
+        log(f"[6] seed {seed}, {'latent' if latent_mode else 'pretrain'} "
+            f"step {i}: loss {mk['loss']:.6g} (einsum {me['loss']:.6g}), rec "
+            f"{mk['rec']:.5g}, kld {mk['kld']:.5g}, aux {mk['aux']:.5g}, "
+            f"grad_norm {mk['grad_norm']:.6g} (einsum {me['grad_norm']:.6g});"
+            f" relative: loss {loss_rel:.3g}, grad_norm {gnorm_rel:.3g}, "
+            f"parameters {param_rel:.3g} of their motion")
+    ev_k = make_eval_step(cfg, True)(kstate, batch, gens[0])
+    ev_e = make_eval_step(ecfg, True)(estate, batch, gens[1])
+    launches = {fn: getattr(fa, fn).launches for fn in FLASH_KERNELS}
+    log(f"[6] seed {seed}, eval step: loss {float(ev_k['loss']):.6g} "
+        f"(einsum {float(ev_e['loss']):.6g}), aux_acc "
+        f"{float(ev_k['aux_acc']):.4g}; flash launches {launches}")
+    if launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"flash launch counts {launches}, want "
+                             f"{TRAIN_LAUNCHES}")
+    ev_rel = abs(float(ev_k["loss"]) - float(ev_e["loss"])) / abs(
+        float(ev_e["loss"]))
+    worst["loss"] = max(worst["loss"], ev_rel)
+    log(f"[6] seed {seed}: kernel path against einsum path, worst over the "
+        f"steps: loss {worst['loss']:.3g}, grad_norm {worst['gnorm']:.3g}, "
+        f"parameters {worst['param']:.3g} (limits {TRAIN_LOSS_REL}, "
+        f"{TRAIN_GNORM_REL}, {TRAIN_PARAM_REL})")
+    if not (worst["loss"] <= TRAIN_LOSS_REL and worst["gnorm"] <= TRAIN_GNORM_REL
+            and worst["param"] <= TRAIN_PARAM_REL):
+        raise AssertionError(f"kernel path against einsum path: {worst}")
+    return launches, worst, (cfg, kstate, ecfg, estate, batch)
+
+
+def train_times(dev, card, log, cfg, kstate, ecfg, estate, batch):
+    """Phase 7 (training): latent train-step times on both paths, in turns,
+    and the device time of one step on each by profiler."""
+    def steps(state, c):
+        step = make_train_step(c, True)
+        g = torch.Generator(dev).manual_seed(1)
+        return lambda: step(state, batch, g)
+
+    t_k = [cuda_ms(steps(kstate, cfg), 3, warmup=1)]
+    t_e = [cuda_ms(steps(estate, ecfg), 3, warmup=1)]
+    t_e.append(cuda_ms(steps(estate, ecfg), 3, warmup=0))
+    t_k.append(cuda_ms(steps(kstate, cfg), 3, warmup=0))
+    k_ms, e_ms = min(t_k), min(t_e)
+    log(f"[7] {card}: latent train step b{BATCH}: flash path {k_ms:.2f} ms "
+        f"= {BATCH / k_ms * 1e3:.1f} samples/s (runs {t_k}); einsum path "
+        f"{e_ms:.2f} ms = {BATCH / e_ms * 1e3:.1f} samples/s (runs {t_e})")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for what, state, c, wall_ms in (("flash", kstate, cfg, k_ms),
+                                    ("einsum", estate, ecfg, e_ms)):
+        step = steps(state, c)
+        step()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            step()
+            torch.cuda.synchronize()
+        dev_us, flash_us, launches = 0.0, 0.0, 0
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                us = (getattr(evt, "self_device_time_total", 0.0)
+                      or getattr(evt, "self_cuda_time_total", 0.0))
+                dev_us += us
+                launches += evt.count
+                if "flash_" in evt.key:
+                    flash_us += us
+        log(f"[7] {card}: profiled latent train step, {what} path: device "
+            f"kernel time {dev_us / 1e3:.2f} ms in {launches} kernels, of "
+            f"which flash kernels {flash_us / 1e3:.3f} ms; busy share "
+            f"{dev_us / 1e3 / wall_ms:.3f} of the {wall_ms:.2f} ms step")
+
+
+# ---------------------------------------------------------------------------
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--flash-seeds", type=int, default=3,
+                        help="seeds of each flash-attention check case")
+    parser.add_argument("--train-seeds", type=int, default=1,
+                        help="weight and batch seeds of the training "
+                        "comparison (more seeds take readings for limits)")
+    opts = parser.parse_args(argv)
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -424,7 +870,7 @@ def main():
                         20)
             p = cuda_ms(lambda: decode_stream.decode_stack_step_ref(*args,
                                                                     **kw), 5)
-            timings[("stack", quantized)] = (k, p)
+            timings[("stack", quantized)] = (k, p, stack_bound(args, kw, 25))
             log(f"[4] {card}: decode_stack_step "
                 f"{'int8' if quantized else 'bf16'} weights, b{BATCH} pos 25:"
                 f" kernel {k * 1e3:.1f} us, plain {p * 1e3:.1f} us")
@@ -433,23 +879,53 @@ def main():
             h = head_args(model, quantized)
             k = cuda_ms(lambda: run_head(h, hx, kernel=True), 50)
             p = cuda_ms(lambda: run_head(h, hx, kernel=False), 50)
-            timings[("head", quantized)] = (k, p)
+            timings[("head", quantized)] = (k, p, head_bound(h, hx))
             log(f"[4] {card}: head_argmax {'int8' if quantized else 'bf16'}"
                 f" b{BATCH} V {h['w'].shape[1]}: kernel {k * 1e3:.1f} us, "
                 f"plain {p * 1e3:.1f} us (weights L2-resident across "
                 f"repeats)")
 
-    # main-path forms: bf16 stack weights, int8 head
-    stack_k, stack_p = timings[("stack", False)]
-    head_k, head_p = timings[("head", True)]
-    kernels = [
-        {"name": "decode_stack_step", "route": "cuda", "source": STACK_SRC,
-         "replaces": STACK_TPU, "launches": launches["decode_stack_step"],
-         "max_abs_err": stack_err, "ms": stack_k, "plain_ms": stack_p},
-        {"name": "head_argmax", "route": "cuda", "source": HEAD_SRC,
-         "replaces": HEAD_TPU, "launches": launches["head_argmax"],
-         "max_abs_err": head_err, "ms": head_k, "plain_ms": head_p},
-    ]
+    # ---- 5. the flash kernels against their plain versions
+    flash_worst = flash_phase(dev, log, opts.flash_seeds)
+    # ---- 6. training; the flash launch counts are read around each run
+    for i in range(opts.train_seeds):
+        launches_i, _, run_i = train_compare(dev, SEED + i, log)
+        if i == 0:
+            train_launches, run = launches_i, run_i
+        del run_i
+    # ---- 7. times
+    train_times(dev, card, log, *run)
+    del run
+    flash_totals = flash_timings(dev, card, log)
+
+    # decode kernels in their main-path forms: bf16 stack weights, int8
+    # head; one call each (the stack at pos 25).  The flash kernels: the
+    # 24 calls of one latent train step.  No single PyTorch call computes
+    # the decode step or the fused head; the backward rows share the plain
+    # backward's and SDPA's backward's times (dq, dk and dv in one call).
+    kernels = []
+    for name, src, tpu, key, err in (
+            ("decode_stack_step", STACK_SRC, STACK_TPU, ("stack", False),
+             stack_err),
+            ("head_argmax", HEAD_SRC, HEAD_TPU, ("head", True), head_err)):
+        k_ms, p_ms, (nbytes, flops) = timings[key]
+        b_ms, b_by = bound(nbytes, flops)
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": tpu, "launches": launches[name],
+                        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+    for name in FLASH_KERNELS:
+        tot = flash_totals[name]
+        row = {"name": name, "route": "cuda", "source": FLASH_SRC,
+               "replaces": FLASH_TPU[name], "launches": train_launches[name],
+               "max_abs_err": flash_worst["err"][name], "ms": tot["ms"],
+               "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+               "bound_by": tot["bound_by"], "library_ms": tot["library_ms"]}
+        if not name.endswith("fwd"):
+            row["shared"] = ("plain_ms and library_ms: one backward call "
+                             "computing dq, dk and dv")
+        kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -7,7 +7,12 @@
   bf16 (void-byte) parameters on disk;
 - the port's ``Config`` has the JAX ``Config``'s fields and defaults, and
   reads the JAX trainer's ``args.json``;
-- the port imports with jax, flax and the JAX package unavailable.
+- a JAX ``TrainState`` after one optimizer step (params, batch stats,
+  step, kliter and the ``FusedAdamState`` with its masked frozen leaves,
+  plain and with the factored second moment) carries into the port's
+  train state and back bit-exact;
+- the port, and ``chip_smoke.py``, import with jax, flax and the JAX
+  package unavailable.
 """
 
 import dataclasses
@@ -25,9 +30,18 @@ import torch
 from blt_vqg_tpu.core.checkpoint import CheckpointManager
 from blt_vqg_tpu.core.config import Config as JaxConfig
 from blt_vqg_tpu.models.iq import IQ as JaxIQ
-from blt_vqg_tpu_torch.convert import from_flax, load_npz, to_flax
+import optax
+
+from blt_vqg_tpu.train import fused_adam as jfa
+from blt_vqg_tpu.train.schedule import noam_schedule as jax_noam
+from blt_vqg_tpu.train.state import TrainState as JaxTrainState
+from blt_vqg_tpu.train.state import make_optimizer
+from blt_vqg_tpu_torch.convert import (from_flax, load_npz, load_train_state,
+                                       to_flax, train_state_to_flax)
 from blt_vqg_tpu_torch.core.config import Config
 from blt_vqg_tpu_torch.models.iq import IQ
+from blt_vqg_tpu_torch.train import fused_adam as tfa
+from blt_vqg_tpu_torch.train.state import create_train_state
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -157,6 +171,54 @@ def test_config_fields_and_defaults_match(tmp_path):
         jcfg.head_dim, jcfg.max_target_len, jcfg.max_context_len)
 
 
+@pytest.mark.parametrize("factored", [False, True],
+                         ids=["full_nu", "factored_nu"])
+def test_train_state_round_trip(jax_variables, factored):
+    cfg = JaxConfig(**TINY, adam_factored_nu=factored)
+    params = jax.tree_util.tree_map(jnp.asarray, jax_variables["params"])
+    stats = jax.tree_util.tree_map(jnp.asarray, jax_variables["batch_stats"])
+    tx = make_optimizer(cfg, params)
+    jstate = JaxTrainState(
+        step=jnp.asarray(3, jnp.int32), kliter=jnp.asarray(1, jnp.int32),
+        params=params, batch_stats=stats, opt_state=tx.init(params), tx=tx,
+        apply_fn=None, lr_fn=jax_noam(cfg.hidden_dim, 2))
+    r = np.random.RandomState(0)
+    grads = jax.tree_util.tree_map(
+        lambda p: jnp.asarray(r.randn(*p.shape).astype(np.float32)), params)
+    new_stats = jax.tree_util.tree_map(lambda s: s + 0.5, stats)
+    jstate = jstate.apply_gradients(grads, new_batch_stats=new_stats,
+                                    kliter_inc=1)
+
+    state = create_train_state(Config(**TINY, adam_factored_nu=factored),
+                               IQ(Config(**TINY), VOCAB), seed=None)
+    load_train_state(state, jstate)
+    assert (state.step, state.kliter, state.opt_state.count) == (4, 2, 1)
+    frozen = [n for n, _ in state.model.named_parameters()
+              if n.startswith("encoder_cnn.backbone.")]
+    assert frozen and not set(frozen) & set(state.opt_state.mu)
+    if factored:
+        assert isinstance(state.opt_state.nu["embed_proj.weight"],
+                          tfa.FactoredNu)
+    back = train_state_to_flax(state, masked=optax.MaskedNode(),
+                               factored=jfa.FactoredNu)
+    opt = jstate.opt_state
+    assert (back["step"], back["kliter"], back["count"]) == (
+        int(jstate.step), int(jstate.kliter), int(opt.count))
+    for want, got in ((jstate.params, back["params"]),
+                      (jstate.batch_stats, back["batch_stats"]),
+                      (opt.mu, back["mu"]), (opt.nu, back["nu"]),
+                      (opt.master, back["master"])):
+        is_leaf = lambda x: isinstance(x, (optax.MaskedNode, jfa.FactoredNu))
+        w_leaves, w_def = jax.tree_util.tree_flatten(want, is_leaf=is_leaf)
+        g_leaves, g_def = jax.tree_util.tree_flatten(got, is_leaf=is_leaf)
+        assert w_def == g_def
+        for w, g in zip(w_leaves, g_leaves):
+            assert type(w) is type(g) or isinstance(g, np.ndarray)
+            for wa, ga in zip(jax.tree_util.tree_leaves(w),
+                              jax.tree_util.tree_leaves(g)):
+                np.testing.assert_array_equal(np.asarray(ga), np.asarray(wa))
+
+
 def test_imports_without_jax():
     code = (
         "import sys, importlib, pkgutil\n"
@@ -167,6 +229,7 @@ def test_imports_without_jax():
         "'blt_vqg_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
         "print(len(names))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -234,3 +234,14 @@ def test_decode_weights_built_once_per_model(slice_setup):
         assert after[part].keys() == fresh[part].keys()
         for key, want in fresh[part].items():
             assert same(after[part][key], want), (part, key)
+
+
+def test_serve_defaults_to_the_card():
+    """``serve`` runs on the CUDA card unless told otherwise, and fails
+    clearly where there is none instead of carrying on on the CPU."""
+    assert serve.make_parser().parse_args([]).device == "cuda"
+    assert serve.make_parser().parse_args(["--device", "cpu"]).device == "cpu"
+    assert serve.check_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            serve.build_model(seed=0)

@@ -16,7 +16,11 @@ of f32 sums (1e-4 relative to the output's scale); bf16 rounds every
 LayerNorm output and residual to bf16 after sums taken in another order,
 so one-ulp flips propagate (2e-2 relative max error, 1e-2 relative norm
 error).  A head token must have a plain logit within 1e-4 (f32) or 1e-3
-(bf16) times max|logit| of the row maximum.
+(bf16) times max|logit| of the row maximum.  Flash attention (forward o,
+m, l and backward dq, dk, dv): f32 within 1e-4 of the output's scale (sum
+order and the exp implementation); bf16 rounds p before the PV product and
+every output, so a flipped rounding moves an output by one ulp (2e-2
+relative max error, 1e-2 relative norm error).
 """
 
 import numpy as np
@@ -25,6 +29,7 @@ import torch
 
 from blt_vqg_tpu_torch.ops.kernels import decode_head as tdh
 from blt_vqg_tpu_torch.ops.kernels import decode_stream as tds
+from blt_vqg_tpu_torch.ops.kernels import flash_attention as tfa
 
 pytestmark = pytest.mark.cuda
 
@@ -153,3 +158,90 @@ def test_head_argmax_kernel(dev, dt, b, d, v, quantized):
     logits = tdh.head_logits_ref(x, ln_s, ln_b, w, bias, scales)
     short = logits.max(-1).values - logits.gather(1, tok.long()[:, None])[:, 0]
     assert float(short.max()) <= HEAD_TOL[dt] * float(logits.abs().max())
+
+
+# (batch, tq, tk, heads, head_dim, causal, pad): the training shapes, a
+# ragged multi-tile pair, a causal multi-tile square, and "dead" rows (every
+# key of batch row 1 masked) that must come out zero with zero gradients
+FLASH_CASES = [
+    (4, 20, 20, 8, 128, True, "tail"),
+    (4, 20, 3, 8, 128, False, "tail"),
+    (3, 130, 77, 2, 40, False, "random"),
+    (2, 200, 200, 2, 8, True, "random"),
+    (3, 5, 11, 2, 16, False, "dead"),
+]
+
+
+def _flash_inputs(dev, dt, case, seed):
+    b, tq, tk, h, d, causal, pad = case
+    r = np.random.RandomState(seed)
+    t = lambda *s: torch.from_numpy(r.randn(*s).astype(np.float32))
+    q = (t(b, tq, h, d) * d ** -0.5).to(dt)
+    k, v, do = t(b, tk, h, d).to(dt), t(b, tk, h, d).to(dt), t(b, tq, h, d).to(dt)
+    if pad == "tail":
+        lengths = r.randint(1, tk + 1, b)
+        kv_pad = np.arange(tk)[None, :] >= lengths[:, None]
+    else:
+        kv_pad = r.rand(b, tk) < 0.3
+        kv_pad[:, 0] = False
+        if pad == "dead":
+            kv_pad[1] = True
+    kv_pad = torch.from_numpy(kv_pad)
+    return [x.to(dev).contiguous() for x in (q, k, v, kv_pad, do)] + [causal]
+
+
+def _close(got, want, dt, name):
+    rel_max_tol, rel_norm_tol = STACK_TOL[dt]
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all()), name
+    err = (g - w).abs()
+    scale = float(w.abs().max())
+    assert float(err.max()) <= rel_max_tol * max(scale, 1e-30), name
+    assert float(err.norm()) <= rel_norm_tol * max(float(w.norm()), 1e-30), name
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[f"case{i}" for i in range(len(FLASH_CASES))])
+def test_flash_attention_kernels(dev, dt, case):
+    q, k, v, kv_pad, do, causal = _flash_inputs(dev, dt, case, seed=len(case))
+    before = (tfa.flash_attention_fwd.launches,
+              tfa.flash_attention_bwd_dkdv.launches,
+              tfa.flash_attention_bwd_dq.launches)
+    got = tfa.flash_attention_fwd(q, k, v, kv_pad, causal)
+    want = tfa.flash_attention_fwd_ref(q, k, v, kv_pad, causal)
+    for name, g, w in zip(("o", "m", "l"), got, want):
+        _close(g, w, dt, name)
+    o, m, l = want
+    grads = tfa.flash_attention_bwd(q, k, v, kv_pad, o, m, l, do, causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_bwd_dkdv.launches,
+            tfa.flash_attention_bwd_dq.launches) == tuple(
+                n + 1 for n in before)
+    ref = tfa.flash_attention_bwd_ref(q, k, v, kv_pad, o, m, l, do, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, ref):
+        _close(g, w, dt, name)
+    if case[-1] == "dead":
+        assert bool((got[0][1] == 0).all()) and bool((grads[0][1] == 0).all())
+        assert bool((grads[1][1] == 0).all()) and bool((grads[2][1] == 0).all())
+
+
+def test_flash_attention_autograd(dev):
+    """The autograd Function on CUDA tensors runs the kernels both ways."""
+    q, k, v, kv_pad, do, causal = _flash_inputs(
+        dev, torch.bfloat16, FLASH_CASES[0], seed=3)
+    q, k, v = (x.clone().requires_grad_(True) for x in (q, k, v))
+    before = tfa.flash_attention_bwd_dq.launches
+    out = tfa.flash_attention(q, k, v, kv_pad, causal)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+    assert tfa.flash_attention_bwd_dq.launches == before + 1
+    with torch.no_grad():
+        o, m, l = tfa.flash_attention_fwd_ref(q, k, v, kv_pad, causal)
+        ref = tfa.flash_attention_bwd_ref(q, k, v, kv_pad, o, m, l, do,
+                                          causal)
+    _close(out.detach(), o, torch.bfloat16, "o")
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        _close(g, w, torch.bfloat16, name)
