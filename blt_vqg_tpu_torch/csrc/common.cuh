@@ -83,7 +83,8 @@ __device__ __forceinline__ void store16(TD* dst, uint4 raw) {
 // ---------------------------------------------------------------------------
 // Row LayerNorm, one block per row with the row held in registers: f32
 // statistics (two passes: mean, then the mean squared deviation), eps 1e-6,
-// the result rounded to T.  Rows of up to LN_MAX_DIM elements.
+// the result rounded to TO (by default the input type T).  Rows of up to
+// LN_MAX_DIM elements.
 constexpr int LN_THREADS = 128, LN_CHUNKS = 4;
 constexpr int LN_MAX_DIM = LN_THREADS * LN_CHUNKS * 8;
 
@@ -98,14 +99,14 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-template <typename T>
+template <typename T, typename TO>
 __global__ void __launch_bounds__(LN_THREADS)
     layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                     const float* __restrict__ bias, T* __restrict__ out, int d) {
+                     const float* __restrict__ bias, TO* __restrict__ out, int d) {
   __shared__ float red[LN_THREADS / 32];
   constexpr int E = 16 / sizeof(T);
   const T* xr = x + (size_t)blockIdx.x * d;
-  T* orow = out + (size_t)blockIdx.x * d;
+  TO* orow = out + (size_t)blockIdx.x * d;
   uint4 raw[LN_CHUNKS * 8 / E];
   float s = 0.f;
 #pragma unroll
@@ -132,16 +133,16 @@ __global__ void __launch_bounds__(LN_THREADS)
     const int i = (c * LN_THREADS + threadIdx.x) * E;
     const T* e = reinterpret_cast<const T*>(&raw[c]);
     for (int j = 0; j < E && i + j < d; ++j)
-      orow[i + j] = from_f<T>((to_f<T>(e[j]) - mean) * rstd * scale[i + j] + bias[i + j]);
+      orow[i + j] = from_f<TO>((to_f<T>(e[j]) - mean) * rstd * scale[i + j] + bias[i + j]);
   }
 }
 
-template <typename T>
+template <typename T, typename TO = T>
 static cudaError_t launch_layernorm(const T* x, const float* scale,
-                                    const float* bias, T* out, int rows, int d,
+                                    const float* bias, TO* out, int rows, int d,
                                     cudaStream_t s) {
   if (d > LN_MAX_DIM) return cudaErrorInvalidValue;
-  layernorm_kernel<T><<<rows, LN_THREADS, 0, s>>>(x, scale, bias, out, d);
+  layernorm_kernel<T, TO><<<rows, LN_THREADS, 0, s>>>(x, scale, bias, out, d);
   return cudaGetLastError();
 }
 

@@ -61,6 +61,34 @@ class FlashArgs(ctypes.Structure):
                 ("dout", P), ("delta", P), ("dq", P), ("dk", P), ("dv", P)]
 
 
+class SelfAttnArgs(ctypes.Structure):
+    """Mirror of ``bvq::SelfAttnArgs`` in csrc/decode_layer.cu."""
+    _fields_ = [("act_bf16", I), ("batch", I), ("dim", I), ("heads", I),
+                ("head_dim", I), ("lmax", I), ("pos", I), ("kp_sl", L),
+                ("kp_sb", L), ("q_scale", F), ("x", P), ("ln_scale", P),
+                ("ln_bias", P), ("w_qkv", P), ("w_out", P), ("cache_k", P),
+                ("cache_v", P), ("key_pad", P), ("out", P), ("xn", P),
+                ("qkv", P), ("ctx", P), ("part", P)]
+
+
+class CrossFfnArgs(ctypes.Structure):
+    """Mirror of ``bvq::CrossFfnArgs`` in csrc/decode_layer.cu."""
+    _fields_ = [("act_bf16", I), ("batch", I), ("dim", I), ("heads", I),
+                ("head_dim", I), ("tc", I), ("ffn", I), ("sp_sb", L),
+                ("sp_st", L), ("q_scale", F), ("x", P), ("ln_c_scale", P),
+                ("ln_c_bias", P), ("wq", P), ("ck", P), ("cv", P),
+                ("src_pad", P), ("wo", P), ("ln_f_scale", P),
+                ("ln_f_bias", P), ("w1", P), ("b1", P), ("w2", P), ("b2", P),
+                ("out", P), ("xn", P), ("q", P), ("ctx", P), ("x1", P),
+                ("h1", P), ("part", P)]
+
+
+class Int8Args(ctypes.Structure):
+    """Mirror of ``bvq::Int8Args`` in csrc/int8_matmul.cu."""
+    _fields_ = [("act_bf16", I), ("m", I), ("k", I), ("n", I), ("x", P),
+                ("w8", P), ("scale", P), ("y", P), ("part", P)]
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     path = os.path.join(home, "bin", "nvcc")
@@ -120,6 +148,16 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(FlashArgs), P]
         fn.restype = I
+    for run, workspace, args in (
+            ("bvq_self_attn_step", "bvq_self_attn_workspace", SelfAttnArgs),
+            ("bvq_cross_ffn_step", "bvq_cross_ffn_workspace", CrossFfnArgs),
+            ("bvq_int8_matmul", "bvq_int8_matmul_workspace", Int8Args)):
+        fn = getattr(lib, run)
+        fn.argtypes = [ctypes.POINTER(args), P]
+        fn.restype = I
+        fn = getattr(lib, workspace)
+        fn.argtypes = [ctypes.POINTER(args)]
+        fn.restype = L
     lib.bvq_error_string.argtypes = [I]
     lib.bvq_error_string.restype = ctypes.c_char_p
     return lib

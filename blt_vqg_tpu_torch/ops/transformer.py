@@ -6,18 +6,23 @@ take a ``generator``: with one, input, attention, ReLU and layer dropout
 are drawn from it at the configured rates (train mode); without one they
 are deterministic.
 
-The decoder exposes the KV-cache decode step in two forms that compute the
-same function:
+The decoder exposes the KV-cache decode step in three forms that compute
+the same function:
 
-- the plain step (``use_stream_decode=False``): per layer,
-  :meth:`DecoderLayer.step` over caches [B, L, H, Dh];
-- the streaming step (``use_stream_decode=True``): the whole stack in one
-  call of ``ops/kernels/decode_stream.decode_stack_step`` over one stacked
-  cache pair [Layers, H, L, B, Dh], with the loop-invariant stacked weights
-  from :meth:`TransformerDecoder.stream_prep`.
+- the plain step: per layer, :meth:`DecoderLayer.step` over caches
+  [B, L, H, Dh];
+- the per-layer step (``use_pallas_decode=True``): per layer, the two fused
+  ops of ``ops/kernels/decode_layer.py`` over caches [H, L, B, Dh], with the
+  layer's regrouped weights from :meth:`DecoderLayer.decode_weights`;
+- the streaming step (``use_stream_decode=True``, which takes precedence):
+  the whole stack in one call of
+  ``ops/kernels/decode_stream.decode_stack_step`` over one stacked cache
+  pair [Layers, H, L, B, Dh], with the loop-invariant stacked weights from
+  :meth:`TransformerDecoder.stream_prep`.
 
-Both write the caches in place.  Not ported yet (ROADMAP.md): MoE FFNs,
-GPipe and the per-layer Pallas decode kernel; asking for them raises.
+All write the caches in place; :attr:`TransformerDecoder.cache_batch_axis`
+names the batch axis of each layout.  Not ported yet (ROADMAP.md): MoE
+FFNs and GPipe; asking for them raises.
 ``remat`` (the JAX package's activation recompute) is not carried: it
 changes memory, not values.
 """
@@ -30,7 +35,7 @@ import torch
 from torch import nn
 
 from blt_vqg_tpu_torch.ops.attention import MultiHeadAttention
-from blt_vqg_tpu_torch.ops.kernels import decode_stream
+from blt_vqg_tpu_torch.ops.kernels import decode_layer, decode_stream
 from blt_vqg_tpu_torch.ops.layers import Dense, LayerNorm, cached, dropout
 from blt_vqg_tpu_torch.ops.timing import timing_signal
 
@@ -56,14 +61,9 @@ class PositionwiseFeedForward(nn.Module):
         return h
 
 
-def _check_unported(moe_num_experts=0, use_pallas_decode=False,
-                    pipeline_stages=1):
+def _check_unported(moe_num_experts=0, pipeline_stages=1):
     if moe_num_experts > 1:
         raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP.md)")
-    if use_pallas_decode:
-        raise NotImplementedError(
-            "the per-layer Pallas decode kernel is not ported yet "
-            "(ROADMAP.md queue 2, kernel 4)")
     if pipeline_stages > 1:
         raise NotImplementedError("GPipe is not ported yet (ROADMAP.md)")
 
@@ -129,9 +129,11 @@ class DecoderLayer(nn.Module):
     def __init__(self, hidden_dim, num_heads, pwffn_dim, dtype,
                  use_pallas=False, compat_trailing_relu=False, ring_mesh=None,
                  moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
-                 layer_dropout=0.0):
+                 layer_dropout=0.0, use_pallas_decode=False):
         super().__init__()
         _check_unported(moe_num_experts)
+        self.hidden_dim, self.num_heads, self.dtype = hidden_dim, num_heads, dtype
+        self.use_pallas_decode = use_pallas_decode
         self.ln_self = LayerNorm(hidden_dim, dtype)
         self.self_attn = MultiHeadAttention(hidden_dim, num_heads, dtype,
                                             causal=True,
@@ -164,10 +166,15 @@ class DecoderLayer(nn.Module):
         return self.cross_attn.kv(enc_out)
 
     def step(self, x_t, cache_k, cache_v, ck, cv, pos: int, src_mask,
-             key_pad=None):
-        """One decode step. x_t [B,1,D]; caches [B,L,H,Dh] (written in place
-        at ``pos``); (ck, cv) this layer's precomputed cross K/V.
-        ``key_pad`` [B, L] must never mark a position > ``pos``."""
+             key_pad=None, weights=None):
+        """One decode step. x_t [B,1,D]; caches [B,L,H,Dh], or [H,L,B,Dh]
+        on the per-layer path (written in place at ``pos``); (ck, cv) this
+        layer's precomputed cross K/V.  ``key_pad`` [B, L] must never mark
+        a position > ``pos``.  ``weights`` (per-layer path) is
+        :meth:`decode_weights`, looked up here when None."""
+        if self.use_pallas_decode:
+            return self._step_pallas(x_t, cache_k, cache_v, ck, cv, pos,
+                                     src_mask, key_pad, weights)
         xn = self.ln_self(x_t)
         y, cache_k, cache_v = self.self_attn.step(xn, cache_k, cache_v, pos,
                                                   key_pad)
@@ -175,6 +182,61 @@ class DecoderLayer(nn.Module):
         x_t = x_t + self.cross_attn.attend_cached(self.ln_cross(x_t), ck, cv,
                                                   src_mask)
         return x_t + self.ffn(self.ln_ffn(x_t)), cache_k, cache_v
+
+    def _step_pallas(self, x_t, cache_k, cache_v, ck, cv, pos, src_mask,
+                     key_pad=None, weights=None):
+        """The per-layer step: ``self_attn_step`` then ``cross_ffn_step``
+        (ops/kernels/decode_layer.py), the counterpart of the JAX
+        ``DecoderLayer._step_pallas``."""
+        w = self.decode_weights() if weights is None else weights
+        b, tc = x_t.shape[0], ck.shape[1]
+        pad = (src_mask[:, 0, 0, :].expand(b, tc) if src_mask is not None
+               else torch.zeros((b, tc), dtype=torch.bool, device=x_t.device))
+        x, _, _ = decode_layer.self_attn_step(
+            x_t[:, 0].contiguous(), *w["ln_self"], w["wqkv"], w["wout"],
+            cache_k, cache_v, pos, self.num_heads,
+            key_pad=None if key_pad is None else key_pad.float().T)
+        out = decode_layer.cross_ffn_step(
+            x, *w["ln_cross"], w["wq"], ck, cv, pad, w["wo"], *w["ln_ffn"],
+            w["w1"], w["b1"], w["w2"], w["b2"], self.num_heads)
+        return out[:, None], cache_k, cache_v
+
+    def decode_weights(self) -> dict:
+        """The per-layer step's weights, in the layouts of
+        ``decode_layer``: ``wqkv`` [H, D, 3*Dh] (head-h column slices of
+        q|k|v), ``wout`` [H, Dh, D], the cross ``wq``/``wo`` and the FFN
+        ``w1``/``w2`` in flax's [in, out] layout, all in the compute dtype;
+        the LayerNorm pairs and the FFN biases in f32.  Built on first use
+        and kept until a parameter changes (:func:`cached`)."""
+        return cached(self, "_decode_weights", self._build_decode_weights)
+
+    @torch.no_grad()
+    def _build_decode_weights(self) -> dict:
+        h, dt = self.num_heads, self.dtype
+        dh = self.hidden_dim // h
+
+        def kernel(dense):   # flax kernel layout [in, out]
+            return dense.weight.float().T
+
+        def ln(norm):
+            return (norm.weight.float().contiguous(),
+                    norm.bias.float().contiguous())
+
+        sa, ca = self.self_attn, self.cross_attn
+        ws = [kernel(sa.q_proj), kernel(sa.k_proj), kernel(sa.v_proj)]
+        wqkv = torch.stack([torch.cat([w[:, i * dh:(i + 1) * dh] for w in ws],
+                                      dim=1) for i in range(h)])
+        wout = kernel(sa.out_proj).reshape(h, dh, self.hidden_dim)
+        return {"ln_self": ln(self.ln_self), "ln_cross": ln(self.ln_cross),
+                "ln_ffn": ln(self.ln_ffn),
+                "wqkv": wqkv.to(dt).contiguous(),
+                "wout": wout.to(dt).contiguous(),
+                "wq": kernel(ca.q_proj).to(dt).contiguous(),
+                "wo": kernel(ca.out_proj).to(dt).contiguous(),
+                "w1": kernel(self.ffn.ffn_in).to(dt).contiguous(),
+                "b1": self.ffn.ffn_in.bias.float().contiguous(),
+                "w2": kernel(self.ffn.ffn_out).to(dt).contiguous(),
+                "b2": self.ffn.ffn_out.bias.float().contiguous()}
 
 
 class TransformerDecoder(nn.Module):
@@ -188,17 +250,20 @@ class TransformerDecoder(nn.Module):
                  moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
                  layer_dropout=0.0, input_dropout=0.0):
         super().__init__()
-        _check_unported(moe_num_experts, use_pallas_decode, pipeline_stages)
+        _check_unported(moe_num_experts, pipeline_stages)
         self.hidden_dim, self.num_layers = hidden_dim, num_layers
         self.num_heads, self.pwffn_dim, self.dtype = num_heads, pwffn_dim, dtype
         self.use_stream_decode = use_stream_decode
+        # the streaming path takes precedence, as in the JAX package
+        self.use_pallas_decode = use_pallas_decode and not use_stream_decode
         self.stream_weight_dtype = stream_weight_dtype
         self.input_dropout = input_dropout
         for i in range(num_layers):
             self.add_module(f"layer_{i}", DecoderLayer(
                 hidden_dim, num_heads, pwffn_dim, dtype, use_pallas,
                 compat_trailing_relu, ring_mesh, moe_num_experts,
-                attention_dropout, relu_dropout, layer_dropout))
+                attention_dropout, relu_dropout, layer_dropout,
+                self.use_pallas_decode))
         self.final_ln = LayerNorm(hidden_dim, dtype)
         self.register_buffer(
             "timing", timing_signal(max_decode_len, hidden_dim)[0],
@@ -222,37 +287,59 @@ class TransformerDecoder(nn.Module):
     def precompute_cross(self, enc_out) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         return [layer.cross_kv(enc_out) for layer in self.layers]
 
+    @property
+    def cache_batch_axis(self) -> int:
+        """Axis of the batch dim in the KV caches (beam search reorders
+        along it)."""
+        if self.use_stream_decode:
+            return 3
+        return 2 if self.use_pallas_decode else 0
+
+    def layer_weights(self) -> list:
+        """Each layer's :meth:`DecoderLayer.decode_weights` (per-layer
+        path); decode loops fetch them once and pass them to :meth:`step`."""
+        return [layer.decode_weights() for layer in self.layers]
+
     def init_cache(self, batch: int, max_len: int, device=None):
-        """Zeroed KV caches: a list of per-layer (k, v) [B,L,H,Dh], or on the
-        streaming path one stacked pair [Layers,H,L,B,Dh] in a list."""
+        """Zeroed KV caches: a list of per-layer (k, v) [B,L,H,Dh] ([H,L,B,Dh]
+        on the per-layer path), or on the streaming path one stacked pair
+        [Layers,H,L,B,Dh] in a list."""
         dh = self.hidden_dim // self.num_heads
         if self.use_stream_decode:
             shape = (self.num_layers, self.num_heads, max_len, batch, dh)
             return [(torch.zeros(shape, dtype=self.dtype, device=device),
                      torch.zeros(shape, dtype=self.dtype, device=device))]
-        shape = (batch, max_len, self.num_heads, dh)
+        if self.use_pallas_decode:
+            shape = (self.num_heads, max_len, batch, dh)
+        else:
+            shape = (batch, max_len, self.num_heads, dh)
         return [(torch.zeros(shape, dtype=self.dtype, device=device),
                  torch.zeros(shape, dtype=self.dtype, device=device))
                 for _ in range(self.num_layers)]
 
     def step(self, x_t, caches, cross_kvs, pos: int, src_mask=None,
-             key_pad=None, skip_final_ln: bool = False, stream=None):
+             key_pad=None, skip_final_ln: bool = False, stream=None,
+             layers=None):
         """One decode step: x_t [B,1,D] at position ``pos``.  ``key_pad``
         [B, L] bool (optional) masks pad-token keys and must never mark a
         position > ``pos``.  ``skip_final_ln`` returns the raw stack output
         (the fused head applies the final LN itself).  ``stream`` is the
-        bundle from :meth:`stream_prep` (built here when None).  Returns
-        (output [B,1,D], caches), the caches updated in place."""
+        bundle from :meth:`stream_prep` (built here when None); ``layers``
+        is :meth:`layer_weights` on the per-layer path (looked up per layer
+        when None).  Returns (output [B,1,D], caches), the caches updated in
+        place."""
         x_t = x_t + self.timing[pos].to(x_t.dtype)
         if self.use_stream_decode:
             if stream is None:
                 stream = self.stream_prep(cross_kvs, src_mask, x_t.shape[0])
             return self._step_stream(x_t, caches, stream, pos,
                                      skip_final_ln, key_pad=key_pad)
-        for layer, (cache_k, cache_v), (ck, cv) in zip(
-                self.layers, caches, cross_kvs):
+        if layers is None:
+            layers = [None] * self.num_layers
+        for layer, (cache_k, cache_v), (ck, cv), w in zip(
+                self.layers, caches, cross_kvs, layers):
             x_t, _, _ = layer.step(x_t, cache_k, cache_v, ck, cv, pos,
-                                   src_mask, key_pad)
+                                   src_mask, key_pad, w)
         if skip_final_ln:
             return x_t, caches
         return self.final_ln(x_t), caches

@@ -159,24 +159,66 @@ def make_eval_step(cfg: Config, latent_mode: bool) -> Callable:
 
 def make_decode_step(cfg: Config, model, latent_mode: bool,
                      with_probe: bool = True) -> Callable:
-    """Greedy decode: ``step(images, context, generator=None) -> dict``.
+    """Decode: ``step(images, context, generator=None,
+    sample_generator=None) -> dict``.
 
     ``with_probe=False`` is the serving variant (no per-step top-6 probe).
-    ``cfg.decode_early_stop`` and ``cfg.decode_z_source`` select the loop
-    exit and the latent z as in the JAX package; ``generator`` supplies the
-    prior sample's noise.  Runs under ``torch.inference_mode()``."""
-    if cfg.decode_sampling:
-        raise NotImplementedError(
-            "sampled decoding is not ported yet (ROADMAP.md queue 1)")
+    ``cfg.decode_early_stop``, ``cfg.decode_z_source`` and
+    ``cfg.decode_sampling`` (with ``decode_temperature``, ``decode_top_k``
+    and ``decode_top_p``) select the loop exit, the latent z and the token
+    choice as in the JAX package.  ``generator`` supplies the prior
+    sample's noise; sampled tokens come from ``sample_generator``, a stream
+    of their own.  Runs under ``torch.inference_mode()``."""
     kwargs = dict(max_decode_length=cfg.max_decode_length,
                   latent_mode=latent_mode, with_probe=with_probe,
                   early_stop=cfg.decode_early_stop,
                   z_source=cfg.decode_z_source)
+    if cfg.decode_sampling:
+        kwargs.update(sample=True, temperature=cfg.decode_temperature,
+                      top_k=cfg.decode_top_k, top_p=cfg.decode_top_p)
+
+    def step(images: torch.Tensor, context: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             sample_generator: Optional[torch.Generator] = None) -> dict:
+        with torch.inference_mode():
+            return model.decode_greedy(images, context, generator=generator,
+                                       sample_generator=sample_generator,
+                                       **kwargs)
+
+    return step
+
+
+def make_diag_decode_step(cfg: Config, model, z_source: str) -> Callable:
+    """Latent-mode greedy decode with an explicit z source, the
+    posterior-vs-prior decode gap instrument: ``step(images, context,
+    posterior, generator=None) -> {"tokens": [B, L]}``; ``posterior`` is
+    ignored by the prior sources."""
+    uses_post = z_source.startswith("posterior")
+
+    def step(images: torch.Tensor, context: torch.Tensor, posterior,
+             generator: Optional[torch.Generator] = None) -> dict:
+        with torch.inference_mode():
+            return model.decode_greedy(
+                images, context, cfg.max_decode_length, latent_mode=True,
+                with_probe=False, z_source=z_source,
+                posterior=posterior if uses_post else None,
+                generator=generator)
+
+    return step
+
+
+def make_beam_decode_step(cfg: Config, model, latent_mode: bool) -> Callable:
+    """Beam-search decode with ``cfg.beam_size`` beams: ``step(images,
+    context, generator=None) -> dict`` with ``tokens`` [B, L] (the best
+    beam) and ``scores`` [B]; ``generator`` supplies the prior sample's
+    noise."""
 
     def step(images: torch.Tensor, context: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> dict:
         with torch.inference_mode():
-            return model.decode_greedy(images, context, generator=generator,
-                                       **kwargs)
+            return model.decode_beam(
+                images, context, beam_size=cfg.beam_size,
+                max_decode_length=cfg.max_decode_length,
+                latent_mode=latent_mode, generator=generator)
 
     return step

@@ -33,7 +33,30 @@ only when every phase passed):
    generator seeds, holding loss, gradient norm and parameters to limits;
 7. times train samples/s on both paths, each flash kernel against its
    plain version and ``scaled_dot_product_attention`` (a yardstick the
-   port never calls), and the device time of a train step by profiler.
+   port never calls), and the device time of a train step by profiler;
+8. holds the per-layer decode kernels (``self_attn_step``,
+   ``cross_ffn_step``) against their plain versions with the flagship's
+   own weights, bf16, at B 64 and B 256, pos 0, 25 and 50, with and
+   without a pad-key mask, under a source mask that pads one context
+   column and masks one row fully (outputs and the written cache rows),
+   and checks that the plain ``cross_ffn_step`` without its source mask
+   fails the check;
+9. drives the per-layer decode path (``use_pallas_decode``) through
+   ``make_decode_step`` and ``make_beam_decode_step``: one greedy b64
+   decode and one beam decode at b64 x 4 beams, each with exactly 306
+   launches of each kernel (51 steps x 6 layers), a teacher-forced replay
+   of the greedy decode holding every kernel call against its plain
+   version, and a sampled decode with ``top_k=1`` that must emit the
+   greedy tokens;
+10. launches ``int8_matmul`` at the vocab-head shape (M 64, K 1024,
+   N 12,000) and at FFN-in at beam width (M 256, K 1024, N 2048) with the
+   flagship's own weights quantized, holds it against its plain version,
+   and checks that the plain version with wrong scales fails the check;
+11. times decode and beam questions/s on the per-layer path against the
+   plain path, each per-layer kernel at b64 and b256 (pos 25) and
+   ``int8_matmul`` at both shapes against their plain versions, bounds
+   and, for ``int8_matmul``, ``torch._weight_int8pack_mm`` (a yardstick
+   the port never calls).
 
 TF32 is off for matmuls and cuDNN throughout.  The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
@@ -52,12 +75,15 @@ import numpy as np
 import torch
 
 from blt_vqg_tpu_torch import serve
-from blt_vqg_tpu_torch.models.iq import IQ, PAD
-from blt_vqg_tpu_torch.ops.kernels import _build, decode_head, decode_stream
+from blt_vqg_tpu_torch.models.iq import IQ, PAD, START
+from blt_vqg_tpu_torch.ops.kernels import (_build, decode_head, decode_layer,
+                                           decode_stream)
+from blt_vqg_tpu_torch.ops.kernels import int8_matmul as i8mm
 from blt_vqg_tpu_torch.ops.kernels import flash_attention as fa
 from blt_vqg_tpu_torch.ops.layers import cast_to_compute_dtype_
 from blt_vqg_tpu_torch.train.state import create_train_state
-from blt_vqg_tpu_torch.train.step import (make_batch, make_eval_step,
+from blt_vqg_tpu_torch.train.step import (make_batch, make_beam_decode_step,
+                                          make_decode_step, make_eval_step,
                                           make_train_step)
 
 BATCH, ROUNDS, SEED = 64, 3, 0
@@ -117,6 +143,39 @@ TRAIN_LAUNCHES = {"flash_attention_fwd": 3 * 18 + 3 * 24 + 24,
 TRAIN_LOSS_REL = 1.2e-4
 TRAIN_GNORM_REL = 3e-3
 TRAIN_PARAM_REL = 0.25   # ||theta_k - theta_e|| / ||theta_e - theta_0||
+LAYER_SRC = "blt_vqg_tpu_torch/csrc/decode_layer.cu"
+LAYER_TPU = {"self_attn_step": "blt_vqg_tpu/ops/pallas/decode_layer.py:118",
+             "cross_ffn_step": "blt_vqg_tpu/ops/pallas/decode_layer.py:211"}
+LAYER_KERNELS = tuple(LAYER_TPU)
+# the device kernels of csrc/decode_layer.cu, as the profiler names them
+LAYER_KERNEL_NAMES = ("gemm_partial", "gemm_epilogue", "residual_epilogue",
+                      "layer_self_attn", "layer_cross_attn", "layernorm")
+LAYER_BATCHES = (64, 256)            # greedy b64; beam b64 x 4
+LAYER_POSITIONS = (0, 25, 50)
+LAYER_TIME_POS = 25                  # the timed calls' decode position
+BEAM = 4
+# outputs and written cache rows of the per-layer kernels, bf16: the kernel
+# and the plain version round the same values to bf16 after f32 sums taken
+# in other orders (per head, the residual after each head).  Readings at
+# flagship widths over 8 input seeds (576 self_attn_step and 96
+# cross_ffn_step calls: B 64 and 256, 6 layers, pos 0/25/50, key_pad on and
+# off) and two 306-call replays (NVIDIA H100 80GB HBM3, 700 W): max error up
+# to 1 bf16 ulp of max|plain|, relative norm error up to 6.4e-4 (replay;
+# 2.7e-4 self, 4.4e-4 cross at the fixed cases).  The plain cross_ffn_step
+# without its source mask reads 104 ulps and 0.446.
+LAYER_MAX_ULPS = 2.0
+LAYER_REL_NORM = 2e-3
+INT8_SRC = "blt_vqg_tpu_torch/csrc/int8_matmul.cu"
+INT8_TPU = "blt_vqg_tpu/ops/pallas/int8_matmul.py:55"
+# (what, M, K, N): the vocab head at b64 (a ragged N) and FFN-in at beam width
+INT8_SHAPES = (("vocab head", 64, 1024, 12000),
+               ("FFN in at beam width", 256, 1024, 2048))
+# one rounding of an f32 sum taken in another order.  Readings over 8 input
+# seeds at both shapes (NVIDIA H100 80GB HBM3, 700 W): max error up to 0.5
+# bf16 ulp of max|plain|, relative norm error up to 2.7e-5; the plain
+# version with its scales shifted by one column reads 64 ulps and 0.136.
+INT8_MAX_ULPS = 1.0
+INT8_REL_NORM = 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core peak
 
@@ -198,14 +257,24 @@ def stack_errors(got, want):
     return worst_ulps, worst_norm
 
 
+def check_close(got, want, what: str, max_ulps: float, rel_norm: float):
+    """Raises unless the outputs are within the limits (bf16 ulps of
+    max|plain|, relative norm error); returns (max abs error, ulps, norm)."""
+    ulps, norm = stack_errors(got, want)
+    if not (ulps <= max_ulps and norm <= rel_norm):
+        raise AssertionError(f"{what}: max err {ulps:.3g} bf16 ulps, rel "
+                             f"norm err {norm:.3g}")
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    return err, ulps, norm
+
+
 def check_stack(got, want, what: str):
     """Raises unless the kernel's (x_out, k_new, v_new) are within the
     stated tolerances of the plain version's.  Returns (max |x_out err|,
     the worst max error in ulps and relative norm error of the three)."""
-    ulps, norm = stack_errors(got, want)
-    if not (ulps <= STACK_MAX_ULPS and norm <= STACK_REL_NORM):
-        raise AssertionError(f"decode_stack_step {what}: max err {ulps:.3g} "
-                             f"bf16 ulps, rel norm err {norm:.3g}")
+    _, ulps, norm = check_close(got, want, f"decode_stack_step {what}",
+                                STACK_MAX_ULPS, STACK_REL_NORM)
     x_err = float((got[0].float() - want[0].float()).abs().max())
     return x_err, ulps, norm
 
@@ -600,6 +669,30 @@ def train_compare(dev, seed: int, log):
     return launches, worst, (cfg, kstate, ecfg, estate, batch)
 
 
+def profile_groups(fn, calls: int, keys) -> dict:
+    """{group: (launches, device ms)} per call of ``fn``, by profiler over
+    ``calls`` calls after one warm-up call: the device kernels whose names
+    contain each of ``keys``, and the rest as "other"."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    groups = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = (getattr(evt, "self_device_time_total", 0.0)
+              or getattr(evt, "self_cuda_time_total", 0.0))
+        key = next((k for k in keys if k in evt.key), "other")
+        n, t = groups.get(key, (0, 0.0))
+        groups[key] = (n + evt.count / calls, t + us / 1e3 / calls)
+    return groups
+
+
 def train_times(dev, card, log, cfg, kstate, ecfg, estate, batch):
     """Phase 7 (training): latent train-step times on both paths, in turns,
     and the device time of one step on each by profiler."""
@@ -617,29 +710,483 @@ def train_times(dev, card, log, cfg, kstate, ecfg, estate, batch):
         f"= {BATCH / k_ms * 1e3:.1f} samples/s (runs {t_k}); einsum path "
         f"{e_ms:.2f} ms = {BATCH / e_ms * 1e3:.1f} samples/s (runs {t_e})")
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     for what, state, c, wall_ms in (("flash", kstate, cfg, k_ms),
                                     ("einsum", estate, ecfg, e_ms)):
-        step = steps(state, c)
-        step()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            step()
-            torch.cuda.synchronize()
-        dev_us, flash_us, launches = 0.0, 0.0, 0
-        for evt in prof.key_averages():
-            if evt.device_type == torch.autograd.DeviceType.CUDA:
-                us = (getattr(evt, "self_device_time_total", 0.0)
-                      or getattr(evt, "self_cuda_time_total", 0.0))
-                dev_us += us
-                launches += evt.count
-                if "flash_" in evt.key:
-                    flash_us += us
+        groups = profile_groups(steps(state, c), 1, ("flash_",))
+        dev_ms = sum(t for _, t in groups.values())
+        launches = int(sum(n for n, _ in groups.values()))
+        flash_ms = groups.get("flash_", (0, 0.0))[1]
         log(f"[7] {card}: profiled latent train step, {what} path: device "
-            f"kernel time {dev_us / 1e3:.2f} ms in {launches} kernels, of "
-            f"which flash kernels {flash_us / 1e3:.3f} ms; busy share "
-            f"{dev_us / 1e3 / wall_ms:.3f} of the {wall_ms:.2f} ms step")
+            f"kernel time {dev_ms:.2f} ms in {launches} kernels, of which "
+            f"flash kernels {flash_ms:.3f} ms; busy share "
+            f"{dev_ms / wall_ms:.3f} of the {wall_ms:.2f} ms step")
+
+
+# ---------------------------------------------------------------------------
+# the per-layer decode path and int8_matmul
+
+def per_layer_model(model, cfg, dev):
+    """The flagship on the per-layer path (streaming off), with ``model``'s
+    weights cast to the compute dtype."""
+    pl_cfg = cfg.replace(use_stream_decode=False, use_pallas_decode=True)
+    pl_model = IQ(pl_cfg, model.vocab_size)
+    pl_model.load_state_dict(model.state_dict())
+    cast_to_compute_dtype_(pl_model)
+    return pl_cfg, pl_model.to(dev).eval()
+
+
+def layer_case(cfg, b: int, seed: int, dev) -> dict:
+    """bf16 inputs of the per-layer kernels at batch b (scale 2): x, one
+    layer's caches [H, Lmax, B, Dh], cross K/V [B, Tc, H, Dh], a source mask
+    that pads the last context column and masks batch row 1 fully, and
+    pad-key marks [B, Lmax] (row 0, the <pad> seed, always marked)."""
+    h, dh = cfg.num_heads, cfg.head_dim
+    lmax, tc = cfg.max_decode_length + 1, cfg.max_context_len
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def n(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * 2.0).to(
+            torch.bfloat16)
+
+    src_pad = torch.zeros((b, tc), dtype=torch.bool, device=dev)
+    src_pad[:, tc - 1] = True
+    src_pad[1] = True
+    marks = torch.rand((b, lmax), generator=g, device=dev) < 0.3
+    marks[:, 0] = True
+    return {"x": n(b, cfg.hidden_dim), "ck": n(h, lmax, b, dh),
+            "cv": n(h, lmax, b, dh), "xk": n(b, tc, h, dh),
+            "xv": n(b, tc, h, dh), "src_pad": src_pad, "marks": marks}
+
+
+def key_pad_at(marks, pos: int):
+    """The [Lmax, B] f32 key-pad view of ``marks`` at ``pos``: nothing
+    marked past pos (the kernels' precondition)."""
+    m = marks.clone()
+    m[:, pos + 1:] = False
+    return m.float().T
+
+
+def self_args(w, x, ck, cv, pos: int, nh: int):
+    return (x, *w["ln_self"], w["wqkv"], w["wout"], ck, cv, pos, nh)
+
+
+def cross_args(w, x, xk, xv, src_pad):
+    return (x, *w["ln_cross"], w["wq"], xk, xv, src_pad, w["wo"],
+            *w["ln_ffn"], w["w1"], w["b1"], w["w2"], w["b2"])
+
+
+def self_pair(w, x, ck, cv, pos: int, nh: int, key_pad=None):
+    """The kernel's and the plain version's (out, written k row, written v
+    row) of one self_attn_step, each on its own copy of the caches."""
+    res = []
+    for fn in (decode_layer.self_attn_step, decode_layer.self_attn_step_ref):
+        k, v = ck.clone(), cv.clone()
+        out, k, v = fn(*self_args(w, x, k, v, pos, nh), key_pad=key_pad)
+        res.append((out, k[:, pos], v[:, pos]))
+    return res
+
+
+def new_worst(names):
+    return {n: {"err": 0.0, "ulps": 0.0, "norm": 0.0} for n in names}
+
+
+def note(worst: dict, name: str, reading) -> None:
+    for key, val in zip(("err", "ulps", "norm"), reading):
+        worst[name][key] = max(worst[name][key], val)
+
+
+def layer_phase(dev, log, pl_model, seeds: int):
+    """Phase 8: the per-layer kernels against their plain versions with the
+    model's own weights (every layer), at each batch, position and key-pad
+    case, from ``seeds`` input seeds; then the no-source-mask control."""
+    cfg = pl_model.cfg
+    nh = cfg.num_heads
+    lws = pl_model.decoder.layer_weights()
+    worst = new_worst(LAYER_KERNELS)
+    for seed in range(seeds):
+        for b in LAYER_BATCHES:
+            c = layer_case(cfg, b, SEED + 7 + 100 * seed + b, dev)
+            for pos in LAYER_POSITIONS:
+                for marked in (False, True):
+                    kp = key_pad_at(c["marks"], pos) if marked else None
+                    what = (f"self_attn_step b{b} pos {pos}"
+                            f"{' key_pad' if marked else ''}")
+                    case = new_worst([what])
+                    for l, w in enumerate(lws):
+                        got, want = self_pair(w, c["x"], c["ck"], c["cv"],
+                                              pos, nh, kp)
+                        reading = check_close(got, want, f"{what} layer {l}",
+                                              LAYER_MAX_ULPS, LAYER_REL_NORM)
+                        note(case, what, reading)
+                        note(worst, "self_attn_step", reading)
+                    r = case[what]
+                    log(f"[8] seed {seed}, {what}, worst of {len(lws)} "
+                        f"layers over out, k and v: max err {r['ulps']:.3g} "
+                        f"bf16 ulps, relative norm error {r['norm']:.3g}, "
+                        f"max abs err {r['err']:.4g}")
+            what = f"cross_ffn_step b{b}"
+            case = new_worst([what])
+            for l, w in enumerate(lws):
+                args = cross_args(w, c["x"], c["xk"], c["xv"], c["src_pad"])
+                reading = check_close([decode_layer.cross_ffn_step(*args, nh)],
+                                      [decode_layer.cross_ffn_step_ref(*args,
+                                                                       nh)],
+                                      f"{what} layer {l}", LAYER_MAX_ULPS,
+                                      LAYER_REL_NORM)
+                note(case, what, reading)
+                note(worst, "cross_ffn_step", reading)
+            r = case[what]
+            log(f"[8] seed {seed}, {what}, worst of {len(lws)} layers: max "
+                f"err {r['ulps']:.3g} bf16 ulps, relative norm error "
+                f"{r['norm']:.3g}, max abs err {r['err']:.4g}")
+    # the check must tell a wrong cross step apart: the plain version
+    # without its source mask has to fail it
+    c = layer_case(cfg, LAYER_BATCHES[0], SEED + 7, dev)
+    got = decode_layer.cross_ffn_step(
+        *cross_args(lws[0], c["x"], c["xk"], c["xv"], c["src_pad"]), nh)
+    unmasked = decode_layer.cross_ffn_step_ref(
+        *cross_args(lws[0], c["x"], c["xk"], c["xv"],
+                    torch.zeros_like(c["src_pad"])), nh)
+    ulps, norm = stack_errors([got], [unmasked])
+    if ulps <= LAYER_MAX_ULPS and norm <= LAYER_REL_NORM:
+        raise AssertionError("the cross_ffn_step check passes a plain "
+                             "version without its source mask")
+    log(f"[8] control: the plain cross_ffn_step without its source mask reads"
+        f" {ulps:.3g} bf16 ulps, relative norm error {norm:.3g} (fails the "
+        f"check, as it must)")
+    return worst
+
+
+def layer_launches():
+    return {k: getattr(decode_layer, k).launches for k in LAYER_KERNELS}
+
+
+def zero_layer_launches():
+    for k in LAYER_KERNELS:
+        getattr(decode_layer, k).launches = 0
+
+
+def check_tokens(tokens, b: int, steps: int, vocab: int, what: str):
+    if tuple(tokens.shape) != (b, steps):
+        raise AssertionError(f"{what}: tokens shape {tuple(tokens.shape)}")
+    if not (int(tokens.min()) >= 0 and int(tokens.max()) < vocab):
+        raise AssertionError(f"{what}: token ids outside the vocab")
+
+
+def layer_path_phase(dev, log, pl_cfg, pl_model, latent, images, context,
+                     z_seed: int):
+    """Phase 9: the per-layer path through its entry points: a greedy b64
+    decode and a beam decode at b64 x BEAM, their launch counts, a
+    teacher-forced replay of the greedy decode (every kernel call against
+    its plain version), and a top_k=1 sampled decode.  Returns (the greedy
+    decode's launches, the replay's readings)."""
+    b = images.shape[0]
+    steps, nl = pl_cfg.max_decode_length + 1, pl_cfg.num_layers
+    nh, vocab = pl_cfg.num_heads, pl_model.vocab_size
+    want = {k: steps * nl for k in LAYER_KERNELS}
+
+    zero_layer_launches()
+    t0 = time.perf_counter()
+    tokens = make_decode_step(pl_cfg, pl_model, latent, with_probe=False)(
+        images, context, torch.Generator(dev).manual_seed(z_seed))["tokens"]
+    torch.cuda.synchronize()
+    launches = layer_launches()
+    check_tokens(tokens, b, steps, vocab, "per-layer greedy")
+    if launches != want:
+        raise AssertionError(f"per-layer greedy launches {launches}, want "
+                             f"{want}")
+    log(f"[9] per-layer greedy decode b{b}: tokens [{b}, {steps}] in [0, "
+        f"{vocab}), launches {launches}, "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock, first "
+        f"call); first rows {tokens[:2, :8].tolist()}")
+
+    # teacher-forced replay: the same steps, each kernel call held against
+    # its plain version on the same inputs
+    plan = pl_model.prepare_decode(images, context, pl_cfg.max_decode_length,
+                                   latent, False, pl_cfg.decode_z_source,
+                                   torch.Generator(dev).manual_seed(z_seed))
+    caches = pl_model.decoder.init_cache(b, steps, dev)
+    tc = plan["cross_kvs"][0][0].shape[1]
+    src_pad = plan["src_mask"][:, 0, 0, :].expand(b, tc)
+    token = torch.full((b,), PAD if pl_cfg.compat_pad_seed else START,
+                       dtype=torch.int32, device=dev)
+    replay = new_worst(LAYER_KERNELS)
+    same = 0
+    for pos in range(steps):
+        x_t = pl_model.embed_tokens(token[:, None])
+        if pos == 0:
+            x_t = x_t + plan["inject"][:, None]
+        x = (x_t + pl_model.decoder.timing[pos].to(x_t.dtype))[:, 0]
+        for l, (w, (ck, cv), (xk, xv)) in enumerate(zip(
+                plan["layers"], caches, plan["cross_kvs"])):
+            got, ref = self_pair(w, x, ck, cv, pos, nh)
+            note(replay, "self_attn_step", check_close(
+                got, ref, f"replay pos {pos} layer {l} self_attn_step",
+                LAYER_MAX_ULPS, LAYER_REL_NORM))
+            x, ck[:, pos], cv[:, pos] = got
+            args = cross_args(w, x, xk, xv, src_pad)
+            x = decode_layer.cross_ffn_step(*args, nh)
+            note(replay, "cross_ffn_step", check_close(
+                [x], [decode_layer.cross_ffn_step_ref(*args, nh)],
+                f"replay pos {pos} layer {l} cross_ffn_step",
+                LAYER_MAX_ULPS, LAYER_REL_NORM))
+        logits = pl_model.output_proj(
+            pl_model.decoder.final_ln(x[:, None])[:, 0].float())
+        check_head(tokens[:, pos], logits, f"per-layer replay pos {pos}")
+        same += int((logits.argmax(dim=-1) == tokens[:, pos]).sum())
+        token = tokens[:, pos]
+    log(f"[9] replay of the greedy decode: {steps} steps x {nl} layers "
+        f"within tolerance (self_attn_step: max err "
+        f"{replay['self_attn_step']['ulps']:.3g} bf16 ulps, relative norm "
+        f"error {replay['self_attn_step']['norm']:.3g}; cross_ffn_step: "
+        f"{replay['cross_ffn_step']['ulps']:.3g} ulps, "
+        f"{replay['cross_ffn_step']['norm']:.3g}); {same}/{b * steps} "
+        f"replayed tokens equal to the decoded ones")
+
+    zero_layer_launches()
+    t0 = time.perf_counter()
+    beam = make_beam_decode_step(pl_cfg.replace(beam_size=BEAM), pl_model,
+                                 latent)(
+        images, context, torch.Generator(dev).manual_seed(z_seed))
+    torch.cuda.synchronize()
+    beam_launches = layer_launches()
+    check_tokens(beam["tokens"], b, steps, vocab, "per-layer beam")
+    if not bool(torch.isfinite(beam["scores"]).all()):
+        raise AssertionError("per-layer beam: scores not finite")
+    if beam_launches != want:
+        raise AssertionError(f"per-layer beam launches {beam_launches}, want"
+                             f" {want}")
+    log(f"[9] per-layer beam decode b{b} x {BEAM} beams: tokens [{b}, "
+        f"{steps}] in [0, {vocab}), scores finite in "
+        f"[{float(beam['scores'].min()):.4g}, "
+        f"{float(beam['scores'].max()):.4g}], launches {beam_launches}, "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock, first "
+        f"call)")
+
+    sampled = make_decode_step(
+        pl_cfg.replace(decode_sampling=True, decode_top_k=1), pl_model,
+        latent, with_probe=False)(
+        images, context, torch.Generator(dev).manual_seed(z_seed),
+        torch.Generator(dev).manual_seed(z_seed + 1))["tokens"]
+    if not torch.equal(sampled, tokens):
+        raise AssertionError("the top_k=1 sampled decode differs from the "
+                             "greedy decode")
+    log(f"[9] sampled decode with top_k=1: all {b * steps} tokens equal to "
+        f"the greedy decode's")
+    return launches, replay
+
+
+def int8_phase(dev, log, model, seeds: int):
+    """Phase 10: int8_matmul launched at the two flagship shapes with the
+    model's own weights quantized (vocab head; layer 0's FFN in), held
+    against its plain version (and from ``seeds`` - 1 more input seeds);
+    then the wrong-scales control.  Returns (cases, launches of the first
+    drive, worst readings)."""
+    weights = (model.output_proj.weight, model.decoder.layers[0].ffn.ffn_in.weight)
+    quantized = []
+    for (what, m, k, n), w in zip(INT8_SHAPES, weights):
+        w8, scale = i8mm.quantize_int8(w.float().T)
+        if tuple(w8.shape) != (k, n):
+            raise AssertionError(f"int8_matmul {what}: weights {tuple(w8.shape)}")
+        quantized.append((what, m, w8.contiguous(), scale.contiguous()))
+    worst = new_worst(["int8_matmul"])
+    for seed in range(seeds):
+        g = torch.Generator(dev).manual_seed(SEED + 5 + seed)
+        cases = [(what, (torch.randn((m, w8.shape[0]), generator=g,
+                                     device=dev) * 2.0).to(torch.bfloat16),
+                  w8, s) for what, m, w8, s in quantized]
+        i8mm.int8_matmul.launches = 0
+        ys = [i8mm.int8_matmul(x, w8, s) for _, x, w8, s in cases]
+        torch.cuda.synchronize()
+        if seed == 0:
+            launches, first = i8mm.int8_matmul.launches, (cases, ys)
+            if launches != len(cases):
+                raise AssertionError(f"int8_matmul launches {launches}")
+        for (what, x, w8, s), y in zip(cases, ys):
+            reading = check_close([y], [i8mm.int8_matmul_ref(x, w8, s)],
+                                  f"int8_matmul {what}", INT8_MAX_ULPS,
+                                  INT8_REL_NORM)
+            note(worst, "int8_matmul", reading)
+            log(f"[10] seed {seed}, int8_matmul {what} (M {x.shape[0]}, K "
+                f"{x.shape[1]}, N {w8.shape[1]}): max err {reading[1]:.3g} "
+                f"bf16 ulps, relative norm error {reading[2]:.3g}, max abs "
+                f"err {reading[0]:.4g}")
+    cases, ys = first
+    # the check must tell wrong scales apart
+    what, x, w8, s = cases[0]
+    wrong = i8mm.int8_matmul_ref(x, w8, s.roll(1))
+    ulps, norm = stack_errors([ys[0]], [wrong])
+    if ulps <= INT8_MAX_ULPS and norm <= INT8_REL_NORM:
+        raise AssertionError("the int8_matmul check passes wrong scales")
+    log(f"[10] control: the plain version with its scales shifted by one "
+        f"column reads {ulps:.3g} bf16 ulps, relative norm error {norm:.3g} "
+        f"(fails the check, as it must)")
+    return cases, launches, worst["int8_matmul"]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def self_bound(w, c, pos: int):
+    """Bytes and operations of one self_attn_step at ``pos``: x, the
+    LayerNorm, the weights, cache rows 0..pos-1 read and row pos written,
+    out written."""
+    x, ck = c["x"], c["ck"]
+    rows = nbytes(ck) * (pos + 1) / ck.shape[1] * 2
+    moved = nbytes(x, *w["ln_self"], w["wqkv"], w["wout"]) + rows + nbytes(x)
+    b, d = x.shape
+    h, dh = w["wqkv"].shape[0], w["wout"].shape[1]
+    return moved, 2 * b * (w["wqkv"].numel() + w["wout"].numel()) + \
+        4 * b * h * dh * (pos + 1)
+
+
+def cross_bound(w, c):
+    """Bytes and operations of one cross_ffn_step."""
+    x = c["x"]
+    moved = nbytes(x, *w["ln_cross"], *w["ln_ffn"], w["wq"], w["wo"], w["w1"],
+                   w["b1"], w["w2"], w["b2"], c["xk"], c["xv"], c["src_pad"],
+                   x)
+    b, tc = c["src_pad"].shape
+    weights = sum(w[k].numel() for k in ("wq", "wo", "w1", "w2"))
+    return moved, 2 * b * weights + 4 * b * x.shape[1] * tc
+
+
+def int8_bound(x, w8, s):
+    return (nbytes(x, w8, s) + x.shape[0] * w8.shape[1] * x.element_size(),
+            2 * x.shape[0] * w8.shape[0] * w8.shape[1])
+
+
+def cycled(fns):
+    """One call of the next function of ``fns`` per call."""
+    state = {"i": 0}
+
+    def call():
+        fn = fns[state["i"] % len(fns)]
+        state["i"] += 1
+        return fn()
+    return call
+
+
+def layer_timings(dev, card, log, pl_cfg, pl_model, plain_model, latent,
+                  images, context, int8_cases):
+    """Phase 11: decode and beam q/s on the per-layer path against the
+    plain path (in turns), each per-layer kernel at b64 and b256 (pos 25)
+    and int8_matmul at both shapes against its plain version and
+    ``torch._weight_int8pack_mm``.  Kernel times cycle over enough weight
+    copies (the six layers; int8 copies) that they do not sit in L2."""
+    b = images.shape[0]
+    mdl, zs = pl_cfg.max_decode_length, pl_cfg.decode_z_source
+    steps = mdl + 1
+
+    def decode(m):
+        return lambda: m.decode_greedy(
+            images, context, mdl, latent, with_probe=False, z_source=zs,
+            generator=torch.Generator(dev).manual_seed(1))
+
+    def beam(m):
+        return lambda: m.decode_beam(
+            images, context, BEAM, mdl, latent,
+            generator=torch.Generator(dev).manual_seed(1))
+
+    path_ms = {}
+    for what, fn, iters in (("decode", decode, 3), ("beam", beam, 2)):
+        t_k = [cuda_ms(fn(pl_model), iters, warmup=1)]
+        t_p = [cuda_ms(fn(plain_model), iters, warmup=1)]
+        t_p.append(cuda_ms(fn(plain_model), iters, warmup=0))
+        t_k.append(cuda_ms(fn(pl_model), iters, warmup=0))
+        k_ms, p_ms = min(t_k), min(t_p)
+        path_ms[what] = k_ms
+        rows = f"b{b} x {BEAM} beams" if what == "beam" else f"b{b}"
+        log(f"[11] {card}: {what} {rows} ({steps} steps) per-layer path "
+            f"{k_ms:.2f} ms = {b / k_ms * 1e3:.1f} q/s (runs {t_k}); plain "
+            f"path {p_ms:.2f} ms = {b / p_ms * 1e3:.1f} q/s (runs {t_p})")
+
+    # where a per-layer decode's time goes: device time by kernel group,
+    # against the decode's event time above (the profiler slows the host)
+    groups = profile_groups(decode(pl_model), 1, LAYER_KERNEL_NAMES)
+    total = sum(t for _, t in groups.values())
+    parts = ", ".join(f"{k} {t:.2f} ms in {n}" for k, (n, t) in
+                      sorted(groups.items(), key=lambda kv: -kv[1][1]))
+    log(f"[11] {card}: profiled per-layer decode b{b}: device kernel time "
+        f"{total:.2f} ms against {path_ms['decode']:.2f} ms by events (busy "
+        f"share {total / path_ms['decode']:.3f}); {parts}")
+
+    nh, pos = pl_cfg.num_heads, LAYER_TIME_POS
+    lws = pl_model.decoder.layer_weights()
+    timings = {}
+    for bt in LAYER_BATCHES:
+        cs = [layer_case(pl_cfg, bt, SEED + 3 + l, dev) for l in range(len(lws))]
+        for name, run, ref, bound_fn in (
+                ("self_attn_step",
+                 lambda w, c: decode_layer.self_attn_step(
+                     *self_args(w, c["x"], c["ck"], c["cv"], pos, nh)),
+                 lambda w, c: decode_layer.self_attn_step_ref(
+                     *self_args(w, c["x"], c["ck"], c["cv"], pos, nh)),
+                 lambda w, c: self_bound(w, c, pos)),
+                ("cross_ffn_step",
+                 lambda w, c: decode_layer.cross_ffn_step(
+                     *cross_args(w, c["x"], c["xk"], c["xv"], c["src_pad"]),
+                     nh),
+                 lambda w, c: decode_layer.cross_ffn_step_ref(
+                     *cross_args(w, c["x"], c["xk"], c["xv"], c["src_pad"]),
+                     nh),
+                 cross_bound)):
+            pairs = list(zip(lws, cs))
+            k = cuda_ms(cycled([lambda w=w, c=c: run(w, c) for w, c in pairs]),
+                        60)
+            p = cuda_ms(cycled([lambda w=w, c=c: ref(w, c) for w, c in pairs]),
+                        12)
+            device = sum(t for _, t in profile_groups(
+                cycled([lambda w=w, c=c: run(w, c) for w, c in pairs]),
+                len(pairs), ()).values())
+            moved, flops = bound_fn(*pairs[0])
+            b_ms, b_by = bound(moved, flops)
+            timings[(name, bt)] = (k, p, b_ms, b_by)
+            log(f"[11] {card}: {name} b{bt} pos {pos}: kernel "
+                f"{k * 1e3:.1f} us by events ({device * 1e3:.1f} us of "
+                f"device time by profiler), plain {p * 1e3:.1f} us, bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}: {moved / 1e6:.2f} MB, "
+                f"{flops / 1e9:.3f} GFLOP)")
+        del cs
+
+    for what, x, w8, s in int8_cases:
+        copies = max(1, math.ceil(60e6 / nbytes(w8)))
+        w8s = [w8.clone() for _ in range(copies)]
+        k = cuda_ms(cycled([lambda w=w: i8mm.int8_matmul(x, w, s)
+                            for w in w8s]), 60)
+        p = cuda_ms(cycled([lambda w=w: i8mm.int8_matmul_ref(x, w, s)
+                            for w in w8s]), 20)
+        lib, why = None, ""
+        if x.is_cuda and hasattr(torch, "_weight_int8pack_mm"):
+            # the yardstick takes [N, K] weights and scales in x's dtype
+            nk = [w.T.contiguous() for w in w8s]
+            sb = s.to(x.dtype)
+            try:
+                torch._weight_int8pack_mm(x, nk[0], sb)
+            except (RuntimeError, NotImplementedError) as e:
+                why = f" (torch._weight_int8pack_mm does not run here: {e})"
+            else:
+                lib = cuda_ms(cycled([lambda w=w: torch._weight_int8pack_mm(
+                    x, w, sb) for w in nk]), 60)
+            del nk
+        device = sum(t for _, t in profile_groups(
+            cycled([lambda w=w: i8mm.int8_matmul(x, w, s) for w in w8s]),
+            copies, ()).values())
+        moved, flops = int8_bound(x, w8, s)
+        b_ms, b_by = bound(moved, flops)
+        timings[("int8_matmul", what)] = (k, p, b_ms, b_by, lib)
+        lib_text = (f"torch._weight_int8pack_mm {lib * 1e3:.1f} us"
+                    if lib is not None else f"library: none{why}")
+        log(f"[11] {card}: int8_matmul {what} (M {x.shape[0]}, K "
+            f"{x.shape[1]}, N {w8.shape[1]}; {copies} weight copies "
+            f"cycled): kernel {k * 1e3:.1f} us by events "
+            f"({device * 1e3:.1f} us of device time by profiler), plain "
+            f"{p * 1e3:.1f} us, "
+            f"{lib_text}, bound {b_ms * 1e3:.2f} us ({b_by}: "
+            f"{moved / 1e6:.2f} MB)")
+        del w8s
+    return timings
 
 
 # ---------------------------------------------------------------------------
@@ -650,6 +1197,10 @@ def main(argv=None):
     parser.add_argument("--train-seeds", type=int, default=1,
                         help="weight and batch seeds of the training "
                         "comparison (more seeds take readings for limits)")
+    parser.add_argument("--layer-seeds", type=int, default=1,
+                        help="input seeds of the per-layer kernel and "
+                        "int8_matmul checks (more seeds take readings for "
+                        "limits)")
     opts = parser.parse_args(argv)
     card = card_line()
     log(f"card: {card}")
@@ -684,6 +1235,9 @@ def main(argv=None):
         f"hidden {cfg.hidden_dim}, layers {cfg.num_layers}, heads "
         f"{cfg.num_heads}, FFN {cfg.pwffn_dim}, vocab {model.vocab_size}, "
         f"{cfg.dtype}, head {model.head_dtype}")
+    # the same weights on the per-layer decode path (outside inference mode,
+    # so its regrouped weights are built once and kept)
+    pl_cfg, pl_model = per_layer_model(model, cfg, dev)
 
     with torch.inference_mode():
         # ---- 2. kernels against their plain versions at flagship shapes
@@ -885,6 +1439,21 @@ def main(argv=None):
                 f"plain {p * 1e3:.1f} us (weights L2-resident across "
                 f"repeats)")
 
+        # ---- 8-11. the per-layer decode path and int8_matmul
+        layer_worst = layer_phase(dev, log, pl_model, opts.layer_seeds)
+        layer_launch, replay = layer_path_phase(
+            dev, log, pl_cfg, pl_model, latent, images, context,
+            r0["z_seed"])
+        for name in LAYER_KERNELS:
+            note(layer_worst, name, [replay[name][k]
+                                     for k in ("err", "ulps", "norm")])
+        int8_cases, int8_launches, int8_worst = int8_phase(
+            dev, log, model, opts.layer_seeds)
+        layer_times = layer_timings(
+            dev, card, log, pl_cfg, pl_model, plain_model, latent, images,
+            context, int8_cases)
+        del plain_model, pl_model, int8_cases
+
     # ---- 5. the flash kernels against their plain versions
     flash_worst = flash_phase(dev, log, opts.flash_seeds)
     # ---- 6. training; the flash launch counts are read around each run
@@ -926,6 +1495,26 @@ def main(argv=None):
             row["shared"] = ("plain_ms and library_ms: one backward call "
                              "computing dq, dk and dv")
         kernels.append(row)
+    # the per-layer kernels: one call at b64 pos 25 (weights of the six
+    # layers cycled), launches of the greedy b64 decode; int8_matmul: one
+    # call at the vocab-head shape, launches of its phase-10 drive.  No
+    # single PyTorch call computes a per-layer step.
+    for name in LAYER_KERNELS:
+        k_ms, p_ms, b_ms, b_by = layer_times[(name, BATCH)]
+        kernels.append({"name": name, "route": "cuda", "source": LAYER_SRC,
+                        "replaces": LAYER_TPU[name],
+                        "launches": layer_launch[name],
+                        "max_abs_err": layer_worst[name]["err"], "ms": k_ms,
+                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+    k_ms, p_ms, b_ms, b_by, lib_ms = layer_times[("int8_matmul",
+                                                  INT8_SHAPES[0][0])]
+    kernels.append({"name": "int8_matmul", "route": "cuda",
+                    "source": INT8_SRC, "replaces": INT8_TPU,
+                    "launches": int8_launches,
+                    "max_abs_err": int8_worst["err"], "ms": k_ms,
+                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

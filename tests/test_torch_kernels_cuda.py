@@ -20,7 +20,10 @@ error).  A head token must have a plain logit within 1e-4 (f32) or 1e-3
 m, l and backward dq, dk, dv): f32 within 1e-4 of the output's scale (sum
 order and the exp implementation); bf16 rounds p before the PV product and
 every output, so a flipped rounding moves an output by one ulp (2e-2
-relative max error, 1e-2 relative norm error).
+relative max error, 1e-2 relative norm error).  The per-layer decode
+kernels (``self_attn_step``, ``cross_ffn_step``: outputs and the written
+cache rows) and ``int8_matmul`` take the stack's limits: f32 up to the
+order of f32 sums, bf16 one-ulp flips of rounded outputs and residuals.
 """
 
 import numpy as np
@@ -28,8 +31,10 @@ import pytest
 import torch
 
 from blt_vqg_tpu_torch.ops.kernels import decode_head as tdh
+from blt_vqg_tpu_torch.ops.kernels import decode_layer as tdl
 from blt_vqg_tpu_torch.ops.kernels import decode_stream as tds
 from blt_vqg_tpu_torch.ops.kernels import flash_attention as tfa
+from blt_vqg_tpu_torch.ops.kernels import int8_matmul as tim
 
 pytestmark = pytest.mark.cuda
 
@@ -245,3 +250,111 @@ def test_flash_attention_autograd(dev):
     _close(out.detach(), o, torch.bfloat16, "o")
     for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
         _close(g, w, torch.bfloat16, name)
+
+
+# ---------------------------------------------------------------------------
+# the per-layer decode step and the W8A16 product
+
+# (batch, heads, head_dim, ffn, lmax, pos, key_pad): batches that are not
+# multiples of 16 or of a 64-row tile, the first and the last cache row
+LAYER_CASES = [
+    (3, 4, 16, 72, 7, 0, False),
+    (3, 4, 16, 72, 7, 6, True),
+    (70, 2, 40, 64, 5, 4, True),
+    (70, 2, 40, 64, 5, 0, False),
+    (20, 8, 128, 2048, 9, 8, True),
+]
+
+
+def _layer_inputs(dev, dt, case, seed):
+    b, h, dh, f, lmax, pos, with_kp = case
+    d, tc = h * dh, 3
+    r = np.random.RandomState(seed)
+
+    def n(*s, sc=1.0):
+        return torch.from_numpy((r.randn(*s) * sc).astype(np.float32))
+
+    x = n(b, d, sc=2.0).to(dt)
+    ln = [1.0 + n(d, sc=0.1), n(d, sc=0.1)]
+    self_args = [x, *ln, n(h, d, 3 * dh, sc=d ** -0.5).to(dt),
+                 n(h, dh, d, sc=d ** -0.5).to(dt),
+                 n(h, lmax, b, dh).to(dt), n(h, lmax, b, dh).to(dt)]
+    cross_args = [x, 1.0 + n(d, sc=0.1), n(d, sc=0.1),
+                  n(d, d, sc=d ** -0.5).to(dt), n(b, tc, h, dh).to(dt),
+                  n(b, tc, h, dh).to(dt), None, n(d, d, sc=d ** -0.5).to(dt),
+                  1.0 + n(d, sc=0.1), n(d, sc=0.1), n(d, f, sc=d ** -0.5).to(dt),
+                  n(f, sc=0.1), n(f, d, sc=f ** -0.5).to(dt), n(d, sc=0.1)]
+    self_args = [a.to(dev).contiguous() for a in self_args]
+    cross_args = [a if a is None else a.to(dev).contiguous()
+                  for a in cross_args]
+    # the source mask: a padded column, and batch row 1 fully masked
+    src_pad = torch.zeros((b, tc), dtype=torch.bool)
+    src_pad[:, tc - 1] = True
+    src_pad[1 % b] = True
+    cross_args[6] = src_pad.to(dev)
+    kp = None
+    if with_kp:   # [B, L] marks at rows <= pos, passed as its [L, B] view
+        marks = torch.from_numpy(r.rand(b, lmax) < 0.3)
+        marks[:, pos + 1:] = False
+        marks[0, :pos + 1] = True
+        kp = marks.float().to(dev).T
+    return self_args, cross_args, kp
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", LAYER_CASES,
+                         ids=[f"case{i}" for i in range(len(LAYER_CASES))])
+def test_self_attn_step_kernel(dev, dt, case):
+    pos, h = case[5], case[1]
+    args, _, kp = _layer_inputs(dev, dt, case, seed=pos + 31)
+    x, ls, lb, wqkv, wout, ck, cv = args
+    before = tdl.self_attn_step.launches
+    got, gk, gv = tdl.self_attn_step(x, ls, lb, wqkv, wout, ck.clone(),
+                                     cv.clone(), pos, h, key_pad=kp)
+    torch.cuda.synchronize()
+    assert tdl.self_attn_step.launches == before + 1
+    want, wk, wv = tdl.self_attn_step_ref(x, ls, lb, wqkv, wout, ck.clone(),
+                                          cv.clone(), pos, h, key_pad=kp)
+    _close(got, want, dt, "out")
+    for name, g, w, orig in (("k", gk, wk, ck), ("v", gv, wv, cv)):
+        others = torch.arange(ck.shape[1], device=dev) != pos
+        assert torch.equal(g[:, others], orig[:, others]), name
+        _close(g[:, pos], w[:, pos], dt, name)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", LAYER_CASES,
+                         ids=[f"case{i}" for i in range(len(LAYER_CASES))])
+def test_cross_ffn_step_kernel(dev, dt, case):
+    _, args, _ = _layer_inputs(dev, dt, case, seed=case[0] + 41)
+    h = case[1]
+    before = tdl.cross_ffn_step.launches
+    got = tdl.cross_ffn_step(*args, h)
+    torch.cuda.synchronize()
+    assert tdl.cross_ffn_step.launches == before + 1
+    _close(got, tdl.cross_ffn_step_ref(*args, h), dt, "out")
+    # a broadcast source mask (stride 0 over the batch) reads the same
+    row = args[6][0].clone()
+    bcast = list(args)
+    bcast[6] = row[None].expand(args[0].shape[0], -1)
+    _close(tdl.cross_ffn_step(*bcast, h),
+               tdl.cross_ffn_step_ref(*bcast, h), dt, "broadcast mask")
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(3, 40, 300), (70, 96, 1000),
+                                   (64, 1024, 12000), (256, 1024, 2048)])
+def test_int8_matmul_kernel(dev, dt, m, k, n):
+    r = np.random.RandomState(m + n)
+    x = torch.from_numpy(r.randn(m, k).astype(np.float32)).to(dt).to(dev)
+    w8, scale = tim.quantize_int8(torch.from_numpy(
+        (r.randn(k, n) * 0.05).astype(np.float32)))
+    w8, scale = w8.to(dev), scale.to(dev)
+    before = tim.int8_matmul.launches
+    got = tim.int8_matmul(x, w8, scale)
+    torch.cuda.synchronize()
+    assert tim.int8_matmul.launches == before + 1
+    _close(got, tim.int8_matmul_ref(x, w8, scale), dt, "y")
