@@ -61,14 +61,15 @@ def _top_k(x: torch.Tensor, k: int):
 
 
 class IQ(nn.Module):
-    def __init__(self, cfg: Config, vocab_size: int):
+    """``mesh`` (``parallel.build_mesh`` with a ``seq`` axis) turns on ring
+    attention in the encoder and decoder self-attentions when
+    ``cfg.sequence_parallel``, with ``cfg.ring_attention_impl``."""
+
+    def __init__(self, cfg: Config, vocab_size: int, mesh=None):
         super().__init__()
         if cfg.image_encoder != "resnet18":
             raise _unported(f"image_encoder={cfg.image_encoder!r}")
-        if cfg.sequence_parallel:
-            raise NotImplementedError(
-                "ring attention is not ported yet (ROADMAP.md queue 2)")
-        self.cfg, self.vocab_size = cfg, vocab_size
+        self.cfg, self.vocab_size, self.mesh = cfg, vocab_size, mesh
         dtype = self.dtype = _DTYPES[cfg.dtype]
         d = cfg.hidden_dim
         self.embed = Embed(vocab_size, cfg.emb_dim, dtype, init_std=0.01)
@@ -78,6 +79,8 @@ class IQ(nn.Module):
                       num_heads=cfg.num_heads, pwffn_dim=cfg.pwffn_dim,
                       dtype=dtype, use_pallas=cfg.use_pallas_attention,
                       compat_trailing_relu=cfg.compat_trailing_relu,
+                      ring_mesh=mesh if cfg.sequence_parallel else None,
+                      ring_impl=cfg.ring_attention_impl,
                       moe_num_experts=cfg.moe_num_experts,
                       attention_dropout=cfg.attention_dropout,
                       relu_dropout=cfg.relu_dropout,

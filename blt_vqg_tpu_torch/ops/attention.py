@@ -6,13 +6,15 @@ path keeps explicit KV caches [B, L, H, Dh]; unlike the JAX package, which
 returns updated arrays, :meth:`MultiHeadAttention.step` writes the caches
 in place and returns them.
 
-Full attention takes the flash-attention kernel
-(``ops/kernels/flash_attention.py``) under the JAX module's gate: with
-``use_pallas``, a key-padding mask (or none), and no active attention
-dropout.  Otherwise it runs the einsum path, whose softmax weights take
-attention dropout from an explicit ``torch.Generator`` (no generator means
-deterministic).  Ring attention is not ported yet (ROADMAP queue 2);
-asking for it raises.
+Full attention takes the JAX module's gates.  With a ``ring_mesh`` whose
+``seq`` axis has n > 1 ranks, self-attention (Tq == Tk) whose length n
+divides, under a key-padding mask (or none) and no active attention
+dropout, runs as ring attention (``ops/ring_attention.py``, ``ring_impl``
+"xla" or "pallas"); that gate comes first.  Otherwise, with ``use_pallas``,
+the same mask and dropout conditions take the flash-attention kernel
+(``ops/kernels/flash_attention.py``).  Otherwise the einsum path runs,
+whose softmax weights take attention dropout from an explicit
+``torch.Generator`` (no generator means deterministic).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from torch import nn
 from blt_vqg_tpu_torch.ops.kernels.flash_attention import flash_attention
 from blt_vqg_tpu_torch.ops.layers import Dense, dropout
 from blt_vqg_tpu_torch.ops.masks import FUTURE_FILL, MASK_FILL, causal_mask
+from blt_vqg_tpu_torch.ops.ring_attention import ring_attention
+from blt_vqg_tpu_torch.parallel.mesh import SEQ
 
 
 def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -37,15 +41,13 @@ def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class MultiHeadAttention(nn.Module):
     def __init__(self, hidden_dim: int, num_heads: int, dtype=torch.bfloat16,
                  causal: bool = False, use_pallas: bool = False,
-                 ring_mesh=None, dropout_rate: float = 0.1):
+                 ring_mesh=None, dropout_rate: float = 0.1,
+                 ring_impl: str = "xla"):
         super().__init__()
-        if ring_mesh is not None:
-            raise NotImplementedError(
-                "ring attention is not ported yet (ROADMAP.md queue 2, "
-                "kernel 6)")
         self.hidden_dim, self.num_heads = hidden_dim, num_heads
         self.dtype, self.causal = dtype, causal
         self.use_pallas, self.dropout_rate = use_pallas, dropout_rate
+        self.ring_mesh, self.ring_impl = ring_mesh, ring_impl
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, Dense(hidden_dim, hidden_dim, bias=False,
                                         dtype=dtype))
@@ -79,9 +81,25 @@ class MultiHeadAttention(nn.Module):
         k = self._split(self.k_proj(kv_in))
         v = self._split(self.v_proj(kv_in))
         b, tq, tk = q_in.shape[0], q_in.shape[1], kv_in.shape[1]
-        if (self.use_pallas and (mask is None or mask.shape[2] == 1)
-                and (self.dropout_rate == 0.0 or generator is None)):
-            kv_pad = None if mask is None else mask[:, 0, 0, :].expand(b, tk)
+        key_pad_only = mask is None or mask.shape[2] == 1
+        no_dropout = self.dropout_rate == 0.0 or generator is None
+        kv_pad = None if mask is None else mask[:, 0, 0, :].expand(b, tk)
+        ring_n = (self.ring_mesh.shape.get(SEQ, 1)
+                  if self.ring_mesh is not None else 1)
+        if (ring_n > 1 and tq == tk and tq % ring_n == 0 and key_pad_only
+                and no_dropout):
+            names = self.ring_mesh.shape
+            ctx = ring_attention(
+                q, k, v, self.ring_mesh, axis=SEQ,
+                causal=self.causal, kv_pad=kv_pad,
+                batch_axis=("data" if "data" in names
+                            and b % names["data"] == 0 else None),
+                head_axis=("model" if "model" in names
+                           and self.num_heads % names["model"] == 0
+                           else None),
+                impl=self.ring_impl)
+            return self.out_proj(ctx.reshape(b, tq, self.hidden_dim))
+        if self.use_pallas and key_pad_only and no_dropout:
             ctx = flash_attention(q, k, v, kv_pad, causal=self.causal)
             return self.out_proj(ctx.reshape(b, tq, self.hidden_dim))
         if self.causal:

@@ -61,6 +61,17 @@ class FlashArgs(ctypes.Structure):
                 ("dout", P), ("delta", P), ("dq", P), ("dk", P), ("dv", P)]
 
 
+class RingArgs(ctypes.Structure):
+    """Mirror of ``bvq::RingArgs`` in csrc/ring_attention.cu."""
+    _fields_ = [("act_bf16", I), ("causal", I), ("first", I), ("nblk", I),
+                ("batch", I), ("heads", I), ("chunk", I), ("dim", I),
+                ("q_off", I), ("k_off", I * 2), ("sb", L), ("q", P),
+                ("dout", P), ("k", P * 2), ("v", P * 2), ("pad", P * 2),
+                ("acc", P), ("m", P), ("l", P), ("delta", P), ("dq", P),
+                ("rider", P * 2), ("o", P), ("dq_out", P), ("dk", P),
+                ("dv", P), ("ret", P * 2)]
+
+
 class SelfAttnArgs(ctypes.Structure):
     """Mirror of ``bvq::SelfAttnArgs`` in csrc/decode_layer.cu."""
     _fields_ = [("act_bf16", I), ("batch", I), ("dim", I), ("heads", I),
@@ -147,6 +158,11 @@ def library() -> ctypes.CDLL:
     for name in ("bvq_flash_fwd", "bvq_flash_bwd_dkdv", "bvq_flash_bwd_dq"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(FlashArgs), P]
+        fn.restype = I
+    for name in ("bvq_ring_fwd", "bvq_ring_finalize", "bvq_ring_bwd_dkdv",
+                 "bvq_ring_bwd_dq", "bvq_ring_land"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(RingArgs), P]
         fn.restype = I
     for run, workspace, args in (
             ("bvq_self_attn_step", "bvq_self_attn_workspace", SelfAttnArgs),

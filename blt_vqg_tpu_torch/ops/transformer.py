@@ -72,14 +72,15 @@ class EncoderLayer(nn.Module):
     def __init__(self, hidden_dim, num_heads, pwffn_dim, dtype,
                  use_pallas=False, compat_trailing_relu=False, ring_mesh=None,
                  moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
-                 layer_dropout=0.0):
+                 layer_dropout=0.0, ring_impl="xla"):
         super().__init__()
         _check_unported(moe_num_experts)
         self.ln_mha = LayerNorm(hidden_dim, dtype)
         self.mha = MultiHeadAttention(hidden_dim, num_heads, dtype,
                                       use_pallas=use_pallas,
                                       ring_mesh=ring_mesh,
-                                      dropout_rate=attention_dropout)
+                                      dropout_rate=attention_dropout,
+                                      ring_impl=ring_impl)
         self.ln_ffn = LayerNorm(hidden_dim, dtype)
         self.ffn = PositionwiseFeedForward(hidden_dim, pwffn_dim, dtype,
                                            compat_trailing_relu, relu_dropout)
@@ -101,7 +102,7 @@ class TransformerEncoder(nn.Module):
                  dtype=torch.bfloat16, use_pallas=False,
                  compat_trailing_relu=False, ring_mesh=None,
                  moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
-                 layer_dropout=0.0, input_dropout=0.0):
+                 layer_dropout=0.0, input_dropout=0.0, ring_impl="xla"):
         super().__init__()
         self.hidden_dim, self.num_layers = hidden_dim, num_layers
         self.input_dropout = input_dropout
@@ -109,7 +110,7 @@ class TransformerEncoder(nn.Module):
             self.add_module(f"layer_{i}", EncoderLayer(
                 hidden_dim, num_heads, pwffn_dim, dtype, use_pallas,
                 compat_trailing_relu, ring_mesh, moe_num_experts,
-                attention_dropout, relu_dropout, layer_dropout))
+                attention_dropout, relu_dropout, layer_dropout, ring_impl))
         self.final_ln = LayerNorm(hidden_dim, dtype)
 
     @property
@@ -129,17 +130,19 @@ class DecoderLayer(nn.Module):
     def __init__(self, hidden_dim, num_heads, pwffn_dim, dtype,
                  use_pallas=False, compat_trailing_relu=False, ring_mesh=None,
                  moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
-                 layer_dropout=0.0, use_pallas_decode=False):
+                 layer_dropout=0.0, use_pallas_decode=False, ring_impl="xla"):
         super().__init__()
         _check_unported(moe_num_experts)
         self.hidden_dim, self.num_heads, self.dtype = hidden_dim, num_heads, dtype
         self.use_pallas_decode = use_pallas_decode
         self.ln_self = LayerNorm(hidden_dim, dtype)
+        # the ring serves self-attention only, never cross-attention
         self.self_attn = MultiHeadAttention(hidden_dim, num_heads, dtype,
                                             causal=True,
                                             use_pallas=use_pallas,
                                             ring_mesh=ring_mesh,
-                                            dropout_rate=attention_dropout)
+                                            dropout_rate=attention_dropout,
+                                            ring_impl=ring_impl)
         self.ln_cross = LayerNorm(hidden_dim, dtype)
         self.cross_attn = MultiHeadAttention(hidden_dim, num_heads, dtype,
                                              use_pallas=use_pallas,
@@ -248,7 +251,7 @@ class TransformerDecoder(nn.Module):
                  use_pallas_decode=False, use_stream_decode=False,
                  stream_weight_dtype="bfloat16", pipeline_stages=1,
                  moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
-                 layer_dropout=0.0, input_dropout=0.0):
+                 layer_dropout=0.0, input_dropout=0.0, ring_impl="xla"):
         super().__init__()
         _check_unported(moe_num_experts, pipeline_stages)
         self.hidden_dim, self.num_layers = hidden_dim, num_layers
@@ -263,7 +266,7 @@ class TransformerDecoder(nn.Module):
                 hidden_dim, num_heads, pwffn_dim, dtype, use_pallas,
                 compat_trailing_relu, ring_mesh, moe_num_experts,
                 attention_dropout, relu_dropout, layer_dropout,
-                self.use_pallas_decode))
+                self.use_pallas_decode, ring_impl))
         self.final_ln = LayerNorm(hidden_dim, dtype)
         self.register_buffer(
             "timing", timing_signal(max_decode_len, hidden_dim)[0],

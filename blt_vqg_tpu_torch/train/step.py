@@ -82,10 +82,13 @@ def _forward(state: TrainState, batch, latent_mode, train, generator, eps):
                        generator=generator, eps=eps)
 
 
-def make_train_step(cfg: Config, latent_mode: bool) -> Callable:
+def make_train_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
     """``step(state, batch, generator, eps=None) -> (state, metrics)``; the
     state is updated in place.  ``eps`` injects the posterior noise
-    [B, latent] in place of a draw from ``generator``."""
+    [B, latent] in place of a draw from ``generator``.  ``mesh`` is taken
+    for the JAX signature and unused: a sequence-parallel mesh goes with
+    the model (``IQ(cfg, vocab, mesh)``)."""
+    del mesh
     if cfg.grad_dtype != "float32":
         raise NotImplementedError(
             "grad_dtype='bfloat16' is not ported yet (ROADMAP.md)")
@@ -127,13 +130,15 @@ def make_train_step(cfg: Config, latent_mode: bool) -> Callable:
     return step
 
 
-def make_eval_step(cfg: Config, latent_mode: bool) -> Callable:
+def make_eval_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
     """Validation forward: ``step(state, batch, generator=None, eps=None)
     -> metrics``; the same losses, no gradient, batch statistics frozen.
     The posterior noise is ``eps`` or a draw from ``generator``; one of the
     two is required, so the metrics follow from the arguments.  In latent
     mode ``aux_acc`` is the share of rows whose z-head argmax is a
-    (non-pad) word of the row's target."""
+    (non-pad) word of the row's target.  ``mesh``: as in
+    :func:`make_train_step`."""
+    del mesh
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,

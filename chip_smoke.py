@@ -56,7 +56,26 @@ only when every phase passed):
    plain path, each per-layer kernel at b64 and b256 (pos 25) and
    ``int8_matmul`` at both shapes against their plain versions, bounds
    and, for ``int8_matmul``, ``torch._weight_int8pack_mm`` (a yardstick
-   the port never calls).
+   the port never calls);
+12. holds the four ring-attention functions (one-way and two-way, forward
+   and backward: o, m, l, dq, dk, dv) against their plain versions in bf16
+   at the flagship's attention shapes on rings of 4, 3, 2 and 8 ranks
+   (causal with target pads, non-causal, dead rows) and at a long causal
+   sequence (B 2, T 4096 on 4 ranks, 10% trailing pads), the two-way ring
+   against full attention, and checks that the plain version without its
+   key-pad mask fails the check;
+13. trains the flagship with ``sequence_parallel`` on a ``seq`` 4 mesh
+   (``ring_attention_impl="pallas"``, ``use_pallas_attention``, no
+   attention dropout): 3 pretrain steps, the reset, 3 latent steps and an
+   eval step against the einsum path from the same weights, batch and
+   generator seeds, with the exact ring and flash launch counts derived
+   from the schedule; then an eval step on a ``seq`` 3 mesh, where the
+   posterior and context encoders ring on an odd ring;
+14. times the sequence-parallel train step (and its busy share by
+   profiler) against the einsum path, and each ring function at the
+   training and the long shape against its plain version, its bound and
+   ``scaled_dot_product_attention`` forward and backward (a yardstick the
+   port never calls).
 
 TF32 is off for matmuls and cuDNN throughout.  The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
@@ -80,7 +99,9 @@ from blt_vqg_tpu_torch.ops.kernels import (_build, decode_head, decode_layer,
                                            decode_stream)
 from blt_vqg_tpu_torch.ops.kernels import int8_matmul as i8mm
 from blt_vqg_tpu_torch.ops.kernels import flash_attention as fa
+from blt_vqg_tpu_torch.ops.kernels import ring_attention as ra
 from blt_vqg_tpu_torch.ops.layers import cast_to_compute_dtype_
+from blt_vqg_tpu_torch.parallel import build_mesh
 from blt_vqg_tpu_torch.train.state import create_train_state
 from blt_vqg_tpu_torch.train.step import (make_batch, make_beam_decode_step,
                                           make_decode_step, make_eval_step,
@@ -176,6 +197,51 @@ INT8_SHAPES = (("vocab head", 64, 1024, 12000),
 # version with its scales shifted by one column reads 64 ulps and 0.136.
 INT8_MAX_ULPS = 1.0
 INT8_REL_NORM = 1e-4
+RING_SRC = "blt_vqg_tpu_torch/csrc/ring_attention.cu"
+RING_TPU = {
+    "ring_attention_fwd_shard": "blt_vqg_tpu/ops/pallas/ring_attention.py:186",
+    "ring_attention_fwd_bidir_shard":
+        "blt_vqg_tpu/ops/pallas/ring_attention.py:373",
+    "ring_attention_bwd_shard": "blt_vqg_tpu/ops/pallas/ring_attention.py:573",
+    "ring_attention_bwd_bidir_shard":
+        "blt_vqg_tpu/ops/pallas/ring_attention.py:815"}
+RING_KERNELS = tuple(RING_TPU)
+RING_SEQ = 4          # the slice's mesh: the decoder's T 20 rings on 4 ranks
+# (what, B, ranks, chunk, causal, pads): the flagship's attentions on the
+# slice's meshes (H 8, Dh 128), other ring sizes, dead rows, a long sequence
+RING_CASES = (
+    ("decoder self-attention T 20 on seq 4, causal, target pads",
+     BATCH, 4, 5, True, "tail"),
+    ("posterior encoder T 21 on seq 3, pads", BATCH, 3, 7, False, "tail"),
+    ("context encoder T 3 on seq 3", BATCH, 3, 1, False, "none"),
+    ("T 20 on seq 2, causal, pads", BATCH, 2, 10, True, "tail"),
+    ("T 24 on seq 8, causal, pads", BATCH, 8, 3, True, "tail"),
+    ("dead rows: T 20 on seq 4, causal, key 0 padded, batch row 1 all "
+     "padded", 8, 4, 5, True, "dead"),
+    ("long: T 4096 on seq 4, causal, 10% trailing pads", 2, 4, 1024, True,
+     "long"))
+RING_TRAIN_CASE, RING_LONG_CASE = RING_CASES[0], RING_CASES[-1]
+# o, dq, dk, dv are bf16; the kernels and the plain versions round p and
+# every output to bf16 after f32 sums taken in other orders (the kernels
+# per 64-key tile, the plain versions per block), as the flash kernels do.
+# Readings over 8 seeds x 7 cases, both schedules (NVIDIA H100 80GB HBM3,
+# 700 W): max error up to 0.5 bf16 ulp of max|plain|, relative norm error
+# up to 1.48e-3 (the long case, the same in every seed; 1.3e-4 at the
+# others), m and l up to 3.74e-7.  The plain version without its key-pad
+# mask reads 132 ulps and 0.793.
+RING_MAX_ULPS = 2.0      # max |kernel - plain| / bf16 ulp of max |plain|
+RING_REL_NORM = 2e-3     # ||kernel - plain|| / ||plain||
+RING_ML_REL = 1e-6       # m (live rows) and l, f32, relative max error
+RING_FULL_REL = 1e-5     # f32 two-way ring against full attention
+# phase 13: the ring path against the einsum path after each train step and
+# the eval steps (bf16; the two round the attention weights at different
+# places).  Readings over 4 weight/batch seeds (NVIDIA H100 80GB HBM3,
+# 700 W): loss up to 7.0e-5 relative in the train steps and the seq 4 eval
+# step and 1.35e-4 in the seq 3 eval step (the posterior and context
+# encoders ring there), grad_norm 1.69e-3, parameters 0.160 of their motion.
+SP_LOSS_REL = 2.5e-4
+SP_GNORM_REL = 3e-3
+SP_PARAM_REL = 0.25
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core peak
 
@@ -1190,6 +1256,381 @@ def layer_timings(dev, card, log, pl_cfg, pl_model, plain_model, latent,
 
 
 # ---------------------------------------------------------------------------
+# ring attention
+
+def ring_inputs(dev, b, n, c, pad, seed):
+    """bf16 q (scaled), k, v, dO [B, T, H 8, Dh 128] and a key-pad mask
+    [B, T]: trailing pads of random lengths ("tail"), none ("none"), the
+    last 10% of keys ("long"), or "dead": key 0 padded (the causal query 0
+    sees no key) and every key of batch row 1."""
+    t, h, d = n * c, 8, 128
+    g = torch.Generator(dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    q = (r(b, t, h, d) * d ** -0.5).to(torch.bfloat16)
+    k, v, do = (r(b, t, h, d).to(torch.bfloat16) for _ in range(3))
+    kv_pad = torch.zeros((b, t), dtype=torch.bool, device=dev)
+    if pad == "tail":
+        lengths = torch.randint(1, t + 1, (b,), generator=g, device=dev)
+        kv_pad = torch.arange(t, device=dev)[None, :] >= lengths[:, None]
+    elif pad == "long":
+        kv_pad[:, t - t // 10:] = True
+    elif pad == "dead":
+        kv_pad[:, 0] = True
+        kv_pad[1] = True
+    return q, k, v, kv_pad.contiguous(), do
+
+
+def ring_shards(x, n: int):
+    """[B, T, ...] -> the ranks' shards [n, B, T / n, ...] (a view)."""
+    return x.view(x.shape[0], n, x.shape[1] // n, *x.shape[2:]).transpose(0, 1)
+
+
+def ring_pair(bidir: bool):
+    return (("ring_attention_fwd_bidir_shard", "ring_attention_bwd_bidir_shard")
+            if bidir else ("ring_attention_fwd_shard", "ring_attention_bwd_shard"))
+
+
+def check_ring_case(q, k, v, kv_pad, do, n, causal, what: str):
+    """The four ring functions and their plain versions on the same
+    tensors; raises unless every output is within the limits.  Returns
+    ({function: max abs error of its own outputs: o; dq, dk and dv}, worst
+    ulps, worst norm error, worst m/l error)."""
+    ring = build_mesh((n,), ("seq",), q.device).ring()
+    qs, ks, vs, ps, dos = (ring_shards(x, n) for x in (q, k, v, kv_pad, do))
+    errs, worst = {}, [0.0, 0.0, 0.0]
+    for bidir in (False, True):
+        fwd, bwd = ring_pair(bidir)
+        got = getattr(ra, fwd)(qs, ks, vs, ps, ring=ring, causal=causal,
+                               return_lse=True)
+        o, m, l = getattr(ra, fwd + "_ref")(qs, ks, vs, ps, ring=ring,
+                                            causal=causal)
+        grads = getattr(ra, bwd)(qs, ks, vs, ps, o, m, l, dos, ring=ring,
+                                 causal=causal)
+        ref = getattr(ra, bwd + "_ref")(qs, ks, vs, ps, o, m, l, dos,
+                                        ring=ring, causal=causal)
+        ulps, norm = stack_errors([got[0], *grads], [o, *ref])
+        live = m > 0.5 * ra.NEG_INF
+        ml = max(rel_max(got[1][live], m[live]), rel_max(got[2], l))
+        if not torch.equal(got[1][~live], m[~live]):
+            ml = math.inf
+        if not (ulps <= RING_MAX_ULPS and norm <= RING_REL_NORM
+                and ml <= RING_ML_REL):
+            raise AssertionError(f"ring {what} ({'two' if bidir else 'one'}"
+                                 f"-way): max err {ulps:.3g} bf16 ulps, rel "
+                                 f"norm err {norm:.3g}, m/l rel err {ml:.3g}")
+        if bool((~live).any()) and not bool(got[0][~live].any()):
+            raise AssertionError(f"ring {what}: dead rows came out zero (the "
+                                 f"ring attends uniformly there)")
+        abs_err = [float((g.float() - w.float()).abs().max())
+                   for g, w in zip([got[0], *grads], [o, *ref])]
+        errs[fwd], errs[bwd] = abs_err[0], max(abs_err[1:])
+        for i, val in enumerate((ulps, norm, ml)):
+            worst[i] = max(worst[i], val)
+    return (errs, *worst)
+
+
+def ring_phase(dev, log, seeds: int):
+    """Phase 12: the ring functions against their plain versions, each case
+    from ``seeds`` seeds; the two-way ring against full attention; the
+    no-mask control.  Returns (the worst readings, the launches of this
+    drive by function)."""
+    worst = {"err": dict.fromkeys(RING_KERNELS, 0.0), "ulps": 0.0,
+             "norm": 0.0, "ml": 0.0}
+    before = {name: getattr(ra, name).launches for name in RING_KERNELS}
+    for seed in range(seeds):
+        for what, b, n, c, causal, pad in RING_CASES:
+            q, k, v, kv_pad, do = ring_inputs(dev, b, n, c, pad,
+                                              SEED + 10 * seed + n)
+            errs, ulps, norm, ml = check_ring_case(q, k, v, kv_pad, do, n,
+                                                   causal, what)
+            for key, val in zip(("ulps", "norm", "ml"), (ulps, norm, ml)):
+                worst[key] = max(worst[key], val)
+            for name, val in errs.items():
+                worst["err"][name] = max(worst["err"][name], val)
+            log(f"[12] ring {what} (B {b}, H 8, Dh 128), seed {seed}: max "
+                f"err {ulps:.3g} bf16 ulps, relative norm error {norm:.3g}, "
+                f"m/l relative error {ml:.3g}; max abs err: " + ", ".join(
+                    f"{name.replace('ring_attention_', '')} {val:.3g}"
+                    for name, val in errs.items()))
+    drive = {name: getattr(ra, name).launches - before[name]
+             for name in RING_KERNELS}
+    # the schedule itself: the two-way ring against full attention over the
+    # whole sequence (f32, no dead rows), which shares no code with it
+    what, b, n, c, causal, pad = RING_TRAIN_CASE
+    q, k, v, kv_pad, _ = (x.float() if x.dtype == torch.bfloat16 else x
+                          for x in ring_inputs(dev, b, n, c, pad, SEED + 5))
+    ring = build_mesh((n,), ("seq",), dev).ring()
+    o = ra.ring_attention_fwd_bidir_shard(
+        *(ring_shards(x, n) for x in (q, k, v, kv_pad)), ring=ring,
+        causal=causal)
+    full = fa.flash_attention_fwd_ref(q, k, v, kv_pad, causal)[0]
+    err = rel_max(o.transpose(0, 1).reshape(q.shape), full)
+    if err > RING_FULL_REL:
+        raise AssertionError(f"two-way ring against full attention: "
+                             f"relative max error {err:.3g}")
+    log(f"[12] two-way ring kernels against full attention ({what}, f32): "
+        f"relative max error {err:.3g} (limit {RING_FULL_REL})")
+    # the check must tell a wrong attention apart: the plain version
+    # without its key-pad mask has to fail it
+    q, k, v, kv_pad, _ = ring_inputs(dev, b, n, c, pad, SEED)
+    sh = [ring_shards(x, n) for x in (q, k, v, kv_pad)]
+    got = ra.ring_attention_fwd_bidir_shard(*sh, ring=ring, causal=causal)
+    unmasked = ra.ring_attention_fwd_bidir_shard_ref(
+        *sh[:3], torch.zeros_like(sh[3]), ring=ring, causal=causal)[0]
+    ulps, norm = stack_errors([got], [unmasked])
+    if ulps <= RING_MAX_ULPS and norm <= RING_REL_NORM:
+        raise AssertionError("the ring check passes a plain version without "
+                             "its key-pad mask")
+    log(f"[12] control: the plain version without its key-pad mask reads "
+        f"{ulps:.3g} bf16 ulps, relative norm error {norm:.3g} (fails the "
+        f"check, as it must)")
+    return worst, drive
+
+
+def ring_launch_counts(n: int, causal: bool, bidir: bool = True):
+    """(forward, backward) kernel launches of one ring call, from the
+    schedule: a rank launches at every step where a block it sees is live
+    (one forward, or a dK/dV and a dQ launch), plus one finalize or landing
+    launch per rank.  Step s brings block r - s and, two-way, block r + s
+    (not at s = 0, nor where it is r - s); a causal block is live when it
+    is not after the rank's own."""
+    steps = n // 2 + 1 if bidir else n
+    live = 0
+    for r in range(n):
+        for s in range(steps):
+            srcs = {(r - s) % n} | ({(r + s) % n} if bidir and s else set())
+            live += any(not causal or src <= r for src in srcs)
+    return live + n, 2 * live + n
+
+
+def ring_counts() -> dict:
+    """The launch counts of the ring and the flash functions."""
+    return ({name: getattr(ra, name).launches for name in RING_KERNELS}
+            | {name: getattr(fa, name).launches for name in FLASH_KERNELS})
+
+
+def zero_counts() -> None:
+    for name in RING_KERNELS:
+        getattr(ra, name).launches = 0
+    for name in FLASH_KERNELS:
+        getattr(fa, name).launches = 0
+
+
+def sp_train_compare(dev, seed: int, log):
+    """Phase 13: the flagship trained with sequence parallelism on a seq 4
+    mesh (the two-way ring kernels, flash elsewhere) against the einsum
+    path from the same weights, batch and generator seeds; then an eval
+    step on a seq 3 mesh against the einsum path.  Returns (the launch
+    counts of the seq 4 run, the worst differences, the run's (cfg, ring
+    state, einsum cfg, einsum state, batch))."""
+    cfg = serve.flagship_config().replace(
+        use_pallas_attention=True, attention_dropout=0.0,
+        sequence_parallel=True, ring_attention_impl="pallas")
+    t0 = time.perf_counter()
+    mesh = build_mesh((RING_SEQ,), ("seq",), dev)
+    kmodel = IQ(cfg, serve.FLAGSHIP_VOCAB, mesh).to(dev)
+    kstate = create_train_state(cfg, kmodel, seed=seed)
+    ecfg = cfg.replace(use_pallas_attention=False, sequence_parallel=False)
+    emodel = IQ(ecfg, serve.FLAGSHIP_VOCAB).to(dev)
+    emodel.load_state_dict(kmodel.state_dict())
+    estate = create_train_state(ecfg, emodel, seed=None)
+    batch = make_batch(cfg, serve.FLAGSHIP_VOCAB, BATCH,
+                       np.random.RandomState(seed + 200), dev)
+    torch.cuda.synchronize()
+    t_dec, t_post = cfg.max_q_length, cfg.max_posterior_len
+    log(f"[13] seed {seed}: two flagship train states ready in "
+        f"{time.perf_counter() - t0:.1f} s; mesh {mesh.shape}: the decoder "
+        f"self-attentions (T {t_dec}) ring, the posterior (T {t_post}) and "
+        f"context (T {cfg.max_context_len}) encoders and cross-attention "
+        f"take flash; einsum path without either")
+    theta0 = flat_params(emodel)
+    gens = [torch.Generator(dev).manual_seed(seed + 300) for _ in range(2)]
+    worst = {"loss": 0.0, "gnorm": 0.0, "param": 0.0}
+    zero_counts()
+    hop0 = mesh.ring().hop_bytes
+    for i, latent_mode in enumerate((False,) * 3 + (True,) * 3):
+        if i == 3:
+            kstate.reset_optimizer()
+            estate.reset_optimizer()
+        _, mk = make_train_step(cfg, latent_mode, mesh)(kstate, batch, gens[0])
+        _, me = make_train_step(ecfg, latent_mode)(estate, batch, gens[1])
+        mk = {n: float(v) for n, v in mk.items()}
+        me = {n: float(v) for n, v in me.items()}
+        if not all(math.isfinite(v) for v in (*mk.values(), *me.values())):
+            raise AssertionError(f"sp train step {i}: non-finite metrics {mk}")
+        if latent_mode != (mk["kld"] > 0.0):
+            raise AssertionError(f"sp train step {i}: kld {mk['kld']}")
+        loss_rel = abs(mk["loss"] - me["loss"]) / abs(me["loss"])
+        gnorm_rel = abs(mk["grad_norm"] - me["grad_norm"]) / me["grad_norm"]
+        theta_k, theta_e = flat_params(kmodel), flat_params(emodel)
+        param_rel = float((theta_k - theta_e).norm()
+                          / (theta_e - theta0).norm().clamp_min(1e-30))
+        del theta_k, theta_e
+        for key, val in zip(worst, (loss_rel, gnorm_rel, param_rel)):
+            worst[key] = max(worst[key], val)
+        log(f"[13] seed {seed}, {'latent' if latent_mode else 'pretrain'} "
+            f"step {i}: loss {mk['loss']:.6g} (einsum {me['loss']:.6g}), "
+            f"grad_norm {mk['grad_norm']:.6g} (einsum {me['grad_norm']:.6g});"
+            f" relative: loss {loss_rel:.3g}, grad_norm {gnorm_rel:.3g}, "
+            f"parameters {param_rel:.3g} of their motion")
+    ev_k = make_eval_step(cfg, True, mesh)(kstate, batch, gens[0])
+    ev_e = make_eval_step(ecfg, True)(estate, batch, gens[1])
+    launches = ring_counts()
+    hops = mesh.ring().hop_bytes - hop0
+    ev_rel = abs(float(ev_k["loss"]) - float(ev_e["loss"])) / abs(
+        float(ev_e["loss"]))
+    worst["loss"] = max(worst["loss"], ev_rel)
+    # the launches the schedule asks for: per train step the L decoder
+    # self-attentions ring (forward, and backward but in the eval step);
+    # flash takes the L context-encoder, the L cross- and, in latent mode,
+    # the L posterior-encoder attentions
+    nl = cfg.num_layers
+    f_call, b_call = ring_launch_counts(RING_SEQ, True)
+    flash_steps = 3 * 2 * nl + 3 * 3 * nl
+    want = {name: 0 for name in RING_KERNELS} | {
+        "ring_attention_fwd_bidir_shard": (6 + 1) * nl * f_call,
+        "ring_attention_bwd_bidir_shard": 6 * nl * b_call,
+        "flash_attention_fwd": flash_steps + 3 * nl,
+        "flash_attention_bwd_dkdv": flash_steps,
+        "flash_attention_bwd_dq": flash_steps}
+    log(f"[13] seed {seed}, eval step: loss {float(ev_k['loss']):.6g} "
+        f"(einsum {float(ev_e['loss']):.6g}); launches {launches}; hop bytes "
+        f"{hops}")
+    if launches != want:
+        raise AssertionError(f"sp launch counts {launches}, want {want}")
+
+    # the eval step on an odd ring: seq 3, where the posterior (T 21) and
+    # context (T 3) encoders ring, non-causal, and the decoder takes flash
+    mesh3 = build_mesh((3,), ("seq",), dev)
+    model3 = IQ(cfg, serve.FLAGSHIP_VOCAB, mesh3).to(dev)
+    model3.load_state_dict(kmodel.state_dict())
+    emodel.load_state_dict(kmodel.state_dict())
+    state3 = create_train_state(cfg, model3, seed=None)
+    zero_counts()
+    ev3 = make_eval_step(cfg, True, mesh3)(
+        state3, batch, torch.Generator(dev).manual_seed(seed + 400))
+    launches3 = ring_counts()
+    ev3_e = make_eval_step(ecfg, True)(
+        estate, batch, torch.Generator(dev).manual_seed(seed + 400))
+    want3 = {name: 0 for name in launches3} | {
+        "ring_attention_fwd_bidir_shard": 2 * nl * ring_launch_counts(
+            3, False)[0], "flash_attention_fwd": 2 * nl}
+    ev3_rel = abs(float(ev3["loss"]) - float(ev3_e["loss"])) / abs(
+        float(ev3_e["loss"]))
+    worst["loss"] = max(worst["loss"], ev3_rel)
+    log(f"[13] seed {seed}, eval step on seq 3: loss {float(ev3['loss']):.6g}"
+        f" (einsum {float(ev3_e['loss']):.6g}), relative {ev3_rel:.3g}; "
+        f"launches {launches3}")
+    if launches3 != want3:
+        raise AssertionError(f"seq 3 launch counts {launches3}, want {want3}")
+    del model3, state3
+    log(f"[13] seed {seed}: ring path against einsum path, worst over the "
+        f"steps: loss {worst['loss']:.3g}, grad_norm {worst['gnorm']:.3g}, "
+        f"parameters {worst['param']:.3g} (limits {SP_LOSS_REL}, "
+        f"{SP_GNORM_REL}, {SP_PARAM_REL})")
+    if not (worst["loss"] <= SP_LOSS_REL and worst["gnorm"] <= SP_GNORM_REL
+            and worst["param"] <= SP_PARAM_REL):
+        raise AssertionError(f"ring path against einsum path: {worst}")
+    return launches, worst, (cfg, kstate, ecfg, estate, batch)
+
+
+def ring_bounds(b: int, n: int, c: int, causal: bool, h: int = 8,
+                d: int = 128) -> dict:
+    """{function: (bytes, operations)} of one call: q, k, v and the pads
+    read, o, m and l written (forward); q, k, v, o, dO, m, l and the pads
+    read, dq, dk and dv written (backward); 4 (forward) or 10 (backward:
+    S recomputed, dP, dV, dK, dQ) x C x C x D operations per (b, h) and
+    live block, the same blocks on both schedules."""
+    act, rows, pad = b * n * c * h * d * 2, b * n * c * h * 4, b * n * c
+    blocks = n * (n + 1) // 2 if causal else n * n
+    pairs = blocks * c * c * b * h
+    fwd = (4 * act + 2 * rows + pad, 4 * pairs * d)
+    bwd = (8 * act + 2 * rows + pad, 10 * pairs * d)
+    return {name: fwd if "fwd" in name else bwd for name in RING_KERNELS}
+
+
+def ring_timings(dev, card, log, cfg, kstate, ecfg, estate, batch):
+    """Phase 14: the sequence-parallel train step against the einsum path
+    (and its device time by profiler), then each ring function at the
+    training and the long shape against its plain version, its bound and
+    SDPA.  Returns {function: row numbers for the 6 ring calls of a latent
+    train step}."""
+    def steps(state, c, mesh=None):
+        step = make_train_step(c, True, mesh)
+        g = torch.Generator(dev).manual_seed(1)
+        return lambda: step(state, batch, g)
+
+    mesh = kstate.model.mesh
+    t_k = [cuda_ms(steps(kstate, cfg, mesh), 3, warmup=1)]
+    t_e = [cuda_ms(steps(estate, ecfg), 3, warmup=1)]
+    t_e.append(cuda_ms(steps(estate, ecfg), 3, warmup=0))
+    t_k.append(cuda_ms(steps(kstate, cfg, mesh), 3, warmup=0))
+    k_ms, e_ms = min(t_k), min(t_e)
+    log(f"[14] {card}: latent train step b{BATCH}, sequence parallel on seq "
+        f"{RING_SEQ}: {k_ms:.2f} ms = {BATCH / k_ms * 1e3:.1f} samples/s "
+        f"(runs {t_k}); einsum path {e_ms:.2f} ms = "
+        f"{BATCH / e_ms * 1e3:.1f} samples/s (runs {t_e})")
+    groups = profile_groups(steps(kstate, cfg, mesh), 1, ("ring_", "flash_"))
+    dev_ms = sum(t for _, t in groups.values())
+    nk = int(sum(n for n, _ in groups.values()))
+    log(f"[14] {card}: profiled sequence-parallel latent train step: device "
+        f"kernel time {dev_ms:.2f} ms in {nk} kernels, of which ring kernels "
+        f"{groups.get('ring_', (0, 0.0))[1]:.3f} ms in "
+        f"{groups.get('ring_', (0, 0.0))[0]:.0f} launches and flash kernels "
+        f"{groups.get('flash_', (0, 0.0))[1]:.3f} ms; busy share "
+        f"{dev_ms / k_ms:.3f} of the {k_ms:.2f} ms step")
+
+    rows = {}
+    calls = cfg.num_layers          # ring calls of one latent train step
+    for label, (what, b, n, c, causal, pad) in (("training", RING_TRAIN_CASE),
+                                               ("long", RING_LONG_CASE)):
+        q, k, v, kv_pad, do = ring_inputs(dev, b, n, c, pad, SEED + 1)
+        ring = build_mesh((n,), ("seq",), dev).ring()
+        sh = [ring_shards(x, n) for x in (q, k, v, kv_pad, do)]
+        o, m, l = ra.ring_attention_fwd_bidir_shard_ref(*sh[:4], ring=ring,
+                                                        causal=causal)
+        iters = 20 if label == "training" else 5
+        allowed = ~kv_pad[:, None, None, :]
+        if causal:
+            t = n * c
+            allowed = allowed & ~torch.ones((t, t), dtype=torch.bool,
+                                            device=dev).triu(1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=allowed, scale=1.0), iters)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=allowed, scale=1.0)
+        dot = do.transpose(1, 2)
+        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), dot, retain_graph=True), iters)
+        bounds = ring_bounds(b, n, c, causal)
+        for name in RING_KERNELS:
+            fwd = "fwd" in name
+            args = sh[:4] if fwd else (*sh[:4], o, m, l, sh[4])
+            fn, ref = getattr(ra, name), getattr(ra, name + "_ref")
+            h0 = ring.hop_bytes
+            fn(*args, ring=ring, causal=causal)
+            hops = ring.hop_bytes - h0
+            k_ms = cuda_ms(lambda: fn(*args, ring=ring, causal=causal), iters)
+            p_ms = cuda_ms(lambda: ref(*args, ring=ring, causal=causal),
+                           max(2, iters // 4))
+            nbytes, flops = bounds[name]
+            b_ms, b_by = bound(nbytes, flops)
+            lib = sdpa_fwd if fwd else sdpa_bwd
+            log(f"[14] {card}: {name}, {label} shape ({what}; B {b}, H 8, Dh "
+                f"128), per call: kernel {k_ms * 1e3:.1f} us, plain "
+                f"{p_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}), "
+                f"SDPA {'forward' if fwd else 'backward'} {lib * 1e3:.1f} us;"
+                f" hops move {hops} bytes")
+            if label == "training":
+                rows[name] = {"ms": calls * k_ms, "plain_ms": calls * p_ms,
+                              "bound_ms": calls * b_ms, "bound_by": b_by,
+                              "library_ms": calls * lib}
+    return rows
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--flash-seeds", type=int, default=3,
@@ -1201,6 +1642,11 @@ def main(argv=None):
                         help="input seeds of the per-layer kernel and "
                         "int8_matmul checks (more seeds take readings for "
                         "limits)")
+    parser.add_argument("--ring-seeds", type=int, default=1,
+                        help="input seeds of each ring-attention check case")
+    parser.add_argument("--sp-seeds", type=int, default=1,
+                        help="weight and batch seeds of the "
+                        "sequence-parallel training comparison")
     opts = parser.parse_args(argv)
     card = card_line()
     log(f"card: {card}")
@@ -1467,6 +1913,19 @@ def main(argv=None):
     del run
     flash_totals = flash_timings(dev, card, log)
 
+    # ---- 12. the ring functions against their plain versions
+    ring_worst, ring_drive = ring_phase(dev, log, opts.ring_seeds)
+    # ---- 13. sequence-parallel training; the launch counts are read
+    # around each run
+    for i in range(opts.sp_seeds):
+        launches_i, _, run_i = sp_train_compare(dev, SEED + i, log)
+        if i == 0:
+            sp_launches, run = launches_i, run_i
+        del run_i
+    # ---- 14. times
+    ring_rows = ring_timings(dev, card, log, *run)
+    del run
+
     # decode kernels in their main-path forms: bf16 stack weights, int8
     # head; one call each (the stack at pos 25).  The flash kernels: the
     # 24 calls of one latent train step.  No single PyTorch call computes
@@ -1515,6 +1974,19 @@ def main(argv=None):
                     "max_abs_err": int8_worst["err"], "ms": k_ms,
                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": lib_ms})
+    # the ring functions: the 6 ring calls of one latent train step at the
+    # training shape (B 64, T 20 on seq 4, causal); launches of the
+    # sequence-parallel run (the two-way pair) or, for the one-way pair,
+    # which the model does not install, of their phase-12 drive.  The
+    # backward rows' library time is SDPA's backward (dq, dk and dv).
+    for name in RING_KERNELS:
+        row = {"name": name, "route": "cuda", "source": RING_SRC,
+               "replaces": RING_TPU[name],
+               "launches": sp_launches[name] or ring_drive[name],
+               "max_abs_err": ring_worst["err"][name], **ring_rows[name]}
+        if not sp_launches[name]:
+            row["launches_from"] = "phase 12 drive (not on the model path)"
+        kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

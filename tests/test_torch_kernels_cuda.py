@@ -24,6 +24,9 @@ relative max error, 1e-2 relative norm error).  The per-layer decode
 kernels (``self_attn_step``, ``cross_ffn_step``: outputs and the written
 cache rows) and ``int8_matmul`` take the stack's limits: f32 up to the
 order of f32 sums, bf16 one-ulp flips of rounded outputs and residuals.
+The four ring-attention functions (o, m, l, dq, dk, dv, one-way and
+two-way, on rings of 2, 3 and 4 ranks with ragged chunks) take the flash
+limits; their dead rows attend uniformly and must not come out zero.
 """
 
 import numpy as np
@@ -35,6 +38,9 @@ from blt_vqg_tpu_torch.ops.kernels import decode_layer as tdl
 from blt_vqg_tpu_torch.ops.kernels import decode_stream as tds
 from blt_vqg_tpu_torch.ops.kernels import flash_attention as tfa
 from blt_vqg_tpu_torch.ops.kernels import int8_matmul as tim
+from blt_vqg_tpu_torch.ops.kernels import ring_attention as tra
+from blt_vqg_tpu_torch.ops.ring_attention import ring_attention
+from blt_vqg_tpu_torch.parallel import build_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -358,3 +364,87 @@ def test_int8_matmul_kernel(dev, dt, m, k, n):
     torch.cuda.synchronize()
     assert tim.int8_matmul.launches == before + 1
     _close(got, tim.int8_matmul_ref(x, w8, scale), dt, "y")
+
+
+# ---------------------------------------------------------------------------
+# ring attention
+
+# (ranks, batch, chunk, heads, head_dim, causal, pad): ragged chunks of one
+# and of two 64-row tiles, "dead" rows (key 0 padded: a causal query 0 sees
+# no key; every key of batch row 1 padded)
+RING_CASES = [
+    (4, 3, 5, 2, 40, True, "tail"),
+    (3, 2, 7, 4, 16, False, "random"),
+    (2, 2, 70, 2, 64, True, "dead"),
+    (3, 4, 1, 2, 8, False, "dead"),
+    (4, 2, 33, 2, 128, True, "random"),
+]
+
+
+def _ring_inputs(dev, dt, case, seed):
+    n, b, c, h, d, causal, pad = case
+    t = n * c
+    q, k, v, kv_pad, do, _ = _flash_inputs(
+        dev, dt, (b, t, t, h, d, causal, "tail" if pad == "tail"
+                  else "random"), seed)
+    if pad == "dead":
+        kv_pad[:, 0] = True
+        kv_pad[1 % b] = True
+    shards = [x.view(b, n, c, *x.shape[2:]).transpose(0, 1)
+              for x in (q, k, v, kv_pad, do)]
+    return shards, build_mesh((n,), ("seq",), dev).ring(), causal
+
+
+@pytest.mark.parametrize("bidir", [False, True], ids=["one_way", "two_way"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", RING_CASES,
+                         ids=[f"case{i}" for i in range(len(RING_CASES))])
+def test_ring_attention_kernels(dev, dt, case, bidir):
+    (q, k, v, kv_pad, do), ring, causal = _ring_inputs(dev, dt, case,
+                                                       seed=case[2] + 51)
+    fwd, bwd = ((tra.ring_attention_fwd_bidir_shard,
+                 tra.ring_attention_bwd_bidir_shard) if bidir else
+                (tra.ring_attention_fwd_shard, tra.ring_attention_bwd_shard))
+    fwd_ref = getattr(tra, fwd.__name__ + "_ref")
+    bwd_ref = getattr(tra, bwd.__name__ + "_ref")
+    before = (fwd.launches, bwd.launches)
+    got = fwd(q, k, v, kv_pad, ring=ring, causal=causal, return_lse=True)
+    want = fwd_ref(q, k, v, kv_pad, ring=ring, causal=causal)
+    for name, g, w in zip(("o", "m", "l"), got, want):
+        _close(g, w, dt, name)
+    o, m, l = want
+    grads = bwd(q, k, v, kv_pad, o, m, l, do, ring=ring, causal=causal)
+    torch.cuda.synchronize()
+    assert fwd.launches > before[0] and bwd.launches > before[1]
+    ref = bwd_ref(q, k, v, kv_pad, o, m, l, do, ring=ring, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, ref):
+        _close(g, w, dt, name)
+    dead = m <= 0.5 * tra.NEG_INF
+    if case[-1] == "dead":
+        assert bool(dead.any()) and bool(got[0][dead].any())
+
+
+def test_ring_attention_autograd(dev):
+    """``ring_attention(impl="pallas")`` on CUDA tensors runs the two-way
+    kernels both ways and agrees with the per-hop ring."""
+    n, b, c, h, d = 4, 2, 5, 2, 40
+    r = np.random.RandomState(7)
+    t = lambda *s: torch.from_numpy(r.randn(*s).astype(np.float32)).to(dev)
+    q0 = t(b, n * c, h, d) * d ** -0.5
+    k0, v0, do = t(b, n * c, h, d), t(b, n * c, h, d), t(b, n * c, h, d)
+    kv_pad = torch.zeros((b, n * c), dtype=torch.bool, device=dev)
+    kv_pad[:, -3:] = True
+    mesh = build_mesh((n,), ("seq",), dev)
+    outs = []
+    for impl in ("pallas", "xla"):
+        q, k, v = (x.clone().requires_grad_(True) for x in (q0, k0, v0))
+        before = tra.ring_attention_bwd_bidir_shard.launches
+        o = ring_attention(q, k, v, mesh, causal=True, kv_pad=kv_pad,
+                           impl=impl)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        ran = tra.ring_attention_bwd_bidir_shard.launches > before
+        assert ran == (impl == "pallas")
+        outs.append((o.detach(), *grads))
+    for name, g, w in zip(("o", "dq", "dk", "dv"), *outs):
+        _close(g, w, torch.float32, name)
