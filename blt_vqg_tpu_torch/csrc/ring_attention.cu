@@ -1,6 +1,6 @@
 // Block arithmetic of ring attention: the online-softmax forward and the
-// FlashAttention-2 backward of one rank against the K/V blocks that visit it
-// at one ring step.
+// FlashAttention-2 backward of the ranks of a ring against the K/V blocks
+// that visit them at one ring step.
 //
 // Replaces the block arithmetic of the four TPU ring kernels of
 // blt_vqg_tpu/ops/pallas/ring_attention.py: `_ring_fwd_kernel` (under
@@ -11,13 +11,37 @@
 // ring in one call, with its remote copies and semaphores inside.  Here the
 // schedule and the hops live in ops/kernels/ring_attention.py and
 // parallel/mesh.py (`LocalRing`: copies into double-buffered slots on a
-// side stream, ordered by CUDA events), and each rank's work at one step is
-// one launch of these kernels on the compute stream:
-//  - ring_fwd_kernel: the carry (acc [B, C, H, D], m and l [B, C, H], all
-//    f32) updated from one or two visiting blocks, in schedule order (the
-//    clockwise block, then the counter-clockwise one);
-//  - ring_finalize_kernel: o = acc / safe-l in the activation type, l made
-//    safe (1 where it is 0), once per rank after the last step;
+// side stream, ordered by CUDA events), and the work of one ring step is
+// launched on the compute stream:
+//  - forward (both schedules): ONE launch per ring step for every rank
+//    that has a live block there (grid dimension z: the step's ranks, read
+//    from the step's table; a rank's rows sit at rank stride C*H*D, its
+//    visiting blocks at rank stride B*C*H*D of the step's slots).  A rank
+//    carries (acc [B, C, H, D], m and l [B, C, H], all f32) from step to
+//    step in device memory; at its last live step the same launch
+//    finalizes it (o = acc / safe-l in the activation type, l := safe-l),
+//    so there is no finalize launch.  At seq 4, causal, that is 3 launches
+//    per two-way call and 4 per one-way call.
+//    bf16: ring_fwd_mma_kernel, tensor cores (mma.sync m16n8k16, bf16 x bf16
+//    -> f32, as the TPU's MXU).  A warp owns 16 query rows: q in registers,
+//    K/V tiles of up to 64 keys in bf16 in shared memory, loaded by 16-byte
+//    cp.async into two stages so the next tile's load overlaps this tile's
+//    products; the online softmax in registers; p rounded to bf16 in
+//    registers is the A operand of PV.  A block has 4 warps, and the
+//    registers are capped so that 3 blocks share an SM (12 warps; uncapped,
+//    the kernel takes 207 registers and 2 blocks).  Chunks of 33 rows or
+//    more: the 4 warps share the K/V tiles of one (b, h) and 64 query rows.
+//    Shorter chunks (the decoder's C 5, the encoders' C 7 and C 1): a block
+//    holds 2 or 4 (b, h), 1 or 2 warps each, and key tiles of the chunk
+//    rounded up to 16, so the step's ranks x B x H warps fill the card.
+//    The head dim is zero-padded to 16 in shared memory and registers (any
+//    dim 1-128).  Only a tile with a padded key, a key past the chunk or a
+//    key after the warp's first row is masked element by element; once
+//    every row of a block has seen a visible key, key tiles wholly in its
+//    future are skipped (they would add p = 0 exactly).
+//    f32 (a check path, not a speed target): ring_fwd_fma_kernel, plain f32
+//    FMA tiles of 64 x 64 in the same launch structure (TF32 would keep
+//    about 3 digits);
 //  - ring_bwd_dkdv_kernel: each visiting block's contribution added to its
 //    f32 dK/dV rider (the rider travels with its block and lands home);
 //  - ring_bwd_dq_kernel: the contributions of all visiting blocks added to
@@ -25,38 +49,47 @@
 //  - ring_land_kernel: dq, and dk/dv from the landed riders (the two-way
 //    ring sums clockwise + counter-clockwise, in that order), in the
 //    activation type, once per rank at the end.
+//  The backward kernels launch once per rank and live step (dK/dV, dQ) and
+//  once per rank at the end (landing), on f32 FMA tiles.
 //
 // What the TPU kernels compute, and this file copies:
 //  - masked logits take NEG_INF = -1e30 and the running max starts there,
 //    so a query row whose every visible key is masked attends UNIFORMLY over
 //    the keys of the blocks it computed (causally masked keys of a live
 //    block included): p = exp(-1e30 - (-1e30)) = 1.  Unlike the flash
-//    kernels, such a row is not zeroed, and no key tile inside a live block
-//    is skipped;
+//    kernels, such a row is not zeroed; a key tile is skipped only once no
+//    row of the block is in that state;
+//  - keys past a chunk's edge (only a padded tile has them) take p = 0 and
+//    are never "masked keys";
 //  - the residuals are (m, safe-l), not lse; the backward takes
 //    p = exp(s - m) / l and zeroes ds at masked logits;
-//  - p is rounded to the activation type before the PV product; the
-//    backward runs every product in f32 (dO, q, k, v as f32 values); the
-//    riders and dq accumulate in f32 and are rounded once, when they land.
+//  - p is rounded to the activation type before the PV product, l sums the
+//    unrounded p; the backward runs every product in f32 (dO, q, k, v as
+//    f32 values); the riders and dq accumulate in f32 and are rounded once,
+//    when they land.
 //
 // Layouts: a rank's local operands (q, dO, o, the acc and dq carries, dq/dk/
 // dv) are [B, C, H, D] rows of the [B, T, H, D] sequence, batch stride `sb`
 // elements; its rows (m, l, delta) are [B, C, H] of [B, T, H], batch stride
 // sb / D.  A visiting block (slot of the ring) is [B, C, H, D] contiguous,
 // its key-pad mask [B, C] bytes (nonzero = masked), a rider [2, B, C, H, D]
-// f32 (dk, dv).
+// f32 (dk, dv).  Rows past the chunk are never stored: a chunk is a view
+// into the whole sequence, and the next rank's rows follow it.
 //
-// Blocks run in no order on this card, so each block loops over the tiles
-// the TPU kernel holds whole in VMEM: 64 query rows x 64 keys, f32 rows
-// padded by one word in shared memory, plain f32 FMA products.  Bound on
-// this card: the bytes of q, k, v, o, m, l, dO, dq, dk and dv once each at
-// 3.35 TB/s, or the operations of the live blocks at 989 TF/s (bf16);
-// chip_smoke.py computes both per call.  The hop bytes (slots and riders)
-// are counted apart by the ring (`LocalRing.hop_bytes`) and are not part of
-// the bound.  Left for later work: tensor-core products (wgmma), the carry
-// kept in registers across ring steps (one launch per rank for the whole
-// ring), all ranks of a step in one launch, and a hop fused into the block
-// kernel.
+// Bound on this card: the bytes of q, k, v, o, m, l (and dO, dq, dk, dv)
+// once each at 3.35 TB/s, or the operations of the live blocks at 989 TF/s
+// (bf16); chip_smoke.py computes both per call.  The forward at the
+// flagship's training shape (B 64, H 8, Dh 128, T 20 on seq 4, causal) is
+// bound by bytes, 3.15 us per call; what costs there is launches and the
+// latency of each block's few loads, so the design launches once per ring
+// step and gives every (rank, b, h) its own warp.  At the long shape (B 2, T 4096
+// on seq 4, C 1024, causal) it is bound by operations, 86.9 us per call:
+// there the tensor-core tiles, the overlapped loads and the skipped future
+// tiles do the work.  The hop bytes (slots and riders) are counted apart by
+// the ring (`LocalRing.hop_bytes`) and are not part of the bound.  Left for
+// later work: wgmma (warpgroup products from shared memory, fed by TMA),
+// the carry kept on chip across ring steps, a hop fused into the block
+// kernel, and the backward on the same design.
 #include "common.cuh"
 
 namespace bvq {
@@ -67,6 +100,8 @@ constexpr int RA_DC = RA_DMAX / 4;   // d columns a thread owns: d = lane4 + 4c
 constexpr int RA_JC = RA_T / 4;      // key columns a thread scores: j = lane4 + 4c
 constexpr int RA_PLD = RA_T + 1;     // row stride of the [64][64] score tiles
 
+// the backward kernels' arguments: one rank at one step (dK/dV, dQ) or at
+// the end (landing)
 struct RingArgs {
   int act_bf16, causal, first, nblk;
   int batch, heads, chunk, dim;
@@ -78,13 +113,11 @@ struct RingArgs {
   const void* k[2];                 // visiting blocks [B, C, H, D]
   const void* v[2];
   const unsigned char* pad[2];      // [B, C]
-  float* acc;                       // local f32 carry
-  float* m;                         // local rows: running max / residual
-  float* l;                         // local rows: running denominator / safe l
+  const float* m;                   // local rows: the forward's running max
+  const float* l;                   // local rows: the forward's safe l
   const float* delta;               // local rows: rowsum(dO * O)
   float* dq;                        // local f32 carry
   float* rider[2];                  // [2, B, C, H, D] f32 per visiting block
-  void* o;                          // local outputs, activation type
   void* dq_out;
   void* dk;
   void* dv;
@@ -102,17 +135,23 @@ __host__ __device__ __forceinline__ int ra_tile_rows(int chunk) {
   return chunk < RA_T ? chunk : RA_T;
 }
 
-// rows [r0, r0 + 64) of x at (b, h), as far as the chunk goes, into dst
+// rows [r0, r0 + 64) of x at (b, h), as far as the chunk C goes, into dst
 // [rows][D + 1] as f32.  Rows past the chunk are never read: every loop
 // over a tile stops at the chunk's edge.
 template <typename T>
 __device__ void ra_load_tile(float* dst, const T* src, long sb, int b, int h, int r0,
-                             const RingArgs& a) {
-  const int D = a.dim, n = min(RA_T, a.chunk - r0) * D;
+                             int D, int C, int H) {
+  const int n = min(RA_T, C - r0) * D;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     const int r = e / D, d = e % D;
-    dst[r * (D + 1) + d] = to_f<T>(src[ra_at(sb, b, r0 + r, h, a.heads, D) + d]);
+    dst[r * (D + 1) + d] = to_f<T>(src[ra_at(sb, b, r0 + r, h, H, D) + d]);
   }
+}
+
+template <typename T>
+__device__ void ra_load_tile(float* dst, const T* src, long sb, int b, int h, int r0,
+                             const RingArgs& a) {
+  ra_load_tile<T>(dst, src, sb, b, h, r0, a.dim, a.chunk, a.heads);
 }
 
 __device__ __forceinline__ float ra_dot(const float* x, const float* y, int D) {
@@ -152,16 +191,98 @@ __device__ __forceinline__ float ra_quad_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Forward: block (b*h, query tile); thread (row = tid / 4, lane4 = tid % 4)
-// scores key columns lane4 + 4c and owns carry columns lane4 + 4c of its row.
+// Forward: one launch per ring step; grid dimension z runs over the step's
+// entries, one for each rank with a live block at that step.
+constexpr int RF_RMAX = 64;         // ranks a forward launch takes
+constexpr int RF_WARPS = 4;         // tensor-core kernel: warps per block
+constexpr int RF_BLOCKS_PER_SM = 3; // its registers are capped for 3 blocks per SM
+constexpr int RF_THREADS = 32 * RF_WARPS;
+constexpr int RF_KT = 64;           // keys per tile of the tensor-core kernel
+constexpr int RF_NT = RF_KT / 8;    // its key columns of 8
+constexpr int RF_DT = RA_DMAX / 8;  // its head-dim columns of 8
+
+// The ranks live at one step.  Entry e is rank rank[e]; it computes nblk =
+// info & 3 visiting blocks, block j through direction (info >> (4 + j)) & 1
+// (0 clockwise, 1 counter-clockwise) from source rank src[2e + j].  info & 4:
+// the rank's first live step (its carry starts empty); info & 8: its last
+// (the launch finalizes it).
+struct RingFwdStep {
+  int nent;
+  int rank[RF_RMAX];
+  int info[RF_RMAX];
+  int src[2 * RF_RMAX];
+};
+
+struct RingFwdArgs {
+  int act_bf16, causal, batch, heads, chunk, dim;
+  long rs;                      // rank stride of the local operands (C*H*D)
+  long sb;                      // their batch stride
+  long slot_rs;                 // rank stride of a slot (B*C*H*D)
+  const void* q;                // rank 0's local operands [B, C, H, D]
+  float* acc;                   // f32 carry, laid out as q
+  float* m;                     // rows [B, C, H]: rank stride rs / D, batch stride sb / D
+  float* l;
+  void* o;                      // laid out as q
+  const void* k[2];             // the step's slot of each direction [n, B, C, H, D]
+  const void* v[2];
+  const unsigned char* pad[2];  // [n, B, C]
+  RingFwdStep step;
+};
+
+// entry e's local operands, at its rank's offsets
 template <typename T>
-__global__ void __launch_bounds__(RA_THREADS) ring_fwd_kernel(RingArgs a) {
+struct RfLocal {
+  const T* q;
+  float* acc;
+  float* m;
+  float* l;
+  T* o;
+  int nblk, q_off;
+  bool first, last;
+};
+
+template <typename T>
+__device__ __forceinline__ RfLocal<T> rf_local(const RingFwdArgs& a, int e) {
+  const int rank = a.step.rank[e], info = a.step.info[e];
+  const size_t off = (size_t)rank * a.rs, roff = off / a.dim;
+  return RfLocal<T>{static_cast<const T*>(a.q) + off, a.acc + off, a.m + roff, a.l + roff,
+                    static_cast<T*>(a.o) + off, info & 3, rank * a.chunk, (info & 4) != 0,
+                    (info & 8) != 0};
+}
+
+// visiting block j of entry e
+template <typename T>
+struct RfBlock {
+  const T* k;
+  const T* v;
+  const unsigned char* pad;
+  int k_off;
+};
+
+template <typename T>
+__device__ __forceinline__ RfBlock<T> rf_block(const RingFwdArgs& a, int e, int j) {
+  const int rank = a.step.rank[e];
+  const bool ccw = (a.step.info[e] >> (4 + j)) & 1;
+  const size_t off = (size_t)rank * a.slot_rs;
+  return RfBlock<T>{static_cast<const T*>(ccw ? a.k[1] : a.k[0]) + off,
+                    static_cast<const T*>(ccw ? a.v[1] : a.v[0]) + off,
+                    (ccw ? a.pad[1] : a.pad[0]) + (size_t)rank * a.batch * a.chunk,
+                    a.step.src[2 * e + j] * a.chunk};
+}
+
+// f32: block (b*h, 64-row query tile, entry); thread (row = tid / 4, lane4 =
+// tid % 4) scores key columns lane4 + 4c and owns carry columns lane4 + 4c
+// of its row.
+__global__ void __launch_bounds__(RA_THREADS)
+    ring_fwd_fma_kernel(const __grid_constant__ RingFwdArgs a) {
   extern __shared__ float ra_smem[];
   const int D = a.dim, LD = D + 1, C = a.chunk, H = a.heads, TR = ra_tile_rows(C);
   float* qs = ra_smem;          // [TR][LD]
   float* ks = qs + TR * LD;     // [TR][LD]
   float* vs = ks + TR * LD;     // [TR][LD]
-  float* ps = vs + TR * LD;     // [TR][PLD] p rounded to T
+  float* ps = vs + TR * LD;     // [TR][PLD] p
+  const int e = blockIdx.z;
+  const RfLocal<float> x = rf_local<float>(a, e);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = blockIdx.y * RA_T;
   const int tid = threadIdx.x, row = tid / 4, lane4 = tid % 4, i = q0 + row;
@@ -169,26 +290,26 @@ __global__ void __launch_bounds__(RA_THREADS) ring_fwd_kernel(RingArgs a) {
   const size_t ri = (size_t)b * (a.sb / D) + (size_t)i * H + h;
   const size_t oi = ra_at(a.sb, b, i, h, H, D);
 
-  ra_load_tile<T>(qs, static_cast<const T*>(a.q), a.sb, b, h, q0, a);
+  ra_load_tile<float>(qs, x.q, a.sb, b, h, q0, D, C, H);
   float m = RA_NEG_INF, l = 0.f, acc[RA_DC];
 #pragma unroll
   for (int c = 0; c < RA_DC; ++c) acc[c] = 0.f;
-  if (!a.first && i < C) {
-    m = a.m[ri];
-    l = a.l[ri];
+  if (!x.first && i < C) {
+    m = x.m[ri];
+    l = x.l[ri];
 #pragma unroll
     for (int c = 0; c < RA_DC; ++c) {
       const int d = lane4 + 4 * c;
-      if (d < D) acc[c] = a.acc[oi + d];
+      if (d < D) acc[c] = x.acc[oi + d];
     }
   }
 
-  for (int blk = 0; blk < a.nblk; ++blk) {
-    const RingBlock kb = ra_block(a, blk);
+  for (int blk = 0; blk < x.nblk; ++blk) {
+    const RfBlock<float> kb = rf_block<float>(a, e, blk);
     for (int k0 = 0; k0 < C; k0 += RA_T) {
       __syncthreads();  // the previous tile's reads are done
-      ra_load_tile<T>(ks, static_cast<const T*>(kb.k), sbk, b, h, k0, a);
-      ra_load_tile<T>(vs, static_cast<const T*>(kb.v), sbk, b, h, k0, a);
+      ra_load_tile<float>(ks, kb.k, sbk, b, h, k0, D, C, H);
+      ra_load_tile<float>(vs, kb.v, sbk, b, h, k0, D, C, H);
       __syncthreads();
       float s[RA_JC];
       float mcur = -INFINITY;
@@ -197,7 +318,8 @@ __global__ void __launch_bounds__(RA_THREADS) ring_fwd_kernel(RingArgs a) {
         const int j = lane4 + 4 * c, kj = k0 + j;
         const bool valid = kj < C;
         // rows past the chunk take part in the row reductions only
-        s[c] = !valid || i >= C || ra_masked(a, kb, b, i, kj)
+        s[c] = !valid || i >= C || kb.pad[(size_t)b * C + kj] ||
+                       (a.causal && kb.k_off + kj > x.q_off + i)
                    ? RA_NEG_INF
                    : ra_dot(qs + row * LD, ks + j * LD, D);
         if (valid) mcur = fmaxf(mcur, s[c]);
@@ -210,7 +332,7 @@ __global__ void __launch_bounds__(RA_THREADS) ring_fwd_kernel(RingArgs a) {
         const int j = lane4 + 4 * c;
         const float p = k0 + j < C ? expf(s[c] - m_new) : 0.f;
         psum += p;
-        if (row < TR) ps[row * RA_PLD + j] = round_to<T>(p);
+        if (row < TR) ps[row * RA_PLD + j] = p;
       }
       l = l * alpha + ra_quad_sum(psum);
       m = m_new;
@@ -229,35 +351,360 @@ __global__ void __launch_bounds__(RA_THREADS) ring_fwd_kernel(RingArgs a) {
     }
   }
 
-  if (i < C) {
-    if (lane4 == 0) {
-      a.m[ri] = m;
-      a.l[ri] = l;
-    }
+  if (i >= C) return;
+  if (x.last) {  // o = acc / safe-l, l := safe-l
+    const float safe = l == 0.f ? 1.f : l;
 #pragma unroll
     for (int c = 0; c < RA_DC; ++c) {
       const int d = lane4 + 4 * c;
-      if (d < D) a.acc[oi + d] = acc[c];
+      if (d < D) x.o[oi + d] = acc[c] / safe;
     }
+    l = safe;
+  } else {
+#pragma unroll
+    for (int c = 0; c < RA_DC; ++c) {
+      const int d = lane4 + 4 * c;
+      if (d < D) x.acc[oi + d] = acc[c];
+    }
+  }
+  if (lane4 == 0) {
+    x.m[ri] = m;
+    x.l[ri] = l;
   }
 }
 
-// o = acc / safe-l in T and l := safe-l, one warp per local row (b, t, h)
-template <typename T>
-__global__ void ring_finalize_kernel(RingArgs a) {
-  const int D = a.dim, C = a.chunk, H = a.heads;
-  const long w = ((long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (w >= (long)a.batch * C * H) return;
-  const int h = w % H, t = (w / H) % C, b = w / ((long)H * C);
-  const size_t ri = (size_t)b * (a.sb / D) + (size_t)t * H + h;
-  const size_t oi = ra_at(a.sb, b, t, h, H, D);
-  const float l = a.l[ri];
-  const float safe = l == 0.f ? 1.f : l;
-  T* o = static_cast<T*>(a.o);
-  for (int d = lane; d < D; d += 32) o[oi + d] = from_f<T>(a.acc[oi + d] / safe);
-  __syncwarp();
-  if (lane == 0) a.l[ri] = safe;
+// ---- the tensor-core kernel (bf16)
+__device__ __forceinline__ uint32_t rf_sa(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes of E elements (16 / sizeof(E) of them) from src into shared dst:
+// one cp.async where all are valid and src is 16-byte aligned, else element
+// loads, `fill` from index `valid` on
+template <typename E>
+__device__ __forceinline__ void rf_load16(E* dst, const E* src, int valid, E fill) {
+  constexpr int N = 16 / sizeof(E);
+  if (valid == N && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(rf_sa(dst)), "l"(src)
+                 : "memory");
+  } else {
+    uint4 u;
+    E* el = reinterpret_cast<E*>(&u);
+    for (int i = 0; i < N; ++i) el[i] = i < valid ? src[i] : fill;
+    *reinterpret_cast<uint4*>(dst) = u;
+  }
+}
+
+__device__ __forceinline__ void rf_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// four 8x8 b16 matrices from shared memory: lane l gives the address of row
+// l % 8 of matrix l / 8; register i holds matrix i (row lane / 4, columns
+// 2 (lane % 4) and + 1; transposed with .trans)
+__device__ __forceinline__ void rf_ldsm(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(rf_sa(p))
+               : "memory");
+}
+__device__ __forceinline__ void rf_ldsm_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(rf_sa(p))
+               : "memory");
+}
+
+// d += a (16 x 16 bf16, row major) * b (16 x 8 bf16, column major), in f32
+__device__ __forceinline__ void rf_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16, lo (the lower column) in the low half
+__device__ __forceinline__ uint32_t rf_pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the tensor-core kernel's tiling of a chunk of C rows at head dim D
+struct RfGeom {
+  int wq;      // warps per (b, h): the block's 16 * wq query rows
+  int groups;  // (b, h) per block, RF_WARPS / wq
+  int kt;      // keys per tile: C rounded up to 16, at most 64
+  int dp;      // D rounded up to 16 (zero-padded)
+  int lds;     // shared row stride in elements, dp + 8: the 8 rows an ldmatrix
+               // reads fall 16 bytes apart modulo 128, on distinct banks
+  int stage;   // bytes of one stage of one group: K and V tiles, the keys' pads
+};
+
+__host__ __device__ __forceinline__ RfGeom rf_geom(int C, int D) {
+  RfGeom g;
+  g.wq = C <= 16 ? 1 : C <= 32 ? 2 : RF_WARPS;
+  g.groups = RF_WARPS / g.wq;
+  const int c16 = (C + 15) / 16 * 16;
+  g.kt = c16 < RF_KT ? c16 : RF_KT;
+  g.dp = (D + 15) / 16 * 16;
+  g.lds = g.dp + 8;
+  g.stage = (2 * g.kt * g.lds * 2 + g.kt + 15) / 16 * 16;
+  return g;
+}
+
+// bf16: block ((b, h) group, 16 * wq query rows, entry).  Warp w serves the
+// block's (b, h) number w / wq and its query rows 16 (w % wq) .. + 15.  In
+// the fragments of mma.m16n8k16, lane 4 gr + tq holds rows gr and gr + 8,
+// columns 2 tq and 2 tq + 1 of each 8 columns.  The key tiles of the entry's
+// blocks run in schedule order through two shared stages per group: the
+// load of the next tile is issued before the products of this one.
+__global__ void __launch_bounds__(RF_THREADS, RF_BLOCKS_PER_SM)
+    ring_fwd_mma_kernel(const __grid_constant__ RingFwdArgs a) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char rf_smem[];
+  const int C = a.chunk, D = a.dim, H = a.heads, e = blockIdx.z;
+  const RfGeom g = rf_geom(C, D);
+  const RfLocal<T> x = rf_local<T>(a, e);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
+  const int grp = warp / g.wq;
+  const int gtid = threadIdx.x - grp * 32 * g.wq, gthreads = 32 * g.wq;
+  const int bh = blockIdx.x * g.groups + grp;
+  const bool active = bh < a.batch * H;  // the last block's groups may be idle
+  const int b = active ? bh / H : 0, h = active ? bh % H : 0;
+  const int qb = blockIdx.y * 16 * g.wq;           // the block's first query row
+  const int r0 = qb + 16 * (warp % g.wq);          // the warp's
+  const int qlast = min(C, qb + 16 * g.wq) - 1;    // the block's last row in the chunk
+  const int nd = g.dp / 8, ntk = (C + g.kt - 1) / g.kt, nt = x.nblk * ntk;
+  const long sbk = (long)C * H * D, sr = a.sb / D;
+  unsigned char* gsm = rf_smem + (size_t)grp * 2 * g.stage;
+  const int mi = lane / 8, lr8 = lane % 8;         // ldmatrix: matrix and row
+
+  // q rows r0 + gr and + 8 as A fragments, zero past the chunk and the dim
+  uint32_t qf[RA_DMAX / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < RA_DMAX / 16; ++kk) {
+    if (kk < g.dp / 16) {
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const int i = r0 + gr + 8 * (y & 1), d = 16 * kk + 8 * (y >> 1) + 2 * tq;
+        float lo = 0.f, hi = 0.f;
+        if (active && i < C) {
+          const T* p = x.q + ra_at(a.sb, b, i, h, H, D);
+          if (d < D) lo = __bfloat162float(p[d]);
+          if (d + 1 < D) hi = __bfloat162float(p[d + 1]);
+        }
+        qf[kk][y] = rf_pack(lo, hi);
+      }
+    }
+  }
+
+  // the carry of rows r0 + gr + 8y: acc[n][2y + c] is column 8n + 2tq + c
+  float mr[2], lr[2], acc[RF_DT][4];
+#pragma unroll
+  for (int n = 0; n < RF_DT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int i = r0 + gr + 8 * y;
+    mr[y] = RA_NEG_INF;
+    lr[y] = 0.f;
+    if (!x.first && active && i < C) {
+      const size_t ri = (size_t)b * sr + (size_t)i * H + h, oi = ra_at(a.sb, b, i, h, H, D);
+      mr[y] = x.m[ri];
+      lr[y] = x.l[ri];
+#pragma unroll
+      for (int n = 0; n < RF_DT; ++n) {
+        const int d = 8 * n + 2 * tq;
+        if (d < D) acc[n][2 * y] = x.acc[oi + d];
+        if (d + 1 < D) acc[n][2 * y + 1] = x.acc[oi + d + 1];
+      }
+    }
+  }
+
+  // tile t: key tile t % ntk of visiting block t / ntk, into stage st
+  auto load = [&](int t, int st) {
+    if (!active) return;
+    const int k0 = (t % ntk) * g.kt;
+    const RfBlock<T> kb = rf_block<T>(a, e, t / ntk);
+    T* ks = reinterpret_cast<T*>(gsm + st * g.stage);
+    T* vs = ks + g.kt * g.lds;
+    unsigned char* ps = reinterpret_cast<unsigned char*>(vs + g.kt * g.lds);
+    for (int c = gtid; c < g.kt * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, kj = k0 + r;
+      const int valid = kj < C ? max(0, min(8, D - d0)) : 0;  // zeros past the edges
+      const size_t off = kj < C ? ra_at(sbk, b, kj, h, H, D) + d0 : 0;
+      rf_load16(ks + r * g.lds + d0, kb.k + off, valid, __float2bfloat16_rn(0.f));
+      rf_load16(vs + r * g.lds + d0, kb.v + off, valid, __float2bfloat16_rn(0.f));
+    }
+    // the keys' pad bytes, 1 past the chunk's edge
+    for (int c = gtid; c < g.kt / 16; c += gthreads) {
+      const int kj = k0 + 16 * c;
+      rf_load16(ps + 16 * c, kb.pad + (size_t)b * C + kj, max(0, min(16, C - kj)),
+                (unsigned char)1);
+    }
+  };
+  // every key of tile t lies after every query row of the block
+  auto future = [&](int t) {
+    return a.causal && a.step.src[2 * e + t / ntk] * C + (t % ntk) * g.kt > x.q_off + qlast;
+  };
+
+  load(0, 0);
+  rf_commit();
+  bool all_live = false;  // every row of the block has seen a visible key
+  for (int t = 0, st = 0; t < nt; st ^= 1) {
+    // a tile in the future of every row would add p = 0 once all are live
+    int tn = t + 1;
+    while (tn < nt && all_live && future(tn)) ++tn;
+    if (tn < nt) load(tn, st ^ 1);
+    rf_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile t has landed
+    __syncthreads();
+
+    if (active) {
+      const int k0 = (t % ntk) * g.kt;
+      const int k_off = a.step.src[2 * e + t / ntk] * C;
+      const T* ks = reinterpret_cast<const T*>(gsm + st * g.stage);
+      const T* vs = ks + g.kt * g.lds;
+      const unsigned char* ps = reinterpret_cast<const unsigned char*>(vs + g.kt * g.lds);
+      // S = q k^T, key columns 16 jp .. + 15 at a time.  Each 16-deep
+      // slice of the head dim is summed by the tensor core from zero and
+      // added here in f32, rounded to nearest: accumulated inside the
+      // tensor core over the whole dim (which truncates its sums), m and l
+      // read up to 1.09e-6 relative off the plain version's f32 products at
+      // C 1,024 (chip_smoke.py phase 12, NVIDIA H100 80GB HBM3, 700 W).
+      float s[RF_NT][4];
+#pragma unroll
+      for (int j = 0; j < RF_NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int jp = 0; jp < RF_NT / 2; ++jp) {
+        if (jp < g.kt / 16) {
+#pragma unroll
+          for (int kk = 0; kk < RA_DMAX / 16; ++kk) {
+            if (kk < g.dp / 16) {
+              uint32_t kf[4];
+              rf_ldsm(kf, ks + (16 * jp + 8 * (mi >> 1) + lr8) * g.lds + 16 * kk + 8 * (mi & 1));
+              float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+              rf_mma(s0, qf[kk], kf[0], kf[1]);
+              rf_mma(s1, qf[kk], kf[2], kf[3]);
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                s[2 * jp][c] += s0[c];
+                s[2 * jp + 1][c] += s1[c];
+              }
+            }
+          }
+        }
+      }
+      // masked logits take NEG_INF; keys past the chunk stay out of the max.
+      // Only a tile with a padded key, a key past the chunk (pad byte 1) or
+      // a key after the warp's first row needs the masks.
+      const bool edge =
+          __any_sync(0xffffffffu, (lane < g.kt && ps[lane]) ||
+                                      (lane + 32 < g.kt && ps[lane + 32])) ||
+          (a.causal && k_off + k0 + g.kt - 1 > x.q_off + r0);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < RF_NT; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = 8 * j + 2 * tq + (c & 1), kj = k0 + col, i = r0 + gr + 8 * (c >> 1);
+          if (j < g.kt / 8 && kj < C) {
+            if (edge && (ps[col] || (a.causal && k_off + kj > x.q_off + i)))
+              s[j][c] = RA_NEG_INF;
+            mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
+          }
+        }
+      }
+      float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        const float m_new = fmaxf(mr[y], ra_quad_max(mx[y]));
+        alpha[y] = expf(mr[y] - m_new);
+        mr[y] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < RF_NT; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int kj = k0 + 8 * j + 2 * tq + (c & 1);
+          const float p = j < g.kt / 8 && kj < C ? expf(s[j][c] - mr[c >> 1]) : 0.f;
+          s[j][c] = p;
+          psum[c >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int y = 0; y < 2; ++y) lr[y] = lr[y] * alpha[y] + ra_quad_sum(psum[y]);
+#pragma unroll
+      for (int n = 0; n < RF_DT; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+      // acc += p v with p rounded to bf16 as the A operand, keys 16 kp .. + 15
+#pragma unroll
+      for (int kp = 0; kp < RF_NT / 2; ++kp) {
+        if (kp < g.kt / 16) {
+          const uint32_t pa[4] = {rf_pack(s[2 * kp][0], s[2 * kp][1]),
+                                  rf_pack(s[2 * kp][2], s[2 * kp][3]),
+                                  rf_pack(s[2 * kp + 1][0], s[2 * kp + 1][1]),
+                                  rf_pack(s[2 * kp + 1][2], s[2 * kp + 1][3])};
+#pragma unroll
+          for (int np = 0; np < RF_DT / 2; ++np) {
+            if (np < g.dp / 16) {
+              uint32_t vf[4];
+              rf_ldsm_t(vf, vs + (16 * kp + 8 * (mi & 1) + lr8) * g.lds + 16 * np + 8 * (mi >> 1));
+              rf_mma(acc[2 * np], pa, vf[0], vf[1]);
+              rf_mma(acc[2 * np + 1], pa, vf[2], vf[3]);
+            }
+          }
+        }
+      }
+    }
+
+    bool live = true;
+#pragma unroll
+    for (int y = 0; y < 2; ++y)
+      live = live && (!active || r0 + gr + 8 * y >= C || mr[y] > RA_NEG_INF);
+    // also: every warp is done with stage st before the next load refills it
+    all_live = __syncthreads_and(live);
+    t = tn;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  if (!active) return;
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int i = r0 + gr + 8 * y;
+    if (i >= C) continue;  // rows past the chunk belong to the next rank
+    const size_t ri = (size_t)b * sr + (size_t)i * H + h, oi = ra_at(a.sb, b, i, h, H, D);
+    float l = lr[y];
+    if (x.last) {  // o = acc / safe-l in bf16, l := safe-l
+      l = l == 0.f ? 1.f : l;
+#pragma unroll
+      for (int n = 0; n < RF_DT; ++n) {
+        const int d = 8 * n + 2 * tq;
+        if (d + 1 < D && D % 2 == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(x.o + oi + d) =
+              __floats2bfloat162_rn(acc[n][2 * y] / l, acc[n][2 * y + 1] / l);
+        } else {
+          if (d < D) x.o[oi + d] = __float2bfloat16_rn(acc[n][2 * y] / l);
+          if (d + 1 < D) x.o[oi + d + 1] = __float2bfloat16_rn(acc[n][2 * y + 1] / l);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < RF_DT; ++n) {
+        const int d = 8 * n + 2 * tq;
+        if (d < D) x.acc[oi + d] = acc[n][2 * y];
+        if (d + 1 < D) x.acc[oi + d + 1] = acc[n][2 * y + 1];
+      }
+    }
+    if (tq == 0) {
+      x.m[ri] = mr[y];
+      x.l[ri] = l;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -451,14 +898,58 @@ __global__ void ring_land_kernel(RingArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-enum RingKernel { RA_FWD, RA_FINALIZE, RA_DKDV, RA_DQ, RA_LAND };
+// The largest dynamic shared memory a forward kernel was allowed so far, per
+// device: cudaFuncSetAttribute (a host call of its own) runs once per kernel
+// and size, not once per launch.
+constexpr int RF_DEVICES = 16;
+
+template <typename Kernel>
+static cudaError_t rf_allow_smem(Kernel kernel, int which, size_t bytes) {
+  static int allowed[RF_DEVICES][2] = {};
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  BVQ_TRY(cudaGetDevice(&dev));
+  if (dev < RF_DEVICES && (int)bytes <= allowed[dev][which]) return cudaSuccess;
+  BVQ_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes));
+  if (dev < RF_DEVICES) allowed[dev][which] = (int)bytes;
+  return cudaSuccess;
+}
+
+static cudaError_t ring_fwd_launch(const RingFwdArgs& a, cudaStream_t s) {
+  const int C = a.chunk, D = a.dim, n = a.step.nent;
+  const long rows = (long)C * a.heads * D;
+  if (D <= 0 || D > RA_DMAX || C <= 0 || a.batch <= 0 || a.heads <= 0 || n <= 0 ||
+      n > RF_RMAX || a.rs < rows || a.sb < rows || a.slot_rs < a.batch * rows)
+    return cudaErrorInvalidValue;
+  for (int e = 0; e < n; ++e) {
+    const int nblk = a.step.info[e] & 3;
+    if (nblk < 1 || nblk > 2) return cudaErrorInvalidValue;
+  }
+  const int bh = a.batch * a.heads;
+  if (a.act_bf16) {
+    const RfGeom g = rf_geom(C, D);
+    const size_t smem = (size_t)g.groups * 2 * g.stage;
+    BVQ_TRY(rf_allow_smem(ring_fwd_mma_kernel, 0, smem));
+    const dim3 grid(cdiv(bh, g.groups), cdiv(C, 16 * g.wq), n);
+    ring_fwd_mma_kernel<<<grid, RF_THREADS, smem, s>>>(a);
+  } else {
+    const size_t tr = ra_tile_rows(C);
+    const size_t smem = (3 * tr * (D + 1) + tr * RA_PLD) * sizeof(float);
+    BVQ_TRY(rf_allow_smem(ring_fwd_fma_kernel, 1, smem));
+    const dim3 grid(bh, cdiv(C, RA_T), n);
+    ring_fwd_fma_kernel<<<grid, RA_THREADS, smem, s>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+enum RingKernel { RA_DKDV, RA_DQ, RA_LAND };
 
 static size_t ring_smem(RingKernel which, int D, int chunk) {
   const size_t tr = ra_tile_rows(chunk);
   const size_t tile = tr * (D + 1);
   const size_t scores = tr * RA_PLD;
   switch (which) {
-    case RA_FWD: return (3 * tile + scores) * sizeof(float);
     case RA_DKDV: return (4 * tile + 2 * scores + 3 * RA_T) * sizeof(float);
     case RA_DQ: return (4 * tile + scores + 3 * RA_T) * sizeof(float);
     default: return 0;
@@ -471,20 +962,14 @@ static cudaError_t ring_launch(const RingArgs& a, RingKernel which, cudaStream_t
       a.nblk < 0 || a.nblk > 2 || a.sb < (long)a.chunk * a.heads * a.dim)
     return cudaErrorInvalidValue;
   const int bh = a.batch * a.heads;
-  if (which == RA_FINALIZE) {
-    const long rows = (long)bh * a.chunk;
-    ring_finalize_kernel<T><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, s>>>(a);
-    return cudaGetLastError();
-  }
   if (which == RA_LAND) {
     const long n = (long)bh * a.chunk * a.dim;
     ring_land_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(a);
     return cudaGetLastError();
   }
   if (a.nblk < 1) return cudaErrorInvalidValue;
-  void (*kernel)(RingArgs) = which == RA_FWD    ? ring_fwd_kernel<T>
-                             : which == RA_DKDV ? ring_bwd_dkdv_kernel<T>
-                                                : ring_bwd_dq_kernel<T>;
+  void (*kernel)(RingArgs) = which == RA_DKDV ? ring_bwd_dkdv_kernel<T>
+                                              : ring_bwd_dq_kernel<T>;
   const int smem = (int)ring_smem(which, a.dim, a.chunk);
   BVQ_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   const dim3 grid(bh, cdiv(a.chunk, RA_T), which == RA_DKDV ? a.nblk : 1);
@@ -501,12 +986,8 @@ static int ring_entry(const RingArgs* a, RingKernel which, void* stream) {
 
 }  // namespace bvq
 
-extern "C" int bvq_ring_fwd(const bvq::RingArgs* a, void* stream) {
-  return bvq::ring_entry(a, bvq::RA_FWD, stream);
-}
-
-extern "C" int bvq_ring_finalize(const bvq::RingArgs* a, void* stream) {
-  return bvq::ring_entry(a, bvq::RA_FINALIZE, stream);
+extern "C" int bvq_ring_fwd_step(const bvq::RingFwdArgs* a, void* stream) {
+  return static_cast<int>(bvq::ring_fwd_launch(*a, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int bvq_ring_bwd_dkdv(const bvq::RingArgs* a, void* stream) {

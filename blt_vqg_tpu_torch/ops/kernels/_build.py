@@ -67,9 +67,28 @@ class RingArgs(ctypes.Structure):
                 ("batch", I), ("heads", I), ("chunk", I), ("dim", I),
                 ("q_off", I), ("k_off", I * 2), ("sb", L), ("q", P),
                 ("dout", P), ("k", P * 2), ("v", P * 2), ("pad", P * 2),
-                ("acc", P), ("m", P), ("l", P), ("delta", P), ("dq", P),
-                ("rider", P * 2), ("o", P), ("dq_out", P), ("dk", P),
+                ("m", P), ("l", P), ("delta", P), ("dq", P),
+                ("rider", P * 2), ("dq_out", P), ("dk", P),
                 ("dv", P), ("ret", P * 2)]
+
+
+RING_FWD_MAX_RANKS = 64     # RF_RMAX in csrc/ring_attention.cu
+
+
+class RingFwdStep(ctypes.Structure):
+    """Mirror of ``bvq::RingFwdStep`` in csrc/ring_attention.cu."""
+    _fields_ = [("nent", I), ("rank", I * RING_FWD_MAX_RANKS),
+                ("info", I * RING_FWD_MAX_RANKS),
+                ("src", I * (2 * RING_FWD_MAX_RANKS))]
+
+
+class RingFwdArgs(ctypes.Structure):
+    """Mirror of ``bvq::RingFwdArgs`` in csrc/ring_attention.cu."""
+    _fields_ = [("act_bf16", I), ("causal", I), ("batch", I), ("heads", I),
+                ("chunk", I), ("dim", I), ("rs", L), ("sb", L),
+                ("slot_rs", L), ("q", P), ("acc", P), ("m", P), ("l", P),
+                ("o", P), ("k", P * 2), ("v", P * 2), ("pad", P * 2),
+                ("step", RingFwdStep)]
 
 
 class SelfAttnArgs(ctypes.Structure):
@@ -159,8 +178,9 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(FlashArgs), P]
         fn.restype = I
-    for name in ("bvq_ring_fwd", "bvq_ring_finalize", "bvq_ring_bwd_dkdv",
-                 "bvq_ring_bwd_dq", "bvq_ring_land"):
+    lib.bvq_ring_fwd_step.argtypes = [ctypes.POINTER(RingFwdArgs), P]
+    lib.bvq_ring_fwd_step.restype = I
+    for name in ("bvq_ring_bwd_dkdv", "bvq_ring_bwd_dq", "bvq_ring_land"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(RingArgs), P]
         fn.restype = I

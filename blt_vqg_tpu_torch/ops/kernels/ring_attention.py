@@ -26,12 +26,14 @@ skipped; the ring still rotates.  The transport is the ``LocalRing`` of
 on CUDA on a side stream ordered by events.
 
 On CUDA tensors the block arithmetic runs the kernels of
-``csrc/ring_attention.cu``: per rank and live step one forward launch, or a
-dK/dV and a dQ launch; per rank one finalize (forward) or landing
-(backward) launch.  Each shard function counts its launches in
-``launches``; anything the kernels cannot take raises.  On CPU tensors the
-same schedule runs plain tensor ops per block; the ``*_ref`` functions run
-that plain version on any device.
+``csrc/ring_attention.cu``.  The forward launches once per ring step for
+every rank with a live block there (:func:`fwd_plan`), and finalizes each
+rank inside its last live step; the backward launches a dK/dV and a dQ
+kernel per rank and live step, and one landing kernel per rank.  Each
+shard function counts its launches in ``launches``; anything the kernels
+cannot take raises.  On CPU tensors the same schedule runs plain tensor
+ops per block; the ``*_ref`` functions run that plain version on any
+device.
 
 The contract kept with the TPU kernels: masked logits take ``NEG_INF`` and
 the running max starts there, so a query row whose every visible key is
@@ -48,6 +50,7 @@ masked logits, and rounds dq/dk/dv to the input dtype once, at the end.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -78,6 +81,23 @@ def visits(n: int, step: int, rank: int, causal: bool, bidir: bool):
         if ccw != cw and (not causal or ccw <= rank):
             out.append((1, ccw))
     return out
+
+
+@functools.cache
+def fwd_plan(n: int, causal: bool, bidir: bool):
+    """The forward's launches: for each step, the ranks with a live block
+    there, as (rank, visits, first, last) with the rank's visits at that
+    step and whether it is the rank's first and its last live step (where
+    the carry starts, and where the launch finalizes it).  A step with no
+    live rank launches nothing (its hop still runs)."""
+    steps = ring_steps(n, bidir)
+    live = [[tuple(visits(n, s, r, causal, bidir)) for r in range(n)]
+            for s in range(steps)]
+    return tuple(
+        tuple((r, live[s][r], not any(live[u][r] for u in range(s)),
+               not any(live[u][r] for u in range(s + 1, steps)))
+              for r in range(n) if live[s][r])
+        for s in range(steps))
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -202,8 +222,8 @@ def _ptrs(tensors, n=2):
 
 
 class _KernelOps:
-    """Shared by the forward and backward kernels: the fixed arguments of
-    one rank's launches."""
+    """The backward kernels' launches: the fixed arguments of one rank's
+    launches."""
 
     def __init__(self, q, causal, counter):
         from blt_vqg_tpu_torch.ops.kernels import _build
@@ -235,27 +255,72 @@ class _KernelOps:
         return a
 
 
-class _KernelFwd(_KernelOps):
-    def __init__(self, q, causal, counter):
-        super().__init__(q, causal, counter)
+@functools.cache
+def _fwd_tables(n: int, causal: bool, bidir: bool):
+    """Each step's ``RingFwdStep`` (None where no rank is live)."""
+    from blt_vqg_tpu_torch.ops.kernels import _build
+
+    tables = []
+    for entries in fwd_plan(n, causal, bidir):
+        if not entries:
+            tables.append(None)
+            continue
+        t = _build.RingFwdStep(nent=len(entries))
+        for e, (r, vis, first, last) in enumerate(entries):
+            info = len(vis) | first << 2 | last << 3
+            for j, (direction, src) in enumerate(vis):
+                info |= direction << (4 + j)
+                t.src[2 * e + j] = src
+            t.rank[e], t.info[e] = r, info
+        tables.append(t)
+    return tuple(tables)
+
+
+class _KernelFwd:
+    """The forward kernels: the argument struct is built once per call; a
+    step sets its slots and its table of live ranks and launches once."""
+
+    def __init__(self, q, causal, bidir, counter):
+        from blt_vqg_tpu_torch.ops.kernels import _build
+
         n, b, c, h, d = q.shape
+        _check(0 < d <= MAX_HEAD_DIM, f"head dim {d} (at most "
+                                      f"{MAX_HEAD_DIM} on the kernels)")
+        _check(n <= _build.RING_FWD_MAX_RANKS,
+               f"{n} ranks (at most {_build.RING_FWD_MAX_RANKS} on the "
+               f"forward kernels)")
+        _check(q.stride(0) == c * h * d, "q must hold the ranks' rows")
+        self._check, self.lib = _build.check, _build.library()
+        self.stream = torch.cuda.current_stream(q.device).cuda_stream
+        self.counter = counter
+        self.tables = _fwd_tables(n, causal, bidir)
+        self.q = q          # the struct points at q and the carry: kept alive
         self.acc = _empty_local(q.shape, torch.float32, q.device)
+        self.o = _empty_local(q.shape, q.dtype, q.device)
         self.m = _empty_local((n, b, c, h), torch.float32, q.device)
         self.l = torch.empty_like(self.m)
+        self.args = _build.RingFwdArgs(
+            act_bf16=int(q.dtype == torch.bfloat16), causal=int(causal),
+            batch=b, heads=h, chunk=c, dim=d, rs=q.stride(0),
+            sb=q.stride(1), slot_rs=b * c * h * d, q=q.data_ptr(),
+            acc=self.acc.data_ptr(), m=self.m.data_ptr(),
+            l=self.l.data_ptr(), o=self.o.data_ptr())
 
-    def block(self, r: int, blocks, first: bool) -> None:
-        a = self.args(r, blocks, first=int(first), q=self.q[r].data_ptr(),
-                      acc=self.acc[r].data_ptr(), m=self.m[r].data_ptr(),
-                      l=self.l[r].data_ptr())
-        self.launch("bvq_ring_fwd", a)
+    def step(self, s: int, slots) -> None:
+        """Step s's launch on the slots of each direction, counted."""
+        if self.tables[s] is None:
+            return
+        a = self.args
+        for i, (k, v, pad) in enumerate(slots):
+            a.k[i], a.v[i], a.pad[i] = (k.data_ptr(), v.data_ptr(),
+                                        pad.data_ptr())
+        a.step = self.tables[s]
+        err = self.lib.bvq_ring_fwd_step(ctypes.byref(a), self.stream)
+        self._check(self.lib, err, "bvq_ring_fwd_step")
+        self.counter.launches += 1
 
     def finalize(self):
-        o = _empty_local(self.q.shape, self.q.dtype, self.q.device)
-        for r in range(self.q.shape[0]):
-            a = self.args(r, acc=self.acc[r].data_ptr(),
-                          l=self.l[r].data_ptr(), o=o[r].data_ptr())
-            self.launch("bvq_ring_finalize", a)
-        return o, self.m, self.l
+        return self.o, self.m, self.l
 
 
 class _KernelBwd(_KernelOps):
@@ -319,18 +384,22 @@ def _ring_fwd(q, k, v, pad, ring, causal: bool, bidir: bool, kernel: bool,
     _validate(ring, q, k, v, pad)
     n, b, c = q.shape[:3]
     q = _local(q)
-    ops = _KernelFwd(q, causal, counter) if kernel else _PlainFwd(q, causal)
+    plan = fwd_plan(n, causal, bidir)
+    ops = (_KernelFwd(q, causal, bidir, counter) if kernel
+           else _PlainFwd(q, causal))
     chans = _kv_channels(ring, k, v, pad, bidir)
-    steps = ring_steps(n, bidir)
+    steps = len(plan)
     for s in range(steps):
         if s < steps - 1:
             for ch in chans:       # the next hop rides while this step runs
                 ch.send(s)
         slots = [ch.slot(s) for ch in chans]
-        for r in range(n):
-            blocks = _blocks(slots, n, s, r, c, causal, bidir)
-            if blocks:
-                ops.block(r, blocks, first=s == 0)
+        if kernel:
+            ops.step(s, slots)
+        else:
+            for r, _, first, _ in plan[s]:
+                ops.block(r, _blocks(slots, n, s, r, c, causal, bidir),
+                          first)
         for ch in chans:
             ch.release()
     out = ops.finalize()

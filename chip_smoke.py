@@ -61,9 +61,10 @@ only when every phase passed):
    and backward: o, m, l, dq, dk, dv) against their plain versions in bf16
    at the flagship's attention shapes on rings of 4, 3, 2 and 8 ranks
    (causal with target pads, non-causal, dead rows) and at a long causal
-   sequence (B 2, T 4096 on 4 ranks, 10% trailing pads), the two-way ring
-   against full attention, and checks that the plain version without its
-   key-pad mask fails the check;
+   sequence (B 2, T 4096 on 4 ranks, 10% trailing pads), once at a ragged
+   65-row chunk and at head dim 80, the two-way ring against full
+   attention, and checks that the plain version without its key-pad mask
+   fails the check;
 13. trains the flagship with ``sequence_parallel`` on a ``seq`` 4 mesh
    (``ring_attention_impl="pallas"``, ``use_pallas_attention``, no
    attention dropout): 3 pretrain steps, the reset, 3 latent steps and an
@@ -73,9 +74,14 @@ only when every phase passed):
    posterior and context encoders ring on an odd ring;
 14. times the sequence-parallel train step (and its busy share by
    profiler) against the einsum path, and each ring function at the
-   training and the long shape against its plain version, its bound and
+   training and the long shape (event time, and device time by profiler)
+   against its plain version, its bound and
    ``scaled_dot_product_attention`` forward and backward (a yardstick the
    port never calls).
+
+Phase 1 also prints the compiler's registers and shared memory of the ring
+forward kernels and checks that the bf16 forward kernel's machine code runs
+on the tensor cores (HMMA or HGMMA instructions, by ``cuobjdump -sass``).
 
 TF32 is off for matmuls and cuDNN throughout.  The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
@@ -86,6 +92,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import time
@@ -221,6 +228,13 @@ RING_CASES = (
     ("long: T 4096 on seq 4, causal, 10% trailing pads", 2, 4, 1024, True,
      "long"))
 RING_TRAIN_CASE, RING_LONG_CASE = RING_CASES[0], RING_CASES[-1]
+# (what, B, ranks, chunk, causal, pads, head dim), checked at one seed: a
+# ragged 64-row tile and a head dim that is not a power of two
+RING_SHAPE_CASES = (
+    ("chunk 65: T 260 on seq 4, causal, pads", 4, 4, 65, True, "tail", 128),
+    ("head dim 80: T 20 on seq 4, causal, target pads", BATCH, 4, 5, True,
+     "tail", 80))
+RING_FWD_MMA = "ring_fwd_mma_kernel"   # the bf16 forward kernel
 # o, dq, dk, dv are bf16; the kernels and the plain versions round p and
 # every output to bf16 after f32 sums taken in other orders (the kernels
 # per 64-key tile, the plain versions per block), as the flash kernels do.
@@ -1258,12 +1272,12 @@ def layer_timings(dev, card, log, pl_cfg, pl_model, plain_model, latent,
 # ---------------------------------------------------------------------------
 # ring attention
 
-def ring_inputs(dev, b, n, c, pad, seed):
-    """bf16 q (scaled), k, v, dO [B, T, H 8, Dh 128] and a key-pad mask
+def ring_inputs(dev, b, n, c, pad, seed, d=128):
+    """bf16 q (scaled), k, v, dO [B, T, H 8, Dh d] and a key-pad mask
     [B, T]: trailing pads of random lengths ("tail"), none ("none"), the
     last 10% of keys ("long"), or "dead": key 0 padded (the causal query 0
     sees no key) and every key of batch row 1."""
-    t, h, d = n * c, 8, 128
+    t, h = n * c, 8
     g = torch.Generator(dev).manual_seed(seed)
     r = lambda *s: torch.randn(s, generator=g, device=dev)
     q = (r(b, t, h, d) * d ** -0.5).to(torch.bfloat16)
@@ -1331,27 +1345,28 @@ def check_ring_case(q, k, v, kv_pad, do, n, causal, what: str):
 
 def ring_phase(dev, log, seeds: int):
     """Phase 12: the ring functions against their plain versions, each case
-    from ``seeds`` seeds; the two-way ring against full attention; the
-    no-mask control.  Returns (the worst readings, the launches of this
+    of RING_CASES from ``seeds`` seeds and each of RING_SHAPE_CASES from
+    one; the two-way ring against full attention; the no-mask control.  Returns (the worst readings, the launches of this
     drive by function)."""
     worst = {"err": dict.fromkeys(RING_KERNELS, 0.0), "ulps": 0.0,
              "norm": 0.0, "ml": 0.0}
     before = {name: getattr(ra, name).launches for name in RING_KERNELS}
-    for seed in range(seeds):
-        for what, b, n, c, causal, pad in RING_CASES:
-            q, k, v, kv_pad, do = ring_inputs(dev, b, n, c, pad,
-                                              SEED + 10 * seed + n)
-            errs, ulps, norm, ml = check_ring_case(q, k, v, kv_pad, do, n,
-                                                   causal, what)
-            for key, val in zip(("ulps", "norm", "ml"), (ulps, norm, ml)):
-                worst[key] = max(worst[key], val)
-            for name, val in errs.items():
-                worst["err"][name] = max(worst["err"][name], val)
-            log(f"[12] ring {what} (B {b}, H 8, Dh 128), seed {seed}: max "
-                f"err {ulps:.3g} bf16 ulps, relative norm error {norm:.3g}, "
-                f"m/l relative error {ml:.3g}; max abs err: " + ", ".join(
-                    f"{name.replace('ring_attention_', '')} {val:.3g}"
-                    for name, val in errs.items()))
+    runs = ([(case + (128,), seed) for seed in range(seeds)
+             for case in RING_CASES] + [(case, 0) for case in RING_SHAPE_CASES])
+    for (what, b, n, c, causal, pad, d), seed in runs:
+        q, k, v, kv_pad, do = ring_inputs(dev, b, n, c, pad,
+                                          SEED + 10 * seed + n, d)
+        errs, ulps, norm, ml = check_ring_case(q, k, v, kv_pad, do, n,
+                                               causal, what)
+        for key, val in zip(("ulps", "norm", "ml"), (ulps, norm, ml)):
+            worst[key] = max(worst[key], val)
+        for name, val in errs.items():
+            worst["err"][name] = max(worst["err"][name], val)
+        log(f"[12] ring {what} (B {b}, H 8, Dh {d}), seed {seed}: max err "
+            f"{ulps:.3g} bf16 ulps, relative norm error {norm:.3g}, m/l "
+            f"relative error {ml:.3g}; max abs err: " + ", ".join(
+                f"{name.replace('ring_attention_', '')} {val:.3g}"
+                for name, val in errs.items()))
     drive = {name: getattr(ra, name).launches - before[name]
              for name in RING_KERNELS}
     # the schedule itself: the two-way ring against full attention over the
@@ -1389,18 +1404,21 @@ def ring_phase(dev, log, seeds: int):
 
 def ring_launch_counts(n: int, causal: bool, bidir: bool = True):
     """(forward, backward) kernel launches of one ring call, from the
-    schedule: a rank launches at every step where a block it sees is live
-    (one forward, or a dK/dV and a dQ launch), plus one finalize or landing
-    launch per rank.  Step s brings block r - s and, two-way, block r + s
-    (not at s = 0, nor where it is r - s); a causal block is live when it
-    is not after the rank's own."""
+    schedule: the forward launches once per step where any rank sees a
+    live block (its last such step finalizes it); the backward launches a
+    dK/dV and a dQ kernel per rank and live step, plus one landing launch
+    per rank.  Step s brings block r - s and, two-way, block r + s (not at
+    s = 0, nor where it is r - s); a causal block is live when it is not
+    after the rank's own."""
     steps = n // 2 + 1 if bidir else n
-    live = 0
+    live, busy = 0, set()
     for r in range(n):
         for s in range(steps):
             srcs = {(r - s) % n} | ({(r + s) % n} if bidir and s else set())
-            live += any(not causal or src <= r for src in srcs)
-    return live + n, 2 * live + n
+            if any(not causal or src <= r for src in srcs):
+                live += 1
+                busy.add(s)
+    return len(busy), 2 * live + n
 
 
 def ring_counts() -> dict:
@@ -1615,19 +1633,60 @@ def ring_timings(dev, card, log, cfg, kstate, ecfg, estate, batch):
             k_ms = cuda_ms(lambda: fn(*args, ring=ring, causal=causal), iters)
             p_ms = cuda_ms(lambda: ref(*args, ring=ring, causal=causal),
                            max(2, iters // 4))
+            # device time per call: the ring kernels, and the rest (hop and
+            # seed copies, layout copies, delta)
+            groups = profile_groups(lambda: fn(*args, ring=ring,
+                                               causal=causal), 3, ("ring_",))
+            kn, kdev = groups.get("ring_", (0, 0.0))
+            on, odev = groups.get("other", (0, 0.0))
             nbytes, flops = bounds[name]
             b_ms, b_by = bound(nbytes, flops)
             lib = sdpa_fwd if fwd else sdpa_bwd
             log(f"[14] {card}: {name}, {label} shape ({what}; B {b}, H 8, Dh "
-                f"128), per call: kernel {k_ms * 1e3:.1f} us, plain "
-                f"{p_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}), "
-                f"SDPA {'forward' if fwd else 'backward'} {lib * 1e3:.1f} us;"
+                f"128), per call: kernel {k_ms * 1e3:.1f} us by events, "
+                f"device time {kdev * 1e3:.1f} us in {kn:.0f} ring kernel "
+                f"launches (+ {odev * 1e3:.1f} us in {on:.0f} other device "
+                f"operations: copies), plain {p_ms * 1e3:.1f} us, bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}), SDPA "
+                f"{'forward' if fwd else 'backward'} {lib * 1e3:.1f} us;"
                 f" hops move {hops} bytes")
             if label == "training":
                 rows[name] = {"ms": calls * k_ms, "plain_ms": calls * p_ms,
                               "bound_ms": calls * b_ms, "bound_by": b_by,
-                              "library_ms": calls * lib}
+                              "library_ms": calls * lib,
+                              "device_ms": calls * kdev}
     return rows
+
+
+def ring_fwd_code(lib_path: str, report: str) -> None:
+    """Phase 1: the compiler's registers and shared memory of the ring
+    forward kernels; raises unless the bf16 forward kernel's machine code
+    has tensor-core products (HMMA or HGMMA)."""
+    for entry in report.split("Compiling entry function")[1:]:
+        name = entry.split("'")[1]
+        if "ring_fwd" in name:
+            used = re.search(r"Used (\d+) registers[^\n]*", entry)
+            spill = re.search(r"(\d+) bytes spill stores", entry)
+            log(f"    ptxas {name}: {used.group(0) if used else '?'}; "
+                f"spill stores {spill.group(1) if spill else '?'} bytes")
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        log(f"    cuobjdump not found beside nvcc: SASS not read")
+        return
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300)
+    for fn in out.stdout.split("Function : ")[1:]:
+        name = fn.split()[0]
+        if "ring_fwd" not in name:
+            continue
+        code = [ln.split(";")[0].split("*/")[-1].strip()
+                for ln in fn.splitlines() if "MMA" in ln]
+        mma = [op for op in code if op.startswith(("HMMA", "HGMMA"))]
+        log(f"    SASS {name}: {len(mma)} tensor-core products "
+            f"{sorted({op.split()[0] for op in mma})}"
+            + (f", e.g. '{mma[0]}'" if mma else ""))
+        if RING_FWD_MMA in name and not mma:
+            raise AssertionError(f"{name} has no HMMA/HGMMA instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -1670,6 +1729,7 @@ def main(argv=None):
         if m.group(1) != "0" or m.group(2) != "0"]
     log(f"    ptxas: {report.count('Used ')} kernels reported, spilling: "
         f"{spills or 'none'}")
+    ring_fwd_code(lib_path, report)
 
     # ---- the flagship model, seed-made weights
     t0 = time.perf_counter()

@@ -26,7 +26,9 @@ cache rows) and ``int8_matmul`` take the stack's limits: f32 up to the
 order of f32 sums, bf16 one-ulp flips of rounded outputs and residuals.
 The four ring-attention functions (o, m, l, dq, dk, dv, one-way and
 two-way, on rings of 2, 3 and 4 ranks with ragged chunks) take the flash
-limits; their dead rows attend uniformly and must not come out zero.
+limits; their dead rows attend uniformly and must not come out zero.  The
+forward functions are also held alone at chunks of 1 to 1,024 rows and
+head dims 64, 80 and 128, with their launches per call.
 """
 
 import numpy as np
@@ -413,7 +415,7 @@ def test_ring_attention_kernels(dev, dt, case, bidir):
     want = fwd_ref(q, k, v, kv_pad, ring=ring, causal=causal)
     for name, g, w in zip(("o", "m", "l"), got, want):
         _close(g, w, dt, name)
-    o, m, l = want
+    o, m, l = got            # the backward runs on the forward kernel's residuals
     grads = bwd(q, k, v, kv_pad, o, m, l, do, ring=ring, causal=causal)
     torch.cuda.synchronize()
     assert fwd.launches > before[0] and bwd.launches > before[1]
@@ -421,6 +423,52 @@ def test_ring_attention_kernels(dev, dt, case, bidir):
     for name, g, w in zip(("dq", "dk", "dv"), grads, ref):
         _close(g, w, dt, name)
     dead = m <= 0.5 * tra.NEG_INF
+    if case[-1] == "dead":
+        assert bool(dead.any()) and bool(got[0][dead].any())
+
+
+# (ranks, batch, chunk, heads, head_dim, causal, pad): the forward's chunk
+# lengths (1, 3, 5, 7 and 10 take the short-chunk tiling; 64, 65 and 1,024
+# the 64-row tiles: one full, one ragged, many key tiles) at head dims 64,
+# 80 and 128, with dead rows on odd and even rings
+RING_FWD_CASES = [
+    (4, 2, 1, 2, 64, True, "dead"),
+    (3, 3, 3, 2, 80, False, "dead"),
+    (4, 3, 5, 2, 128, True, "tail"),
+    (3, 2, 7, 2, 64, False, "random"),
+    (2, 2, 10, 2, 80, True, "dead"),
+    (4, 2, 64, 2, 128, True, "tail"),
+    (3, 2, 65, 2, 80, True, "dead"),
+    (2, 1, 1024, 2, 64, True, "random"),
+]
+
+
+@pytest.mark.parametrize("bidir", [False, True], ids=["one_way", "two_way"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", RING_FWD_CASES,
+                         ids=[f"n{c[0]}_c{c[2]}_d{c[4]}"
+                              for c in RING_FWD_CASES])
+def test_ring_forward_kernels(dev, dt, case, bidir):
+    """o, m and l of the forward kernels against the plain version, and one
+    launch per ring step that has a live rank."""
+    (q, k, v, kv_pad, _), ring, causal = _ring_inputs(
+        dev, dt, case, seed=case[2] + case[4])
+    fwd = (tra.ring_attention_fwd_bidir_shard if bidir
+           else tra.ring_attention_fwd_shard)
+    n = case[0]
+    before = fwd.launches
+    got = fwd(q, k, v, kv_pad, ring=ring, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    busy = [s for s in range(tra.ring_steps(n, bidir))
+            if any(tra.visits(n, s, r, causal, bidir) for r in range(n))]
+    assert fwd.launches - before == len(busy)
+    want = getattr(tra, fwd.__name__ + "_ref")(q, k, v, kv_pad, ring=ring,
+                                               causal=causal)
+    for name, g, w in zip(("o", "m", "l"), got, want):
+        _close(g, w, dt, name)
+    dead = want[1] <= 0.5 * tra.NEG_INF
+    assert torch.equal(got[1][dead], want[1][dead])
     if case[-1] == "dead":
         assert bool(dead.any()) and bool(got[0][dead].any())
 

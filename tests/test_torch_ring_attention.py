@@ -14,6 +14,10 @@ row (a causal query whose every visible key is padded attends uniformly
 over the keys of its live blocks).  Tolerance: 1e-5 of each tensor's
 largest magnitude (f32; the two sum in other orders).
 
+The forward's launch plan (``fwd_plan``: one kernel launch per ring step
+with a live rank, each rank finalized at its last live step) and the
+argument tables the forward kernel reads are checked in pure Python.
+
 Then the model: a tiny ``IQ`` forward in latent mode with
 ``sequence_parallel`` on a ``seq`` 4 mesh against the JAX ``IQ(...,
 mesh=seq_mesh)`` (parameters carried by ``from_flax``'s inverse,
@@ -177,6 +181,61 @@ def test_schedules_visit_every_live_block_once():
                             for _, src in tra.visits(n, s, r, causal, bidir)]
                     want = range(r + 1) if causal else range(n)
                     assert sorted(seen) == list(want), (n, bidir, causal, r)
+
+
+def _live_steps(n, causal, bidir):
+    """{rank: [steps where it computes a block]}, from ``visits``."""
+    return {r: [s for s in range(tra.ring_steps(n, bidir))
+                if tra.visits(n, s, r, causal, bidir)] for r in range(n)}
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8])
+def test_forward_plan(n):
+    """The forward's launch plan, both schedules, causal and not: each
+    step's launch covers exactly the ranks with a live block there, with
+    their visits; each rank starts its carry at its first live step and
+    finalizes exactly once, at its last; a call launches once per step
+    with a live rank."""
+    for bidir in (False, True):
+        for causal in (False, True):
+            plan = tra.fwd_plan(n, causal, bidir)
+            live = _live_steps(n, causal, bidir)
+            assert len(plan) == tra.ring_steps(n, bidir)
+            for s, entries in enumerate(plan):
+                assert [e[0] for e in entries] == [r for r in range(n)
+                                                   if s in live[r]]
+                for r, vis, first, last in entries:
+                    assert list(vis) == tra.visits(n, s, r, causal, bidir)
+                    assert first == (s == live[r][0])
+                    assert last == (s == live[r][-1])
+            finals = [e[0] for entries in plan for e in entries if e[3]]
+            assert sorted(finals) == list(range(n)), (bidir, causal)
+            busy = {s for steps in live.values() for s in steps}
+            assert sum(1 for entries in plan if entries) == len(busy)
+
+
+def test_forward_launches_per_call_at_seq4():
+    """Causal on 4 ranks: 3 two-way and 4 one-way launches per call."""
+    assert sum(1 for e in tra.fwd_plan(4, True, True) if e) == 3
+    assert sum(1 for e in tra.fwd_plan(4, True, False) if e) == 4
+
+
+@pytest.mark.parametrize("n", [3, 4, 8])
+def test_forward_tables_encode_the_plan(n):
+    """The argument tables the forward kernel reads at each step (ranks,
+    block counts, first/last flags, directions and sources) decode back
+    to the plan."""
+    for bidir in (False, True):
+        for causal in (False, True):
+            plan = tra.fwd_plan(n, causal, bidir)
+            for entries, t in zip(plan, tra._fwd_tables(n, causal, bidir)):
+                assert t.nent == len(entries)
+                for e, (r, vis, first, last) in enumerate(entries):
+                    info = t.info[e]
+                    assert (t.rank[e], info & 3, bool(info & 4),
+                            bool(info & 8)) == (r, len(vis), first, last)
+                    assert [((info >> (4 + j)) & 1, t.src[2 * e + j])
+                            for j in range(len(vis))] == list(vis)
 
 
 def test_cpu_takes_the_plain_version():
