@@ -12,16 +12,18 @@
 // schedule and the hops live in ops/kernels/ring_attention.py and
 // parallel/mesh.py (`LocalRing`: copies into double-buffered slots on a
 // side stream, ordered by CUDA events), and the work of one ring step is
-// launched on the compute stream:
-//  - forward (both schedules): ONE launch per ring step for every rank
-//    that has a live block there (grid dimension z: the step's ranks, read
-//    from the step's table; a rank's rows sit at rank stride C*H*D, its
-//    visiting blocks at rank stride B*C*H*D of the step's slots).  A rank
-//    carries (acc [B, C, H, D], m and l [B, C, H], all f32) from step to
-//    step in device memory; at its last live step the same launch
-//    finalizes it (o = acc / safe-l in the activation type, l := safe-l),
-//    so there is no finalize launch.  At seq 4, causal, that is 3 launches
-//    per two-way call and 4 per one-way call.
+// launched on the compute stream.  Both directions launch on one plan
+// (`ring_plan`): per ring step, one launch (per kernel) covers every rank
+// that has a live block there, read from the step's table (`RingStep`); a
+// rank's rows sit at rank stride C*H*D, its visiting blocks at rank stride
+// B*C*H*D of the step's slots.
+//  - forward (both schedules): ONE launch per ring step (grid dimension z:
+//    the step's ranks).  A rank carries (acc [B, C, H, D], m and l
+//    [B, C, H], all f32) from step to step in device memory; at its last
+//    live step the same launch finalizes it (o = acc / safe-l in the
+//    activation type, l := safe-l), so there is no finalize launch.  At
+//    seq 4, causal, that is 3 launches per two-way call and 4 per one-way
+//    call.
 //    bf16: ring_fwd_mma_kernel, tensor cores (mma.sync m16n8k16, bf16 x bf16
 //    -> f32, as the TPU's MXU).  A warp owns 16 query rows: q in registers,
 //    K/V tiles of up to 64 keys in bf16 in shared memory, loaded by 16-byte
@@ -42,15 +44,33 @@
 //    f32 (a check path, not a speed target): ring_fwd_fma_kernel, plain f32
 //    FMA tiles of 64 x 64 in the same launch structure (TF32 would keep
 //    about 3 digits);
-//  - ring_bwd_dkdv_kernel: each visiting block's contribution added to its
-//    f32 dK/dV rider (the rider travels with its block and lands home);
-//  - ring_bwd_dq_kernel: the contributions of all visiting blocks added to
-//    the rank's f32 dq;
-//  - ring_land_kernel: dq, and dk/dv from the landed riders (the two-way
-//    ring sums clockwise + counter-clockwise, in that order), in the
-//    activation type, once per rank at the end.
-//  The backward kernels launch once per rank and live step (dK/dV, dQ) and
-//  once per rank at the end (landing), on f32 FMA tiles.
+//  - backward (both schedules): per ring step ONE dK/dV launch (grid
+//    dimension z: the step's (rank, visiting block) pairs; each pair adds
+//    its block's contribution to the f32 dK/dV rider that travels with the
+//    block and lands home) and ONE dQ launch (z: the step's ranks; the
+//    contributions of the rank's visiting blocks, in order, added to its
+//    f32 dq carry, which starts at the rank's first live step); per call
+//    ONE landing launch for every rank (dq, and dk/dv from the landed
+//    riders: the two-way ring sums clockwise + counter-clockwise, in that
+//    order, in the activation type).  At seq 4, causal, that is 7 launches
+//    per two-way call and 9 per one-way call.
+//    bf16: ring_bwd_dkdv_mma_kernel and ring_bwd_dq_mma_kernel, tensor
+//    cores on the forward's tiling (the short-chunk groups of (b, h), 64-row
+//    tiles from C 33 on, cp.async in two stages, head dims zero-padded to
+//    16).  dK/dV: a warp owns 16 keys (K, V in shared memory, dk and dv in
+//    registers) and walks the query tiles; it computes S^T = k q^T and
+//    dP^T = v dO^T so that p^T and ds^T come out of the accumulators as the
+//    A operands of dV += p^T dO and dK += ds^T q.  dQ: a warp owns 16 query
+//    rows (q and dO as A fragments, dq in registers) and walks the key
+//    tiles of the rank's visiting blocks.  p and ds are f32 values: each
+//    is fed to the tensor core as hi = bf16(x) and lo = bf16(x - hi).  Key
+//    tiles wholly after a dQ block's rows are not walked (ds = 0 there);
+//    query tiles wholly before a dK/dV block's keys are skipped only up to
+//    the first that holds a dead row (a block vote), since a dead row's p
+//    is 1 / l at every masked key of a live block and reaches dv.
+//    f32 (a check path): ring_bwd_dkdv_fma_kernel and ring_bwd_dq_fma_kernel,
+//    the FMA tiles of 64 x 64, one (b, h) per block, in the same launch
+//    structure.
 //
 // What the TPU kernels compute, and this file copies:
 //  - masked logits take NEG_INF = -1e30 and the running max starts there,
@@ -65,8 +85,9 @@
 //    p = exp(s - m) / l and zeroes ds at masked logits;
 //  - p is rounded to the activation type before the PV product, l sums the
 //    unrounded p; the backward runs every product in f32 (dO, q, k, v as
-//    f32 values); the riders and dq accumulate in f32 and are rounded once,
-//    when they land.
+//    f32 values; on the tensor cores they are exact bf16 operands, and the
+//    f32 p and ds go in as hi + lo pairs); the riders and dq accumulate in
+//    f32 and are rounded once, when they land.
 //
 // Layouts: a rank's local operands (q, dO, o, the acc and dq carries, dq/dk/
 // dv) are [B, C, H, D] rows of the [B, T, H, D] sequence, batch stride `sb`
@@ -78,18 +99,22 @@
 //
 // Bound on this card: the bytes of q, k, v, o, m, l (and dO, dq, dk, dv)
 // once each at 3.35 TB/s, or the operations of the live blocks at 989 TF/s
-// (bf16); chip_smoke.py computes both per call.  The forward at the
-// flagship's training shape (B 64, H 8, Dh 128, T 20 on seq 4, causal) is
-// bound by bytes, 3.15 us per call; what costs there is launches and the
-// latency of each block's few loads, so the design launches once per ring
-// step and gives every (rank, b, h) its own warp.  At the long shape (B 2, T 4096
-// on seq 4, C 1024, causal) it is bound by operations, 86.9 us per call:
-// there the tensor-core tiles, the overlapped loads and the skipped future
-// tiles do the work.  The hop bytes (slots and riders) are counted apart by
-// the ring (`LocalRing.hop_bytes`) and are not part of the bound.  Left for
-// later work: wgmma (warpgroup products from shared memory, fed by TMA),
-// the carry kept on chip across ring steps, a hop fused into the block
-// kernel, and the backward on the same design.
+// (bf16); chip_smoke.py computes both per call.  At the flagship's training
+// shape (B 64, H 8, Dh 128, T 20 on seq 4, causal) both directions are
+// bound by bytes (3.15 us per forward call, 6.28 us per backward call);
+// what costs there is launches and the latency of each block's few loads,
+// so the design launches once per ring step and kernel and gives every
+// (rank, b, h) its own warp.  At the long shape (B 2, T 4096 on seq 4,
+// C 1024, causal) both are bound by operations (the forward 86.9 us, the
+// backward's five products about 217 us per call): there the tensor-core
+// tiles, the overlapped loads and the skipped tiles do the work; the
+// backward computes S and dP in both of its kernels and runs its last
+// three products twice (hi and lo), about twice the bound's operations.
+// The hop bytes (slots and riders) are counted apart by the ring
+// (`LocalRing.hop_bytes`) and are not part of the bound.  Left for later
+// work: wgmma (warpgroup products from shared memory, fed by TMA), the
+// carry kept on chip across ring steps, and a hop fused into the block
+// kernel.
 #include "common.cuh"
 
 namespace bvq {
@@ -99,30 +124,6 @@ constexpr int RA_T = 64, RA_THREADS = 256, RA_DMAX = 128;
 constexpr int RA_DC = RA_DMAX / 4;   // d columns a thread owns: d = lane4 + 4c
 constexpr int RA_JC = RA_T / 4;      // key columns a thread scores: j = lane4 + 4c
 constexpr int RA_PLD = RA_T + 1;     // row stride of the [64][64] score tiles
-
-// the backward kernels' arguments: one rank at one step (dK/dV, dQ) or at
-// the end (landing)
-struct RingArgs {
-  int act_bf16, causal, first, nblk;
-  int batch, heads, chunk, dim;
-  int q_off;                        // the rank's first query position
-  int k_off[2];                     // each visiting block's first key position
-  long sb;                          // batch stride of the local operands
-  const void* q;                    // local [B, C, H, D]
-  const void* dout;                 // local [B, C, H, D]
-  const void* k[2];                 // visiting blocks [B, C, H, D]
-  const void* v[2];
-  const unsigned char* pad[2];      // [B, C]
-  const float* m;                   // local rows: the forward's running max
-  const float* l;                   // local rows: the forward's safe l
-  const float* delta;               // local rows: rowsum(dO * O)
-  float* dq;                        // local f32 carry
-  float* rider[2];                  // [2, B, C, H, D] f32 per visiting block
-  void* dq_out;
-  void* dk;
-  void* dv;
-  const float* ret[2];              // landed riders [2, B, C, H, D] (ret[1] may be null)
-};
 
 // offset of element (b, t, h, 0) of a [B, rows, H, D] operand
 __device__ __forceinline__ size_t ra_at(long sb, int b, int t, int h, int H, int D) {
@@ -148,36 +149,10 @@ __device__ void ra_load_tile(float* dst, const T* src, long sb, int b, int h, in
   }
 }
 
-template <typename T>
-__device__ void ra_load_tile(float* dst, const T* src, long sb, int b, int h, int r0,
-                             const RingArgs& a) {
-  ra_load_tile<T>(dst, src, sb, b, h, r0, a.dim, a.chunk, a.heads);
-}
-
 __device__ __forceinline__ float ra_dot(const float* x, const float* y, int D) {
   float s = 0.f;
   for (int d = 0; d < D; ++d) s = fmaf(x[d], y[d], s);
   return s;
-}
-
-// one visiting block's operands (the argument arrays indexed by constants)
-struct RingBlock {
-  const void* k;
-  const void* v;
-  const unsigned char* pad;
-  float* rider;
-  int k_off;
-};
-
-__device__ __forceinline__ RingBlock ra_block(const RingArgs& a, int blk) {
-  return blk == 0 ? RingBlock{a.k[0], a.v[0], a.pad[0], a.rider[0], a.k_off[0]}
-                  : RingBlock{a.k[1], a.v[1], a.pad[1], a.rider[1], a.k_off[1]};
-}
-
-// key kj (< C) of visiting block kb is masked for local query i
-__device__ __forceinline__ bool ra_masked(const RingArgs& a, const RingBlock& kb, int b,
-                                          int i, int kj) {
-  return kb.pad[(size_t)b * a.chunk + kj] || (a.causal && kb.k_off + kj > a.q_off + i);
 }
 
 // the 4 lanes of a query row reduce together (lanes 4r .. 4r + 3)
@@ -191,27 +166,34 @@ __device__ __forceinline__ float ra_quad_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one launch per ring step; grid dimension z runs over the step's
-// entries, one for each rank with a live block at that step.
-constexpr int RF_RMAX = 64;         // ranks a forward launch takes
+// The plan both directions launch on: one launch per ring step (and kernel)
+// for every rank with a live block there.
+constexpr int RING_RMAX = 64;       // ranks a launch takes
+
+// The ranks live at one step.  Entry e is rank rank[e]; it computes nblk =
+// info & 3 visiting blocks, block j through direction (info >> (4 + j)) & 1
+// (0 clockwise, 1 counter-clockwise) from source rank src[2e + j].  info & 4:
+// the rank's first live step (its carry starts empty); info & 8: its last
+// (the forward launch finalizes it).  pair[p] = 2e + j, p < npair, lists the
+// step's (entry, visiting block) pairs: the grid of the backward's dK/dV
+// launch.
+struct RingStep {
+  int nent;
+  int npair;
+  int rank[RING_RMAX];
+  int info[RING_RMAX];
+  int src[2 * RING_RMAX];
+  int pair[2 * RING_RMAX];
+};
+
+// ---------------------------------------------------------------------------
+// Forward: grid dimension z runs over the step's entries.
 constexpr int RF_WARPS = 4;         // tensor-core kernel: warps per block
 constexpr int RF_BLOCKS_PER_SM = 3; // its registers are capped for 3 blocks per SM
 constexpr int RF_THREADS = 32 * RF_WARPS;
 constexpr int RF_KT = 64;           // keys per tile of the tensor-core kernel
 constexpr int RF_NT = RF_KT / 8;    // its key columns of 8
 constexpr int RF_DT = RA_DMAX / 8;  // its head-dim columns of 8
-
-// The ranks live at one step.  Entry e is rank rank[e]; it computes nblk =
-// info & 3 visiting blocks, block j through direction (info >> (4 + j)) & 1
-// (0 clockwise, 1 counter-clockwise) from source rank src[2e + j].  info & 4:
-// the rank's first live step (its carry starts empty); info & 8: its last
-// (the launch finalizes it).
-struct RingFwdStep {
-  int nent;
-  int rank[RF_RMAX];
-  int info[RF_RMAX];
-  int src[2 * RF_RMAX];
-};
 
 struct RingFwdArgs {
   int act_bf16, causal, batch, heads, chunk, dim;
@@ -226,7 +208,7 @@ struct RingFwdArgs {
   const void* k[2];             // the step's slot of each direction [n, B, C, H, D]
   const void* v[2];
   const unsigned char* pad[2];  // [n, B, C]
-  RingFwdStep step;
+  RingStep step;
 };
 
 // entry e's local operands, at its rank's offsets
@@ -708,57 +690,119 @@ __global__ void __launch_bounds__(RF_THREADS, RF_BLOCKS_PER_SM)
 }
 
 // ---------------------------------------------------------------------------
-// Backward, shared by both kernels: for query row `row` of the tile at q0
-// and key columns lane4 + 4c of the tile at k0 of visiting block blk, the
-// probabilities p = exp(s - m) / l and ds = p * (dp - delta) (zeroed at
-// masked logits), into ps / dss rows.
-struct RingRows {
-  float* m;      // [T] the saved running max
-  float* linv;   // [T] 1 / l
-  float* delta;  // [T]
+// Backward: per ring step one dK/dV launch (grid dimension z over the step's
+// (entry, visiting block) pairs) and one dQ launch (z over its entries); one
+// landing launch per call for every rank.
+struct RingBwdArgs {
+  int act_bf16, causal, ranks, batch, heads, chunk, dim;
+  long rs;                      // rank stride of the local operands (C*H*D)
+  long sb;                      // their batch stride
+  long slot_rs;                 // rank stride of a K/V slot (B*C*H*D); a rider's is twice it
+  const void* q;                // rank 0's local operands [B, C, H, D]
+  const void* dout;
+  const float* m;               // rows [B, C, H]: rank stride rs / D, batch stride sb / D
+  const float* l;               // the forward's safe l
+  const float* delta;           // rowsum(dO * O)
+  float* dq;                    // f32 carry, laid out as q
+  const void* k[2];             // the step's slot of each direction [n, B, C, H, D]
+  const void* v[2];
+  const unsigned char* pad[2];  // [n, B, C]
+  float* rider[2];              // the step's riders of each direction [n, 2, B, C, H, D]
+  void* dq_out;                 // outputs, laid out as q
+  void* dk;
+  void* dv;
+  const float* ret[2];          // landed riders [n, 2, B, C, H, D] (ret[1] null one-way)
+  RingStep step;
 };
 
-__device__ void ra_load_rows(const RingArgs& a, const RingRows& r, int b, int h, int q0) {
-  const long sr = a.sb / a.dim;
+// entry e's local operands, at its rank's offsets
+template <typename T>
+struct RbLocal {
+  const T* q;
+  const T* dout;
+  const float* m;
+  const float* l;
+  const float* delta;
+  float* dq;
+  int nblk, q_off;
+  bool first;
+};
+
+template <typename T>
+__device__ __forceinline__ RbLocal<T> rb_local(const RingBwdArgs& a, int e) {
+  const int rank = a.step.rank[e], info = a.step.info[e];
+  const size_t off = (size_t)rank * a.rs, roff = off / a.dim;
+  return RbLocal<T>{static_cast<const T*>(a.q) + off, static_cast<const T*>(a.dout) + off,
+                    a.m + roff, a.l + roff, a.delta + roff, a.dq + off, info & 3,
+                    rank * a.chunk, (info & 4) != 0};
+}
+
+// visiting block j of entry e, with the rider that travels with it
+template <typename T>
+struct RbBlock {
+  const T* k;
+  const T* v;
+  const unsigned char* pad;
+  float* rider;  // [2, B, C, H, D]: dk, dv
+  int k_off;
+};
+
+template <typename T>
+__device__ __forceinline__ RbBlock<T> rb_block(const RingBwdArgs& a, int e, int j) {
+  const int rank = a.step.rank[e];
+  const bool ccw = (a.step.info[e] >> (4 + j)) & 1;
+  const size_t off = (size_t)rank * a.slot_rs;
+  return RbBlock<T>{static_cast<const T*>(ccw ? a.k[1] : a.k[0]) + off,
+                    static_cast<const T*>(ccw ? a.v[1] : a.v[0]) + off,
+                    (ccw ? a.pad[1] : a.pad[0]) + (size_t)rank * a.batch * a.chunk,
+                    (ccw ? a.rider[1] : a.rider[0]) + 2 * off, a.step.src[2 * e + j] * a.chunk};
+}
+
+// ---- f32 (a check path): FMA tiles of 64 x 64, 256 threads, one (b, h) per
+// block.  For query row `row` of the tile at q0 and key columns lane4 + 4c of
+// the tile at k0, p = exp(s - m) / l and ds = p * (dp - delta) (zeroed at
+// masked logits), into ps / dss rows.
+__device__ void rb_load_rows(float* rm, float* rl, float* rd, const RbLocal<float>& x,
+                             long sr, int b, int h, int H, int C, int q0) {
   for (int t = threadIdx.x; t < RA_T; t += blockDim.x) {
     const int i = q0 + t;
-    const bool in = i < a.chunk;
-    const size_t ri = (size_t)b * sr + (size_t)i * a.heads + h;
-    r.m[t] = in ? a.m[ri] : 0.f;
-    r.linv[t] = in ? 1.f / a.l[ri] : 0.f;
-    r.delta[t] = in ? a.delta[ri] : 0.f;
+    const bool in = i < C;
+    const size_t ri = (size_t)b * sr + (size_t)i * H + h;
+    rm[t] = in ? x.m[ri] : 0.f;
+    rl[t] = in ? 1.f / x.l[ri] : 0.f;
+    rd[t] = in ? x.delta[ri] : 0.f;
   }
 }
 
-__device__ void ra_scores_bwd(const RingArgs& a, const RingBlock& kb, const RingRows& r,
-                              const float* qs, const float* dos, const float* ks,
-                              const float* vs, float* ps, float* dss, int b, int q0,
-                              int k0) {
-  const int D = a.dim, LD = D + 1;
+__device__ void rb_scores_fma(const RingBwdArgs& a, const RbLocal<float>& x,
+                              const RbBlock<float>& kb, const float* rows, const float* qs,
+                              const float* dos, const float* ks, const float* vs, float* ps,
+                              float* dss, int b, int q0, int k0) {
+  const int D = a.dim, LD = D + 1, C = a.chunk;
   const int row = threadIdx.x / 4, lane4 = threadIdx.x % 4, i = q0 + row;
-  const float m = r.m[row], linv = r.linv[row], delta = r.delta[row];
+  const float m = rows[row], linv = rows[RA_T + row], delta = rows[2 * RA_T + row];
 #pragma unroll 4
   for (int c = 0; c < RA_JC; ++c) {
     const int j = lane4 + 4 * c, kj = k0 + j;
     float p = 0.f, ds = 0.f;
-    if (i < a.chunk && kj < a.chunk) {
-      const bool masked = ra_masked(a, kb, b, i, kj);
+    if (i < C && kj < C) {
+      const bool masked = kb.pad[(size_t)b * C + kj] || (a.causal && kb.k_off + kj > x.q_off + i);
       const float s = masked ? RA_NEG_INF : ra_dot(qs + row * LD, ks + j * LD, D);
       p = expf(s - m) * linv;
       ds = masked ? 0.f : p * (ra_dot(dos + row * LD, vs + j * LD, D) - delta);
     }
-    if (row < ra_tile_rows(a.chunk)) {
+    if (row < ra_tile_rows(C)) {
       if (ps) ps[row * RA_PLD + j] = p;
       dss[row * RA_PLD + j] = ds;
     }
   }
 }
 
-// dK/dV: block (b*h, key tile, visiting block); thread (key row jr = tid / 4,
-// lane4) owns columns lane4 + 4c of dk and dv for its key, and adds them to
-// the block's rider.
-template <typename T>
-__global__ void __launch_bounds__(RA_THREADS) ring_bwd_dkdv_kernel(RingArgs a) {
+// dK/dV: block (b*h, key tile, pair); thread (key row jr = tid / 4, lane4)
+// owns columns lane4 + 4c of dk and dv for its key, and adds them to the
+// block's rider.
+__global__ void __launch_bounds__(RA_THREADS)
+    ring_bwd_dkdv_fma_kernel(const __grid_constant__ RingBwdArgs a) {
   extern __shared__ float ra_smem[];
   const int D = a.dim, LD = D + 1, C = a.chunk, H = a.heads, TR = ra_tile_rows(C);
   float* ks = ra_smem;           // [TR][LD]
@@ -767,27 +811,28 @@ __global__ void __launch_bounds__(RA_THREADS) ring_bwd_dkdv_kernel(RingArgs a) {
   float* dos = qs + TR * LD;
   float* ps = dos + TR * LD;     // [TR][PLD]
   float* dss = ps + TR * RA_PLD;
-  const RingRows rows{dss + TR * RA_PLD, dss + TR * RA_PLD + RA_T,
-                      dss + TR * RA_PLD + 2 * RA_T};
+  float* rows = dss + TR * RA_PLD;  // m, 1 / l, delta: [3][RA_T]
+  const int pr = a.step.pair[blockIdx.z];
+  const RbLocal<float> x = rb_local<float>(a, pr >> 1);
+  const RbBlock<float> kb = rb_block<float>(a, pr >> 1, pr & 1);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * RA_T;
   const int tid = threadIdx.x, jr = tid / 4, lane4 = tid % 4;
-  const long sbk = (long)C * H * D;
-  const RingBlock kb = ra_block(a, blockIdx.z);
+  const long sbk = (long)C * H * D, sr = a.sb / D;
 
-  ra_load_tile<T>(ks, static_cast<const T*>(kb.k), sbk, b, h, k0, a);
-  ra_load_tile<T>(vs, static_cast<const T*>(kb.v), sbk, b, h, k0, a);
+  ra_load_tile<float>(ks, kb.k, sbk, b, h, k0, D, C, H);
+  ra_load_tile<float>(vs, kb.v, sbk, b, h, k0, D, C, H);
   float dk[RA_DC], dv[RA_DC];
 #pragma unroll
   for (int c = 0; c < RA_DC; ++c) dk[c] = dv[c] = 0.f;
 
   for (int q0 = 0; q0 < C; q0 += RA_T) {
     __syncthreads();
-    ra_load_tile<T>(qs, static_cast<const T*>(a.q), a.sb, b, h, q0, a);
-    ra_load_tile<T>(dos, static_cast<const T*>(a.dout), a.sb, b, h, q0, a);
-    ra_load_rows(a, rows, b, h, q0);
+    ra_load_tile<float>(qs, x.q, a.sb, b, h, q0, D, C, H);
+    ra_load_tile<float>(dos, x.dout, a.sb, b, h, q0, D, C, H);
+    rb_load_rows(rows, rows + RA_T, rows + 2 * RA_T, x, sr, b, h, H, C, q0);
     __syncthreads();
-    ra_scores_bwd(a, kb, rows, qs, dos, ks, vs, ps, dss, b, q0, k0);
+    rb_scores_fma(a, x, kb, rows, qs, dos, ks, vs, ps, dss, b, q0, k0);
     __syncthreads();
     // query rows past the chunk have p = ds = 0
     const int rn = min(RA_T, C - q0);
@@ -821,11 +866,11 @@ __global__ void __launch_bounds__(RA_THREADS) ring_bwd_dkdv_kernel(RingArgs a) {
   }
 }
 
-// dQ: block (b*h, query tile); thread (row, lane4) owns columns lane4 + 4c of
-// its row's dq, summed over every visiting block, in order, then added to
-// the carry (or written, at the first step).
-template <typename T>
-__global__ void __launch_bounds__(RA_THREADS) ring_bwd_dq_kernel(RingArgs a) {
+// dQ: block (b*h, query tile, entry); thread (row, lane4) owns columns
+// lane4 + 4c of its row's dq, summed over the entry's visiting blocks in
+// order, then added to the carry (written at the rank's first live step).
+__global__ void __launch_bounds__(RA_THREADS)
+    ring_bwd_dq_fma_kernel(const __grid_constant__ RingBwdArgs a) {
   extern __shared__ float ra_smem[];
   const int D = a.dim, LD = D + 1, C = a.chunk, H = a.heads, TR = ra_tile_rows(C);
   float* qs = ra_smem;           // [TR][LD]
@@ -833,28 +878,29 @@ __global__ void __launch_bounds__(RA_THREADS) ring_bwd_dq_kernel(RingArgs a) {
   float* ks = dos + TR * LD;
   float* vs = ks + TR * LD;
   float* dss = vs + TR * LD;     // [TR][PLD]
-  const RingRows rows{dss + TR * RA_PLD, dss + TR * RA_PLD + RA_T,
-                      dss + TR * RA_PLD + 2 * RA_T};
+  float* rows = dss + TR * RA_PLD;
+  const int e = blockIdx.z;
+  const RbLocal<float> x = rb_local<float>(a, e);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = blockIdx.y * RA_T;
   const int tid = threadIdx.x, row = tid / 4, lane4 = tid % 4, i = q0 + row;
-  const long sbk = (long)C * H * D;
+  const long sbk = (long)C * H * D, sr = a.sb / D;
 
-  ra_load_tile<T>(qs, static_cast<const T*>(a.q), a.sb, b, h, q0, a);
-  ra_load_tile<T>(dos, static_cast<const T*>(a.dout), a.sb, b, h, q0, a);
-  ra_load_rows(a, rows, b, h, q0);
+  ra_load_tile<float>(qs, x.q, a.sb, b, h, q0, D, C, H);
+  ra_load_tile<float>(dos, x.dout, a.sb, b, h, q0, D, C, H);
+  rb_load_rows(rows, rows + RA_T, rows + 2 * RA_T, x, sr, b, h, H, C, q0);
   float dq[RA_DC];
 #pragma unroll
   for (int c = 0; c < RA_DC; ++c) dq[c] = 0.f;
 
-  for (int blk = 0; blk < a.nblk; ++blk) {
-    const RingBlock kb = ra_block(a, blk);
+  for (int blk = 0; blk < x.nblk; ++blk) {
+    const RbBlock<float> kb = rb_block<float>(a, e, blk);
     for (int k0 = 0; k0 < C; k0 += RA_T) {
       __syncthreads();
-      ra_load_tile<T>(ks, static_cast<const T*>(kb.k), sbk, b, h, k0, a);
-      ra_load_tile<T>(vs, static_cast<const T*>(kb.v), sbk, b, h, k0, a);
+      ra_load_tile<float>(ks, kb.k, sbk, b, h, k0, D, C, H);
+      ra_load_tile<float>(vs, kb.v, sbk, b, h, k0, D, C, H);
       __syncthreads();
-      ra_scores_bwd(a, kb, rows, qs, dos, ks, vs, nullptr, dss, b, q0, k0);
+      rb_scores_fma(a, x, kb, rows, qs, dos, ks, vs, nullptr, dss, b, q0, k0);
       __syncwarp();  // the row's ds was written by the 4 lanes that read it
       const int jn = min(RA_T, C - k0);   // ds = 0 past the chunk's edge
 #pragma unroll
@@ -870,42 +916,521 @@ __global__ void __launch_bounds__(RA_THREADS) ring_bwd_dq_kernel(RingArgs a) {
   }
 
   if (i < C) {
-    float* dqp = a.dq + ra_at(a.sb, b, i, h, H, D);
+    float* dqp = x.dq + ra_at(a.sb, b, i, h, H, D);
 #pragma unroll
     for (int c = 0; c < RA_DC; ++c) {
       const int d = lane4 + 4 * c;
-      if (d < D) dqp[d] = a.first ? dq[c] : dqp[d] + dq[c];
+      if (d < D) dqp[d] = x.first ? dq[c] : dqp[d] + dq[c];
     }
   }
 }
 
-// dq, dk, dv in T from the f32 dq carry and the landed riders, one thread
-// per element of the rank's [B, C, H, D]
+// ---- bf16: tensor cores (mma.sync m16n8k16, bf16 x bf16 -> f32), 4 warps.
+// The five products are S = q k^T and dP = dO v^T (recomputed by both
+// kernels), dV += p^T dO, dK += ds^T q and dQ += ds k.  q, k, v and dO are
+// bf16 inputs, exact as operands; p and ds are f32 values, and the contract
+// runs their products in f32: each is fed as a pair hi = bf16(x), lo =
+// bf16(x - hi), two products with about 16 bits of mantissa (one bf16
+// operand would move dV and dK by up to 2^-9 relative per term).  Every
+// 16-deep slice is summed by the tensor core from zero and added in f32
+// (the tensor core truncates its own sums).
+constexpr int RB_WARPS = 4;
+constexpr int RB_THREADS = 32 * RB_WARPS;
+constexpr int RB_BLOCKS_PER_SM = 2;
+
+// the tiling of a chunk of C rows at head dim D
+struct RbGeom {
+  int wq;      // warps per (b, h): each owns 16 rows (dK/dV: keys; dQ: queries)
+  int groups;  // (b, h) per block, RB_WARPS / wq
+  int own;     // rows a group owns, 16 * wq
+  int kt;      // rows of a walked tile: C rounded up to 16, at most 64
+  int dp;      // D rounded up to 16 (zero-padded)
+  int lds;     // shared row stride in elements, dp + 8 (conflict-free ldmatrix)
+  int fixed;   // bytes a group holds for the whole launch (dK/dV: its K and V)
+  int stage;   // bytes of one stage of the walked operand, per group
+  int nst;     // stages
+};
+
+__host__ __device__ __forceinline__ RbGeom rb_geom(int C, int D, bool dkdv) {
+  RbGeom g;
+  g.wq = C <= 16 ? 1 : C <= 32 ? 2 : RB_WARPS;
+  g.groups = RB_WARPS / g.wq;
+  g.own = 16 * g.wq;
+  const int c16 = (C + 15) / 16 * 16;
+  g.kt = c16 < 64 ? c16 : 64;
+  g.dp = (D + 15) / 16 * 16;
+  g.lds = g.dp + 8;
+  const int tile = g.kt * g.lds * 2;  // bytes of one bf16 tile
+  if (dkdv) {  // owns K, V; walks q, dO and the rows m, l, delta
+    g.fixed = 2 * g.own * g.lds * 2;
+    g.stage = (2 * tile + 3 * g.kt * 4 + 15) / 16 * 16;
+    g.nst = C > g.kt ? 2 : 1;
+  } else {     // walks K, V and the keys' pad bytes
+    g.fixed = 0;
+    g.stage = (2 * tile + g.kt + 15) / 16 * 16;
+    g.nst = 2;
+  }
+  return g;
+}
+
+__device__ __forceinline__ void rb_load4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(rf_sa(dst)), "l"(src)
+               : "memory");
+}
+
+// x (a 16 x 16 tile held as two m16n8 accumulators) as the A operands hi
+// and lo of a product over its 16 columns
+__device__ __forceinline__ void rb_split(const float (&x)[2][4], uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float x0 = x[r >> 1][2 * (r & 1)], x1 = x[r >> 1][2 * (r & 1) + 1];
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+    hi[r] = *reinterpret_cast<const uint32_t*>(&v);
+    lo[r] = rf_pack(x0 - __low2float(v), x1 - __high2float(v));
+  }
+}
+
+// acc[2n], acc[2n + 1] += (hi + lo) x the 16 x 16 tile at p (rows: the
+// contraction; read transposed), for every 16 columns n of the head dim
+__device__ __forceinline__ void rb_mma_pair(float (&acc)[RF_DT][4], const uint32_t (&hi)[4],
+                                            const uint32_t (&lo)[4], const __nv_bfloat16* p,
+                                            int lds, int dp, int lane) {
+  const int mi = lane / 8, lr8 = lane % 8;
+#pragma unroll
+  for (int np = 0; np < RF_DT / 2; ++np) {
+    if (np < dp / 16) {
+      uint32_t bf[4];
+      rf_ldsm_t(bf, p + (8 * (mi & 1) + lr8) * lds + 16 * np + 8 * (mi >> 1));
+      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+      rf_mma(t0, hi, bf[0], bf[1]);
+      rf_mma(t0, lo, bf[0], bf[1]);
+      rf_mma(t1, hi, bf[2], bf[3]);
+      rf_mma(t1, lo, bf[2], bf[3]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[2 * np][c] += t0[c];
+        acc[2 * np + 1][c] += t1[c];
+      }
+    }
+  }
+}
+
+// s[j] += a x rows 16 j' .. of the tile at p (row-major, the contraction
+// along each row), two 8-column halves, each 16-deep slice from zero
+__device__ __forceinline__ void rb_scores(float (&s)[2][4], const uint32_t (&a)[4],
+                                          const __nv_bfloat16* p, int lds, int lane) {
+  const int mi = lane / 8, lr8 = lane % 8;
+  uint32_t bf[4];
+  rf_ldsm(bf, p + (8 * (mi >> 1) + lr8) * lds + 8 * (mi & 1));
+  float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+  rf_mma(t0, a, bf[0], bf[1]);
+  rf_mma(t1, a, bf[2], bf[3]);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    s[0][c] += t0[c];
+    s[1][c] += t1[c];
+  }
+}
+
+// dK/dV: block ((b, h) group, key tile of 16 * wq keys, pair).  Warp w owns
+// keys kb0 + 16 (w % wq) .. + 15 of its group's (b, h): K and V stay in
+// shared memory, dk and dv in registers (accumulators of 16 keys x D), and
+// the block walks the query tiles (q, dO, m, l, delta) through two
+// cp.async stages.  It computes S^T = k q^T and dP^T = v dO^T, so p^T and
+// ds^T come out of the accumulators as the A operands of dV and dK.
+// Query tiles wholly before the owned keys add nothing to dk (ds = 0 at
+// masked logits), and to dv only through dead rows (m = NEG_INF: p = 1 / l
+// at every masked key of a live block): they are skipped up to the first
+// tile that holds a dead row of any of the block's (b, h).
+__global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
+    ring_bwd_dkdv_mma_kernel(const __grid_constant__ RingBwdArgs a) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char rb_smem[];
+  __shared__ int first_dead;
+  const int C = a.chunk, D = a.dim, H = a.heads;
+  const RbGeom g = rb_geom(C, D, true);
+  const int pr = a.step.pair[blockIdx.z];
+  const RbLocal<T> x = rb_local<T>(a, pr >> 1);
+  const RbBlock<T> kb = rb_block<T>(a, pr >> 1, pr & 1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
+  const int grp = warp / g.wq;
+  const int gtid = threadIdx.x - grp * 32 * g.wq, gthreads = 32 * g.wq;
+  const int bh = blockIdx.x * g.groups + grp;
+  const bool active = bh < a.batch * H;  // the last block's groups may be idle
+  const int b = active ? bh / H : 0, h = active ? bh % H : 0;
+  const int kb0 = blockIdx.y * g.own;           // the block's first key
+  const int kw = 16 * (warp % g.wq);            // the warp's keys in the owned tile
+  const int nd = g.dp / 8, ntq = (C + g.kt - 1) / g.kt;
+  const long sbk = (long)C * H * D, sr = a.sb / D;
+  unsigned char* gsm = rb_smem + (size_t)grp * (g.fixed + g.nst * g.stage);
+  T* ks = reinterpret_cast<T*>(gsm);
+  T* vs = ks + g.own * g.lds;
+  unsigned char* stg = gsm + g.fixed;
+  const int mi = lane / 8, lr8 = lane % 8;
+  const T zero = __float2bfloat16_rn(0.f);
+
+  // the owned K and V, zeros past the chunk and the dim
+  if (active) {
+    for (int c = gtid; c < g.own * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, kj = kb0 + r;
+      const int valid = kj < C ? max(0, min(8, D - d0)) : 0;
+      const size_t off = kj < C ? ra_at(sbk, b, kj, h, H, D) + d0 : 0;
+      rf_load16(ks + r * g.lds + d0, kb.k + off, valid, zero);
+      rf_load16(vs + r * g.lds + d0, kb.v + off, valid, zero);
+    }
+  }
+  rf_commit();
+  // the warp's keys kb0 + kw + gr + 8y: in the chunk, and padded
+  bool kin[2], kpad[2];
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int kj = kb0 + kw + gr + 8 * y;
+    kin[y] = active && kj < C;
+    kpad[y] = kin[y] && kb.pad[(size_t)b * C + kj];
+  }
+
+  // causal: query rows i < lim see none of the block's keys
+  int qstart = 0;
+  if (a.causal) {
+    const int lim = kb.k_off + kb0 - x.q_off;
+    const int blind = lim >= C ? ntq : max(0, lim / g.kt);  // tiles wholly before
+    if (blind > 0) {
+      if (threadIdx.x == 0) first_dead = blind * g.kt;
+      __syncthreads();
+      const int rows = min(C, blind * g.kt);
+      int fd = rows;
+      if (active) {
+        for (int i = gtid; i < rows; i += gthreads)
+          if (x.m[(size_t)b * sr + (size_t)i * H + h] <= 0.5f * RA_NEG_INF) {
+            fd = i;
+            break;
+          }
+      }
+      if (fd < rows) atomicMin(&first_dead, fd);
+      __syncthreads();
+      qstart = first_dead / g.kt;
+    }
+  }
+
+  // query tile t into stage st: q and dO rows, and the rows' m, l, delta
+  // (l = 1 and the rest 0 past the chunk)
+  auto load = [&](int t, int st) {
+    if (!active) return;
+    const int q0 = t * g.kt;
+    T* qs = reinterpret_cast<T*>(stg + (size_t)st * g.stage);
+    T* os = qs + g.kt * g.lds;
+    float* rm = reinterpret_cast<float*>(os + g.kt * g.lds);
+    for (int c = gtid; c < g.kt * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, i = q0 + r;
+      const int valid = i < C ? max(0, min(8, D - d0)) : 0;
+      const size_t off = i < C ? ra_at(a.sb, b, i, h, H, D) + d0 : 0;
+      rf_load16(qs + r * g.lds + d0, x.q + off, valid, zero);
+      rf_load16(os + r * g.lds + d0, x.dout + off, valid, zero);
+    }
+    for (int r = gtid; r < g.kt; r += gthreads) {
+      const int i = q0 + r;
+      if (i < C) {
+        const size_t ri = (size_t)b * sr + (size_t)i * H + h;
+        rb_load4(rm + r, x.m + ri);
+        rb_load4(rm + g.kt + r, x.l + ri);
+        rb_load4(rm + 2 * g.kt + r, x.delta + ri);
+      } else {
+        rm[r] = 0.f;
+        rm[g.kt + r] = 1.f;
+        rm[2 * g.kt + r] = 0.f;
+      }
+    }
+  };
+
+  float dk[RF_DT][4], dv[RF_DT][4];
+#pragma unroll
+  for (int n = 0; n < RF_DT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
+
+  if (qstart < ntq) load(qstart, 0);
+  rf_commit();
+  for (int t = qstart, st = 0; t < ntq; ++t, st ^= 1) {
+    if (t + 1 < ntq) load(t + 1, st ^ 1);
+    rf_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile t (and K, V) landed
+    __syncthreads();
+
+    if (active) {
+      const int q0 = t * g.kt;
+      const T* qs = reinterpret_cast<const T*>(stg + (size_t)st * g.stage);
+      const T* os = qs + g.kt * g.lds;
+      const float* rm = reinterpret_cast<const float*>(os + g.kt * g.lds);
+      const float* rl = rm + g.kt;
+      const float* rd = rl + g.kt;
+#pragma unroll 1
+      for (int qc = 0; qc < g.kt / 16 && q0 + 16 * qc < C; ++qc) {
+        // S^T and dP^T: the warp's 16 keys x 16 queries
+        float s[2][4] = {}, dpv[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < RA_DMAX / 16; ++kk) {
+          if (kk < g.dp / 16) {
+            uint32_t af[4];
+            rf_ldsm(af, ks + (kw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
+            rb_scores(s, af, qs + 16 * qc * g.lds + 16 * kk, g.lds, lane);
+            rf_ldsm(af, vs + (kw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
+            rb_scores(dpv, af, os + 16 * qc * g.lds + 16 * kk, g.lds, lane);
+          }
+        }
+        // p^T and ds^T: key kb0 + kw + gr + 8 (c >> 1), query column ii
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int y = c >> 1, kj = kb0 + kw + gr + 8 * y;
+            const int ii = 16 * qc + 8 * jn + 2 * tq + (c & 1), i = q0 + ii;
+            float p = 0.f, ds = 0.f;
+            if (kin[y] && i < C) {
+              const bool masked = kpad[y] || (a.causal && kb.k_off + kj > x.q_off + i);
+              p = expf((masked ? RA_NEG_INF : s[jn][c]) - rm[ii]) * (1.f / rl[ii]);
+              if (!masked) ds = p * (dpv[jn][c] - rd[ii]);
+            }
+            s[jn][c] = p;
+            dpv[jn][c] = ds;
+          }
+        }
+        uint32_t hi[4], lo[4];
+        rb_split(s, hi, lo);
+        rb_mma_pair(dv, hi, lo, os + 16 * qc * g.lds, g.lds, g.dp, lane);
+        rb_split(dpv, hi, lo);
+        rb_mma_pair(dk, hi, lo, qs + 16 * qc * g.lds, g.lds, g.dp, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  // add to the rider (one block owns these keys in this launch)
+  float* rk = kb.rider;
+  float* rv = rk + (size_t)a.batch * sbk;
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    if (!kin[y]) continue;
+    const size_t off = ra_at(sbk, b, kb0 + kw + gr + 8 * y, h, H, D);
+#pragma unroll
+    for (int n = 0; n < RF_DT; ++n) {
+      const int d = 8 * n + 2 * tq;
+      if (d + 1 < D && D % 2 == 0) {
+        float2* pk = reinterpret_cast<float2*>(rk + off + d);
+        float2* pv = reinterpret_cast<float2*>(rv + off + d);
+        const float2 ok = *pk, ov = *pv;
+        *pk = make_float2(ok.x + dk[n][2 * y], ok.y + dk[n][2 * y + 1]);
+        *pv = make_float2(ov.x + dv[n][2 * y], ov.y + dv[n][2 * y + 1]);
+      } else {
+        if (d < D) {
+          rk[off + d] += dk[n][2 * y];
+          rv[off + d] += dv[n][2 * y];
+        }
+        if (d + 1 < D) {
+          rk[off + d + 1] += dk[n][2 * y + 1];
+          rv[off + d + 1] += dv[n][2 * y + 1];
+        }
+      }
+    }
+  }
+}
+
+// dQ: block ((b, h) group, 16 * wq query rows, entry).  Warp w owns query
+// rows r0 .. r0 + 15 of its group's (b, h): q and dO as A fragments and dq
+// (16 rows x D) in registers; the block walks the key tiles of the entry's
+// visiting blocks in order (K, V and the keys' pads) through two cp.async
+// stages.  Key tiles wholly after the block's last row add nothing (ds = 0
+// at masked logits) and are not walked.
+__global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
+    ring_bwd_dq_mma_kernel(const __grid_constant__ RingBwdArgs a) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char rb_smem[];
+  const int C = a.chunk, D = a.dim, H = a.heads, e = blockIdx.z;
+  const RbGeom g = rb_geom(C, D, false);
+  const RbLocal<T> x = rb_local<T>(a, e);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
+  const int grp = warp / g.wq;
+  const int gtid = threadIdx.x - grp * 32 * g.wq, gthreads = 32 * g.wq;
+  const int bh = blockIdx.x * g.groups + grp;
+  const bool active = bh < a.batch * H;
+  const int b = active ? bh / H : 0, h = active ? bh % H : 0;
+  const int qb = blockIdx.y * g.own;               // the block's first query row
+  const int r0 = qb + 16 * (warp % g.wq);          // the warp's
+  const int qlast = min(C, qb + g.own) - 1;        // the block's last row in the chunk
+  const int nd = g.dp / 8, ntk = (C + g.kt - 1) / g.kt;
+  const long sbk = (long)C * H * D, sr = a.sb / D;
+  unsigned char* gsm = rb_smem + (size_t)grp * g.nst * g.stage;
+  const int mi = lane / 8, lr8 = lane % 8;
+  const T zero = __float2bfloat16_rn(0.f);
+
+  // q and dO rows r0 + gr and + 8 as A fragments, zero past the chunk and the dim
+  uint32_t qf[RA_DMAX / 16][4], of[RA_DMAX / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < RA_DMAX / 16; ++kk) {
+    if (kk < g.dp / 16) {
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const int i = r0 + gr + 8 * (y & 1), d = 16 * kk + 8 * (y >> 1) + 2 * tq;
+        float q0 = 0.f, q1 = 0.f, o0 = 0.f, o1 = 0.f;
+        if (active && i < C) {
+          const size_t off = ra_at(a.sb, b, i, h, H, D);
+          if (d < D) {
+            q0 = __bfloat162float(x.q[off + d]);
+            o0 = __bfloat162float(x.dout[off + d]);
+          }
+          if (d + 1 < D) {
+            q1 = __bfloat162float(x.q[off + d + 1]);
+            o1 = __bfloat162float(x.dout[off + d + 1]);
+          }
+        }
+        qf[kk][y] = rf_pack(q0, q1);
+        of[kk][y] = rf_pack(o0, o1);
+      }
+    }
+  }
+  // the rows' m, 1 / l and delta
+  float mrow[2], lrow[2], drow[2];
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int i = r0 + gr + 8 * y;
+    mrow[y] = lrow[y] = drow[y] = 0.f;
+    if (active && i < C) {
+      const size_t ri = (size_t)b * sr + (size_t)i * H + h;
+      mrow[y] = x.m[ri];
+      lrow[y] = 1.f / x.l[ri];
+      drow[y] = x.delta[ri];
+    }
+  }
+
+  // the key tiles of block j that are not wholly after the block's rows
+  auto live = [&](int j) {
+    if (!a.causal) return ntk;
+    const int lim = x.q_off + qlast - a.step.src[2 * e + j] * C;
+    return lim < 0 ? 0 : min(ntk, lim / g.kt + 1);
+  };
+  const int n0 = live(0), nt = n0 + (x.nblk > 1 ? live(1) : 0);
+
+  // tile t (block t < n0 ? 0 : 1) into stage st: K, V and the keys' pad
+  // bytes (1 past the chunk's edge)
+  auto load = [&](int t, int st) {
+    if (!active) return;
+    const int j = t < n0 ? 0 : 1, k0 = (t < n0 ? t : t - n0) * g.kt;
+    const RbBlock<T> kb = rb_block<T>(a, e, j);
+    T* ks = reinterpret_cast<T*>(gsm + (size_t)st * g.stage);
+    T* vs = ks + g.kt * g.lds;
+    unsigned char* ps = reinterpret_cast<unsigned char*>(vs + g.kt * g.lds);
+    for (int c = gtid; c < g.kt * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, kj = k0 + r;
+      const int valid = kj < C ? max(0, min(8, D - d0)) : 0;
+      const size_t off = kj < C ? ra_at(sbk, b, kj, h, H, D) + d0 : 0;
+      rf_load16(ks + r * g.lds + d0, kb.k + off, valid, zero);
+      rf_load16(vs + r * g.lds + d0, kb.v + off, valid, zero);
+    }
+    for (int c = gtid; c < g.kt / 16; c += gthreads) {
+      const int kj = k0 + 16 * c;
+      rf_load16(ps + 16 * c, kb.pad + (size_t)b * C + kj, max(0, min(16, C - kj)),
+                (unsigned char)1);
+    }
+  };
+
+  float dq[RF_DT][4];
+#pragma unroll
+  for (int n = 0; n < RF_DT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  if (nt > 0) load(0, 0);
+  rf_commit();
+  for (int t = 0, st = 0; t < nt; ++t, st ^= 1) {
+    if (t + 1 < nt) load(t + 1, st ^ 1);
+    rf_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile t has landed
+    __syncthreads();
+
+    if (active) {
+      const int k0 = (t < n0 ? t : t - n0) * g.kt;
+      const int k_off = a.step.src[2 * e + (t < n0 ? 0 : 1)] * C;
+      const T* ks = reinterpret_cast<const T*>(gsm + (size_t)st * g.stage);
+      const T* vs = ks + g.kt * g.lds;
+      const unsigned char* ps = reinterpret_cast<const unsigned char*>(vs + g.kt * g.lds);
+#pragma unroll 1
+      for (int kc = 0; kc < g.kt / 16 && k0 + 16 * kc < C; ++kc) {
+        // S and dP: the warp's 16 rows x 16 keys
+        float s[2][4] = {}, dpv[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < RA_DMAX / 16; ++kk) {
+          if (kk < g.dp / 16) {
+            rb_scores(s, qf[kk], ks + 16 * kc * g.lds + 16 * kk, g.lds, lane);
+            rb_scores(dpv, of[kk], vs + 16 * kc * g.lds + 16 * kk, g.lds, lane);
+          }
+        }
+        // ds: row r0 + gr + 8 (c >> 1), key column jj
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int y = c >> 1, i = r0 + gr + 8 * y;
+            const int jj = 16 * kc + 8 * jn + 2 * tq + (c & 1), kj = k0 + jj;
+            float ds = 0.f;
+            if (kj < C && i < C && !ps[jj] && !(a.causal && k_off + kj > x.q_off + i))
+              ds = expf(s[jn][c] - mrow[y]) * lrow[y] * (dpv[jn][c] - drow[y]);
+            s[jn][c] = ds;
+          }
+        }
+        uint32_t hi[4], lo[4];
+        rb_split(s, hi, lo);
+        rb_mma_pair(dq, hi, lo, ks + 16 * kc * g.lds, g.lds, g.dp, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  if (!active) return;
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int i = r0 + gr + 8 * y;
+    if (i >= C) continue;  // rows past the chunk belong to the next rank
+    float* p = x.dq + ra_at(a.sb, b, i, h, H, D);
+#pragma unroll
+    for (int n = 0; n < RF_DT; ++n) {
+      const int d = 8 * n + 2 * tq;
+      if (d < D) p[d] = x.first ? dq[n][2 * y] : p[d] + dq[n][2 * y];
+      if (d + 1 < D) p[d + 1] = x.first ? dq[n][2 * y + 1] : p[d + 1] + dq[n][2 * y + 1];
+    }
+  }
+}
+
+// dq, dk and dv of every rank in T from the f32 dq carry and the landed
+// riders (the two-way ring sums clockwise + counter-clockwise, in that
+// order), one thread per element
 template <typename T>
-__global__ void ring_land_kernel(RingArgs a) {
-  const long per_b = (long)a.chunk * a.heads * a.dim;
-  const long n = (long)a.batch * per_b;
+__global__ void ring_land_kernel(const __grid_constant__ RingBwdArgs a) {
+  const long per_b = (long)a.chunk * a.heads * a.dim, per_r = a.batch * per_b;
   const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  const size_t li = (size_t)(e / per_b) * a.sb + e % per_b;
+  if (e >= a.ranks * per_r) return;
+  const long r = e / per_r, rem = e % per_r;
+  const size_t li = (size_t)r * a.rs + (size_t)(rem / per_b) * a.sb + rem % per_b;
+  const size_t hi = (size_t)r * 2 * per_r + rem;
   static_cast<T*>(a.dq_out)[li] = from_f<T>(a.dq[li]);
   const float* r0 = a.ret[0];
   const float* r1 = a.ret[1];
-  const float dk = r1 ? r0[e] + r1[e] : r0[e];
-  const float dv = r1 ? r0[n + e] + r1[n + e] : r0[n + e];
+  const float dk = r1 ? r0[hi] + r1[hi] : r0[hi];
+  const float dv = r1 ? r0[hi + per_r] + r1[hi + per_r] : r0[hi + per_r];
   static_cast<T*>(a.dk)[li] = from_f<T>(dk);
   static_cast<T*>(a.dv)[li] = from_f<T>(dv);
 }
 
 // ---------------------------------------------------------------------------
-// The largest dynamic shared memory a forward kernel was allowed so far, per
+// The largest dynamic shared memory each kernel was allowed so far, per
 // device: cudaFuncSetAttribute (a host call of its own) runs once per kernel
 // and size, not once per launch.
 constexpr int RF_DEVICES = 16;
+enum RingSmemSlot { RS_FWD_MMA, RS_FWD_FMA, RS_DKDV_MMA, RS_DQ_MMA, RS_DKDV_FMA, RS_DQ_FMA,
+                    RS_SLOTS };
 
 template <typename Kernel>
-static cudaError_t rf_allow_smem(Kernel kernel, int which, size_t bytes) {
-  static int allowed[RF_DEVICES][2] = {};
+static cudaError_t rf_allow_smem(Kernel kernel, RingSmemSlot which, size_t bytes) {
+  static int allowed[RF_DEVICES][RS_SLOTS] = {};
   if (bytes <= 48 * 1024) return cudaSuccess;
   int dev = 0;
   BVQ_TRY(cudaGetDevice(&dev));
@@ -920,7 +1445,7 @@ static cudaError_t ring_fwd_launch(const RingFwdArgs& a, cudaStream_t s) {
   const int C = a.chunk, D = a.dim, n = a.step.nent;
   const long rows = (long)C * a.heads * D;
   if (D <= 0 || D > RA_DMAX || C <= 0 || a.batch <= 0 || a.heads <= 0 || n <= 0 ||
-      n > RF_RMAX || a.rs < rows || a.sb < rows || a.slot_rs < a.batch * rows)
+      n > RING_RMAX || a.rs < rows || a.sb < rows || a.slot_rs < a.batch * rows)
     return cudaErrorInvalidValue;
   for (int e = 0; e < n; ++e) {
     const int nblk = a.step.info[e] & 3;
@@ -930,58 +1455,72 @@ static cudaError_t ring_fwd_launch(const RingFwdArgs& a, cudaStream_t s) {
   if (a.act_bf16) {
     const RfGeom g = rf_geom(C, D);
     const size_t smem = (size_t)g.groups * 2 * g.stage;
-    BVQ_TRY(rf_allow_smem(ring_fwd_mma_kernel, 0, smem));
+    BVQ_TRY(rf_allow_smem(ring_fwd_mma_kernel, RS_FWD_MMA, smem));
     const dim3 grid(cdiv(bh, g.groups), cdiv(C, 16 * g.wq), n);
     ring_fwd_mma_kernel<<<grid, RF_THREADS, smem, s>>>(a);
   } else {
     const size_t tr = ra_tile_rows(C);
     const size_t smem = (3 * tr * (D + 1) + tr * RA_PLD) * sizeof(float);
-    BVQ_TRY(rf_allow_smem(ring_fwd_fma_kernel, 1, smem));
+    BVQ_TRY(rf_allow_smem(ring_fwd_fma_kernel, RS_FWD_FMA, smem));
     const dim3 grid(bh, cdiv(C, RA_T), n);
     ring_fwd_fma_kernel<<<grid, RA_THREADS, smem, s>>>(a);
   }
   return cudaGetLastError();
 }
 
-enum RingKernel { RA_DKDV, RA_DQ, RA_LAND };
+enum RingBwdKernel { RB_DKDV, RB_DQ, RB_LAND };
 
-static size_t ring_smem(RingKernel which, int D, int chunk) {
-  const size_t tr = ra_tile_rows(chunk);
-  const size_t tile = tr * (D + 1);
-  const size_t scores = tr * RA_PLD;
-  switch (which) {
-    case RA_DKDV: return (4 * tile + 2 * scores + 3 * RA_T) * sizeof(float);
-    case RA_DQ: return (4 * tile + scores + 3 * RA_T) * sizeof(float);
-    default: return 0;
-  }
-}
-
-template <typename T>
-static cudaError_t ring_launch(const RingArgs& a, RingKernel which, cudaStream_t s) {
-  if (a.dim <= 0 || a.dim > RA_DMAX || a.chunk <= 0 || a.batch <= 0 || a.heads <= 0 ||
-      a.nblk < 0 || a.nblk > 2 || a.sb < (long)a.chunk * a.heads * a.dim)
+static cudaError_t ring_bwd_launch(const RingBwdArgs& a, RingBwdKernel which, cudaStream_t s) {
+  const int C = a.chunk, D = a.dim, n = a.step.nent, np = a.step.npair;
+  const long rows = (long)C * a.heads * D;
+  if (D <= 0 || D > RA_DMAX || C <= 0 || a.batch <= 0 || a.heads <= 0 || a.ranks <= 0 ||
+      a.rs < rows || a.sb < rows || a.slot_rs < a.batch * rows)
     return cudaErrorInvalidValue;
-  const int bh = a.batch * a.heads;
-  if (which == RA_LAND) {
-    const long n = (long)bh * a.chunk * a.dim;
-    ring_land_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(a);
+  if (which == RB_LAND) {
+    const long total = (long)a.ranks * a.batch * rows;
+    const unsigned blocks = (unsigned)((total + 255) / 256);
+    if (a.act_bf16)
+      ring_land_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(a);
+    else
+      ring_land_kernel<float><<<blocks, 256, 0, s>>>(a);
     return cudaGetLastError();
   }
-  if (a.nblk < 1) return cudaErrorInvalidValue;
-  void (*kernel)(RingArgs) = which == RA_DKDV ? ring_bwd_dkdv_kernel<T>
-                                              : ring_bwd_dq_kernel<T>;
-  const int smem = (int)ring_smem(which, a.dim, a.chunk);
-  BVQ_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  const dim3 grid(bh, cdiv(a.chunk, RA_T), which == RA_DKDV ? a.nblk : 1);
-  kernel<<<grid, RA_THREADS, smem, s>>>(a);
+  if (n <= 0 || n > RING_RMAX || np <= 0 || np > 2 * RING_RMAX) return cudaErrorInvalidValue;
+  for (int e = 0; e < n; ++e) {
+    const int nblk = a.step.info[e] & 3;
+    if (nblk < 1 || nblk > 2) return cudaErrorInvalidValue;
+  }
+  for (int p = 0; p < np; ++p) {
+    const int e = a.step.pair[p] >> 1, j = a.step.pair[p] & 1;
+    if (a.step.pair[p] < 0 || e >= n || j >= (a.step.info[e] & 3)) return cudaErrorInvalidValue;
+  }
+  const int bh = a.batch * a.heads, z = which == RB_DKDV ? np : n;
+  if (a.act_bf16) {
+    const RbGeom g = rb_geom(C, D, which == RB_DKDV);
+    const size_t smem = (size_t)g.groups * (g.fixed + g.nst * g.stage);
+    const dim3 grid(cdiv(bh, g.groups), cdiv(C, g.own), z);
+    if (which == RB_DKDV) {
+      BVQ_TRY(rf_allow_smem(ring_bwd_dkdv_mma_kernel, RS_DKDV_MMA, smem));
+      ring_bwd_dkdv_mma_kernel<<<grid, RB_THREADS, smem, s>>>(a);
+    } else {
+      BVQ_TRY(rf_allow_smem(ring_bwd_dq_mma_kernel, RS_DQ_MMA, smem));
+      ring_bwd_dq_mma_kernel<<<grid, RB_THREADS, smem, s>>>(a);
+    }
+  } else {
+    const size_t tr = ra_tile_rows(C);
+    const size_t tile = tr * (D + 1), scores = tr * RA_PLD;
+    const dim3 grid(bh, cdiv(C, RA_T), z);
+    if (which == RB_DKDV) {
+      const size_t smem = (4 * tile + 2 * scores + 3 * RA_T) * sizeof(float);
+      BVQ_TRY(rf_allow_smem(ring_bwd_dkdv_fma_kernel, RS_DKDV_FMA, smem));
+      ring_bwd_dkdv_fma_kernel<<<grid, RA_THREADS, smem, s>>>(a);
+    } else {
+      const size_t smem = (4 * tile + scores + 3 * RA_T) * sizeof(float);
+      BVQ_TRY(rf_allow_smem(ring_bwd_dq_fma_kernel, RS_DQ_FMA, smem));
+      ring_bwd_dq_fma_kernel<<<grid, RA_THREADS, smem, s>>>(a);
+    }
+  }
   return cudaGetLastError();
-}
-
-static int ring_entry(const RingArgs* a, RingKernel which, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = a->act_bf16 ? ring_launch<__nv_bfloat16>(*a, which, s)
-                                    : ring_launch<float>(*a, which, s);
-  return static_cast<int>(e);
 }
 
 }  // namespace bvq
@@ -990,14 +1529,17 @@ extern "C" int bvq_ring_fwd_step(const bvq::RingFwdArgs* a, void* stream) {
   return static_cast<int>(bvq::ring_fwd_launch(*a, static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int bvq_ring_bwd_dkdv(const bvq::RingArgs* a, void* stream) {
-  return bvq::ring_entry(a, bvq::RA_DKDV, stream);
+extern "C" int bvq_ring_bwd_dkdv(const bvq::RingBwdArgs* a, void* stream) {
+  return static_cast<int>(
+      bvq::ring_bwd_launch(*a, bvq::RB_DKDV, static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int bvq_ring_bwd_dq(const bvq::RingArgs* a, void* stream) {
-  return bvq::ring_entry(a, bvq::RA_DQ, stream);
+extern "C" int bvq_ring_bwd_dq(const bvq::RingBwdArgs* a, void* stream) {
+  return static_cast<int>(
+      bvq::ring_bwd_launch(*a, bvq::RB_DQ, static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int bvq_ring_land(const bvq::RingArgs* a, void* stream) {
-  return bvq::ring_entry(a, bvq::RA_LAND, stream);
+extern "C" int bvq_ring_land(const bvq::RingBwdArgs* a, void* stream) {
+  return static_cast<int>(
+      bvq::ring_bwd_launch(*a, bvq::RB_LAND, static_cast<cudaStream_t>(stream)));
 }

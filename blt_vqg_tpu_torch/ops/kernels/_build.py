@@ -61,25 +61,15 @@ class FlashArgs(ctypes.Structure):
                 ("dout", P), ("delta", P), ("dq", P), ("dk", P), ("dv", P)]
 
 
-class RingArgs(ctypes.Structure):
-    """Mirror of ``bvq::RingArgs`` in csrc/ring_attention.cu."""
-    _fields_ = [("act_bf16", I), ("causal", I), ("first", I), ("nblk", I),
-                ("batch", I), ("heads", I), ("chunk", I), ("dim", I),
-                ("q_off", I), ("k_off", I * 2), ("sb", L), ("q", P),
-                ("dout", P), ("k", P * 2), ("v", P * 2), ("pad", P * 2),
-                ("m", P), ("l", P), ("delta", P), ("dq", P),
-                ("rider", P * 2), ("dq_out", P), ("dk", P),
-                ("dv", P), ("ret", P * 2)]
+RING_MAX_RANKS = 64     # RING_RMAX in csrc/ring_attention.cu
 
 
-RING_FWD_MAX_RANKS = 64     # RF_RMAX in csrc/ring_attention.cu
-
-
-class RingFwdStep(ctypes.Structure):
-    """Mirror of ``bvq::RingFwdStep`` in csrc/ring_attention.cu."""
-    _fields_ = [("nent", I), ("rank", I * RING_FWD_MAX_RANKS),
-                ("info", I * RING_FWD_MAX_RANKS),
-                ("src", I * (2 * RING_FWD_MAX_RANKS))]
+class RingStep(ctypes.Structure):
+    """Mirror of ``bvq::RingStep`` in csrc/ring_attention.cu."""
+    _fields_ = [("nent", I), ("npair", I), ("rank", I * RING_MAX_RANKS),
+                ("info", I * RING_MAX_RANKS),
+                ("src", I * (2 * RING_MAX_RANKS)),
+                ("pair", I * (2 * RING_MAX_RANKS))]
 
 
 class RingFwdArgs(ctypes.Structure):
@@ -88,7 +78,17 @@ class RingFwdArgs(ctypes.Structure):
                 ("chunk", I), ("dim", I), ("rs", L), ("sb", L),
                 ("slot_rs", L), ("q", P), ("acc", P), ("m", P), ("l", P),
                 ("o", P), ("k", P * 2), ("v", P * 2), ("pad", P * 2),
-                ("step", RingFwdStep)]
+                ("step", RingStep)]
+
+
+class RingBwdArgs(ctypes.Structure):
+    """Mirror of ``bvq::RingBwdArgs`` in csrc/ring_attention.cu."""
+    _fields_ = [("act_bf16", I), ("causal", I), ("ranks", I), ("batch", I),
+                ("heads", I), ("chunk", I), ("dim", I), ("rs", L), ("sb", L),
+                ("slot_rs", L), ("q", P), ("dout", P), ("m", P), ("l", P),
+                ("delta", P), ("dq", P), ("k", P * 2), ("v", P * 2),
+                ("pad", P * 2), ("rider", P * 2), ("dq_out", P), ("dk", P),
+                ("dv", P), ("ret", P * 2), ("step", RingStep)]
 
 
 class SelfAttnArgs(ctypes.Structure):
@@ -182,7 +182,7 @@ def library() -> ctypes.CDLL:
     lib.bvq_ring_fwd_step.restype = I
     for name in ("bvq_ring_bwd_dkdv", "bvq_ring_bwd_dq", "bvq_ring_land"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(RingArgs), P]
+        fn.argtypes = [ctypes.POINTER(RingBwdArgs), P]
         fn.restype = I
     for run, workspace, args in (
             ("bvq_self_attn_step", "bvq_self_attn_workspace", SelfAttnArgs),

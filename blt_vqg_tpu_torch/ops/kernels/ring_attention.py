@@ -26,14 +26,14 @@ skipped; the ring still rotates.  The transport is the ``LocalRing`` of
 on CUDA on a side stream ordered by events.
 
 On CUDA tensors the block arithmetic runs the kernels of
-``csrc/ring_attention.cu``.  The forward launches once per ring step for
-every rank with a live block there (:func:`fwd_plan`), and finalizes each
-rank inside its last live step; the backward launches a dK/dV and a dQ
-kernel per rank and live step, and one landing kernel per rank.  Each
-shard function counts its launches in ``launches``; anything the kernels
-cannot take raises.  On CPU tensors the same schedule runs plain tensor
-ops per block; the ``*_ref`` functions run that plain version on any
-device.
+``csrc/ring_attention.cu``, on one plan (:func:`ring_plan`): per ring step,
+one launch (and kernel) covers every rank with a live block there.  The
+forward launches once per such step and finalizes each rank inside its
+last live step; the backward launches a dK/dV and a dQ kernel per such
+step and one landing kernel per call.  Each shard function counts its
+launches in ``launches``; anything the kernels cannot take raises.  On
+CPU tensors the same schedule runs plain tensor ops per block; the
+``*_ref`` functions run that plain version on any device.
 
 The contract kept with the TPU kernels: masked logits take ``NEG_INF`` and
 the running max starts there, so a query row whose every visible key is
@@ -84,12 +84,12 @@ def visits(n: int, step: int, rank: int, causal: bool, bidir: bool):
 
 
 @functools.cache
-def fwd_plan(n: int, causal: bool, bidir: bool):
-    """The forward's launches: for each step, the ranks with a live block
-    there, as (rank, visits, first, last) with the rank's visits at that
-    step and whether it is the rank's first and its last live step (where
-    the carry starts, and where the launch finalizes it).  A step with no
-    live rank launches nothing (its hop still runs)."""
+def ring_plan(n: int, causal: bool, bidir: bool):
+    """The kernels' launches in both directions: for each step, the ranks
+    with a live block there, as (rank, visits, first, last) with the rank's
+    visits at that step and whether it is the rank's first and its last
+    live step (where a carry starts, and where the forward finalizes it).
+    A step with no live rank launches nothing (its hops still run)."""
     steps = ring_steps(n, bidir)
     live = [[tuple(visits(n, s, r, causal, bidir)) for r in range(n)]
             for s in range(steps)]
@@ -150,9 +150,9 @@ def _logits(q, k, pad, q_off: int, k_off: int, causal: bool):
 class _PlainFwd:
     """Forward carry per rank: acc [B, H, C, D], m and l [B, H, C], f32."""
 
-    def __init__(self, q, causal):
+    def __init__(self, q, causal, plan):
         n, b, c, h, d = q.shape
-        self.q, self.causal = q, causal
+        self.q, self.causal, self.plan = q, causal, plan
         self.acc = torch.zeros((n, b, h, c, d), dtype=torch.float32,
                                device=q.device)
         self.m = torch.full((n, b, h, c), NEG_INF, dtype=torch.float32,
@@ -160,18 +160,22 @@ class _PlainFwd:
         self.l = torch.zeros((n, b, h, c), dtype=torch.float32,
                              device=q.device)
 
-    def block(self, r: int, blocks, first: bool) -> None:
+    def step(self, s: int, slots) -> None:
+        """Step s: each live rank against its visiting blocks in turn."""
         c = self.q.shape[2]
-        for k, v, pad, k_off in blocks:
-            s = _logits(self.q[r], k, pad, r * c, k_off, self.causal)
-            m_prev = self.m[r]
-            m_new = torch.maximum(m_prev, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m_prev - m_new)
-            self.l[r] = self.l[r] * alpha + p.sum(dim=-1)
-            self.acc[r] = self.acc[r] * alpha[..., None] + torch.einsum(
-                "bhij,bjhd->bhid", p.to(v.dtype).float(), v.float())
-            self.m[r] = m_new
+        for r, vis, _, _ in self.plan[s]:
+            for i, src in vis:
+                k, v, pad = (t[r] for t in slots[i])
+                logit = _logits(self.q[r], k, pad, r * c, src * c,
+                                self.causal)
+                m_prev = self.m[r]
+                m_new = torch.maximum(m_prev, logit.amax(dim=-1))
+                p = torch.exp(logit - m_new[..., None])
+                alpha = torch.exp(m_prev - m_new)
+                self.l[r] = self.l[r] * alpha + p.sum(dim=-1)
+                self.acc[r] = self.acc[r] * alpha[..., None] + torch.einsum(
+                    "bhij,bjhd->bhid", p.to(v.dtype).float(), v.float())
+                self.m[r] = m_new
 
     def finalize(self):
         safe = torch.where(self.l == 0.0, torch.ones_like(self.l), self.l)
@@ -184,24 +188,32 @@ class _PlainBwd:
     """Backward per rank: dq carry [B, C, H, D] f32; riders [2, B, C, H, D]
     f32 (dk, dv) in the ring's slots."""
 
-    def __init__(self, q, do, m, l, delta, causal):
-        self.q, self.do, self.causal = q, do, causal
+    def __init__(self, q, do, m, l, delta, causal, plan):
+        self.q, self.do, self.causal, self.plan = q, do, causal, plan
         self.m, self.linv = m.transpose(2, 3), (1.0 / l).transpose(2, 3)
         self.delta = delta.transpose(2, 3)          # [n, B, H, C]
         self.dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
 
-    def block(self, r: int, blocks, first: bool) -> None:
+    def step(self, s: int, slots, riders) -> None:
+        """Step s: each live rank against its visiting blocks in turn,
+        adding into the blocks' riders and its own dq."""
         c = self.q.shape[2]
-        q32, do32 = self.q[r].float(), self.do[r].float()
-        for k, v, pad, rider, k_off in blocks:
-            s = _logits(self.q[r], k, pad, r * c, k_off, self.causal)
-            p = torch.exp(s - self.m[r][..., None]) * self.linv[r][..., None]
-            rider[1] += torch.einsum("bhij,bihd->bjhd", p, do32)
-            dp = torch.einsum("bihd,bjhd->bhij", do32, v.float())
-            ds = p * (dp - self.delta[r][..., None])
-            ds = torch.where(s <= 0.5 * NEG_INF, torch.zeros_like(ds), ds)
-            rider[0] += torch.einsum("bhij,bihd->bjhd", ds, q32)
-            self.dq[r] += torch.einsum("bhij,bjhd->bihd", ds, k.float())
+        for r, vis, _, _ in self.plan[s]:
+            q32, do32 = self.q[r].float(), self.do[r].float()
+            for i, src in vis:
+                k, v, pad = (t[r] for t in slots[i])
+                rider = riders[i][r]
+                logit = _logits(self.q[r], k, pad, r * c, src * c,
+                                self.causal)
+                p = (torch.exp(logit - self.m[r][..., None])
+                     * self.linv[r][..., None])
+                rider[1] += torch.einsum("bhij,bihd->bjhd", p, do32)
+                dp = torch.einsum("bihd,bjhd->bhij", do32, v.float())
+                ds = p * (dp - self.delta[r][..., None])
+                ds = torch.where(logit <= 0.5 * NEG_INF, torch.zeros_like(ds),
+                                 ds)
+                rider[0] += torch.einsum("bhij,bihd->bjhd", ds, q32)
+                self.dq[r] += torch.einsum("bhij,bjhd->bihd", ds, k.float())
 
     def land(self, homes, dtype):
         dk = homes[0][:, 0]
@@ -215,70 +227,40 @@ class _PlainBwd:
 # ---------------------------------------------------------------------------
 # the block arithmetic: the kernels of csrc/ring_attention.cu
 
-def _ptrs(tensors, n=2):
-    """A ctypes array of the tensors' addresses, padded with nulls."""
-    vals = [t.data_ptr() for t in tensors] + [None] * (n - len(tensors))
-    return (ctypes.c_void_p * n)(*vals)
-
-
-class _KernelOps:
-    """The backward kernels' launches: the fixed arguments of one rank's
-    launches."""
-
-    def __init__(self, q, causal, counter):
-        from blt_vqg_tpu_torch.ops.kernels import _build
-
-        n, b, c, h, d = q.shape
-        _check(0 < d <= MAX_HEAD_DIM, f"head dim {d} (at most "
-                                      f"{MAX_HEAD_DIM} on the kernels)")
-        self._Args, self._check = _build.RingArgs, _build.check
-        self.lib = _build.library()
-        self.stream = torch.cuda.current_stream(q.device).cuda_stream
-        self.q, self.causal, self.counter = q, causal, counter
-        self.base = dict(act_bf16=int(q.dtype == torch.bfloat16),
-                         causal=int(causal), batch=b, heads=h, chunk=c,
-                         dim=d, sb=q.stride(1))
-
-    def launch(self, entry: str, a) -> None:
-        """One kernel launch on the compute stream, counted."""
-        err = getattr(self.lib, entry)(ctypes.byref(a), self.stream)
-        self._check(self.lib, err, entry)
-        self.counter.launches += 1
-
-    def args(self, r: int, blocks=(), **kw):
-        c = self.q.shape[2]
-        a = self._Args(q_off=r * c, nblk=len(blocks), **self.base, **kw)
-        a.k_off[:len(blocks)] = [blk[-1] for blk in blocks]
-        a.k = _ptrs([blk[0] for blk in blocks])
-        a.v = _ptrs([blk[1] for blk in blocks])
-        a.pad = _ptrs([blk[2] for blk in blocks])
-        return a
-
-
 @functools.cache
-def _fwd_tables(n: int, causal: bool, bidir: bool):
-    """Each step's ``RingFwdStep`` (None where no rank is live)."""
+def _step_tables(n: int, causal: bool, bidir: bool):
+    """Each step's ``RingStep`` (None where no rank is live): the plan's
+    entries, and the (entry, visiting block) pairs of the backward's dK/dV
+    launch."""
     from blt_vqg_tpu_torch.ops.kernels import _build
 
     tables = []
-    for entries in fwd_plan(n, causal, bidir):
+    for entries in ring_plan(n, causal, bidir):
         if not entries:
             tables.append(None)
             continue
-        t = _build.RingFwdStep(nent=len(entries))
+        t = _build.RingStep(nent=len(entries))
         for e, (r, vis, first, last) in enumerate(entries):
             info = len(vis) | first << 2 | last << 3
             for j, (direction, src) in enumerate(vis):
                 info |= direction << (4 + j)
                 t.src[2 * e + j] = src
+                t.pair[t.npair] = 2 * e + j
+                t.npair += 1
             t.rank[e], t.info[e] = r, info
         tables.append(t)
     return tuple(tables)
 
 
-class _KernelFwd:
-    """The forward kernels: the argument struct is built once per call; a
-    step sets its slots and its table of live ranks and launches once."""
+def _laid_out(x, strides) -> bool:
+    """x has these strides, up to those of its dimensions of size 1."""
+    return all(st == want or n == 1
+               for st, want, n in zip(x.stride(), strides, x.shape))
+
+
+class _Kernels:
+    """What the forward and the backward kernels share: the checks, the
+    library, the stream, the step tables and one counted launch."""
 
     def __init__(self, q, causal, bidir, counter):
         from blt_vqg_tpu_torch.ops.kernels import _build
@@ -286,14 +268,30 @@ class _KernelFwd:
         n, b, c, h, d = q.shape
         _check(0 < d <= MAX_HEAD_DIM, f"head dim {d} (at most "
                                       f"{MAX_HEAD_DIM} on the kernels)")
-        _check(n <= _build.RING_FWD_MAX_RANKS,
-               f"{n} ranks (at most {_build.RING_FWD_MAX_RANKS} on the "
-               f"forward kernels)")
+        _check(n <= _build.RING_MAX_RANKS,
+               f"{n} ranks (at most {_build.RING_MAX_RANKS} on the kernels)")
         _check(q.stride(0) == c * h * d, "q must hold the ranks' rows")
         self._check, self.lib = _build.check, _build.library()
         self.stream = torch.cuda.current_stream(q.device).cuda_stream
         self.counter = counter
-        self.tables = _fwd_tables(n, causal, bidir)
+        self.tables = _step_tables(n, causal, bidir)
+
+    def launch(self, entry: str, args) -> None:
+        """One kernel launch on the compute stream, counted."""
+        err = getattr(self.lib, entry)(ctypes.byref(args), self.stream)
+        self._check(self.lib, err, entry)
+        self.counter.launches += 1
+
+
+class _KernelFwd(_Kernels):
+    """The forward kernels: the argument struct is built once per call; a
+    step sets its slots and its table of live ranks and launches once."""
+
+    def __init__(self, q, causal, bidir, counter):
+        from blt_vqg_tpu_torch.ops.kernels import _build
+
+        super().__init__(q, causal, bidir, counter)
+        n, b, c, h, d = q.shape
         self.q = q          # the struct points at q and the carry: kept alive
         self.acc = _empty_local(q.shape, torch.float32, q.device)
         self.o = _empty_local(q.shape, q.dtype, q.device)
@@ -315,41 +313,57 @@ class _KernelFwd:
             a.k[i], a.v[i], a.pad[i] = (k.data_ptr(), v.data_ptr(),
                                         pad.data_ptr())
         a.step = self.tables[s]
-        err = self.lib.bvq_ring_fwd_step(ctypes.byref(a), self.stream)
-        self._check(self.lib, err, "bvq_ring_fwd_step")
-        self.counter.launches += 1
+        self.launch("bvq_ring_fwd_step", a)
 
     def finalize(self):
         return self.o, self.m, self.l
 
 
-class _KernelBwd(_KernelOps):
-    def __init__(self, q, do, m, l, delta, causal, counter):
-        super().__init__(q, causal, counter)
-        self.rows = (do, m, l, delta)
-        self.dq = _empty_local(q.shape, torch.float32, q.device)
+class _KernelBwd(_Kernels):
+    """The backward kernels: the argument struct is built once per call; a
+    step sets its slots, its riders and its table and launches the dK/dV
+    and the dQ kernel once each; one landing launch ends the call."""
 
-    def block(self, r: int, blocks, first: bool) -> None:
-        do, m, l, delta = self.rows
-        kw = dict(first=int(first), q=self.q[r].data_ptr(),
-                  dout=do[r].data_ptr(), m=m[r].data_ptr(),
-                  l=l[r].data_ptr(), delta=delta[r].data_ptr(),
-                  dq=self.dq[r].data_ptr())
-        a = self.args(r, blocks, **kw)
-        a.rider = (ctypes.c_void_p * 2)(*[blk[3].data_ptr() for blk in blocks]
-                                        + [None] * (2 - len(blocks)))
+    def __init__(self, q, do, m, l, delta, causal, bidir, counter):
+        from blt_vqg_tpu_torch.ops.kernels import _build
+
+        super().__init__(q, causal, bidir, counter)
+        n, b, c, h, d = q.shape
+        rows = (q.stride(0) // d, q.stride(1) // d, h, 1)
+        _check(_laid_out(do, q.stride()), "dO must be laid out as q")
+        _check(all(_laid_out(x, rows) for x in (m, l, delta)),
+               "m, l and delta must be laid out as q's rows")
+        self.q = q
+        self.keep = (do, m, l, delta)   # the struct points at them
+        self.dq = _empty_local(q.shape, torch.float32, q.device)
+        self.args = _build.RingBwdArgs(
+            act_bf16=int(q.dtype == torch.bfloat16), causal=int(causal),
+            ranks=n, batch=b, heads=h, chunk=c, dim=d, rs=q.stride(0),
+            sb=q.stride(1), slot_rs=b * c * h * d, q=q.data_ptr(),
+            dout=do.data_ptr(), m=m.data_ptr(), l=l.data_ptr(),
+            delta=delta.data_ptr(), dq=self.dq.data_ptr())
+
+    def step(self, s: int, slots, riders) -> None:
+        """Step s's two launches on the slots and the riders of each
+        direction, counted."""
+        if self.tables[s] is None:
+            return
+        a = self.args
+        for i, ((k, v, pad), rider) in enumerate(zip(slots, riders)):
+            a.k[i], a.v[i], a.pad[i], a.rider[i] = (
+                k.data_ptr(), v.data_ptr(), pad.data_ptr(), rider.data_ptr())
+        a.step = self.tables[s]
         self.launch("bvq_ring_bwd_dkdv", a)
         self.launch("bvq_ring_bwd_dq", a)
 
     def land(self, homes, dtype):
         dq, dk, dv = (_empty_local(self.q.shape, dtype, self.q.device)
                       for _ in range(3))
-        for r in range(self.q.shape[0]):
-            a = self.args(r, dq=self.dq[r].data_ptr(),
-                          dq_out=dq[r].data_ptr(), dk=dk[r].data_ptr(),
-                          dv=dv[r].data_ptr())
-            a.ret = _ptrs([home[r] for home in homes])
-            self.launch("bvq_ring_land", a)
+        a = self.args
+        a.dq_out, a.dk, a.dv = dq.data_ptr(), dk.data_ptr(), dv.data_ptr()
+        a.ret[0] = homes[0].data_ptr()
+        a.ret[1] = homes[1].data_ptr() if len(homes) > 1 else None
+        self.launch("bvq_ring_land", a)
         return dq, dk, dv
 
 
@@ -368,38 +382,23 @@ def _kv_channels(ring, k, v, pad, bidir: bool):
     return chans
 
 
-def _blocks(slots, n, s, r, c, causal, bidir, riders=None):
-    out = []
-    for i, src in visits(n, s, r, causal, bidir):
-        k, v, pad = (t[r] for t in slots[i])
-        blk = (k, v, pad) + ((riders[i][r],) if riders is not None else ())
-        out.append(blk + (src * c,))
-    return out
-
-
 def _ring_fwd(q, k, v, pad, ring, causal: bool, bidir: bool, kernel: bool,
               counter=None):
     """(o, m, l) of every rank: o [n, B, C, H, D] in q's dtype, m and the
     safe l [n, B, C, H] f32."""
     _validate(ring, q, k, v, pad)
-    n, b, c = q.shape[:3]
+    n = q.shape[0]
     q = _local(q)
-    plan = fwd_plan(n, causal, bidir)
+    plan = ring_plan(n, causal, bidir)
     ops = (_KernelFwd(q, causal, bidir, counter) if kernel
-           else _PlainFwd(q, causal))
+           else _PlainFwd(q, causal, plan))
     chans = _kv_channels(ring, k, v, pad, bidir)
     steps = len(plan)
     for s in range(steps):
         if s < steps - 1:
             for ch in chans:       # the next hop rides while this step runs
                 ch.send(s)
-        slots = [ch.slot(s) for ch in chans]
-        if kernel:
-            ops.step(s, slots)
-        else:
-            for r, _, first, _ in plan[s]:
-                ops.block(r, _blocks(slots, n, s, r, c, causal, bidir),
-                          first)
+        ops.step(s, [ch.slot(s) for ch in chans])
         for ch in chans:
             ch.release()
     out = ops.finalize()
@@ -419,8 +418,9 @@ def _ring_bwd(q, k, v, pad, o, m, l, do, ring, causal: bool, bidir: bool,
            f"m and l must be f32 [{n}, {b}, {c}, {h}]")
     q, do, m, l = _local(q), _local(do), _local(m), _local(l)
     delta = _local((do.float() * o.float()).sum(dim=-1))
-    ops = (_KernelBwd(q, do, m, l, delta, causal, counter) if kernel
-           else _PlainBwd(q, do, m, l, delta, causal))
+    plan = ring_plan(n, causal, bidir)
+    ops = (_KernelBwd(q, do, m, l, delta, causal, bidir, counter) if kernel
+           else _PlainBwd(q, do, m, l, delta, causal, plan))
     chans = _kv_channels(ring, k, v, pad, bidir)
     riders = [ring.channel([((2, b, c, h, d), torch.float32)], ch.direction)
               for ch in chans]
@@ -428,17 +428,13 @@ def _ring_bwd(q, k, v, pad, o, m, l, do, ring, causal: bool, bidir: bool,
         rc.seed(None)
     homes = ([torch.empty((n, 2, b, c, h, d), dtype=torch.float32,
                           device=q.device) for _ in riders] if bidir else None)
-    steps = ring_steps(n, bidir)
+    steps = len(plan)
     for s in range(steps):
         if s < steps - 1:
             for ch in chans:
                 ch.send(s)
-        slots = [ch.slot(s) for ch in chans]
-        rider_slots = [rc.slot(s)[0] for rc in riders]
-        for r in range(n):
-            blocks = _blocks(slots, n, s, r, c, causal, bidir, rider_slots)
-            if blocks:
-                ops.block(r, blocks, first=s == 0)
+        ops.step(s, [ch.slot(s) for ch in chans],
+                 [rc.slot(s)[0] for rc in riders])
         for ch in chans + riders:
             ch.release()
         # each rider's payload is complete only now: it moves on after the

@@ -62,9 +62,9 @@ only when every phase passed):
    at the flagship's attention shapes on rings of 4, 3, 2 and 8 ranks
    (causal with target pads, non-causal, dead rows) and at a long causal
    sequence (B 2, T 4096 on 4 ranks, 10% trailing pads), once at a ragged
-   65-row chunk and at head dim 80, the two-way ring against full
-   attention, and checks that the plain version without its key-pad mask
-   fails the check;
+   65-row chunk (with and without dead rows) and at head dim 80, the
+   two-way ring against full attention, and checks that the plain version
+   without its key-pad mask fails the check;
 13. trains the flagship with ``sequence_parallel`` on a ``seq`` 4 mesh
    (``ring_attention_impl="pallas"``, ``use_pallas_attention``, no
    attention dropout): 3 pretrain steps, the reset, 3 latent steps and an
@@ -77,11 +77,12 @@ only when every phase passed):
    training and the long shape (event time, and device time by profiler)
    against its plain version, its bound and
    ``scaled_dot_product_attention`` forward and backward (a yardstick the
-   port never calls).
+   port never calls); the ``kernels`` line carries both shapes.
 
-Phase 1 also prints the compiler's registers and shared memory of the ring
-forward kernels and checks that the bf16 forward kernel's machine code runs
-on the tensor cores (HMMA or HGMMA instructions, by ``cuobjdump -sass``).
+Phase 1 also prints the compiler's registers and spills of the ring
+kernels and checks that the machine code of the bf16 ring kernels (the
+forward, the backward's dK/dV and dQ) runs on the tensor cores (HMMA or
+HGMMA instructions, by ``cuobjdump -sass``).
 
 TF32 is off for matmuls and cuDNN throughout.  The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
@@ -229,12 +230,21 @@ RING_CASES = (
      "long"))
 RING_TRAIN_CASE, RING_LONG_CASE = RING_CASES[0], RING_CASES[-1]
 # (what, B, ranks, chunk, causal, pads, head dim), checked at one seed: a
-# ragged 64-row tile and a head dim that is not a power of two
+# ragged 64-row tile, a head dim that is not a power of two, and dead rows
+# before a causal key tile (the backward's dK/dV may skip a query tile
+# wholly before its keys only when no row there is dead)
 RING_SHAPE_CASES = (
     ("chunk 65: T 260 on seq 4, causal, pads", 4, 4, 65, True, "tail", 128),
     ("head dim 80: T 20 on seq 4, causal, target pads", BATCH, 4, 5, True,
-     "tail", 80))
-RING_FWD_MMA = "ring_fwd_mma_kernel"   # the bf16 forward kernel
+     "tail", 80),
+    ("dead rows at chunk 65: T 260 on seq 4, causal, key 0 padded, batch row"
+     " 1 all padded", 4, 4, 65, True, "dead", 128))
+# the ring kernels by name (device time by kernel in phase 14)
+RING_KERNEL_NAMES = ("ring_fwd_", "ring_bwd_dkdv_", "ring_bwd_dq_",
+                     "ring_land_")
+# the bf16 ring kernels, which must run on the tensor cores
+RING_MMA = ("ring_fwd_mma_kernel", "ring_bwd_dkdv_mma_kernel",
+            "ring_bwd_dq_mma_kernel")
 # o, dq, dk, dv are bf16; the kernels and the plain versions round p and
 # every output to bf16 after f32 sums taken in other orders (the kernels
 # per 64-key tile, the plain versions per block), as the flash kernels do.
@@ -1308,10 +1318,11 @@ def check_ring_case(q, k, v, kv_pad, do, n, causal, what: str):
     """The four ring functions and their plain versions on the same
     tensors; raises unless every output is within the limits.  Returns
     ({function: max abs error of its own outputs: o; dq, dk and dv}, worst
-    ulps, worst norm error, worst m/l error)."""
+    ulps, worst norm error, worst m/l error, and the backward's own worst
+    ulps and norm error)."""
     ring = build_mesh((n,), ("seq",), q.device).ring()
     qs, ks, vs, ps, dos = (ring_shards(x, n) for x in (q, k, v, kv_pad, do))
-    errs, worst = {}, [0.0, 0.0, 0.0]
+    errs, worst = {}, [0.0] * 5
     for bidir in (False, True):
         fwd, bwd = ring_pair(bidir)
         got = getattr(ra, fwd)(qs, ks, vs, ps, ring=ring, causal=causal,
@@ -1322,7 +1333,9 @@ def check_ring_case(q, k, v, kv_pad, do, n, causal, what: str):
                                  causal=causal)
         ref = getattr(ra, bwd + "_ref")(qs, ks, vs, ps, o, m, l, dos,
                                         ring=ring, causal=causal)
-        ulps, norm = stack_errors([got[0], *grads], [o, *ref])
+        ulps_b, norm_b = stack_errors(grads, ref)
+        ulps, norm = (max(x, y) for x, y in zip(
+            stack_errors([got[0]], [o]), (ulps_b, norm_b)))
         live = m > 0.5 * ra.NEG_INF
         ml = max(rel_max(got[1][live], m[live]), rel_max(got[2], l))
         if not torch.equal(got[1][~live], m[~live]):
@@ -1338,7 +1351,7 @@ def check_ring_case(q, k, v, kv_pad, do, n, causal, what: str):
         abs_err = [float((g.float() - w.float()).abs().max())
                    for g, w in zip([got[0], *grads], [o, *ref])]
         errs[fwd], errs[bwd] = abs_err[0], max(abs_err[1:])
-        for i, val in enumerate((ulps, norm, ml)):
+        for i, val in enumerate((ulps, norm, ml, ulps_b, norm_b)):
             worst[i] = max(worst[i], val)
     return (errs, *worst)
 
@@ -1349,24 +1362,32 @@ def ring_phase(dev, log, seeds: int):
     one; the two-way ring against full attention; the no-mask control.  Returns (the worst readings, the launches of this
     drive by function)."""
     worst = {"err": dict.fromkeys(RING_KERNELS, 0.0), "ulps": 0.0,
-             "norm": 0.0, "ml": 0.0}
+             "norm": 0.0, "ml": 0.0, "bwd_ulps": 0.0, "bwd_norm": 0.0}
     before = {name: getattr(ra, name).launches for name in RING_KERNELS}
     runs = ([(case + (128,), seed) for seed in range(seeds)
              for case in RING_CASES] + [(case, 0) for case in RING_SHAPE_CASES])
     for (what, b, n, c, causal, pad, d), seed in runs:
         q, k, v, kv_pad, do = ring_inputs(dev, b, n, c, pad,
                                           SEED + 10 * seed + n, d)
-        errs, ulps, norm, ml = check_ring_case(q, k, v, kv_pad, do, n,
-                                               causal, what)
-        for key, val in zip(("ulps", "norm", "ml"), (ulps, norm, ml)):
+        errs, *readings = check_ring_case(q, k, v, kv_pad, do, n, causal,
+                                          what)
+        for key, val in zip(("ulps", "norm", "ml", "bwd_ulps", "bwd_norm"),
+                            readings):
             worst[key] = max(worst[key], val)
+        ulps, norm, ml, ulps_b, norm_b = readings
         for name, val in errs.items():
             worst["err"][name] = max(worst["err"][name], val)
         log(f"[12] ring {what} (B {b}, H 8, Dh {d}), seed {seed}: max err "
             f"{ulps:.3g} bf16 ulps, relative norm error {norm:.3g}, m/l "
-            f"relative error {ml:.3g}; max abs err: " + ", ".join(
+            f"relative error {ml:.3g} (the backward's dq, dk, dv: "
+            f"{ulps_b:.3g} ulps, {norm_b:.3g}); max abs err: " + ", ".join(
                 f"{name.replace('ring_attention_', '')} {val:.3g}"
                 for name, val in errs.items()))
+    log(f"[12] worst over the cases: {worst['ulps']:.3g} bf16 ulps (limit "
+        f"{RING_MAX_ULPS}), relative norm error {worst['norm']:.3g} (limit "
+        f"{RING_REL_NORM}), m/l {worst['ml']:.3g} (limit {RING_ML_REL}); the "
+        f"backward's own: {worst['bwd_ulps']:.3g} ulps, relative norm error "
+        f"{worst['bwd_norm']:.3g}")
     drive = {name: getattr(ra, name).launches - before[name]
              for name in RING_KERNELS}
     # the schedule itself: the two-way ring against full attention over the
@@ -1404,21 +1425,20 @@ def ring_phase(dev, log, seeds: int):
 
 def ring_launch_counts(n: int, causal: bool, bidir: bool = True):
     """(forward, backward) kernel launches of one ring call, from the
-    schedule: the forward launches once per step where any rank sees a
-    live block (its last such step finalizes it); the backward launches a
-    dK/dV and a dQ kernel per rank and live step, plus one landing launch
-    per rank.  Step s brings block r - s and, two-way, block r + s (not at
+    schedule: per step where any rank sees a live block, the forward
+    launches once (a rank's last such step finalizes it) and the backward
+    launches a dK/dV and a dQ kernel; the backward adds one landing launch
+    per call.  Step s brings block r - s and, two-way, block r + s (not at
     s = 0, nor where it is r - s); a causal block is live when it is not
     after the rank's own."""
     steps = n // 2 + 1 if bidir else n
-    live, busy = 0, set()
+    busy = set()
     for r in range(n):
         for s in range(steps):
             srcs = {(r - s) % n} | ({(r + s) % n} if bidir and s else set())
             if any(not causal or src <= r for src in srcs):
-                live += 1
                 busy.add(s)
-    return len(busy), 2 * live + n
+    return len(busy), 2 * len(busy) + 1
 
 
 def ring_counts() -> dict:
@@ -1552,16 +1572,16 @@ def sp_train_compare(dev, seed: int, log):
     return launches, worst, (cfg, kstate, ecfg, estate, batch)
 
 
-def ring_bounds(b: int, n: int, c: int, causal: bool, h: int = 8,
+def ring_bounds(b: int, n: int, c: int, kv_pad, causal: bool, h: int = 8,
                 d: int = 128) -> dict:
     """{function: (bytes, operations)} of one call: q, k, v and the pads
     read, o, m and l written (forward); q, k, v, o, dO, m, l and the pads
     read, dq, dk and dv written (backward); 4 (forward) or 10 (backward:
-    S recomputed, dP, dV, dK, dQ) x C x C x D operations per (b, h) and
-    live block, the same blocks on both schedules."""
+    S recomputed, dP, dV, dK, dQ) x D operations per (b, h) and visible
+    (query, key) pair of the whole sequence: the causal lower triangle
+    less the padded keys, which the live blocks of both schedules cover."""
     act, rows, pad = b * n * c * h * d * 2, b * n * c * h * 4, b * n * c
-    blocks = n * (n + 1) // 2 if causal else n * n
-    pairs = blocks * c * c * b * h
+    pairs = flash_visible_pairs(kv_pad, n * c, causal) * h
     fwd = (4 * act + 2 * rows + pad, 4 * pairs * d)
     bwd = (8 * act + 2 * rows + pad, 10 * pairs * d)
     return {name: fwd if "fwd" in name else bwd for name in RING_KERNELS}
@@ -1572,7 +1592,7 @@ def ring_timings(dev, card, log, cfg, kstate, ecfg, estate, batch):
     (and its device time by profiler), then each ring function at the
     training and the long shape against its plain version, its bound and
     SDPA.  Returns {function: row numbers for the 6 ring calls of a latent
-    train step}."""
+    train step, and ``long_*`` ones for one call at the long shape}."""
     def steps(state, c, mesh=None):
         step = make_train_step(c, True, mesh)
         g = torch.Generator(dev).manual_seed(1)
@@ -1622,7 +1642,7 @@ def ring_timings(dev, card, log, cfg, kstate, ecfg, estate, batch):
         dot = do.transpose(1, 2)
         sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), dot, retain_graph=True), iters)
-        bounds = ring_bounds(b, n, c, causal)
+        bounds = ring_bounds(b, n, c, kv_pad, causal)
         for name in RING_KERNELS:
             fwd = "fwd" in name
             args = sh[:4] if fwd else (*sh[:4], o, m, l, sh[4])
@@ -1633,11 +1653,13 @@ def ring_timings(dev, card, log, cfg, kstate, ecfg, estate, batch):
             k_ms = cuda_ms(lambda: fn(*args, ring=ring, causal=causal), iters)
             p_ms = cuda_ms(lambda: ref(*args, ring=ring, causal=causal),
                            max(2, iters // 4))
-            # device time per call: the ring kernels, and the rest (hop and
-            # seed copies, layout copies, delta)
+            # device time per call: the ring kernels (by kernel), and the
+            # rest (hop and seed copies, layout copies, delta)
             groups = profile_groups(lambda: fn(*args, ring=ring,
-                                               causal=causal), 3, ("ring_",))
-            kn, kdev = groups.get("ring_", (0, 0.0))
+                                               causal=causal), 3,
+                                    RING_KERNEL_NAMES)
+            kn, kdev = (sum(groups.get(k, (0, 0.0))[i]
+                            for k in RING_KERNEL_NAMES) for i in (0, 1))
             on, odev = groups.get("other", (0, 0.0))
             nbytes, flops = bounds[name]
             b_ms, b_by = bound(nbytes, flops)
@@ -1649,22 +1671,29 @@ def ring_timings(dev, card, log, cfg, kstate, ecfg, estate, batch):
                 f"operations: copies), plain {p_ms * 1e3:.1f} us, bound "
                 f"{b_ms * 1e3:.2f} us ({b_by}), SDPA "
                 f"{'forward' if fwd else 'backward'} {lib * 1e3:.1f} us;"
-                f" hops move {hops} bytes")
+                f" hops move {hops} bytes; by kernel: " + ", ".join(
+                    f"{k} {groups[k][1] * 1e3:.1f} us in {groups[k][0]:.0f}"
+                    for k in RING_KERNEL_NAMES if k in groups))
             if label == "training":
                 rows[name] = {"ms": calls * k_ms, "plain_ms": calls * p_ms,
                               "bound_ms": calls * b_ms, "bound_by": b_by,
                               "library_ms": calls * lib,
-                              "device_ms": calls * kdev}
+                              "device_ms": calls * kdev,
+                              "launches_per_call": kn}
+            else:           # one call at the long shape
+                rows[name].update(long_ms=k_ms, long_device_ms=kdev,
+                                  long_plain_ms=p_ms, long_bound_ms=b_ms,
+                                  long_bound_by=b_by, long_library_ms=lib)
     return rows
 
 
-def ring_fwd_code(lib_path: str, report: str) -> None:
-    """Phase 1: the compiler's registers and shared memory of the ring
-    forward kernels; raises unless the bf16 forward kernel's machine code
-    has tensor-core products (HMMA or HGMMA)."""
+def ring_code(lib_path: str, report: str) -> None:
+    """Phase 1: the compiler's registers and spills of the ring kernels;
+    raises unless the machine code of each bf16 ring kernel (RING_MMA) has
+    tensor-core products (HMMA or HGMMA)."""
     for entry in report.split("Compiling entry function")[1:]:
         name = entry.split("'")[1]
-        if "ring_fwd" in name:
+        if "ring_" in name:
             used = re.search(r"Used (\d+) registers[^\n]*", entry)
             spill = re.search(r"(\d+) bytes spill stores", entry)
             log(f"    ptxas {name}: {used.group(0) if used else '?'}; "
@@ -1675,9 +1704,10 @@ def ring_fwd_code(lib_path: str, report: str) -> None:
         return
     out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                          text=True, timeout=300)
+    found = set()
     for fn in out.stdout.split("Function : ")[1:]:
         name = fn.split()[0]
-        if "ring_fwd" not in name:
+        if "ring_" not in name:
             continue
         code = [ln.split(";")[0].split("*/")[-1].strip()
                 for ln in fn.splitlines() if "MMA" in ln]
@@ -1685,8 +1715,13 @@ def ring_fwd_code(lib_path: str, report: str) -> None:
         log(f"    SASS {name}: {len(mma)} tensor-core products "
             f"{sorted({op.split()[0] for op in mma})}"
             + (f", e.g. '{mma[0]}'" if mma else ""))
-        if RING_FWD_MMA in name and not mma:
-            raise AssertionError(f"{name} has no HMMA/HGMMA instruction")
+        kernel = next((k for k in RING_MMA if k in name), None)
+        if kernel is not None:
+            if not mma:
+                raise AssertionError(f"{name} has no HMMA/HGMMA instruction")
+            found.add(kernel)
+    if found != set(RING_MMA):
+        raise AssertionError(f"no SASS read for {set(RING_MMA) - found}")
 
 
 # ---------------------------------------------------------------------------
@@ -1729,7 +1764,7 @@ def main(argv=None):
         if m.group(1) != "0" or m.group(2) != "0"]
     log(f"    ptxas: {report.count('Used ')} kernels reported, spilling: "
         f"{spills or 'none'}")
-    ring_fwd_code(lib_path, report)
+    ring_code(lib_path, report)
 
     # ---- the flagship model, seed-made weights
     t0 = time.perf_counter()

@@ -27,8 +27,10 @@ order of f32 sums, bf16 one-ulp flips of rounded outputs and residuals.
 The four ring-attention functions (o, m, l, dq, dk, dv, one-way and
 two-way, on rings of 2, 3 and 4 ranks with ragged chunks) take the flash
 limits; their dead rows attend uniformly and must not come out zero.  The
-forward functions are also held alone at chunks of 1 to 1,024 rows and
-head dims 64, 80 and 128, with their launches per call.
+forward and the backward functions are also held alone at chunks of 1 to
+1,024 rows and head dims 64, 80 and 128, with their launches per call;
+the backward's cases include dead rows at a 130-row chunk, whose dv needs
+the query tiles before a causal key tile.
 """
 
 import numpy as np
@@ -471,6 +473,44 @@ def test_ring_forward_kernels(dev, dt, case, bidir):
     assert torch.equal(got[1][dead], want[1][dead])
     if case[-1] == "dead":
         assert bool(dead.any()) and bool(got[0][dead].any())
+
+
+# the forward's cases, and dead rows on an even ring at a chunk of three
+# tiles: each causal diagonal block has key tiles in the future of query
+# tile 0, whose dead rows still add to their dv
+RING_BWD_CASES = RING_FWD_CASES + [(4, 2, 130, 2, 64, True, "dead")]
+
+
+@pytest.mark.parametrize("bidir", [False, True], ids=["one_way", "two_way"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", RING_BWD_CASES,
+                         ids=[f"n{c[0]}_c{c[2]}_d{c[4]}"
+                              for c in RING_BWD_CASES])
+def test_ring_backward_kernels(dev, dt, case, bidir):
+    """dq, dk and dv of the backward kernels against the plain version on
+    the plain forward's residuals, and a dK/dV and a dQ launch per ring
+    step that has a live rank plus one landing launch per call."""
+    (q, k, v, kv_pad, do), ring, causal = _ring_inputs(
+        dev, dt, case, seed=case[2] + case[4] + 1)
+    bwd = (tra.ring_attention_bwd_bidir_shard if bidir
+           else tra.ring_attention_bwd_shard)
+    fwd_ref = (tra.ring_attention_fwd_bidir_shard_ref if bidir
+               else tra.ring_attention_fwd_shard_ref)
+    n = case[0]
+    o, m, l = fwd_ref(q, k, v, kv_pad, ring=ring, causal=causal)
+    before = bwd.launches
+    got = bwd(q, k, v, kv_pad, o, m, l, do, ring=ring, causal=causal)
+    torch.cuda.synchronize()
+    busy = [s for s in range(tra.ring_steps(n, bidir))
+            if any(tra.visits(n, s, r, causal, bidir) for r in range(n))]
+    assert bwd.launches - before == 2 * len(busy) + 1
+    want = getattr(tra, bwd.__name__ + "_ref")(q, k, v, kv_pad, o, m, l, do,
+                                               ring=ring, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _close(g, w, dt, name)
+    if case[-1] == "dead":
+        assert bool((m <= 0.5 * tra.NEG_INF).any())
 
 
 def test_ring_attention_autograd(dev):

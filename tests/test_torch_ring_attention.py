@@ -14,9 +14,12 @@ row (a causal query whose every visible key is padded attends uniformly
 over the keys of its live blocks).  Tolerance: 1e-5 of each tensor's
 largest magnitude (f32; the two sum in other orders).
 
-The forward's launch plan (``fwd_plan``: one kernel launch per ring step
-with a live rank, each rank finalized at its last live step) and the
-argument tables the forward kernel reads are checked in pure Python.
+The kernels' launch plan (``ring_plan``: per ring step with a live rank,
+one forward launch, or one dK/dV and one dQ launch, each rank finalized at
+its last live step; one landing launch per backward call), the argument
+tables the kernels read and the backward's argument struct are checked in
+pure Python.  A tiny dead-row case pins what the backward kernels must
+keep: the dead row's dO reaches dv at keys in its causal future.
 
 Then the model: a tiny ``IQ`` forward in latent mode with
 ``sequence_parallel`` on a ``seq`` 4 mesh against the JAX ``IQ(...,
@@ -25,7 +28,9 @@ mesh=seq_mesh)`` (parameters carried by ``from_flax``'s inverse,
 its non-ring path.
 """
 
+import ctypes
 import functools
+import types
 
 import jax
 import numpy as np
@@ -198,7 +203,7 @@ def test_forward_plan(n):
     with a live rank."""
     for bidir in (False, True):
         for causal in (False, True):
-            plan = tra.fwd_plan(n, causal, bidir)
+            plan = tra.ring_plan(n, causal, bidir)
             live = _live_steps(n, causal, bidir)
             assert len(plan) == tra.ring_steps(n, bidir)
             for s, entries in enumerate(plan):
@@ -214,10 +219,61 @@ def test_forward_plan(n):
             assert sum(1 for entries in plan if entries) == len(busy)
 
 
-def test_forward_launches_per_call_at_seq4():
-    """Causal on 4 ranks: 3 two-way and 4 one-way launches per call."""
-    assert sum(1 for e in tra.fwd_plan(4, True, True) if e) == 3
-    assert sum(1 for e in tra.fwd_plan(4, True, False) if e) == 4
+class _RecordingLibrary:
+    """Stands in for the kernel library: records each entry the kernel
+    path calls, in order, and launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, entry):
+        if entry.startswith("_"):
+            raise AttributeError(entry)
+        return lambda args, stream: self.calls.append(entry) or 0
+
+
+def _kernel_path_calls(monkeypatch, bwd: bool, bidir: bool, n: int = 4):
+    """The library entries one causal call of the kernel path launches on
+    n ranks, and its counter, with the library and the stream stood in
+    for: the schedule, its tables and its argument structs are the real
+    ones, on CPU tensors."""
+    from blt_vqg_tpu_torch.ops.kernels import _build
+
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=None))
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn((n, 1, 2, 1, 8), generator=gen)
+                   for _ in range(4))
+    pad = torch.zeros((n, 1, 2), dtype=torch.bool)
+    ring = build_mesh((n,), ("seq",), device="cpu").ring()
+    counter = types.SimpleNamespace(launches=0)
+    if bwd:
+        m = torch.zeros((n, 1, 2, 1))
+        tra._ring_bwd(q, k, v, pad, q, m, m + 1.0, do, ring, True, bidir,
+                      True, counter)
+    else:
+        tra._ring_fwd(q, k, v, pad, ring, True, bidir, True, counter)
+    return lib.calls, counter.launches
+
+
+def _busy_steps(n, causal, bidir):
+    """Steps at which some rank computes a block, from ``visits``."""
+    return sum(1 for s in range(tra.ring_steps(n, bidir))
+               if any(tra.visits(n, s, r, causal, bidir) for r in range(n)))
+
+
+def test_forward_launches_per_call_at_seq4(monkeypatch):
+    """Causal on 4 ranks: 3 two-way and 4 one-way launches per call, in
+    the plan and in what the kernel path launches."""
+    for bidir, want in ((True, 3), (False, 4)):
+        assert sum(1 for e in tra.ring_plan(4, True, bidir) if e) == want
+        assert _busy_steps(4, True, bidir) == want
+        calls, counted = _kernel_path_calls(monkeypatch, False, bidir)
+        assert calls == ["bvq_ring_fwd_step"] * want
+        assert counted == want
 
 
 @pytest.mark.parametrize("n", [3, 4, 8])
@@ -227,8 +283,8 @@ def test_forward_tables_encode_the_plan(n):
     to the plan."""
     for bidir in (False, True):
         for causal in (False, True):
-            plan = tra.fwd_plan(n, causal, bidir)
-            for entries, t in zip(plan, tra._fwd_tables(n, causal, bidir)):
+            plan = tra.ring_plan(n, causal, bidir)
+            for entries, t in zip(plan, tra._step_tables(n, causal, bidir)):
                 assert t.nent == len(entries)
                 for e, (r, vis, first, last) in enumerate(entries):
                     info = t.info[e]
@@ -236,6 +292,96 @@ def test_forward_tables_encode_the_plan(n):
                             bool(info & 8)) == (r, len(vis), first, last)
                     assert [((info >> (4 + j)) & 1, t.src[2 * e + j])
                             for j in range(len(vis))] == list(vis)
+
+
+@pytest.mark.parametrize("bidir,want", [(True, 7), (False, 9)])
+def test_backward_launches_per_call_at_seq4(monkeypatch, bidir, want):
+    """Causal on 4 ranks, the kernel path launches a dK/dV and a dQ kernel
+    at each step where some rank computes a block, then one landing
+    kernel: 7 two-way and 9 one-way per call."""
+    busy = _busy_steps(4, True, bidir)
+    calls, counted = _kernel_path_calls(monkeypatch, True, bidir)
+    assert calls == (["bvq_ring_bwd_dkdv", "bvq_ring_bwd_dq"] * busy
+                     + ["bvq_ring_land"])
+    assert counted == len(calls) == want
+
+
+@pytest.mark.parametrize("n", [3, 4, 8])
+def test_backward_tables_encode_the_plan(n):
+    """The backward reads the same step tables: its dK/dV launch's pairs
+    are every (entry, visiting block) of the step, in order, and the dQ
+    launch starts each rank's carry at the rank's first live step."""
+    for bidir in (False, True):
+        for causal in (False, True):
+            plan = tra.ring_plan(n, causal, bidir)
+            live = _live_steps(n, causal, bidir)
+            for s, (entries, t) in enumerate(
+                    zip(plan, tra._step_tables(n, causal, bidir))):
+                if not entries:
+                    assert t is None
+                    continue
+                pairs = [(p >> 1, p & 1) for p in t.pair[:t.npair]]
+                assert pairs == [(e, j) for e, (_, vis, _, _)
+                                 in enumerate(entries)
+                                 for j in range(len(vis))]
+                for e, j in pairs:
+                    r, vis = t.rank[e], entries[e][1]
+                    assert ((t.info[e] >> (4 + j)) & 1,
+                            t.src[2 * e + j]) == vis[j]
+                    assert bool(t.info[e] & 4) == (s == live[r][0])
+
+
+def test_backward_args_layout():
+    """``RingBwdArgs`` mirrors the C struct: its fields in the documented
+    order at their C offsets (ints 4 bytes, longs and pointers 8, aligned
+    to their size), then the step table."""
+    from blt_vqg_tpu_torch.ops.kernels import _build
+
+    order = ([(f, 4, 1) for f in ("act_bf16", "causal", "ranks", "batch",
+                                  "heads", "chunk", "dim")]
+             + [(f, 8, 1) for f in ("rs", "sb", "slot_rs", "q", "dout", "m",
+                                    "l", "delta", "dq")]
+             + [(f, 8, 2) for f in ("k", "v", "pad", "rider")]
+             + [(f, 8, 1) for f in ("dq_out", "dk", "dv")] + [("ret", 8, 2)])
+    off = 0
+    for name, size, count in order:
+        off = -(-off // size) * size
+        assert getattr(_build.RingBwdArgs, name).offset == off, name
+        off += size * count
+    r = _build.RING_MAX_RANKS
+    assert _build.RingBwdArgs.step.offset == off
+    assert [getattr(_build.RingStep, f).offset for f in
+            ("nent", "npair", "rank", "info", "src", "pair")] == [
+                0, 4, 8, 8 + 4 * r, 8 + 8 * r, 8 + 16 * r]
+    assert ctypes.sizeof(_build.RingBwdArgs) == off + 8 + 24 * r
+    assert [f for f, *_ in _build.RingBwdArgs._fields_] == [
+        f for f, *_ in order] + ["step"]
+
+
+def test_dead_row_reaches_dv_at_future_keys(jax_devices):
+    """A causal query whose every visible key is padded attends uniformly
+    over its live blocks' keys, its causal future included: with dO zero
+    but on that row, dv is nonzero exactly at the keys of its rank's
+    diagonal block, in the port's plain backward as in JAX's ring.  A
+    kernel that skipped future tiles without asking for dead rows would
+    drop these."""
+    n, causal = CASES["n4_dead_row"][0], True
+    q, k, v, kv_pad, do = _inputs("n4_dead_row")
+    c = q.shape[1] // n
+    do = np.zeros_like(do)
+    do[:, 0] = 1.0                 # rank 0's query 0 is dead: key 0 padded
+    want = [np.asarray(x) for x in _jax_ring_fn(n, causal)(
+        q, k, v, kv_pad, do)]
+    sh = [_shards(x, n) for x in (q, k, v, kv_pad, do)]
+    ring = build_mesh((n,), ("seq",), device="cpu").ring()
+    o, m, l = tra.ring_attention_fwd_shard(*sh[:4], ring=ring,
+                                           causal=causal, return_lse=True)
+    assert bool((m[0, :, 0] <= 0.5 * tra.NEG_INF).all())
+    dv = _unshard(tra.ring_attention_bwd_shard(*sh[:4], o, m, l, sh[4],
+                                               ring=ring, causal=causal)[2])
+    assert_close(dv, want[3], "dead-row dv")
+    assert np.abs(dv[:, 1:c]).min() > 0     # keys after query 0
+    assert np.abs(dv[:, c:]).max() == 0     # blocks rank 0 never computes
 
 
 def test_cpu_takes_the_plain_version():
