@@ -18,23 +18,47 @@
 //  - p is rounded to the activation type before the PV product; every sum
 //    is f32; the outputs are written in the activation type;
 //  - in the backward, ds is zeroed at masked logits, and dO, q, k, v enter
-//    every product as f32 values;
+//    every product as f32 values (on the tensor cores they are exact bf16
+//    operands, and the f32 p and ds go in as hi + lo bf16 pairs);
 //  - a key tile whose every key lies in the future of every query row of
 //    the tile contributes nothing and is skipped.
 //
 // Blocks run in no order on this card, so each block's inner loop takes the
-// place of the TPU's sequential grid axis: forward and dQ loop over key
-// tiles for one (b*h, 64-row query tile); dK/dV loops over query tiles for
-// one (b*h, 64-key tile).  Tiles live in shared memory as f32 rows padded
-// by one word (no bank conflicts on the row-parallel reads); the products
-// are plain f32 FMA.  On the training path the shapes are tiny (T <= 21,
-// B*H = 512), so one call moves about a megabyte and is bound by launch
-// latency, not by arithmetic or bytes.  Left for later work: tensor-core
-// products (wgmma) and bf16 tiles for long sequences.
+// place of the TPU's sequential grid axis.
+//  - forward, and the f32 backward (a check path, not a speed target):
+//    plain f32 FMA tiles of 64 rows, one (b, h) per block.  Forward and dQ
+//    loop over key tiles for one (b*h, 64-row query tile); dK/dV loops over
+//    query tiles for one (b*h, 64-key tile).  Tiles live in shared memory
+//    as f32 rows padded by one word.
+//  - the bf16 backward: flash_bwd_dkdv_mma_kernel and
+//    flash_bwd_dq_mma_kernel, tensor cores (mma.sync m16n8k16, csrc/mma.cuh)
+//    on the tiling of the ring backward (csrc/ring_attention.cu).  A warp
+//    owns 16 rows: dK/dV keys, dQ queries.  A (b, h) takes 1, 2 or 4 warps
+//    for an owned length up to 16, up to 32, or longer; a block of 4 warps
+//    holds 4 / wq (b, h), neighbouring heads of one batch row.  The walked
+//    operand comes in tiles of its length rounded up to 16, at most 64,
+//    through two cp.async stages when there is more than one tile; the head
+//    dim is zero-padded to 16.  The tiling (`FlashGeom`) is computed on the
+//    host (ops/kernels/flash_attention.py `bwd_geom`) and checked here.
+//
+// Bound on this card: the bytes of the operands once each at 3.35 TB/s, or
+// the operations of the visible (query, key) pairs at 989 TF/s (bf16);
+// chip_smoke.py computes both per call.  At the flagship's training shapes
+// (B 64, H 8, Dh 128; Tq x Tk = 3 x 3, 21 x 21, 20 x 20 causal, 20 x 3)
+// both backward kernels are bound by bytes: over a latent step's 24 calls,
+// 74.9 us (dK/dV) and 67.8 us (dQ) on an NVIDIA H100 80GB HBM3 at 700 W.
+// What costs there is the latency of each block's few loads and the share
+// of the card a launch fills: 64-row f32 tiles at T <= 21 left 89-99.8% of
+// each score tile dead, one (b, h) per block took one block per SM, and
+// every score was a serial FMA chain.  The tensor-core kernels size their
+// tiles by the sequence (16-row steps), give every (b, h) its own warps,
+// and fit 2 blocks per SM, so a training call runs in one wave (21 x 21:
+// 256 blocks; 3 x 3: 128).  Left for later work: the forward on tensor
+// cores, wgmma fed by TMA for long sequences.
 //
 // delta = rowsum(dO * O) is computed by the caller (the TPU package also
 // computes it outside its kernels).
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace bvq {
 
@@ -43,6 +67,28 @@ constexpr int FA_BQ = 64, FA_BK = 64, FA_THREADS = 256, FA_DMAX = 128;
 constexpr int FA_DC = FA_DMAX / 4;    // d columns a thread owns: d = lane4 + 4c
 constexpr int FA_JC = FA_BK / 4;      // key columns a thread scores: j = lane4 + 4c
 constexpr int FA_PLD = FA_BK + 1;     // row stride of the [64][64] score tiles
+
+// The bf16 backward's tiling, computed on the host (`bwd_geom` in
+// ops/kernels/flash_attention.py, which a CPU test covers), passed beside
+// the operands in a launch's FlashCall, and checked by flash_geom_ok.
+// "Owned" rows are a warp's own (dK/dV: keys, length Tk; dQ: queries,
+// length Tq); "walked" rows are the other side's, which the block walks in
+// tiles.
+struct FlashGeom {
+  int wq;      // warps per (b, h): 1, 2 or 4, each owning 16 rows
+  int groups;  // (b, h) per block, FB_WARPS / wq
+  int kt;      // rows of a walked tile: the walked length rounded up to 16, at most
+               // 64, less where a block would not fit twice on an SM
+  int dp;      // D rounded up to 16 (zero-padded in shared memory and registers)
+  int lds;     // shared row stride in elements, dp + 8: the 8 rows an ldmatrix
+               // reads fall 16 bytes apart modulo 128, on distinct banks
+  int fixed;   // bytes a group holds for the whole launch (dK/dV: its K and V)
+  int stage;   // bytes of one stage of the walked rows, per group
+  int nst;     // stages: 2 when the walked length spans more than one tile
+  int smem;    // dynamic shared bytes of a block, groups * (fixed + nst * stage)
+  int grid_x;  // blocks over the B * H (b, h): cdiv(B * H, groups)
+  int grid_y;  // blocks over the owned rows: cdiv(owned length, 16 * wq)
+};
 
 struct FlashArgs {
   int act_bf16, causal;
@@ -59,6 +105,17 @@ struct FlashArgs {
   void* dq;                     // [B, Tq, H, D]
   void* dk;                     // [B, Tk, H, D]
   void* dv;                     // [B, Tk, H, D]
+};
+
+// What the host passes to an entry point: the operands, and the bf16
+// backward's tiling (unread by the other kernels).  The FMA kernels take
+// FlashArgs alone: with the tiling inside their parameter, the compiler
+// scheduled the forward otherwise (more registers), and its device time
+// rose 1.7x at the training shapes (chip_smoke.py phase 7, NVIDIA H100
+// 80GB HBM3 at 700 W).
+struct FlashCall {
+  FlashArgs a;
+  FlashGeom geom;
 };
 
 // rows [r0, r0 + 64) of x [B, T, H, D] at (b, h) into dst [64][D + 1] as
@@ -333,6 +390,370 @@ __global__ void __launch_bounds__(FA_THREADS) flash_bwd_dq_kernel(FlashArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 backward: tensor cores (mma.sync m16n8k16, bf16 x bf16 -> f32), 4
+// warps a block.  The five products are S = q k^T and dP = dO v^T
+// (recomputed by both kernels), dV += p^T dO, dK += ds^T q and dQ += ds k.
+// q, k, v and dO are bf16 inputs, exact as operands; p and ds are f32
+// values, and the contract runs their products in f32: each is fed as a
+// pair hi = bf16(x), lo = bf16(x - hi) (rb_split, rb_mma_pair).
+//
+// Rows past the sequence are filled so that no element test is needed for
+// them: a query row past Tq is a dead row (m = NEG_INF, so p = 0, l = 1,
+// delta = 0, and q and dO zero), a key past Tk a masked key (K and V zero,
+// its pad byte set).  A dead row (m <= NEG_INF / 2) has p = 0 at every key,
+// so it adds nothing to any gradient.
+constexpr int FB_WARPS = 4;
+constexpr int FB_THREADS = 32 * FB_WARPS;
+constexpr int FB_BLOCKS_PER_SM = 2;
+constexpr int FB_SMEM_MAX = 232448;  // dynamic shared memory a block may take on sm_90
+
+// offset of element (b, t, h, 0) of a [B, T, H, D] operand
+__device__ __forceinline__ size_t fa_at(int b, int t, int h, int T, int H, int D) {
+  return (((size_t)b * T + t) * H + h) * D;
+}
+
+// dK/dV: block ((b, h) group, 16 * wq keys).  Replaces the TPU kernel
+// `_dkdv_kernel` (blt_vqg_tpu/ops/pallas/flash_attention.py:110); bound by
+// bytes, not operations, at the training shapes (74.9 us over a latent
+// step's 24 calls on an NVIDIA H100 80GB HBM3 at 700 W), so the design
+// spends its effort on filling the card with short tiles and overlapping
+// the loads.  Warp w owns keys
+// kb0 + 16 (w % wq) .. + 15 of its group's (b, h): K and V stay in shared
+// memory, dk and dv in registers (accumulators of 16 keys x D), and the
+// block walks the query tiles (q, dO, m, l, delta) through the stages.  It
+// computes S^T = k q^T and dP^T = v dO^T, so p^T and ds^T come out of the
+// accumulators as the A operands of dV += p^T dO and dK += ds^T q (dO and
+// q read by ldmatrix.trans).
+__global__ void __launch_bounds__(FB_THREADS, FB_BLOCKS_PER_SM)
+    flash_bwd_dkdv_mma_kernel(const __grid_constant__ FlashArgs a,
+                              const __grid_constant__ FlashGeom g) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char fb_smem[];
+  const int D = a.dim, H = a.heads, Tq = a.tq, Tk = a.tk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq4 = lane % 4;
+  const int grp = warp / g.wq;
+  const int gtid = threadIdx.x - grp * 32 * g.wq, gthreads = 32 * g.wq;
+  const int bh = blockIdx.x * g.groups + grp;
+  const bool active = bh < a.batch * H;  // the last block's groups may be idle
+  const int b = active ? bh / H : 0, h = active ? bh % H : 0;
+  const int own = 16 * g.wq;
+  const int kb0 = blockIdx.y * own;            // the block's first key
+  const int kw = 16 * (warp % g.wq);           // the warp's keys in the owned tile
+  const bool live = active && kb0 + kw < Tk;   // the warp has a key to own
+  const int nd = g.dp / 8, ntq = (Tq + g.kt - 1) / g.kt;
+  const T* q = static_cast<const T*>(a.q);
+  const T* dout = static_cast<const T*>(a.dout);
+  unsigned char* gsm = fb_smem + (size_t)grp * (g.fixed + g.nst * g.stage);
+  T* ks = reinterpret_cast<T*>(gsm);
+  T* vs = ks + own * g.lds;
+  unsigned char* stg = gsm + g.fixed;
+  const int mi = lane / 8, lr8 = lane % 8;
+  const T zero = __float2bfloat16_rn(0.f);
+
+  // the owned K and V, zeros past Tk and the dim
+  if (active) {
+    for (int c = gtid; c < own * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, kj = kb0 + r;
+      const int valid = kj < Tk ? max(0, min(8, D - d0)) : 0;
+      const size_t off = kj < Tk ? fa_at(b, kj, h, Tk, H, D) + d0 : 0;
+      rf_load16(ks + r * g.lds + d0, static_cast<const T*>(a.k) + off, valid, zero);
+      rf_load16(vs + r * g.lds + d0, static_cast<const T*>(a.v) + off, valid, zero);
+    }
+  }
+  rf_commit();
+  // the warp's keys kb0 + kw + gr + 8y: in the sequence, and masked for
+  // every query (past Tk or padded)
+  bool kin[2], kmask[2];
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int kj = kb0 + kw + gr + 8 * y;
+    kin[y] = active && kj < Tk;
+    kmask[y] = !kin[y] || (a.kv_pad && a.kv_pad[(size_t)b * Tk + kj]);
+  }
+
+  // causal: query rows i < kb0 see none of the block's keys.  Their p is 0
+  // there (a live row: exp(NEG_INF - m) = 0; a dead row: zeroed), and ds is
+  // zeroed at masked logits, so the query tiles wholly before kb0 add
+  // nothing to dk or dv and are skipped.  (The ring backward, whose dead
+  // rows attend uniformly over masked keys, may skip them only up to the
+  // first dead row; flash zeroes dead rows, so it needs no such vote.)
+  const int qstart = a.causal ? min(ntq, kb0 / g.kt) : 0;
+
+  // query tile t into stage st: q and dO rows, and the rows' m, l, delta
+  auto load = [&](int t, int st) {
+    if (!active) return;
+    const int q0 = t * g.kt;
+    T* qs = reinterpret_cast<T*>(stg + (size_t)st * g.stage);
+    T* os = qs + g.kt * g.lds;
+    float* rm = reinterpret_cast<float*>(os + g.kt * g.lds);
+    for (int c = gtid; c < g.kt * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, i = q0 + r;
+      const int valid = i < Tq ? max(0, min(8, D - d0)) : 0;
+      const size_t off = i < Tq ? fa_at(b, i, h, Tq, H, D) + d0 : 0;
+      rf_load16(qs + r * g.lds + d0, q + off, valid, zero);
+      rf_load16(os + r * g.lds + d0, dout + off, valid, zero);
+    }
+    const size_t rows = (size_t)bh * Tq;
+    for (int r = gtid; r < g.kt; r += gthreads) {
+      const int i = q0 + r;
+      if (i < Tq) {
+        rb_load4(rm + r, a.m + rows + i);
+        rb_load4(rm + g.kt + r, a.l + rows + i);
+        rb_load4(rm + 2 * g.kt + r, a.delta + rows + i);
+      } else {
+        rm[r] = FA_NEG_INF;
+        rm[g.kt + r] = 1.f;
+        rm[2 * g.kt + r] = 0.f;
+      }
+    }
+  };
+
+  float dk[MMA_DT][4], dv[MMA_DT][4];
+#pragma unroll
+  for (int n = 0; n < MMA_DT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
+
+  if (qstart < ntq) load(qstart, 0);
+  rf_commit();
+  for (int t = qstart, st = 0; t < ntq; ++t, st ^= 1) {
+    if (t + 1 < ntq) load(t + 1, st ^ 1);
+    rf_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile t (and K, V) landed
+    __syncthreads();
+
+    if (live) {
+      const int q0 = t * g.kt;
+      const T* qs = reinterpret_cast<const T*>(stg + (size_t)st * g.stage);
+      const T* os = qs + g.kt * g.lds;
+      const float* rm = reinterpret_cast<const float*>(os + g.kt * g.lds);
+      const float* rl = rm + g.kt;
+      const float* rd = rl + g.kt;
+#pragma unroll 1
+      for (int qc = 0; qc < g.kt / 16 && q0 + 16 * qc < Tq; ++qc) {
+        // causal: 16 queries wholly before the warp's keys add nothing
+        if (a.causal && q0 + 16 * qc + 15 < kb0 + kw) continue;
+        // S^T and dP^T: the warp's 16 keys x 16 queries
+        float s[2][4] = {}, dpv[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < FA_DMAX / 16; ++kk) {
+          if (kk < g.dp / 16) {
+            uint32_t af[4];
+            rf_ldsm(af, ks + (kw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
+            rb_scores(s, af, qs + 16 * qc * g.lds + 16 * kk, g.lds, lane);
+            rf_ldsm(af, vs + (kw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
+            rb_scores(dpv, af, os + 16 * qc * g.lds + 16 * kk, g.lds, lane);
+          }
+        }
+        // p^T and ds^T: key kb0 + kw + gr + 8 (c >> 1), query column ii
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int y = c >> 1, kj = kb0 + kw + gr + 8 * y;
+            const int ii = 16 * qc + 8 * jn + 2 * tq4 + (c & 1);
+            const float m = rm[ii];
+            float p = 0.f, ds = 0.f;
+            if (!kmask[y] && !(a.causal && kj > q0 + ii) && m > 0.5f * FA_NEG_INF) {
+              p = expf(s[jn][c] - m) * (1.f / rl[ii]);
+              ds = p * (dpv[jn][c] - rd[ii]);
+            }
+            s[jn][c] = p;
+            dpv[jn][c] = ds;
+          }
+        }
+        uint32_t hi[4], lo[4];
+        rb_split(s, hi, lo);
+        rb_mma_pair(dv, hi, lo, os + 16 * qc * g.lds, g.lds, g.dp, lane);
+        rb_split(dpv, hi, lo);
+        rb_mma_pair(dk, hi, lo, qs + 16 * qc * g.lds, g.lds, g.dp, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  // dk and dv in bf16: lane (gr, tq4) holds columns 8n + 2 tq4 and + 1
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    if (!kin[y]) continue;
+    const size_t off = fa_at(b, kb0 + kw + gr + 8 * y, h, Tk, H, D);
+    __nv_bfloat162* dkp = reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(a.dk) + off);
+    __nv_bfloat162* dvp = reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(a.dv) + off);
+#pragma unroll
+    for (int n = 0; n < MMA_DT; ++n) {
+      const int d = 8 * n + 2 * tq4;
+      if (d < D) {
+        dkp[d / 2] = __floats2bfloat162_rn(dk[n][2 * y], dk[n][2 * y + 1]);
+        dvp[d / 2] = __floats2bfloat162_rn(dv[n][2 * y], dv[n][2 * y + 1]);
+      }
+    }
+  }
+}
+
+// dQ: block ((b, h) group, 16 * wq query rows).  Replaces the TPU kernel
+// `_dq_kernel` (blt_vqg_tpu/ops/pallas/flash_attention.py:169); bound by
+// bytes at the training shapes (67.8 us over a latent step's 24 calls on
+// an NVIDIA H100 80GB HBM3 at 700 W), so, as dK/dV, it fills the card with
+// short tiles.  Warp w owns query rows r0 .. r0 + 15 of its group's (b, h):
+// q and dO as A fragments and dq (16 rows x D) in registers; the block
+// walks the key tiles (K, V and the keys' pad bytes) through the stages and
+// computes S = q k^T, dP = dO v^T and dQ += ds k.
+__global__ void __launch_bounds__(FB_THREADS, FB_BLOCKS_PER_SM)
+    flash_bwd_dq_mma_kernel(const __grid_constant__ FlashArgs a,
+                            const __grid_constant__ FlashGeom g) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char fb_smem[];
+  const int D = a.dim, H = a.heads, Tq = a.tq, Tk = a.tk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq4 = lane % 4;
+  const int grp = warp / g.wq;
+  const int gtid = threadIdx.x - grp * 32 * g.wq, gthreads = 32 * g.wq;
+  const int bh = blockIdx.x * g.groups + grp;
+  const bool active = bh < a.batch * H;
+  const int b = active ? bh / H : 0, h = active ? bh % H : 0;
+  const int own = 16 * g.wq;
+  const int qb = blockIdx.y * own;                 // the block's first query row
+  const int r0 = qb + 16 * (warp % g.wq);          // the warp's
+  const bool live = active && r0 < Tq;             // the warp has a row to own
+  const int qlast = min(Tq, qb + own) - 1;         // the block's last row
+  const int nd = g.dp / 8, ntk = (Tk + g.kt - 1) / g.kt;
+  const T* q = static_cast<const T*>(a.q);
+  const T* dout = static_cast<const T*>(a.dout);
+  unsigned char* gsm = fb_smem + (size_t)grp * g.nst * g.stage;
+  const int mi = lane / 8, lr8 = lane % 8;
+  const T zero = __float2bfloat16_rn(0.f);
+
+  // q and dO rows r0 + gr and + 8 as A fragments, zero past Tq and the dim
+  uint32_t qf[FA_DMAX / 16][4], of[FA_DMAX / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < FA_DMAX / 16; ++kk) {
+    if (kk < g.dp / 16) {
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const int i = r0 + gr + 8 * (y & 1), d = 16 * kk + 8 * (y >> 1) + 2 * tq4;
+        uint32_t qv = 0u, ov = 0u;
+        if (active && i < Tq && d < D) {  // D is a multiple of 8: d + 1 < D too
+          const size_t off = fa_at(b, i, h, Tq, H, D) + d;
+          qv = *reinterpret_cast<const uint32_t*>(q + off);
+          ov = *reinterpret_cast<const uint32_t*>(dout + off);
+        }
+        qf[kk][y] = qv;
+        of[kk][y] = ov;
+      }
+    }
+  }
+  // the rows' m, 1 / l and delta; a row past Tq is a dead row
+  float mrow[2], lrow[2], drow[2];
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int i = r0 + gr + 8 * y;
+    mrow[y] = FA_NEG_INF;
+    lrow[y] = 1.f;
+    drow[y] = 0.f;
+    if (active && i < Tq) {
+      const size_t ri = (size_t)bh * Tq + i;
+      mrow[y] = a.m[ri];
+      lrow[y] = 1.f / a.l[ri];
+      drow[y] = a.delta[ri];
+    }
+  }
+
+  // causal: key tiles wholly after the block's last row add nothing (ds is
+  // zeroed at masked logits) and are not walked
+  const int nt = a.causal ? min(ntk, qlast / g.kt + 1) : ntk;
+
+  // key tile t into stage st: K, V and the keys' pad bytes (1 past Tk)
+  auto load = [&](int t, int st) {
+    if (!active) return;
+    const int k0 = t * g.kt;
+    T* ks = reinterpret_cast<T*>(gsm + (size_t)st * g.stage);
+    T* vs = ks + g.kt * g.lds;
+    unsigned char* ps = reinterpret_cast<unsigned char*>(vs + g.kt * g.lds);
+    for (int c = gtid; c < g.kt * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, kj = k0 + r;
+      const int valid = kj < Tk ? max(0, min(8, D - d0)) : 0;
+      const size_t off = kj < Tk ? fa_at(b, kj, h, Tk, H, D) + d0 : 0;
+      rf_load16(ks + r * g.lds + d0, static_cast<const T*>(a.k) + off, valid, zero);
+      rf_load16(vs + r * g.lds + d0, static_cast<const T*>(a.v) + off, valid, zero);
+    }
+    for (int c = gtid; c < g.kt / 16; c += gthreads) {
+      const int kj = k0 + 16 * c, valid = max(0, min(16, Tk - kj));
+      if (a.kv_pad) {
+        rf_load16(ps + 16 * c, a.kv_pad + (size_t)b * Tk + kj, valid, (unsigned char)1);
+      } else {
+        for (int e = 0; e < 16; ++e) ps[16 * c + e] = e < valid ? 0 : 1;
+      }
+    }
+  };
+
+  float dq[MMA_DT][4];
+#pragma unroll
+  for (int n = 0; n < MMA_DT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  load(0, 0);
+  rf_commit();
+  for (int t = 0, st = 0; t < nt; ++t, st ^= 1) {
+    if (t + 1 < nt) load(t + 1, st ^ 1);
+    rf_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile t has landed
+    __syncthreads();
+
+    if (live) {
+      const int k0 = t * g.kt;
+      const T* ks = reinterpret_cast<const T*>(gsm + (size_t)st * g.stage);
+      const T* vs = ks + g.kt * g.lds;
+      const unsigned char* ps = reinterpret_cast<const unsigned char*>(vs + g.kt * g.lds);
+#pragma unroll 1
+      for (int kc = 0; kc < g.kt / 16 && k0 + 16 * kc < Tk; ++kc) {
+        // causal: 16 keys wholly after the warp's rows add nothing
+        if (a.causal && k0 + 16 * kc > r0 + 15) break;
+        // S and dP: the warp's 16 rows x 16 keys
+        float s[2][4] = {}, dpv[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < FA_DMAX / 16; ++kk) {
+          if (kk < g.dp / 16) {
+            rb_scores(s, qf[kk], ks + 16 * kc * g.lds + 16 * kk, g.lds, lane);
+            rb_scores(dpv, of[kk], vs + 16 * kc * g.lds + 16 * kk, g.lds, lane);
+          }
+        }
+        // ds: row r0 + gr + 8 (c >> 1), key column jj
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int y = c >> 1, i = r0 + gr + 8 * y;
+            const int jj = 16 * kc + 8 * jn + 2 * tq4 + (c & 1);
+            float ds = 0.f;
+            if (!ps[jj] && !(a.causal && k0 + jj > i) && mrow[y] > 0.5f * FA_NEG_INF)
+              ds = expf(s[jn][c] - mrow[y]) * lrow[y] * (dpv[jn][c] - drow[y]);
+            s[jn][c] = ds;
+          }
+        }
+        uint32_t hi[4], lo[4];
+        rb_split(s, hi, lo);
+        rb_mma_pair(dq, hi, lo, ks + 16 * kc * g.lds, g.lds, g.dp, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  if (!active) return;
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int i = r0 + gr + 8 * y;
+    if (i >= Tq) continue;
+    __nv_bfloat162* p =
+        reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(a.dq) + fa_at(b, i, h, Tq, H, D));
+#pragma unroll
+    for (int n = 0; n < MMA_DT; ++n) {
+      const int d = 8 * n + 2 * tq4;
+      if (d < D) p[d / 2] = __floats2bfloat162_rn(dq[n][2 * y], dq[n][2 * y + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 enum FlashKernel { FA_FWD, FA_DKDV, FA_DQ };
 
 static size_t flash_smem(FlashKernel which, int D) {
@@ -345,13 +766,48 @@ static size_t flash_smem(FlashKernel which, int D) {
   }
 }
 
-template <typename T>
-static cudaError_t flash_launch(const FlashArgs& a, FlashKernel which, cudaStream_t s) {
+// the host's tiling of the bf16 backward is one its kernels can run: whole
+// 16-row steps, stages large enough, every (b, h) and owned row covered
+static bool flash_geom_ok(const FlashArgs& a, const FlashGeom& g, FlashKernel which) {
+  const bool dkdv = which == FA_DKDV;
+  const int owned = dkdv ? a.tk : a.tq, walked = dkdv ? a.tq : a.tk;
+  const int tile = g.kt * g.lds * 2;
+  const int need = dkdv ? 2 * tile + 3 * g.kt * 4 : 2 * tile + g.kt;
+  return (g.wq == 1 || g.wq == 2 || g.wq == 4) && g.groups * g.wq == FB_WARPS &&
+         g.kt >= 16 && g.kt <= 64 && g.kt % 16 == 0 && g.dp >= a.dim && g.dp <= FA_DMAX &&
+         g.dp % 16 == 0 && g.lds == g.dp + 8 && g.stage % 16 == 0 && g.stage >= need &&
+         g.fixed == (dkdv ? 2 * 16 * g.wq * g.lds * 2 : 0) &&
+         (g.nst == 2 || (g.nst == 1 && walked <= g.kt)) &&
+         g.smem == g.groups * (g.fixed + g.nst * g.stage) && g.smem <= FB_SMEM_MAX &&
+         (long)g.grid_x * g.groups >= (long)a.batch * a.heads && g.grid_y * 16 * g.wq >= owned;
+}
+
+static cudaError_t flash_bwd_mma_launch(const FlashArgs& a, const FlashGeom& g,
+                                        FlashKernel which, cudaStream_t s) {
+  if (!flash_geom_ok(a, g, which)) return cudaErrorInvalidValue;
+  const dim3 grid(g.grid_x, g.grid_y);
+  const cudaFuncAttribute smem = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  if (which == FA_DKDV) {
+    BVQ_TRY(cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel, smem, g.smem));
+    flash_bwd_dkdv_mma_kernel<<<grid, FB_THREADS, g.smem, s>>>(a, g);
+  } else {
+    BVQ_TRY(cudaFuncSetAttribute(flash_bwd_dq_mma_kernel, smem, g.smem));
+    flash_bwd_dq_mma_kernel<<<grid, FB_THREADS, g.smem, s>>>(a, g);
+  }
+  return cudaGetLastError();
+}
+
+// the forward (f32 or bf16) and the f32 backward on the FMA tiles; the bf16
+// backward on the tensor cores
+static cudaError_t flash_launch(const FlashCall& c, FlashKernel which, cudaStream_t s) {
+  const FlashArgs& a = c.a;
   if (a.dim % 8 != 0 || a.dim <= 0 || a.dim > FA_DMAX || a.tq <= 0 || a.tk <= 0)
     return cudaErrorInvalidValue;
-  void (*kernel)(FlashArgs) = which == FA_FWD    ? flash_fwd_kernel<T>
-                              : which == FA_DKDV ? flash_bwd_dkdv_kernel<T>
-                                                 : flash_bwd_dq_kernel<T>;
+  if (a.act_bf16 && which != FA_FWD) return flash_bwd_mma_launch(a, c.geom, which, s);
+  void (*kernel)(FlashArgs) = which == FA_DKDV ? flash_bwd_dkdv_kernel<float>
+                              : which == FA_DQ ? flash_bwd_dq_kernel<float>
+                              : a.act_bf16     ? flash_fwd_kernel<__nv_bfloat16>
+                                               : flash_fwd_kernel<float>;
   const int smem = (int)flash_smem(which, a.dim);
   BVQ_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   const int tiles = which == FA_DKDV ? cdiv(a.tk, FA_BK) : cdiv(a.tq, FA_BQ);
@@ -359,23 +815,20 @@ static cudaError_t flash_launch(const FlashArgs& a, FlashKernel which, cudaStrea
   return cudaGetLastError();
 }
 
-static int flash_entry(const FlashArgs* a, FlashKernel which, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = a->act_bf16 ? flash_launch<__nv_bfloat16>(*a, which, s)
-                                    : flash_launch<float>(*a, which, s);
-  return static_cast<int>(e);
+static int flash_entry(const FlashCall* c, FlashKernel which, void* stream) {
+  return static_cast<int>(flash_launch(*c, which, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace bvq
 
-extern "C" int bvq_flash_fwd(const bvq::FlashArgs* a, void* stream) {
-  return bvq::flash_entry(a, bvq::FA_FWD, stream);
+extern "C" int bvq_flash_fwd(const bvq::FlashCall* c, void* stream) {
+  return bvq::flash_entry(c, bvq::FA_FWD, stream);
 }
 
-extern "C" int bvq_flash_bwd_dkdv(const bvq::FlashArgs* a, void* stream) {
-  return bvq::flash_entry(a, bvq::FA_DKDV, stream);
+extern "C" int bvq_flash_bwd_dkdv(const bvq::FlashCall* c, void* stream) {
+  return bvq::flash_entry(c, bvq::FA_DKDV, stream);
 }
 
-extern "C" int bvq_flash_bwd_dq(const bvq::FlashArgs* a, void* stream) {
-  return bvq::flash_entry(a, bvq::FA_DQ, stream);
+extern "C" int bvq_flash_bwd_dq(const bvq::FlashCall* c, void* stream) {
+  return bvq::flash_entry(c, bvq::FA_DQ, stream);
 }

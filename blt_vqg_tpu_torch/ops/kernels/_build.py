@@ -53,12 +53,24 @@ class HeadArgs(ctypes.Structure):
                 ("tokens", P)]
 
 
+class FlashGeom(ctypes.Structure):
+    """Mirror of ``bvq::FlashGeom`` in csrc/flash_attention.cu."""
+    _fields_ = [(f, I) for f in ("wq", "groups", "kt", "dp", "lds", "fixed",
+                                 "stage", "nst", "smem", "grid_x", "grid_y")]
+
+
 class FlashArgs(ctypes.Structure):
     """Mirror of ``bvq::FlashArgs`` in csrc/flash_attention.cu."""
     _fields_ = [("act_bf16", I), ("causal", I), ("batch", I), ("heads", I),
                 ("tq", I), ("tk", I), ("dim", I), ("q", P), ("k", P),
                 ("v", P), ("kv_pad", P), ("o", P), ("m", P), ("l", P),
                 ("dout", P), ("delta", P), ("dq", P), ("dk", P), ("dv", P)]
+
+
+class FlashCall(ctypes.Structure):
+    """Mirror of ``bvq::FlashCall`` in csrc/flash_attention.cu: what the
+    flash entry points take."""
+    _fields_ = [("a", FlashArgs), ("geom", FlashGeom)]
 
 
 RING_MAX_RANKS = 64     # RING_RMAX in csrc/ring_attention.cu
@@ -176,7 +188,7 @@ def library() -> ctypes.CDLL:
     lib.bvq_head_workspace.restype = L
     for name in ("bvq_flash_fwd", "bvq_flash_bwd_dkdv", "bvq_flash_bwd_dq"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(FlashArgs), P]
+        fn.argtypes = [ctypes.POINTER(FlashCall), P]
         fn.restype = I
     lib.bvq_ring_fwd_step.argtypes = [ctypes.POINTER(RingFwdArgs), P]
     lib.bvq_ring_fwd_step.restype = I

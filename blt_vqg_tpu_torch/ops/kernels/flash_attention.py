@@ -7,12 +7,16 @@ already scaled by 1/sqrt(D), k/v [B, Tk, H, D], ``kv_pad`` bool [B, Tk]
 [B, Tq, H, D] and is differentiable through :class:`FlashAttention`, whose
 forward saves (o, m, l) and whose backward runs the two backward kernels.
 
-On CUDA tensors the three kernels of ``csrc/flash_attention.cu`` run
+On CUDA tensors the kernels of ``csrc/flash_attention.cu`` run
 (:func:`flash_attention_fwd`, :func:`flash_attention_bwd_dkdv`,
 :func:`flash_attention_bwd_dq`, each counting its ``launches``); anything
-they cannot take raises.  On CPU tensors the plain versions run:
-:func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref`, the
-FlashAttention-2 recurrence over a single key tile.
+they cannot take raises.  The forward and the f32 backward run f32 FMA
+tiles; the bf16 backward runs ``flash_bwd_dkdv_mma_kernel`` and
+``flash_bwd_dq_mma_kernel`` on the tensor cores, in the tiling that
+:func:`bwd_geom` computes here and passes in the launch's arguments.  On
+CPU tensors the plain versions run: :func:`flash_attention_fwd_ref` and
+:func:`flash_attention_bwd_ref`, the FlashAttention-2 recurrence over a
+single key tile.
 
 The contract the kernels keep with the TPU kernels: masked logits take
 ``NEG_INF``; a query row whose every visible key is masked outputs zero and
@@ -32,6 +36,10 @@ import torch
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
+BWD_WARPS = 4              # warps of a tensor-core backward block
+SM_SMEM = 233_472          # shared memory of an H100 SM (228 KB)
+BLOCK_RESERVED = 1_024     # shared memory the card reserves per block
+BWD_BLOCKS_PER_SM = 2      # FB_BLOCKS_PER_SM: the kernels' register cap
 
 
 def _logits(q, k, kv_pad, causal):
@@ -89,13 +97,55 @@ def flash_attention_bwd_ref(q, k, v, kv_pad, o, m, l, do,
 
 
 # ---------------------------------------------------------------------------
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def bwd_geom(tq: int, tk: int, dim: int, dkdv: bool, batch_heads: int):
+    """The tiling of the bf16 tensor-core backward (``bvq::FlashGeom``).
+
+    A warp owns 16 rows of one (b, h): the dK/dV kernel's are keys (length
+    ``tk``), the dQ kernel's queries (``tq``).  A (b, h) takes ``wq`` = 1,
+    2 or 4 warps for an owned length up to 16, up to 32, or longer; a block
+    of 4 warps holds ``groups`` = 4 / wq consecutive (b, h) (neighbouring
+    heads of one batch row), and block (x, y) serves (b, h) ``x * groups``
+    .. + groups - 1 (those past B*H idle) and owned rows ``16 wq y`` .. +
+    16 wq - 1 (warp w: 16 (w % wq) on).  The other side's rows are walked
+    in tiles of ``kt`` rows (their length rounded up to 16, at most 64,
+    and less where the block would not fit twice on an SM: a short owned
+    side with a long walked one), through two stages when there is more
+    than one tile.  The head dim is zero-padded to ``dp`` (a multiple of
+    16) in rows of ``lds`` = dp + 8 elements.  Per group, ``fixed`` bytes
+    hold the dK/dV kernel's K and V, and a stage holds the walked q and dO
+    (and the rows' m, l, delta) or K and V (and the keys' pad bytes)."""
+    from blt_vqg_tpu_torch.ops.kernels import _build
+
+    own_len, walked = (tk, tq) if dkdv else (tq, tk)
+    wq = 1 if own_len <= 16 else 2 if own_len <= 32 else BWD_WARPS
+    groups = BWD_WARPS // wq
+    dp = _up(dim, 16)
+    lds = dp + 8
+    fixed = 2 * 16 * wq * lds * 2 if dkdv else 0
+    budget = SM_SMEM // BWD_BLOCKS_PER_SM - BLOCK_RESERVED
+    for kt in range(min(_up(walked, 16), 64), 0, -16):   # 16 always fits
+        stage = _up(2 * kt * lds * 2 + (3 * kt * 4 if dkdv else kt), 16)
+        nst = 2 if walked > kt else 1
+        if groups * (fixed + nst * stage) <= budget:
+            break
+    return _build.FlashGeom(
+        wq=wq, groups=groups, kt=kt, dp=dp, lds=lds, fixed=fixed,
+        stage=stage, nst=nst, smem=groups * (fixed + nst * stage),
+        grid_x=-(-batch_heads // groups), grid_y=-(-own_len // (16 * wq)))
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"flash_attention: {msg}")
 
 
-def _args(q, k, v, kv_pad, causal, **ptrs):
-    """Validates the operands of a kernel launch and packs its arguments."""
+def _args(q, k, v, kv_pad, causal, dkdv=None, **ptrs):
+    """Validates the operands of a kernel launch and packs its arguments;
+    a bf16 backward launch (``dkdv`` True or False) gets its tiling."""
     from blt_vqg_tpu_torch.ops.kernels import _build
 
     _check(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
@@ -117,12 +167,14 @@ def _args(q, k, v, kv_pad, causal, **ptrs):
                and tuple(kv_pad.shape) == (b, k.shape[1])
                and kv_pad.device == q.device and kv_pad.is_contiguous(),
                f"kv_pad must be contiguous bool [{b}, {k.shape[1]}]")
-    return _build.FlashArgs(
-        act_bf16=int(q.dtype == torch.bfloat16), causal=int(causal),
-        batch=b, heads=h, tq=tq, tk=k.shape[1], dim=d, q=q.data_ptr(),
-        k=k.data_ptr(), v=v.data_ptr(),
-        kv_pad=None if kv_pad is None else kv_pad.data_ptr(),
-        **{name: t.data_ptr() for name, t in ptrs.items()})
+    bf16 = q.dtype == torch.bfloat16
+    geom = (bwd_geom(tq, k.shape[1], d, dkdv, b * h)
+            if bf16 and dkdv is not None else _build.FlashGeom())
+    return _build.FlashCall(a=_build.FlashArgs(
+        act_bf16=int(bf16), causal=int(causal), batch=b, heads=h, tq=tq,
+        tk=k.shape[1], dim=d, q=q.data_ptr(), k=k.data_ptr(),
+        v=v.data_ptr(), kv_pad=None if kv_pad is None else kv_pad.data_ptr(),
+        **{name: t.data_ptr() for name, t in ptrs.items()}), geom=geom)
 
 
 def _launch(entry: str, a, device) -> None:
@@ -163,8 +215,8 @@ def flash_attention_bwd_dkdv(q, k, v, kv_pad, m, l, do, delta,
            "the dK/dV kernel takes CUDA tensors")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("bvq_flash_bwd_dkdv",
-            _args(q, k, v, kv_pad, causal, **_bwd_ptrs(q, m, l, do, delta),
-                  dk=dk, dv=dv), q.device)
+            _args(q, k, v, kv_pad, causal, True,
+                  **_bwd_ptrs(q, m, l, do, delta), dk=dk, dv=dv), q.device)
     flash_attention_bwd_dkdv.launches += 1
     return dk, dv
 
@@ -176,8 +228,8 @@ def flash_attention_bwd_dq(q, k, v, kv_pad, m, l, do, delta,
            "the dQ kernel takes CUDA tensors")
     dq = torch.empty_like(q)
     _launch("bvq_flash_bwd_dq",
-            _args(q, k, v, kv_pad, causal, **_bwd_ptrs(q, m, l, do, delta),
-                  dq=dq), q.device)
+            _args(q, k, v, kv_pad, causal, False,
+                  **_bwd_ptrs(q, m, l, do, delta), dq=dq), q.device)
     flash_attention_bwd_dq.launches += 1
     return dq
 

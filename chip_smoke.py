@@ -23,17 +23,21 @@ only when every phase passed):
 5. holds the three flash-attention kernels (forward, dK/dV, dQ) against
    their plain versions in bf16 at the four attention shapes of the
    flagship train step, at a causal multi-tile shape with unaligned
-   padding and at a shape with dead rows, and checks that the plain
-   version without its key-pad mask fails the check;
+   padding, at a shape with dead rows and at a ragged causal shape (Tq
+   33, Tk 65, head dim 80, B*H 6), and checks that the plain version
+   without its key-pad mask fails the check;
 6. trains the flagship configuration with ``use_pallas_attention`` and no
    attention dropout (batch 64, seed-made weights): 3 pretrain steps, the
    optimizer reset, 3 latent steps and an eval step, checking the losses
    and the exact flash launch counts, and runs the same steps on the
    port's einsum attention path from the same weights, batch and
    generator seeds, holding loss, gradient norm and parameters to limits;
-7. times train samples/s on both paths, each flash kernel against its
-   plain version and ``scaled_dot_product_attention`` (a yardstick the
-   port never calls), and the device time of a train step by profiler;
+7. times train samples/s on both paths and the device time of a train
+   step by profiler (by flash kernel: the bf16 step's backward must run
+   the tensor-core pair), and each flash kernel, by events and by
+   profiler, against its plain version and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls) at
+   the four training shapes and the causal multi-tile shape;
 8. holds the per-layer decode kernels (``self_attn_step``,
    ``cross_ffn_step``) against their plain versions with the flagship's
    own weights, bf16, at B 64 and B 256, pos 0, 25 and 50, with and
@@ -79,10 +83,11 @@ only when every phase passed):
    ``scaled_dot_product_attention`` forward and backward (a yardstick the
    port never calls); the ``kernels`` line carries both shapes.
 
-Phase 1 also prints the compiler's registers and spills of the ring
-kernels and checks that the machine code of the bf16 ring kernels (the
-forward, the backward's dK/dV and dQ) runs on the tensor cores (HMMA or
-HGMMA instructions, by ``cuobjdump -sass``).
+Phase 1 also prints the compiler's registers and spills of the ring and
+flash kernels and checks that the machine code of the bf16 ring
+kernels (the forward, the backward's dK/dV and dQ) and of the bf16 flash
+backward pair runs on the tensor cores (HMMA or HGMMA instructions, by
+``cuobjdump -sass``), the flash pair without spills.
 
 TF32 is off for matmuls and cuDNN throughout.  The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
@@ -147,6 +152,22 @@ FLASH_SHAPES = (("context encoder", 3, 3, False, 6),
                 ("posterior encoder", 21, 21, False, 6),
                 ("decoder self-attention", 20, 20, True, 6),
                 ("decoder cross-attention", 20, 3, False, 6))
+# (what, (B, H, Dh, Tq, Tk, causal), pads): checked in phase 5 beside the
+# training shapes; the first is also timed in phase 7
+FLASH_MULTI_TILE = ("multi-tile B 8 H 8 T 512 causal, scattered pads",
+                    (8, 8, 128, 512, 512, True), "random")
+FLASH_EXTRA_CASES = (
+    FLASH_MULTI_TILE,
+    ("ragged Tq 130 Tk 77, dead rows", (4, 8, 64, 130, 77, False), "dead"),
+    ("ragged geometry B 3 H 2 Tq 33 Tk 65 causal Dh 80, scattered pads",
+     (3, 2, 80, 33, 65, True), "random"))
+# the bf16 flash backward kernels, which must run on the tensor cores
+FLASH_MMA = ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel")
+# the flash kernels of a train step by name: the forward, the bf16
+# tensor-core backward pair, and the f32 FMA backward pair (which a bf16
+# step must not reach)
+FLASH_FMA_BWD = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+FLASH_STEP_KERNELS = ("flash_fwd_",) + FLASH_MMA + FLASH_FMA_BWD
 # o, dq, dk, dv are bf16: the kernel and the plain version round p and every
 # output to bf16 after f32 sums taken in other orders.  Readings over 8
 # seeds x 6 cases (48; NVIDIA H100 80GB HBM3, 700 W): max error up to 1
@@ -561,10 +582,7 @@ def flash_phase(dev, log, seeds: int):
     cases = [(f"{what} Tq {tq} Tk {tk}{' causal' if causal else ''}",
               (BATCH, 8, 128, tq, tk, causal), "tail")
              for what, tq, tk, causal, _ in FLASH_SHAPES]
-    cases += [("multi-tile B 8 H 8 T 512 causal, scattered pads",
-               (8, 8, 128, 512, 512, True), "random"),
-              ("ragged Tq 130 Tk 77, dead rows", (4, 8, 64, 130, 77, False),
-               "dead")]
+    cases += list(FLASH_EXTRA_CASES)
     for seed in range(seeds):
         for what, (b, h, d, tq, tk, causal), pad in cases:
             q, k, v, kv_pad, do = flash_inputs(dev, b, h, d, tq, tk, causal,
@@ -595,76 +613,123 @@ def flash_phase(dev, log, seeds: int):
     return worst
 
 
+def device_ms(fn, calls: int) -> float:
+    """Device time per call of ``fn`` by profiler: for each of its device
+    kernels, the mean time of a recorded launch times its launches per
+    call.  The profiler may drop the records of some launches (a full run
+    once recorded one of three multi-tile calls), so the launches per call
+    are the records per call rounded up: every call of ``fn`` launches the
+    same kernels."""
+    return sum(t / n * math.ceil(n - 1e-6)
+               for n, t in profile_groups(fn, calls).values() if n)
+
+
+def flash_shape_times(dev, b, h, d, tq, tk, causal, pad, iters):
+    """Per-call times at one shape, in ms: each flash kernel by events and
+    by profiler (device time), the plain forward and backward by events,
+    and SDPA forward and backward (its mask: True = attend; the backward
+    from saved state) by events and by profiler.  Returns (times,
+    flash_bounds)."""
+    q, k, v, kv_pad, do = flash_inputs(dev, b, h, d, tq, tk, causal,
+                                       SEED + 1, pad)
+    o, m, l = fa.flash_attention_fwd_ref(q, k, v, kv_pad, causal)
+    delta = fa.row_delta(do, o)
+    fns = {"flash_attention_fwd":
+               lambda: fa.flash_attention_fwd(q, k, v, kv_pad, causal),
+           "flash_attention_bwd_dkdv":
+               lambda: fa.flash_attention_bwd_dkdv(q, k, v, kv_pad, m, l, do,
+                                                   delta, causal),
+           "flash_attention_bwd_dq":
+               lambda: fa.flash_attention_bwd_dq(q, k, v, kv_pad, m, l, do,
+                                                 delta, causal)}
+    allowed = ~kv_pad[:, None, None, :]
+    if causal:
+        allowed = allowed & ~torch.ones((tq, tk), dtype=torch.bool,
+                                        device=dev).triu(1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fns["sdpa_fwd"] = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=allowed, scale=1.0)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, attn_mask=allowed, scale=1.0)
+    dot = do.transpose(1, 2)
+    fns["sdpa_bwd"] = lambda: torch.autograd.grad(out, (qg, kg, vg), dot,
+                                                  retain_graph=True)
+    t = {}
+    for name, fn in fns.items():
+        t[name] = cuda_ms(fn, iters)
+        t[name + ":device"] = device_ms(fn, max(3, iters // 3))
+    t["plain_fwd"] = cuda_ms(
+        lambda: fa.flash_attention_fwd_ref(q, k, v, kv_pad, causal),
+        max(2, iters // 3))
+    t["plain_bwd"] = cuda_ms(
+        lambda: fa.flash_attention_bwd_ref(q, k, v, kv_pad, o, m, l, do,
+                                           causal), max(2, iters // 3))
+    return t, flash_bounds(q, k, kv_pad, causal)
+
+
+def flash_shape_line(card, what, t) -> str:
+    us = lambda key: f"{t[key] * 1e3:.1f} us"
+    both = lambda key: f"{us(key)} (device {us(key + ':device')})"
+    return (f"[7] {card}: flash {what}, per call, by events (device time "
+            f"by profiler): fwd kernel {both('flash_attention_fwd')}, plain "
+            f"{us('plain_fwd')}, SDPA {both('sdpa_fwd')}; dK/dV kernel "
+            f"{both('flash_attention_bwd_dkdv')} + dQ kernel "
+            f"{both('flash_attention_bwd_dq')}, plain backward "
+            f"{us('plain_bwd')}, SDPA backward {both('sdpa_bwd')}")
+
+
 def flash_timings(dev, card, log):
-    """Phase 7 (kernels): per-call times at the four training shapes, and
-    the totals of one latent train step's calls.  The two backward rows
-    share their plain and library times: the plain backward and SDPA's
-    backward each compute dq, dk and dv in one call."""
-    totals = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                  "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    """Phase 7 (kernels): per-call times at the four training shapes, the
+    totals of one latent train step's calls, and one call at the
+    multi-tile shape (``long_*``).  The two backward rows share their
+    plain and library times: the plain backward and SDPA's backward each
+    compute dq, dk and dv in one call."""
+    totals = {n: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "library_ms": 0.0,
+                  "library_device_ms": 0.0, "bytes": 0.0, "flops": 0.0}
               for n in FLASH_KERNELS}
     for what, tq, tk, causal, calls in FLASH_SHAPES:
-        q, k, v, kv_pad, do = flash_inputs(dev, BATCH, 8, 128, tq, tk, causal,
-                                           SEED + 1)
-        o, m, l = fa.flash_attention_fwd_ref(q, k, v, kv_pad, causal)
-        delta = fa.row_delta(do, o)
-        t = {"flash_attention_fwd": cuda_ms(
-                lambda: fa.flash_attention_fwd(q, k, v, kv_pad, causal), 50),
-             "flash_attention_bwd_dkdv": cuda_ms(
-                lambda: fa.flash_attention_bwd_dkdv(q, k, v, kv_pad, m, l, do,
-                                                    delta, causal), 50),
-             "flash_attention_bwd_dq": cuda_ms(
-                lambda: fa.flash_attention_bwd_dq(q, k, v, kv_pad, m, l, do,
-                                                  delta, causal), 50)}
-        plain_fwd = cuda_ms(
-            lambda: fa.flash_attention_fwd_ref(q, k, v, kv_pad, causal), 20)
-        plain_bwd = cuda_ms(
-            lambda: fa.flash_attention_bwd_ref(q, k, v, kv_pad, o, m, l, do,
-                                               causal), 20)
-        # the library yardstick: one SDPA call on the same tensors (its
-        # mask: True = attend), forward, and its backward from saved state
-        allowed = ~kv_pad[:, None, None, :]
-        if causal:
-            allowed = allowed & ~torch.ones((tq, tk), dtype=torch.bool,
-                                            device=dev).triu(1)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=allowed, scale=1.0)
-        sdpa_fwd = cuda_ms(sdpa, 50)
-        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qg, kg, vg, attn_mask=allowed, scale=1.0)
-        dot = do.transpose(1, 2)
-        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
-            out, (qg, kg, vg), dot, retain_graph=True), 50)
-        for name, (nbytes, flops) in flash_bounds(q, k, kv_pad,
-                                                  causal).items():
+        t, bounds = flash_shape_times(dev, BATCH, 8, 128, tq, tk, causal,
+                                      "tail", 50)
+        for name, (nbytes, flops) in bounds.items():
             b_ms, _ = bound(nbytes, flops)
-            fwd = name.endswith("fwd")
+            side = "fwd" if name.endswith("fwd") else "bwd"
             tot = totals[name]
             tot["ms"] += calls * t[name]
-            tot["plain_ms"] += calls * (plain_fwd if fwd else plain_bwd)
-            tot["library_ms"] += calls * (sdpa_fwd if fwd else sdpa_bwd)
+            tot["device_ms"] += calls * t[name + ":device"]
+            tot["plain_ms"] += calls * t["plain_" + side]
+            tot["library_ms"] += calls * t["sdpa_" + side]
+            tot["library_device_ms"] += calls * t[f"sdpa_{side}:device"]
             tot["bound_ms"] += calls * b_ms
             tot["bytes"] += calls * nbytes
             tot["flops"] += calls * flops
-        log(f"[7] {card}: flash {what} (B {BATCH}, H 8, Dh 128, Tq {tq}, "
-            f"Tk {tk}{', causal' if causal else ''}), per call: fwd kernel "
-            f"{t['flash_attention_fwd'] * 1e3:.1f} us, plain "
-            f"{plain_fwd * 1e3:.1f} us, SDPA {sdpa_fwd * 1e3:.1f} us; dK/dV "
-            f"kernel {t['flash_attention_bwd_dkdv'] * 1e3:.1f} us + dQ kernel "
-            f"{t['flash_attention_bwd_dq'] * 1e3:.1f} us, plain backward "
-            f"{plain_bwd * 1e3:.1f} us, SDPA backward {sdpa_bwd * 1e3:.1f} "
-            f"us")
+        log(flash_shape_line(card, f"{what} (B {BATCH}, H 8, Dh 128, Tq {tq},"
+                             f" Tk {tk}{', causal' if causal else ''})", t))
     for name, tot in totals.items():
         tot["bound_by"] = bound(tot["bytes"], tot["flops"])[1]
         shared = ("" if name.endswith("fwd") else
                   " (shared by both backward rows: dq, dk and dv in one call)")
         log(f"[7] {card}: {name}, the 24 calls of a latent train step: "
-            f"kernel {tot['ms'] * 1e3:.1f} us, bound "
+            f"kernel {tot['ms'] * 1e3:.1f} us by events, "
+            f"{tot['device_ms'] * 1e3:.1f} us device, bound "
             f"{tot['bound_ms'] * 1e3:.2f} us ({tot['bound_by']}); plain "
             f"{tot['plain_ms'] * 1e3:.1f} us and SDPA "
-            f"{tot['library_ms'] * 1e3:.1f} us{shared}")
+            f"{tot['library_ms'] * 1e3:.1f} us "
+            f"({tot['library_device_ms'] * 1e3:.1f} us device){shared}")
+    what, (b, h, d, tq, tk, causal), pad = FLASH_MULTI_TILE
+    t, bounds = flash_shape_times(dev, b, h, d, tq, tk, causal, pad, 10)
+    log(flash_shape_line(card, what, t))
+    for name, (nbytes, flops) in bounds.items():
+        b_ms, b_by = bound(nbytes, flops)
+        side = "fwd" if name.endswith("fwd") else "bwd"
+        totals[name].update(
+            long_ms=t[name], long_device_ms=t[name + ":device"],
+            long_plain_ms=t["plain_" + side], long_bound_ms=b_ms,
+            long_bound_by=b_by, long_library_ms=t["sdpa_" + side],
+            long_library_device_ms=t[f"sdpa_{side}:device"])
+        log(f"[7] {card}: {name}, one call at the multi-tile shape: bound "
+            f"{b_ms * 1e3:.2f} us ({b_by})")
     return totals
 
 
@@ -759,10 +824,11 @@ def train_compare(dev, seed: int, log):
     return launches, worst, (cfg, kstate, ecfg, estate, batch)
 
 
-def profile_groups(fn, calls: int, keys) -> dict:
+def profile_groups(fn, calls: int, keys=None) -> dict:
     """{group: (launches, device ms)} per call of ``fn``, by profiler over
     ``calls`` calls after one warm-up call: the device kernels whose names
-    contain each of ``keys``, and the rest as "other"."""
+    contain each of ``keys``, and the rest as "other" (without ``keys``,
+    each kernel name is a group)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -777,7 +843,8 @@ def profile_groups(fn, calls: int, keys) -> dict:
             continue
         us = (getattr(evt, "self_device_time_total", 0.0)
               or getattr(evt, "self_cuda_time_total", 0.0))
-        key = next((k for k in keys if k in evt.key), "other")
+        key = (evt.key if keys is None else
+               next((k for k in keys if k in evt.key), "other"))
         n, t = groups.get(key, (0, 0.0))
         groups[key] = (n + evt.count / calls, t + us / 1e3 / calls)
     return groups
@@ -802,14 +869,24 @@ def train_times(dev, card, log, cfg, kstate, ecfg, estate, batch):
 
     for what, state, c, wall_ms in (("flash", kstate, cfg, k_ms),
                                     ("einsum", estate, ecfg, e_ms)):
-        groups = profile_groups(steps(state, c), 1, ("flash_",))
+        groups = profile_groups(steps(state, c), 1, FLASH_STEP_KERNELS)
         dev_ms = sum(t for _, t in groups.values())
         launches = int(sum(n for n, _ in groups.values()))
-        flash_ms = groups.get("flash_", (0, 0.0))[1]
+        flash = {k: groups[k] for k in FLASH_STEP_KERNELS if k in groups}
+        flash_ms = sum(t for _, t in flash.values())
         log(f"[7] {card}: profiled latent train step, {what} path: device "
             f"kernel time {dev_ms:.2f} ms in {launches} kernels, of which "
-            f"flash kernels {flash_ms:.3f} ms; busy share "
-            f"{dev_ms / wall_ms:.3f} of the {wall_ms:.2f} ms step")
+            f"flash kernels {flash_ms:.3f} ms (" + ", ".join(
+                f"{k}* {t:.3f} ms in {n:.0f}" for k, (n, t) in flash.items())
+            + f"); busy share {dev_ms / wall_ms:.3f} of the {wall_ms:.2f} ms "
+            f"step")
+        # the bf16 step's 24 backward calls run the tensor-core pair, and
+        # none reaches the FMA backward kernels
+        if what == "flash" and (
+                any(flash.get(k, (0, 0.0))[0] != 24 for k in FLASH_MMA)
+                or any(k in flash for k in FLASH_FMA_BWD)):
+            raise AssertionError(f"flash backward kernels of the bf16 latent "
+                                 f"step: {flash}")
 
 
 # ---------------------------------------------------------------------------
@@ -1687,17 +1764,24 @@ def ring_timings(dev, card, log, cfg, kstate, ecfg, estate, batch):
     return rows
 
 
-def ring_code(lib_path: str, report: str) -> None:
-    """Phase 1: the compiler's registers and spills of the ring kernels;
-    raises unless the machine code of each bf16 ring kernel (RING_MMA) has
-    tensor-core products (HMMA or HGMMA)."""
+def mma_code(lib_path: str, report: str) -> None:
+    """Phase 1: the compiler's registers and spills of the ring and the
+    flash kernels; raises unless the machine code of each bf16
+    tensor-core kernel (RING_MMA, FLASH_MMA) has tensor-core products
+    (HMMA or HGMMA), and unless ptxas reports no spills for the flash pair
+    (the ring forward's registers are capped for 3 blocks per SM, and it
+    spills a few bytes by design)."""
+    kernels = RING_MMA + FLASH_MMA
     for entry in report.split("Compiling entry function")[1:]:
         name = entry.split("'")[1]
-        if "ring_" in name:
+        if "ring_" in name or "flash_" in name:
             used = re.search(r"Used (\d+) registers[^\n]*", entry)
             spill = re.search(r"(\d+) bytes spill stores", entry)
             log(f"    ptxas {name}: {used.group(0) if used else '?'}; "
                 f"spill stores {spill.group(1) if spill else '?'} bytes")
+            if any(k in name for k in FLASH_MMA) and not (
+                    spill and spill.group(1) == "0"):
+                raise AssertionError(f"{name} spills (or ptxas did not say)")
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         log(f"    cuobjdump not found beside nvcc: SASS not read")
@@ -1707,7 +1791,7 @@ def ring_code(lib_path: str, report: str) -> None:
     found = set()
     for fn in out.stdout.split("Function : ")[1:]:
         name = fn.split()[0]
-        if "ring_" not in name:
+        if "ring_" not in name and "flash_bwd_" not in name:
             continue
         code = [ln.split(";")[0].split("*/")[-1].strip()
                 for ln in fn.splitlines() if "MMA" in ln]
@@ -1715,13 +1799,13 @@ def ring_code(lib_path: str, report: str) -> None:
         log(f"    SASS {name}: {len(mma)} tensor-core products "
             f"{sorted({op.split()[0] for op in mma})}"
             + (f", e.g. '{mma[0]}'" if mma else ""))
-        kernel = next((k for k in RING_MMA if k in name), None)
+        kernel = next((k for k in kernels if k in name), None)
         if kernel is not None:
             if not mma:
                 raise AssertionError(f"{name} has no HMMA/HGMMA instruction")
             found.add(kernel)
-    if found != set(RING_MMA):
-        raise AssertionError(f"no SASS read for {set(RING_MMA) - found}")
+    if found != set(kernels):
+        raise AssertionError(f"no SASS read for {set(kernels) - found}")
 
 
 # ---------------------------------------------------------------------------
@@ -1741,6 +1825,10 @@ def main(argv=None):
     parser.add_argument("--sp-seeds", type=int, default=1,
                         help="weight and batch seeds of the "
                         "sequence-parallel training comparison")
+    parser.add_argument("--flash-times-only", action="store_true",
+                        help="build, take phase 7's flash kernel times and "
+                        "stop (no result line): to compare two trees' "
+                        "kernels on one card, run in turns from each tree")
     opts = parser.parse_args(argv)
     card = card_line()
     log(f"card: {card}")
@@ -1764,7 +1852,10 @@ def main(argv=None):
         if m.group(1) != "0" or m.group(2) != "0"]
     log(f"    ptxas: {report.count('Used ')} kernels reported, spilling: "
         f"{spills or 'none'}")
-    ring_code(lib_path, report)
+    if opts.flash_times_only:
+        flash_timings(dev, card, log)
+        return
+    mma_code(lib_path, report)
 
     # ---- the flagship model, seed-made weights
     t0 = time.perf_counter()
@@ -2044,7 +2135,9 @@ def main(argv=None):
                "replaces": FLASH_TPU[name], "launches": train_launches[name],
                "max_abs_err": flash_worst["err"][name], "ms": tot["ms"],
                "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-               "bound_by": tot["bound_by"], "library_ms": tot["library_ms"]}
+               "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
+               **{k: v for k, v in tot.items()
+                  if k in ("device_ms", "library_device_ms") or k.startswith("long_")}}
         if not name.endswith("fwd"):
             row["shared"] = ("plain_ms and library_ms: one backward call "
                              "computing dq, dk and dv")

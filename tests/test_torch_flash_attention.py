@@ -152,3 +152,140 @@ def test_cpu_takes_the_plain_version():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.flash_attention_bwd_dq(q, k, v, kv_pad, *want[1:], q,
                                    want[1], False)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 backward kernels' tiling (``bwd_geom``), in pure Python: the
+# kernels run whatever tiling the host passes them, after checking it.
+
+GEOM_DIMS = (8, 16, 40, 64, 80, 128)
+TRAIN_SHAPES = ((3, 3), (21, 21), (20, 20), (20, 3))   # (Tq, Tk)
+
+
+def _writes(g, n_bh, length):
+    """How often each (b, h) and owned row is written by the grid of
+    ``g``: block (x, y), warp w, lane row r writes (b, h) x * groups +
+    w // wq, row 16 wq y + 16 (w % wq) + r, where both lie in range (the
+    kernels' test before a store; idle groups and rows store nothing)."""
+    x, y, w, r = np.meshgrid(np.arange(g.grid_x), np.arange(g.grid_y),
+                             np.arange(tfa.BWD_WARPS), np.arange(16),
+                             indexing="ij")
+    bh = x * g.groups + w // g.wq
+    row = y * 16 * g.wq + 16 * (w % g.wq) + r
+    ok = (bh < n_bh) & (row < length)
+    counts = np.zeros((n_bh, length), np.int64)
+    np.add.at(counts, (bh[ok], row[ok]), 1)
+    return counts, bh, row
+
+
+@pytest.mark.parametrize("dkdv", [True, False], ids=["dkdv", "dq"])
+def test_bwd_geom_covers_every_row_once(dkdv):
+    """Every (b, h) and owned row, for owned lengths 1-130 and B*H counts
+    that leave the last block's groups idle, is written exactly once; only
+    the last block along each grid axis holds idle groups or rows."""
+    for length in range(1, 131):
+        for n_bh in (1, 3, 5, 6):
+            tq, tk = (7, length) if dkdv else (length, 7)
+            g = tfa.bwd_geom(tq, tk, 64, dkdv, n_bh)
+            counts, bh, row = _writes(g, n_bh, length)
+            assert (counts == 1).all(), (length, n_bh)
+            assert g.grid_x * g.groups - n_bh < g.groups
+            assert g.grid_y * 16 * g.wq - length < 16 * g.wq
+            assert g.wq == (1 if length <= 16 else 2 if length <= 32 else 4)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bwd_walk_reaches_every_visible_pair(causal):
+    """The walked tiles, with the kernels' causal skipping (dK/dV: query
+    tiles wholly before the block's first key, and 16 queries wholly before
+    the warp's keys; dQ: key tiles wholly after the block's last row, and
+    16 keys wholly after the warp's rows), cover every (query, key) pair
+    that is not causally masked, for Tq and Tk in 1-130."""
+    for tq in range(1, 131, 3):
+        for tk in range(1, 131, 4):
+            i, j = np.meshgrid(np.arange(tq), np.arange(tk), indexing="ij")
+            vis = ~(causal & (j > i))
+            g = tfa.bwd_geom(tq, tk, 64, True, 1)      # keys owned
+            kb0 = j // (16 * g.wq) * 16 * g.wq
+            kw = j % (16 * g.wq) // 16 * 16
+            walked = i < -(-tq // g.kt) * g.kt
+            if causal:
+                walked &= (i // g.kt >= kb0 // g.kt) & (i // 16 * 16 + 15
+                                                        >= kb0 + kw)
+            assert walked[vis].all(), ("dkdv", tq, tk)
+            g = tfa.bwd_geom(tq, tk, 64, False, 1)     # queries owned
+            qlast = np.minimum(tq, i // (16 * g.wq) * 16 * g.wq + 16 * g.wq) - 1
+            r0 = i // 16 * 16
+            walked = j < -(-tk // g.kt) * g.kt
+            if causal:
+                walked &= (j // g.kt <= qlast // g.kt) & (j // 16 * 16
+                                                          <= r0 + 15)
+            assert walked[vis].all(), ("dq", tq, tk)
+
+
+def test_bwd_geom_fits_shared_memory():
+    """For Tq and Tk in 1-130 and every head dim, both kernels' tiles fit:
+    whole 16-row steps up to 64, a head dim padded to 16 in rows of dp + 8,
+    stages that hold the walked rows, a second stage where the walked
+    length spans more than one tile, and a block that fits twice on an SM
+    (so within the 232,448 bytes a block may take)."""
+    worst = 0
+    budget = tfa.SM_SMEM // 2 - tfa.BLOCK_RESERVED
+    for dkdv in (True, False):
+        for tq in range(1, 131):
+            for tk in range(1, 131):
+                walked = tq if dkdv else tk
+                for d in GEOM_DIMS:
+                    g = tfa.bwd_geom(tq, tk, d, dkdv, 5)
+                    tile = g.kt * g.lds * 2
+                    need = 2 * tile + (3 * g.kt * 4 if dkdv else g.kt)
+                    assert g.kt % 16 == 0 and 16 <= g.kt <= min(
+                        -(-walked // 16) * 16, 64)
+                    assert g.dp % 16 == 0 and d <= g.dp < d + 16
+                    assert g.lds == g.dp + 8 and g.stage % 16 == 0
+                    assert need <= g.stage < need + 16
+                    assert g.nst == (2 if walked > g.kt else 1)
+                    assert g.smem == g.groups * (g.fixed + g.nst * g.stage)
+                    worst = max(worst, g.smem)
+    assert worst <= budget <= 232_448   # what a block may take on sm_90
+
+
+@pytest.mark.parametrize("tq,tk", TRAIN_SHAPES)
+def test_bwd_geom_training_shapes(tq, tk):
+    """At the flagship's training shapes (B*H 512, Dh 128) 2 or more
+    blocks of each kernel share an SM, and a call fits in one wave of the
+    card's 132 SMs; 21 x 21 takes 256 blocks, 3 x 3 128."""
+    for dkdv in (True, False):
+        g = tfa.bwd_geom(tq, tk, 128, dkdv, 512)
+        per_sm = tfa.SM_SMEM // (g.smem + tfa.BLOCK_RESERVED)
+        assert per_sm >= 2, (dkdv, g.smem)
+        assert g.grid_x * g.grid_y <= 132 * 2
+        if (tq, tk) == (21, 21):
+            assert g.grid_x * g.grid_y == 256
+        if (tq, tk) == (3, 3):
+            assert g.grid_x * g.grid_y == 128
+
+
+def test_flash_args_layout():
+    """``FlashCall`` mirrors the C struct: ``FlashArgs`` (ints 4 bytes,
+    pointers 8, each aligned to its size; 128 bytes, the FMA kernels'
+    parameter), then the 11 ints of ``FlashGeom``."""
+    import ctypes
+
+    from blt_vqg_tpu_torch.ops.kernels import _build
+
+    ints = ("act_bf16", "causal", "batch", "heads", "tq", "tk", "dim")
+    ptrs = ("q", "k", "v", "kv_pad", "o", "m", "l", "dout", "delta", "dq",
+            "dk", "dv")
+    assert [getattr(_build.FlashArgs, f).offset for f in ints] == [
+        4 * n for n in range(7)]
+    assert [getattr(_build.FlashArgs, f).offset for f in ptrs] == [
+        32 + 8 * n for n in range(12)]
+    assert ctypes.sizeof(_build.FlashArgs) == 128
+    assert _build.FlashCall.a.offset == 0
+    assert _build.FlashCall.geom.offset == 128
+    assert [f for f, _ in _build.FlashGeom._fields_] == [
+        "wq", "groups", "kt", "dp", "lds", "fixed", "stage", "nst", "smem",
+        "grid_x", "grid_y"]
+    assert ctypes.sizeof(_build.FlashGeom) == 44
+    assert ctypes.sizeof(_build.FlashCall) == 176
