@@ -88,6 +88,30 @@ __device__ __forceinline__ void rb_split(const float (&x)[2][4], uint32_t (&hi)[
   }
 }
 
+// acc[2n], acc[2n + 1] += a x the 16 x 16 tile at p (rows: the
+// contraction; read transposed), for every 16 columns n of the head dim,
+// each 16-deep sum from zero
+__device__ __forceinline__ void rf_mma_tile_t(float (&acc)[MMA_DT][4], const uint32_t (&a)[4],
+                                              const __nv_bfloat16* p, int lds, int dp,
+                                              int lane) {
+  const int mi = lane / 8, lr8 = lane % 8;
+#pragma unroll
+  for (int np = 0; np < MMA_DT / 2; ++np) {
+    if (np < dp / 16) {
+      uint32_t bf[4];
+      rf_ldsm_t(bf, p + (8 * (mi & 1) + lr8) * lds + 16 * np + 8 * (mi >> 1));
+      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+      rf_mma(t0, a, bf[0], bf[1]);
+      rf_mma(t1, a, bf[2], bf[3]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[2 * np][c] += t0[c];
+        acc[2 * np + 1][c] += t1[c];
+      }
+    }
+  }
+}
+
 // acc[2n], acc[2n + 1] += (hi + lo) x the 16 x 16 tile at p (rows: the
 // contraction; read transposed), for every 16 columns n of the head dim
 __device__ __forceinline__ void rb_mma_pair(float (&acc)[MMA_DT][4], const uint32_t (&hi)[4],

@@ -1,7 +1,8 @@
 """Builds the CUDA sources of ``blt_vqg_tpu_torch/csrc`` and loads them.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, under
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a``, one
+process per file, all started together, and linked into one shared library
+with a plain C interface, at first use, under
 ``blt_vqg_tpu_torch/build/`` with a name keyed by a hash of the sources and
 flags (a changed source builds a new library).  The library is loaded with
 ``ctypes``; every C entry point returns a ``cudaError_t`` and :func:`check`
@@ -22,8 +23,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -155,6 +157,20 @@ def library_path() -> str:
     return os.path.join(BUILD, f"libbvq_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(cmds):
+    """Runs the commands side by side; returns their output, in order, or
+    raises with the first failure's."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, text in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{text}")
+    return outs
+
+
 def build() -> str:
     """Compiles the library if it is not built yet; returns its path.  The
     compiler's report (registers, spills) is kept beside it as ``.log``."""
@@ -163,13 +179,18 @@ def build() -> str:
         return out
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    srcs = sources()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+    try:
+        report = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
+                       for src, obj in zip(srcs, objs)])
+        report += _run([[_nvcc(), *ARCH, "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(out + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("".join(report))
     os.replace(tmp, out)
     return out
 

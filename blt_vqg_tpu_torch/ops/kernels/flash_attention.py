@@ -10,11 +10,11 @@ forward saves (o, m, l) and whose backward runs the two backward kernels.
 On CUDA tensors the kernels of ``csrc/flash_attention.cu`` run
 (:func:`flash_attention_fwd`, :func:`flash_attention_bwd_dkdv`,
 :func:`flash_attention_bwd_dq`, each counting its ``launches``); anything
-they cannot take raises.  The forward and the f32 backward run f32 FMA
-tiles; the bf16 backward runs ``flash_bwd_dkdv_mma_kernel`` and
-``flash_bwd_dq_mma_kernel`` on the tensor cores, in the tiling that
-:func:`bwd_geom` computes here and passes in the launch's arguments.  On
-CPU tensors the plain versions run: :func:`flash_attention_fwd_ref` and
+they cannot take raises.  bf16 runs ``flash_fwd_mma_kernel``,
+``flash_bwd_dkdv_mma_kernel`` and ``flash_bwd_dq_mma_kernel`` on the
+tensor cores, in the tiling that :func:`mma_geom` computes here and passes
+in the launch's arguments; f32 runs f32 FMA tiles.  On CPU tensors the
+plain versions run: :func:`flash_attention_fwd_ref` and
 :func:`flash_attention_bwd_ref`, the FlashAttention-2 recurrence over a
 single key tile.
 
@@ -36,10 +36,11 @@ import torch
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
-BWD_WARPS = 4              # warps of a tensor-core backward block
+MMA_WARPS = 4              # warps of a tensor-core kernel's block
 SM_SMEM = 233_472          # shared memory of an H100 SM (228 KB)
 BLOCK_RESERVED = 1_024     # shared memory the card reserves per block
-BWD_BLOCKS_PER_SM = 2      # FB_BLOCKS_PER_SM: the kernels' register cap
+MMA_BLOCKS_PER_SM = 2      # FM_BLOCKS_PER_SM: the kernels' register cap
+MMA_KERNELS = ("fwd", "dkdv", "dq")
 
 
 def _logits(q, k, kv_pad, causal):
@@ -101,32 +102,38 @@ def _up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def bwd_geom(tq: int, tk: int, dim: int, dkdv: bool, batch_heads: int):
-    """The tiling of the bf16 tensor-core backward (``bvq::FlashGeom``).
+def mma_geom(kernel: str, tq: int, tk: int, dim: int, batch_heads: int):
+    """The tiling of a bf16 tensor-core kernel (``bvq::FlashGeom``):
+    ``kernel`` is "fwd", "dkdv" or "dq".
 
     A warp owns 16 rows of one (b, h): the dK/dV kernel's are keys (length
-    ``tk``), the dQ kernel's queries (``tq``).  A (b, h) takes ``wq`` = 1,
-    2 or 4 warps for an owned length up to 16, up to 32, or longer; a block
-    of 4 warps holds ``groups`` = 4 / wq consecutive (b, h) (neighbouring
-    heads of one batch row), and block (x, y) serves (b, h) ``x * groups``
-    .. + groups - 1 (those past B*H idle) and owned rows ``16 wq y`` .. +
-    16 wq - 1 (warp w: 16 (w % wq) on).  The other side's rows are walked
-    in tiles of ``kt`` rows (their length rounded up to 16, at most 64,
-    and less where the block would not fit twice on an SM: a short owned
-    side with a long walked one), through two stages when there is more
-    than one tile.  The head dim is zero-padded to ``dp`` (a multiple of
-    16) in rows of ``lds`` = dp + 8 elements.  Per group, ``fixed`` bytes
-    hold the dK/dV kernel's K and V, and a stage holds the walked q and dO
-    (and the rows' m, l, delta) or K and V (and the keys' pad bytes)."""
+    ``tk``), the forward's and the dQ kernel's queries (``tq``).  A (b, h)
+    takes ``wq`` = 1, 2 or 4 warps for an owned length up to 16, up to 32,
+    or longer; a block of 4 warps holds ``groups`` = 4 / wq consecutive
+    (b, h) (neighbouring heads of one batch row), and block (x, y) serves
+    (b, h) ``x * groups`` .. + groups - 1 (those past B*H idle) and owned
+    rows ``16 wq y`` .. + 16 wq - 1 (warp w: 16 (w % wq) on).  The other
+    side's rows are walked in tiles of ``kt`` rows (their length rounded
+    up to 16, at most 64, and less where the block would not fit twice on
+    an SM: a short owned side with a long walked one), through two stages
+    when there is more than one tile.  The head dim is zero-padded to
+    ``dp`` (a multiple of 16) in rows of ``lds`` = dp + 8 elements.  Per
+    group, ``fixed`` bytes hold the dK/dV kernel's K and V or the
+    forward's q rows (f32, rows of dp + 4), and a stage holds the walked q
+    and dO (and the rows' m, l, delta) or K and V (and the keys' pad
+    bytes)."""
     from blt_vqg_tpu_torch.ops.kernels import _build
 
+    _check(kernel in MMA_KERNELS, f"no tensor-core kernel {kernel!r}")
+    dkdv = kernel == "dkdv"
     own_len, walked = (tk, tq) if dkdv else (tq, tk)
-    wq = 1 if own_len <= 16 else 2 if own_len <= 32 else BWD_WARPS
-    groups = BWD_WARPS // wq
+    wq = 1 if own_len <= 16 else 2 if own_len <= 32 else MMA_WARPS
+    groups = MMA_WARPS // wq
     dp = _up(dim, 16)
     lds = dp + 8
-    fixed = 2 * 16 * wq * lds * 2 if dkdv else 0
-    budget = SM_SMEM // BWD_BLOCKS_PER_SM - BLOCK_RESERVED
+    fixed = (2 * 16 * wq * lds * 2 if dkdv else
+             16 * wq * (dp + 4) * 4 if kernel == "fwd" else 0)
+    budget = SM_SMEM // MMA_BLOCKS_PER_SM - BLOCK_RESERVED
     for kt in range(min(_up(walked, 16), 64), 0, -16):   # 16 always fits
         stage = _up(2 * kt * lds * 2 + (3 * kt * 4 if dkdv else kt), 16)
         nst = 2 if walked > kt else 1
@@ -143,9 +150,9 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"flash_attention: {msg}")
 
 
-def _args(q, k, v, kv_pad, causal, dkdv=None, **ptrs):
-    """Validates the operands of a kernel launch and packs its arguments;
-    a bf16 backward launch (``dkdv`` True or False) gets its tiling."""
+def _args(q, k, v, kv_pad, causal, kernel: str, **ptrs):
+    """Validates the operands of a launch of ``kernel`` ("fwd", "dkdv" or
+    "dq") and packs its arguments; a bf16 launch gets its tiling."""
     from blt_vqg_tpu_torch.ops.kernels import _build
 
     _check(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
@@ -168,8 +175,8 @@ def _args(q, k, v, kv_pad, causal, dkdv=None, **ptrs):
                and kv_pad.device == q.device and kv_pad.is_contiguous(),
                f"kv_pad must be contiguous bool [{b}, {k.shape[1]}]")
     bf16 = q.dtype == torch.bfloat16
-    geom = (bwd_geom(tq, k.shape[1], d, dkdv, b * h)
-            if bf16 and dkdv is not None else _build.FlashGeom())
+    geom = (mma_geom(kernel, tq, k.shape[1], d, b * h) if bf16
+            else _build.FlashGeom())
     return _build.FlashCall(a=_build.FlashArgs(
         act_bf16=int(bf16), causal=int(causal), batch=b, heads=h, tq=tq,
         tk=k.shape[1], dim=d, q=q.data_ptr(), k=k.data_ptr(),
@@ -201,8 +208,8 @@ def flash_attention_fwd(q, k, v, kv_pad=None, causal: bool = False):
     o = torch.empty_like(q)
     m = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    _launch("bvq_flash_fwd", _args(q, k, v, kv_pad, causal, o=o, m=m, l=l),
-            q.device)
+    _launch("bvq_flash_fwd",
+            _args(q, k, v, kv_pad, causal, "fwd", o=o, m=m, l=l), q.device)
     flash_attention_fwd.launches += 1
     return o, m, l
 
@@ -215,7 +222,7 @@ def flash_attention_bwd_dkdv(q, k, v, kv_pad, m, l, do, delta,
            "the dK/dV kernel takes CUDA tensors")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("bvq_flash_bwd_dkdv",
-            _args(q, k, v, kv_pad, causal, True,
+            _args(q, k, v, kv_pad, causal, "dkdv",
                   **_bwd_ptrs(q, m, l, do, delta), dk=dk, dv=dv), q.device)
     flash_attention_bwd_dkdv.launches += 1
     return dk, dv
@@ -228,7 +235,7 @@ def flash_attention_bwd_dq(q, k, v, kv_pad, m, l, do, delta,
            "the dQ kernel takes CUDA tensors")
     dq = torch.empty_like(q)
     _launch("bvq_flash_bwd_dq",
-            _args(q, k, v, kv_pad, causal, False,
+            _args(q, k, v, kv_pad, causal, "dq",
                   **_bwd_ptrs(q, m, l, do, delta), dq=dq), q.device)
     flash_attention_bwd_dq.launches += 1
     return dq

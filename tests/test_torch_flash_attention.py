@@ -155,8 +155,9 @@ def test_cpu_takes_the_plain_version():
 
 
 # ---------------------------------------------------------------------------
-# The bf16 backward kernels' tiling (``bwd_geom``), in pure Python: the
-# kernels run whatever tiling the host passes them, after checking it.
+# The bf16 kernels' tiling (``mma_geom``), in pure Python: the kernels run
+# whatever tiling the host passes them, after checking it.  The forward
+# ("fwd") owns queries and walks key tiles, as dQ does.
 
 GEOM_DIMS = (8, 16, 40, 64, 80, 128)
 TRAIN_SHAPES = ((3, 3), (21, 21), (20, 20), (20, 3))   # (Tq, Tk)
@@ -168,7 +169,7 @@ def _writes(g, n_bh, length):
     w // wq, row 16 wq y + 16 (w % wq) + r, where both lie in range (the
     kernels' test before a store; idle groups and rows store nothing)."""
     x, y, w, r = np.meshgrid(np.arange(g.grid_x), np.arange(g.grid_y),
-                             np.arange(tfa.BWD_WARPS), np.arange(16),
+                             np.arange(tfa.MMA_WARPS), np.arange(16),
                              indexing="ij")
     bh = x * g.groups + w // g.wq
     row = y * 16 * g.wq + 16 * (w % g.wq) + r
@@ -178,15 +179,15 @@ def _writes(g, n_bh, length):
     return counts, bh, row
 
 
-@pytest.mark.parametrize("dkdv", [True, False], ids=["dkdv", "dq"])
-def test_bwd_geom_covers_every_row_once(dkdv):
+@pytest.mark.parametrize("kernel", ["dkdv", "dq", "fwd"])
+def test_bwd_geom_covers_every_row_once(kernel):
     """Every (b, h) and owned row, for owned lengths 1-130 and B*H counts
     that leave the last block's groups idle, is written exactly once; only
     the last block along each grid axis holds idle groups or rows."""
     for length in range(1, 131):
         for n_bh in (1, 3, 5, 6):
-            tq, tk = (7, length) if dkdv else (length, 7)
-            g = tfa.bwd_geom(tq, tk, 64, dkdv, n_bh)
+            tq, tk = (7, length) if kernel == "dkdv" else (length, 7)
+            g = tfa.mma_geom(kernel, tq, tk, 64, n_bh)
             counts, bh, row = _writes(g, n_bh, length)
             assert (counts == 1).all(), (length, n_bh)
             assert g.grid_x * g.groups - n_bh < g.groups
@@ -198,14 +199,15 @@ def test_bwd_geom_covers_every_row_once(dkdv):
 def test_bwd_walk_reaches_every_visible_pair(causal):
     """The walked tiles, with the kernels' causal skipping (dK/dV: query
     tiles wholly before the block's first key, and 16 queries wholly before
-    the warp's keys; dQ: key tiles wholly after the block's last row, and
-    16 keys wholly after the warp's rows), cover every (query, key) pair
-    that is not causally masked, for Tq and Tk in 1-130."""
+    the warp's keys; forward and dQ: key tiles wholly after the block's
+    last row, and 16 keys wholly after the warp's rows), cover every
+    (query, key) pair that is not causally masked, for Tq and Tk in
+    1-130."""
     for tq in range(1, 131, 3):
         for tk in range(1, 131, 4):
             i, j = np.meshgrid(np.arange(tq), np.arange(tk), indexing="ij")
             vis = ~(causal & (j > i))
-            g = tfa.bwd_geom(tq, tk, 64, True, 1)      # keys owned
+            g = tfa.mma_geom("dkdv", tq, tk, 64, 1)     # keys owned
             kb0 = j // (16 * g.wq) * 16 * g.wq
             kw = j % (16 * g.wq) // 16 * 16
             walked = i < -(-tq // g.kt) * g.kt
@@ -213,30 +215,34 @@ def test_bwd_walk_reaches_every_visible_pair(causal):
                 walked &= (i // g.kt >= kb0 // g.kt) & (i // 16 * 16 + 15
                                                         >= kb0 + kw)
             assert walked[vis].all(), ("dkdv", tq, tk)
-            g = tfa.bwd_geom(tq, tk, 64, False, 1)     # queries owned
-            qlast = np.minimum(tq, i // (16 * g.wq) * 16 * g.wq + 16 * g.wq) - 1
-            r0 = i // 16 * 16
-            walked = j < -(-tk // g.kt) * g.kt
-            if causal:
-                walked &= (j // g.kt <= qlast // g.kt) & (j // 16 * 16
-                                                          <= r0 + 15)
-            assert walked[vis].all(), ("dq", tq, tk)
+            for kernel in ("dq", "fwd"):                # queries owned
+                g = tfa.mma_geom(kernel, tq, tk, 64, 1)
+                qlast = np.minimum(tq, i // (16 * g.wq) * 16 * g.wq
+                                   + 16 * g.wq) - 1
+                r0 = i // 16 * 16
+                walked = j < -(-tk // g.kt) * g.kt
+                if causal:
+                    walked &= (j // g.kt <= qlast // g.kt) & (j // 16 * 16
+                                                              <= r0 + 15)
+                assert walked[vis].all(), (kernel, tq, tk)
 
 
 def test_bwd_geom_fits_shared_memory():
-    """For Tq and Tk in 1-130 and every head dim, both kernels' tiles fit:
-    whole 16-row steps up to 64, a head dim padded to 16 in rows of dp + 8,
-    stages that hold the walked rows, a second stage where the walked
-    length spans more than one tile, and a block that fits twice on an SM
-    (so within the 232,448 bytes a block may take)."""
+    """For Tq and Tk in 1-130 and every head dim, the three kernels' tiles
+    fit: whole 16-row steps up to 64, a head dim padded to 16 in rows of
+    dp + 8, stages that hold the walked rows, a second stage where the
+    walked length spans more than one tile, the fixed rows (dK/dV's K and
+    V, the forward's f32 q), and a block that fits twice on an SM (so
+    within the 232,448 bytes a block may take)."""
     worst = 0
     budget = tfa.SM_SMEM // 2 - tfa.BLOCK_RESERVED
-    for dkdv in (True, False):
+    for kernel in tfa.MMA_KERNELS:
+        dkdv = kernel == "dkdv"
         for tq in range(1, 131):
             for tk in range(1, 131):
                 walked = tq if dkdv else tk
                 for d in GEOM_DIMS:
-                    g = tfa.bwd_geom(tq, tk, d, dkdv, 5)
+                    g = tfa.mma_geom(kernel, tq, tk, d, 5)
                     tile = g.kt * g.lds * 2
                     need = 2 * tile + (3 * g.kt * 4 if dkdv else g.kt)
                     assert g.kt % 16 == 0 and 16 <= g.kt <= min(
@@ -245,6 +251,10 @@ def test_bwd_geom_fits_shared_memory():
                     assert g.lds == g.dp + 8 and g.stage % 16 == 0
                     assert need <= g.stage < need + 16
                     assert g.nst == (2 if walked > g.kt else 1)
+                    own = 16 * g.wq
+                    assert g.fixed == {"dkdv": 2 * own * g.lds * 2,
+                                       "fwd": own * (g.dp + 4) * 4,
+                                       "dq": 0}[kernel]
                     assert g.smem == g.groups * (g.fixed + g.nst * g.stage)
                     worst = max(worst, g.smem)
     assert worst <= budget <= 232_448   # what a block may take on sm_90
@@ -254,16 +264,48 @@ def test_bwd_geom_fits_shared_memory():
 def test_bwd_geom_training_shapes(tq, tk):
     """At the flagship's training shapes (B*H 512, Dh 128) 2 or more
     blocks of each kernel share an SM, and a call fits in one wave of the
-    card's 132 SMs; 21 x 21 takes 256 blocks, 3 x 3 128."""
-    for dkdv in (True, False):
-        g = tfa.bwd_geom(tq, tk, 128, dkdv, 512)
+    card's 132 SMs; 21 x 21 takes 256 blocks, 3 x 3 128.  The forward walks
+    one key tile, so it makes one pass over K and V."""
+    for kernel in tfa.MMA_KERNELS:
+        g = tfa.mma_geom(kernel, tq, tk, 128, 512)
         per_sm = tfa.SM_SMEM // (g.smem + tfa.BLOCK_RESERVED)
-        assert per_sm >= 2, (dkdv, g.smem)
+        assert per_sm >= 2, (kernel, g.smem)
         assert g.grid_x * g.grid_y <= 132 * 2
         if (tq, tk) == (21, 21):
             assert g.grid_x * g.grid_y == 256
         if (tq, tk) == (3, 3):
             assert g.grid_x * g.grid_y == 128
+    g = tfa.mma_geom("fwd", tq, tk, 128, 512)
+    assert g.nst == 1 and g.kt >= tk
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_args_hand_the_forward_its_tiling(dtype):
+    """``_args`` gives a bf16 forward launch the forward's tiling (the dQ
+    kernel's walk of the keys, with the group's q rows in f32 as its fixed
+    bytes) and an f32 one an empty tiling, which the FMA kernel does not
+    read."""
+    q, k, v, kv_pad, _ = _inputs(3, 20, 45, 2, 80, seed=2, pad="tail")
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    call = tfa._args(q, k, v, torch.from_numpy(kv_pad), True, "fwd")
+    fields = [f for f, _ in call.geom._fields_]
+    got = [getattr(call.geom, f) for f in fields]
+    if dtype == torch.bfloat16:
+        want = tfa.mma_geom("fwd", 20, 45, 80, 6)
+        assert got == [getattr(want, f) for f in fields]
+        dq = tfa.mma_geom("dq", 20, 45, 80, 6)
+        for f in fields:
+            if f not in ("fixed", "smem"):
+                assert getattr(call.geom, f) == getattr(dq, f), f
+        assert (call.geom.wq, call.geom.groups, call.geom.kt,
+                call.geom.dp, call.geom.nst) == (2, 2, 48, 80, 1)
+        assert call.geom.fixed == 32 * (80 + 4) * 4
+        assert call.geom.smem == 2 * (call.geom.fixed + call.geom.stage)
+    else:
+        assert got == [0] * len(fields)
+    assert (call.a.act_bf16, call.a.causal, call.a.tq, call.a.tk,
+            call.a.dim) == (int(dtype == torch.bfloat16), 1, 20, 45, 80)
 
 
 def test_flash_args_layout():

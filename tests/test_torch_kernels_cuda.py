@@ -20,9 +20,10 @@ error).  A head token must have a plain logit within 1e-4 (f32) or 1e-3
 m, l and backward dq, dk, dv): f32 within 1e-4 of the output's scale (sum
 order and the exp implementation); bf16 rounds p before the PV product and
 every output, so a flipped rounding moves an output by one ulp (2e-2
-relative max error, 1e-2 relative norm error); the bf16 backward's
-tensor-core kernels are held at the edges of their tiling the same way,
-with exactly one dK/dV and one dQ launch per backward call.  The
+relative max error, 1e-2 relative norm error); the bf16 tensor-core
+kernels are held at the edges of their tiling the same way, with exactly
+one launch per call, and the bf16 forward alone at chip_smoke.py's limits
+(2 ulps of max|plain|, 2e-3 relative norm error, m and l 4e-7).  The
 per-layer decode kernels (``self_attn_step``, ``cross_ffn_step``: outputs
 and the written cache rows) and ``int8_matmul`` take the stack's limits:
 f32 up to the order of f32 sums, bf16 one-ulp flips of rounded outputs and
@@ -269,6 +270,53 @@ def test_flash_attention_kernels(dev, dt, case):
     if case[-1] == "dead":
         assert bool((got[0][1] == 0).all()) and bool((grads[0][1] == 0).all())
         assert bool((grads[1][1] == 0).all()) and bool((grads[2][1] == 0).all())
+
+
+# the bf16 forward (flash_fwd_mma_kernel) alone, at chip_smoke.py's limits:
+# o within 2 bf16 ulps of max|plain| and 2e-3 relative norm error, m and l
+# on live rows within 4e-7 relative.  (batch, tq, tk, heads, head_dim,
+# causal, pad): the four training shapes; 16 queries against 1,024 keys
+# (two stages, 16-key tiles walked twice: the max, then the online pass);
+# one key; head dims 8 and 80 (causal 130 x 70: blocks of one and of two
+# key tiles); a dead batch row
+FWD_MAX_ULPS, FWD_REL_NORM, FWD_ML_REL = 2.0, 2e-3, 4e-7
+FWD_CASES = [
+    (64, 3, 3, 8, 128, False, "tail"),
+    (64, 21, 21, 8, 128, False, "tail"),
+    (64, 20, 20, 8, 128, True, "tail"),
+    (64, 20, 3, 8, 128, False, "tail"),
+    (8, 16, 1024, 8, 128, False, "tail"),
+    (16, 20, 1, 8, 128, False, "dead"),
+    (5, 130, 70, 3, 8, True, "random"),
+    (5, 70, 37, 3, 80, False, "dead"),
+]
+
+
+@pytest.mark.parametrize("case", FWD_CASES,
+                         ids=[f"case{i}" for i in range(len(FWD_CASES))])
+def test_flash_forward_mma_kernel(dev, case):
+    q, k, v, kv_pad, _, causal = _flash_inputs(dev, torch.bfloat16, case,
+                                               seed=len(case) + case[2])
+    before = tfa.flash_attention_fwd.launches
+    o, m, l = tfa.flash_attention_fwd(q, k, v, kv_pad, causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches == before + 1
+    want_o, want_m, want_l = tfa.flash_attention_fwd_ref(q, k, v, kv_pad,
+                                                         causal)
+    assert o.dtype == torch.bfloat16 and bool(torch.isfinite(o).all())
+    err = (o.float() - want_o.float()).abs()
+    top = float(want_o.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert float(err.max()) <= FWD_MAX_ULPS * ulp
+    assert float(err.norm()) <= FWD_REL_NORM * float(want_o.float().norm())
+    live = want_m > 0.5 * tfa.NEG_INF
+    for got, want in ((m, want_m), (l, want_l)):
+        assert float((got[live] - want[live]).abs().max()) <= (
+            FWD_ML_REL * float(want[live].abs().max()))
+    assert bool((m[~live] <= 0.5 * tfa.NEG_INF).all())
+    assert bool((l[~live] == 1).all())
+    if case[-1] == "dead":
+        assert bool((o[1] == 0).all())
 
 
 def test_flash_attention_autograd(dev):
