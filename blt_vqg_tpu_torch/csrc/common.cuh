@@ -99,20 +99,21 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
+// The LayerNorm of one row of d elements of T, held by the block as raw
+// 16-byte chunks (thread t: chunk c holds elements (c * LN_THREADS + t) * E
+// onwards, zeros past d), written to orow as TO.
+template <typename T>
+using ln_chunks = uint4[LN_CHUNKS * 8 / (16 / sizeof(T))];
+
 template <typename T, typename TO>
-__global__ void __launch_bounds__(LN_THREADS)
-    layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                     const float* __restrict__ bias, TO* __restrict__ out, int d) {
-  __shared__ float red[LN_THREADS / 32];
+__device__ __forceinline__ void layernorm_row(const ln_chunks<T>& raw,
+                                              const float* __restrict__ scale,
+                                              const float* __restrict__ bias,
+                                              TO* __restrict__ orow, int d, float* red) {
   constexpr int E = 16 / sizeof(T);
-  const T* xr = x + (size_t)blockIdx.x * d;
-  TO* orow = out + (size_t)blockIdx.x * d;
-  uint4 raw[LN_CHUNKS * 8 / E];
   float s = 0.f;
 #pragma unroll
   for (int c = 0; c < LN_CHUNKS * 8 / E; ++c) {
-    const int i = (c * LN_THREADS + threadIdx.x) * E;
-    raw[c] = load16<T>(xr + i, d - i);
     const T* e = reinterpret_cast<const T*>(&raw[c]);
     for (int j = 0; j < E; ++j) s += to_f<T>(e[j]);
   }
@@ -135,6 +136,22 @@ __global__ void __launch_bounds__(LN_THREADS)
     for (int j = 0; j < E && i + j < d; ++j)
       orow[i + j] = from_f<TO>((to_f<T>(e[j]) - mean) * rstd * scale[i + j] + bias[i + j]);
   }
+}
+
+template <typename T, typename TO>
+__global__ void __launch_bounds__(LN_THREADS)
+    layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                     const float* __restrict__ bias, TO* __restrict__ out, int d) {
+  __shared__ float red[LN_THREADS / 32];
+  constexpr int E = 16 / sizeof(T);
+  const T* xr = x + (size_t)blockIdx.x * d;
+  ln_chunks<T> raw;
+#pragma unroll
+  for (int c = 0; c < LN_CHUNKS * 8 / E; ++c) {
+    const int i = (c * LN_THREADS + threadIdx.x) * E;
+    raw[c] = load16<T>(xr + i, d - i);
+  }
+  layernorm_row<T, TO>(raw, scale, bias, out + (size_t)blockIdx.x * d, d, red);
 }
 
 template <typename T, typename TO = T>
@@ -192,6 +209,44 @@ template <typename T> __host__ __device__ inline int gemm_splits(int kg) {
 // floats of the partial buffer of one product
 template <typename T> inline size_t gemm_partial_floats(int B, int Kg, int N, int G) {
   return (size_t)G * gemm_splits<T>(Kg) * cdiv(B, BM) * BM * cdiv(N, BN) * BN;
+}
+
+// The output (g, b, n) of a product before its epilogue's bias, ReLU or
+// residual: the partials of group g summed in split order, then scaled
+// (int8) once.  A kernel that needs only a few of a product's outputs (an
+// attention block its head's q, k and v) sums them itself, in place of an
+// epilogue launch.
+struct GemmOut {
+  const float* part;
+  const float* scale;  // [G, N] or null
+  long Bp;
+  int Np, N, splits;
+
+  __device__ __forceinline__ float at(int g, int b, int n) const {
+    float v[1];
+    at(g, b, n, 0, v);
+    return v[0];
+  }
+
+  // v[k] = out(g, b, n + k * stride): the K sums' loads issued together
+  template <int K>
+  __device__ __forceinline__ void at(int g, int b, int n, int stride, float (&v)[K]) const {
+    const float* p = part + ((size_t)g * splits * Bp + b) * Np + n;
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < splits; ++s)
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[k] += p[(size_t)s * Bp * Np + k * stride];
+    if (scale)
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[k] *= scale[(size_t)g * N + n + k * stride];
+  }
+};
+
+template <typename T> static GemmOut gemm_out(const Gemm& p) {
+  return GemmOut{p.part, p.scale, (long)cdiv(p.B, BM) * BM, cdiv(p.N, BN) * BN, p.N,
+                 gemm_splits<T>(p.Kg)};
 }
 
 template <typename T, typename TW>
@@ -289,23 +344,32 @@ __global__ void __launch_bounds__(256) gemm_epilogue_kernel(Gemm p, int Bp, int 
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long)gcount * p.B * p.N) return;
   const int n = idx % p.N, b = (idx / p.N) % p.B, go = idx / ((long)p.N * p.B);
-  auto group_sum = [&](int g) {
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s)
-      acc += p.part[(((size_t)g * splits + s) * Bp + b) * Np + n];
-    return p.scale ? acc * p.scale[(size_t)g * p.N + n] : acc;
-  };
+  const GemmOut o{p.part, p.scale, Bp, Np, p.N, splits};
   float v;
   if (p.reduce) {
     v = p.res ? to_f<T>(static_cast<const T*>(p.res)[(size_t)b * p.N + n]) : 0.f;
     if (p.bias) v = v + p.bias[n];
-    for (int g = 0; g < p.G; ++g) v += group_sum(g);
+    for (int g = 0; g < p.G; ++g) v += o.at(g, b, n);
   } else {
-    v = group_sum(go);
+    v = o.at(go, b, n);
     if (p.bias) v = v + p.bias[(size_t)go * p.N + n];
     if (p.relu) v = fmaxf(v, 0.f);
   }
   static_cast<TO*>(p.out)[idx] = from_f<TO>(v);
+}
+
+// Allows a kernel its dynamic shared memory once per device: `done` is
+// the kernel's own flag per device (cudaFuncSetAttribute is a host call of
+// its own, too dear for every launch).
+constexpr int BVQ_DEVICES = 16;
+
+static cudaError_t allow_smem_once(const void* kernel, int bytes, int (&done)[BVQ_DEVICES]) {
+  int dev = 0;
+  BVQ_TRY(cudaGetDevice(&dev));
+  if (dev < BVQ_DEVICES && done[dev]) return cudaSuccess;
+  BVQ_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  if (dev < BVQ_DEVICES) done[dev] = 1;
+  return cudaSuccess;
 }
 
 // The partial products of p into p.part (no epilogue).
@@ -313,16 +377,13 @@ template <typename T>
 static cudaError_t launch_gemm_partials(const Gemm& p, bool w_i8, cudaStream_t s) {
   const dim3 grid(cdiv(p.N, BN), p.G * gemm_splits<T>(p.Kg), cdiv(p.B, BM));
   constexpr int smem = gemm_smem<T>();
-  cudaError_t e;
   if (w_i8) {
-    e = cudaFuncSetAttribute(gemm_partial_kernel<T, int8_t>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
+    static int done[BVQ_DEVICES];
+    BVQ_TRY(allow_smem_once((const void*)gemm_partial_kernel<T, int8_t>, smem, done));
     gemm_partial_kernel<T, int8_t><<<grid, GEMM_THREADS, smem, s>>>(p);
   } else {
-    e = cudaFuncSetAttribute(gemm_partial_kernel<T, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
+    static int done[BVQ_DEVICES];
+    BVQ_TRY(allow_smem_once((const void*)gemm_partial_kernel<T, T>, smem, done));
     gemm_partial_kernel<T, T><<<grid, GEMM_THREADS, smem, s>>>(p);
   }
   return cudaGetLastError();
@@ -331,8 +392,7 @@ static cudaError_t launch_gemm_partials(const Gemm& p, bool w_i8, cudaStream_t s
 // The whole product: partials, then the epilogue into p.out (f32 or T).
 template <typename T>
 static cudaError_t launch_gemm(const Gemm& p, bool w_i8, bool out_f32, cudaStream_t s) {
-  cudaError_t e = launch_gemm_partials<T>(p, w_i8, s);
-  if (e != cudaSuccess) return e;
+  BVQ_TRY(launch_gemm_partials<T>(p, w_i8, s));
   const int Bp = cdiv(p.B, BM) * BM, Np = cdiv(p.N, BN) * BN;
   const long outputs = (long)(p.reduce ? 1 : p.G) * p.B * p.N;
   const int blocks = (int)((outputs + 255) / 256);
@@ -340,6 +400,141 @@ static cudaError_t launch_gemm(const Gemm& p, bool w_i8, bool out_f32, cudaStrea
     gemm_epilogue_kernel<T, float><<<blocks, 256, 0, s>>>(p, Bp, Np);
   else
     gemm_epilogue_kernel<T, T><<<blocks, 256, 0, s>>>(p, Bp, Np);
+  return cudaGetLastError();
+}
+
+// A reduce product's epilogue fused with the LayerNorm of its output, one
+// block per row b:
+//   v[n] = res[b, n] (TR) (+ bias[n] unless bias_last), + the groups in
+//          order (rounded to T after each when round_groups), (+ bias[n]
+//          when bias_last); out[b, n] = v as TO;
+//   xn[b, :] = LayerNorm(out[b, :]) rounded to T,
+// with each thread holding the elements of layernorm_kernel's own chunks,
+// so both results are the separate launches' to the bit.  A thread loads
+// RLN_LOADS partials of all its elements at once, with the int8 scales of
+// the groups they finish (up to 32 16-byte loads in flight).
+constexpr int RLN_LOADS = 2;
+
+// x[n..n+3], zeros past N: one 16-byte load where `vec` (x 16-byte aligned
+// and N a multiple of 4).
+__device__ __forceinline__ float4 load4(const float* x, int n, int N, bool vec) {
+  if (vec && n + 3 < N) return *reinterpret_cast<const float4*>(x + n);
+  float e[4];
+  for (int j = 0; j < 4; ++j) e[j] = n + j < N ? x[n + j] : 0.f;
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+template <typename T, typename TR, typename TO>
+__global__ void __launch_bounds__(LN_THREADS)
+    residual_ln_kernel(Gemm p, int Bp, int Np, int round_groups, int bias_last,
+                       const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+                       T* __restrict__ xn) {
+  __shared__ float red[LN_THREADS / 32];
+  constexpr int E = 16 / sizeof(TO), C = LN_CHUNKS * 8 / E;
+  const int b = blockIdx.x, N = p.N, splits = gemm_splits<T>(p.Kg);
+  const float* part = p.part + (size_t)b * Np;
+  float v[C][E], acc[C][E];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int i = (c * LN_THREADS + threadIdx.x) * E;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      float r = 0.f;
+      if (i + j < N) {
+        if (p.res) r = to_f<TR>(static_cast<const TR*>(p.res)[(size_t)b * N + i + j]);
+        if (p.bias && !bias_last) r = r + p.bias[i + j];
+      }
+      v[c][j] = r;
+    }
+  }
+  // partial q = g * splits + split, RLN_LOADS of them loaded at a time
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int j = 0; j < E; ++j) acc[c][j] = 0.f;
+  const int nq = p.G * splits;
+  const bool vec_scale = N % 4 == 0 && reinterpret_cast<uintptr_t>(p.scale) % 16 == 0;
+  for (int q0 = 0; q0 < nq; q0 += RLN_LOADS) {
+    float4 in[RLN_LOADS][C][E / 4], sc[RLN_LOADS][C][E / 4];
+#pragma unroll
+    for (int l = 0; l < RLN_LOADS; ++l) {
+      const int q = q0 + l;
+      const float* src = part + (size_t)q * Bp * Np;
+      // the scales of group q / splits, where q is its last split
+      const float* scale = p.scale && q < nq && (q + 1) % splits == 0
+                               ? p.scale + (size_t)(q / splits) * N
+                               : nullptr;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int i = (c * LN_THREADS + threadIdx.x) * E;
+#pragma unroll
+        for (int j4 = 0; j4 < E / 4; ++j4) {
+          in[l][c][j4] = q < nq && i < Np  // past the padded width: zeros
+                             ? *reinterpret_cast<const float4*>(src + i + 4 * j4)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+          if (scale) sc[l][c][j4] = load4(scale, i + 4 * j4, N, vec_scale);
+        }
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < RLN_LOADS; ++l) {
+      const int q = q0 + l;
+      if (q >= nq) break;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int j4 = 0; j4 < E / 4; ++j4) {
+          acc[c][4 * j4] += in[l][c][j4].x;
+          acc[c][4 * j4 + 1] += in[l][c][j4].y;
+          acc[c][4 * j4 + 2] += in[l][c][j4].z;
+          acc[c][4 * j4 + 3] += in[l][c][j4].w;
+        }
+      if ((q + 1) % splits) continue;
+      // group q / splits is summed: scale it and add it in
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int i = (c * LN_THREADS + threadIdx.x) * E;
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          if (i + j < N) {
+            const float4 s4 = sc[l][c][j / 4];
+            const float s1 = j % 4 == 0 ? s4.x : j % 4 == 1 ? s4.y : j % 4 == 2 ? s4.z : s4.w;
+            v[c][j] += p.scale ? acc[c][j] * s1 : acc[c][j];
+            if (round_groups) v[c][j] = round_to<T>(v[c][j]);
+          }
+          acc[c][j] = 0.f;
+        }
+      }
+    }
+  }
+  ln_chunks<TO> raw;
+  TO* orow = static_cast<TO*>(p.out) + (size_t)b * N;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int i = (c * LN_THREADS + threadIdx.x) * E;
+    TO* e = reinterpret_cast<TO*>(&raw[c]);
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      float r = v[c][j];
+      if (p.bias && bias_last && i + j < N) r = r + p.bias[i + j];
+      e[j] = from_f<TO>(i + j < N ? r : 0.f);
+      if (i + j < N) orow[i + j] = e[j];
+    }
+  }
+  layernorm_row<TO, T>(raw, ln_scale, ln_bias, xn + (size_t)b * N, N, red);
+}
+
+// The reduce product p (partials, then residual_ln_kernel): out = p's
+// epilogue, xn = LayerNorm(out) with ln_scale and ln_bias.
+template <typename T, typename TR, typename TO>
+static cudaError_t launch_residual_ln(const Gemm& p, bool w_i8, bool round_groups,
+                                      bool bias_last, const float* ln_scale,
+                                      const float* ln_bias, T* xn, cudaStream_t s) {
+  if (p.N > LN_MAX_DIM || !p.reduce) return cudaErrorInvalidValue;
+  BVQ_TRY(launch_gemm_partials<T>(p, w_i8, s));
+  const int Bp = cdiv(p.B, BM) * BM, Np = cdiv(p.N, BN) * BN;
+  residual_ln_kernel<T, TR, TO><<<p.B, LN_THREADS, 0, s>>>(
+      p, Bp, Np, (int)round_groups, (int)bias_last, ln_scale, ln_bias, xn);
   return cudaGetLastError();
 }
 

@@ -28,10 +28,12 @@
 //    never marks a row past pos (the pad fill, applied to every row, would
 //    otherwise lift such a row above NEG_INF; JAX ops/transformer.py
 //    DecoderLayer.step states the same precondition);
-//  - self_attn_step is 7 launches, cross_ffn_step 10, on the caller's
-//    stream.
-// Left for later work: fusing the epilogues into their consumers and the
-// launches of a layer, and a pipelined persistent product.
+//  - self_attn_step is 6 launches on the caller's stream; cross_ffn_step
+//    9, its cross-attention summing its q from the q product's partials
+//    and the cross-out residual's epilogue writing the FFN's LayerNorm
+//    too (residual_ln_kernel), as in decode_stream.cu.
+// Left for later work: the same fusions in self_attn_step, fewer launches
+// a layer, and a pipelined product.
 #include <algorithm>
 
 #include "common.cuh"
@@ -84,11 +86,11 @@ struct CrossFfnArgs {
   void* out;          // [B, D]
   // scratch
   void* xn;    // [B, D]
-  float* q;    // [B, D]
   void* ctx;   // [B, D]
   float* x1;   // [B, D] the residual after cross-attention, f32
   void* h1;    // [B, F]
-  float* part;
+  float* part;  // partial products: part_floats floats
+  long part_floats;
 };
 
 // ---------------------------------------------------------------------------
@@ -206,12 +208,13 @@ __global__ void __launch_bounds__(128)
 }
 
 // ---------------------------------------------------------------------------
-// Cross-attention of one layer: block (b, h).  q [B, D] f32 (head h at
-// columns h*Dh..); ck/cv [B, Tc, H, Dh]; masked keys take NEG_INF, so a row
-// whose every key is masked comes out uniform.  ctx [B, D] rounded to T.
+// Cross-attention of one layer: block (b, h).  q: the q product's
+// partials, head h's outputs (b, h*Dh..) summed here (f32); ck/cv [B, Tc,
+// H, Dh]; masked keys take NEG_INF, so a row whose every key is masked
+// comes out uniform.  ctx [B, D] rounded to T.
 template <typename T>
 __global__ void __launch_bounds__(128)
-    layer_cross_attn_kernel(const float* __restrict__ q, const T* __restrict__ ck,
+    layer_cross_attn_kernel(GemmOut q, const T* __restrict__ ck,
                             const T* __restrict__ cv, const bool* __restrict__ src_pad,
                             long sp_sb, long sp_st, T* __restrict__ ctx, int H, int Dh,
                             int Tc, float q_scale) {
@@ -222,7 +225,7 @@ __global__ void __launch_bounds__(128)
   const int warp = tid / 32, lane = tid % 32, nwarps = blockDim.x / 32;
   const int D = H * Dh;
   const size_t qrow = (size_t)b * D + (size_t)h * Dh;
-  for (int d = tid; d < Dh; d += blockDim.x) qs[d] = q[qrow + d] * q_scale;
+  for (int d = tid; d < Dh; d += blockDim.x) qs[d] = q.at(0, b, h * Dh + d) * q_scale;
   __syncthreads();
   for (int t = warp; t < Tc; t += nwarps) {
     const T* kr = ck + (((size_t)b * Tc + t) * H + h) * Dh;
@@ -282,8 +285,7 @@ static cudaError_t self_attn_step(const SelfAttnArgs& a, cudaStream_t s) {
 
 static void cross_gemms(const CrossFfnArgs& a, Gemm g[4]) {
   const int B = a.batch, D = a.dim, F = a.ffn;
-  g[0] = make_gemm(a.xn, 0, D, a.wq, B, D, D, 1, a.part);   // q
-  g[0].out = a.q;
+  g[0] = make_gemm(a.xn, 0, D, a.wq, B, D, D, 1, a.part);   // q: summed by the attention
   g[1] = make_gemm(a.ctx, 0, D, a.wo, B, D, D, 1, a.part);  // cross out
   g[2] = make_gemm(a.xn, 0, D, a.w1, B, D, F, 1, a.part);   // FFN in
   g[2].bias = a.b1;
@@ -292,33 +294,40 @@ static void cross_gemms(const CrossFfnArgs& a, Gemm g[4]) {
   g[3] = make_gemm(a.h1, 0, F, a.w2, B, F, D, 1, a.part);   // FFN out
 }
 
-template <typename T> static size_t cross_workspace(const CrossFfnArgs& a) {
+// Whether the caller's workspace holds every product's partials
+// (ops/kernels/decode_layer.py sizes it).
+template <typename T> static bool cross_workspace_ok(const CrossFfnArgs& a) {
   Gemm g[4];
   cross_gemms(a, g);
-  size_t floats = 0;
-  for (const Gemm& p : g) floats = std::max(floats, gemm_partial_floats<T>(p.B, p.Kg, p.N, p.G));
-  return floats;
+  for (const Gemm& p : g)
+    if (gemm_partial_floats<T>(p.B, p.Kg, p.N, p.G) > (size_t)a.part_floats) return false;
+  return true;
 }
 
 template <typename T>
 static cudaError_t cross_ffn_step(const CrossFfnArgs& a, cudaStream_t s) {
   const int B = a.batch, D = a.dim, H = a.heads, Dh = a.head_dim;
+  if (!cross_workspace_ok<T>(a)) return cudaErrorInvalidValue;
   Gemm g[4];
   cross_gemms(a, g);
   T* xn = static_cast<T*>(a.xn);
-  // ---- cross-attention; x1 = x + ctx @ wo stays f32
+  // ---- cross-attention (its q summed from the q partials); x1 = x + ctx @
+  // wo stays f32, its epilogue also writes LN(x1)
   BVQ_TRY(launch_layernorm<T>(static_cast<const T*>(a.x), a.ln_c_scale, a.ln_c_bias, xn, B,
                               D, s));
-  BVQ_TRY(launch_gemm<T>(g[0], false, true, s));
+  BVQ_TRY(launch_gemm_partials<T>(g[0], false, s));
   const size_t smem = sizeof(float) * (Dh + a.tc);
   layer_cross_attn_kernel<T><<<dim3(B, H), 128, smem, s>>>(
-      a.q, static_cast<const T*>(a.ck), static_cast<const T*>(a.cv), a.src_pad, a.sp_sb,
-      a.sp_st, static_cast<T*>(a.ctx), H, Dh, a.tc, a.q_scale);
+      gemm_out<T>(g[0]), static_cast<const T*>(a.ck), static_cast<const T*>(a.cv), a.src_pad,
+      a.sp_sb, a.sp_st, static_cast<T*>(a.ctx), H, Dh, a.tc, a.q_scale);
   BVQ_TRY(cudaGetLastError());
-  BVQ_TRY((launch_residual<T, T, float>(g[1], static_cast<const T*>(a.x), nullptr, a.x1,
-                                        false, s)));
+  Gemm out = g[1];
+  out.reduce = 1;
+  out.res = a.x;
+  out.out = a.x1;
+  BVQ_TRY((launch_residual_ln<T, T, float>(out, false, false, true, a.ln_f_scale, a.ln_f_bias,
+                                           xn, s)));
   // ---- FFN: h1 = relu(LN(x1) @ w1 + b1) in T; out = (x1 + h1 @ w2) + b2
-  BVQ_TRY((launch_layernorm<float, T>(a.x1, a.ln_f_scale, a.ln_f_bias, xn, B, D, s)));
   BVQ_TRY(launch_gemm<T>(g[2], false, false, s));
   return launch_residual<T, float, T>(g[3], a.x1, a.b2, static_cast<T*>(a.out), false, s);
 }
@@ -342,9 +351,4 @@ extern "C" int bvq_cross_ffn_step(const bvq::CrossFfnArgs* a, void* stream) {
   const cudaError_t e = a->act_bf16 ? bvq::cross_ffn_step<__nv_bfloat16>(*a, s)
                                     : bvq::cross_ffn_step<float>(*a, s);
   return static_cast<int>(e);
-}
-
-extern "C" long bvq_cross_ffn_workspace(const bvq::CrossFfnArgs* a) {
-  return static_cast<long>(a->act_bf16 ? bvq::cross_workspace<__nv_bfloat16>(*a)
-                                       : bvq::cross_workspace<float>(*a));
 }

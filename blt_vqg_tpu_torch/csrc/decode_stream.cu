@@ -21,9 +21,15 @@
 //    groups in order into the residual, the TPU kernel's accumulation order;
 //  - self-attention reads only the cache rows < pos, one block per
 //    (batch row, head), so the cache bytes read grow with pos;
-//  - the step is 17 launches per layer on the caller's stream.
-// Left for later work: a pipelined persistent product (TMA, wgmma), fusing
-// the epilogues into their consumers, and fusing the launches of a layer.
+//  - the attention kernels sum their own q, k and v from the QKV and
+//    cross-q partials, and each residual product's epilogue also writes
+//    the LayerNorm that comes next, so the step is 12 launches per layer
+//    and one LayerNorm (73 at 6 layers): per layer 6 products,
+//    2 attention kernels, 3 residual epilogues with LayerNorm (the last
+//    layer's last without) and the FFN-in epilogue.
+// Left for later work: a pipelined product (TMA, wgmma), a weight stream
+// that runs on across launches (the TPU kernel fetches stage i + 1 during
+// stage i) and fewer launches a layer.
 #include <algorithm>
 
 #include "common.cuh"
@@ -53,23 +59,23 @@ struct StackArgs {
   void* v_new;
   // scratch
   void* xn;
-  float* qkv;
   void* ctx;
-  float* qc;
   void* ctxc;
   void* h1;
-  float* part;  // partial products, bvq_decode_stack_workspace() floats
+  float* part;  // partial products: part_floats floats
+  long part_floats;
 };
 
 // ---------------------------------------------------------------------------
-// Cached self-attention of one layer: block (b, h).  qkv [H, B, 3*Dh] f32
-// from the QKV product; caches [Lmax, B, Dh] per (layer, head).  Rows >= pos
-// are never read: the TPU kernel fills them with 1e3 * MASK_FILL, whose
-// exponent underflows to exactly 0, so skipping them is the same function.
+// Cached self-attention of one layer: block (b, h).  qkv: the QKV
+// product's partials, head h's outputs (b, 0..3*Dh) summed here (f32);
+// caches [Lmax, B, Dh] per (layer, head).  Rows >= pos are never read: the
+// TPU kernel fills them with 1e3 * MASK_FILL, whose exponent underflows to
+// exactly 0, so skipping them is the same function.
 // Writes k_new/v_new [H, B, Dh] and ctx [H, B, Dh].
 template <typename T>
 __global__ void __launch_bounds__(128)
-    self_attn_kernel(const float* __restrict__ qkv, const T* __restrict__ ck,
+    self_attn_kernel(GemmOut qkv, const T* __restrict__ ck,
                      const T* __restrict__ cv, const float* __restrict__ kpad,
                      const float* __restrict__ kpad_cur, T* __restrict__ k_new,
                      T* __restrict__ v_new, T* __restrict__ ctx, int B, int H,
@@ -81,13 +87,14 @@ __global__ void __launch_bounds__(128)
   float* sc = smem + 3 * Dh;  // pos + 1 scores, then their exponentials
   const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, nwarps = blockDim.x / 32;
-  const float* row = qkv + ((size_t)h * B + b) * 3 * Dh;
   const size_t hb = ((size_t)h * B + b) * Dh;
   for (int d = tid; d < Dh; d += blockDim.x) {
+    float o[3];  // q, k, v
+    qkv.at(h, b, d, Dh, o);
     // q is rounded to the activation type, then scaled in it
-    qs[d] = round_to<T>(round_to<T>(row[d]) * q_scale);
-    ks[d] = round_to<T>(row[Dh + d]);
-    vs[d] = round_to<T>(row[2 * Dh + d]);
+    qs[d] = round_to<T>(round_to<T>(o[0]) * q_scale);
+    ks[d] = round_to<T>(o[1]);
+    vs[d] = round_to<T>(o[2]);
     k_new[hb + d] = from_f<T>(ks[d]);
     v_new[hb + d] = from_f<T>(vs[d]);
   }
@@ -131,12 +138,13 @@ __global__ void __launch_bounds__(128)
 }
 
 // ---------------------------------------------------------------------------
-// Cross-attention of one layer: block (b, h), h = j * hpc + i.  q
-// [Hc, B, hpc*Dh] f32; ckc/cvc [Hc, Tc, B, hpc*Dh]; smask [Tc, B] (1 =
-// masked).  Writes ctx [Hc, B, hpc*Dh].  Scores, softmax and context in f32.
+// Cross-attention of one layer: block (b, h), h = j * hpc + i.  q: the
+// cross-q product's partials, group j's outputs (b, i*Dh..) summed here
+// (f32); ckc/cvc [Hc, Tc, B, hpc*Dh]; smask [Tc, B] (1 = masked).  Writes
+// ctx [Hc, B, hpc*Dh].  Scores, softmax and context in f32.
 template <typename T>
 __global__ void __launch_bounds__(128)
-    cross_attn_kernel(const float* __restrict__ q, const T* __restrict__ ck,
+    cross_attn_kernel(GemmOut q, const T* __restrict__ ck,
                       const T* __restrict__ cv, const int* __restrict__ smask,
                       T* __restrict__ ctx, int B, int H, int Hc, int Dh, int Tc,
                       float q_scale) {
@@ -148,7 +156,7 @@ __global__ void __launch_bounds__(128)
   const int hpc = H / Hc, j = h / hpc, i = h % hpc, W = hpc * Dh;
   const size_t qrow = ((size_t)j * B + b) * W + (size_t)i * Dh;
   for (int d = tid; d < Dh; d += blockDim.x)
-    qs[d] = round_to<T>(round_to<T>(q[qrow + d]) * q_scale);
+    qs[d] = round_to<T>(round_to<T>(q.at(j, b, i * Dh + d)) * q_scale);
   __syncthreads();
   const T* ckj = ck + (size_t)j * Tc * B * W;
   const T* cvj = cv + (size_t)j * Tc * B * W;
@@ -177,7 +185,8 @@ __global__ void __launch_bounds__(128)
 // The six products of layer l (qkv, out, qc, oc, w1, w2) over the scratch
 // buffers; the epilogue of each fuses its int8 scale, bias, ReLU, residual
 // and output type.  `out` and `oc` and `w2` add into x_out, `out` starting
-// from the layer's input.
+// from the layer's input, and their epilogue also writes the LayerNorm of
+// x_out that comes next (residual_ln_kernel).
 template <typename T>
 static void layer_gemms(const StackArgs& a, int l, Gemm g[6]) {
   const int B = a.batch, D = a.dim, H = a.heads, Dh = a.head_dim;
@@ -189,7 +198,8 @@ static void layer_gemms(const StackArgs& a, int l, Gemm g[6]) {
   const int groups[6] = {H, H, Hc, Hc, Fc, Fc};
   const long xs_g[6] = {0, (long)B * Dh, 0, (long)B * W, 0, (long)B * fch};
   const void* xs[6] = {a.xn, a.ctx, a.xn, a.ctxc, a.xn, a.h1};
-  void* outs[6] = {a.qkv, a.x_out, a.qc, a.x_out, a.h1, a.x_out};
+  // qkv and qc have no epilogue: the attention kernels sum their partials
+  void* outs[6] = {nullptr, a.x_out, nullptr, a.x_out, a.h1, a.x_out};
   for (int i = 0; i < 6; ++i) {
     const size_t layer_elems = (size_t)groups[i] * kg[i] * n[i];
     const size_t wsize = a.w_i8[i] ? 1 : sizeof(T);
@@ -215,14 +225,15 @@ static void layer_gemms(const StackArgs& a, int l, Gemm g[6]) {
   g[5].bias = a.b2 + (size_t)l * D;
 }
 
+// Whether the caller's workspace holds every product's partials
+// (ops/kernels/decode_stream.py sizes it).
 template <typename T>
-static size_t stack_workspace(const StackArgs& a) {
+static bool stack_workspace_ok(const StackArgs& a) {
   Gemm g[6];
   layer_gemms<T>(a, 0, g);
-  size_t floats = 0;
-  for (int i = 0; i < 6; ++i)
-    floats = std::max(floats, gemm_partial_floats<T>(g[i].B, g[i].Kg, g[i].N, g[i].G));
-  return floats;
+  for (const Gemm& p : g)
+    if (gemm_partial_floats<T>(p.B, p.Kg, p.N, p.G) > (size_t)a.part_floats) return false;
+  return true;
 }
 
 template <typename T>
@@ -230,46 +241,53 @@ static cudaError_t stack_step(const StackArgs& a, cudaStream_t s) {
   const int B = a.batch, D = a.dim, H = a.heads, Dh = a.head_dim;
   const int Hc = a.hc, Tc = a.tc, Lmax = a.lmax;
   const int W = (H / Hc) * Dh;
-  T* xo = static_cast<T*>(a.x_out);
   T* xn = static_cast<T*>(a.xn);
   const size_t cache_layer = (size_t)H * Lmax * B * Dh;
   const size_t cross_layer = (size_t)Hc * Tc * B * W;
+  if (!stack_workspace_ok<T>(a)) return cudaErrorInvalidValue;
 
+  // LayerNorm of the layer's input: the first is a launch of its own, the
+  // others come with the residual products before them (residual_ln_kernel)
+  const float* ln0 = a.lns;
+  BVQ_TRY(launch_layernorm<T>(static_cast<const T*>(a.x), ln0, ln0 + D, xn, B, D, s));
   for (int l = 0; l < a.layers; ++l) {
-    const T* xc = l == 0 ? static_cast<const T*>(a.x) : xo;
     const float* ln = a.lns + (size_t)l * 6 * D;
     Gemm g[6];
     layer_gemms<T>(a, l, g);
 
-    // ---- self-attention
-    BVQ_TRY(launch_layernorm<T>(xc, ln, ln + D, xn, B, D, s));
-    BVQ_TRY(launch_gemm<T>(g[0], a.w_i8[0], true, s));
+    // ---- self-attention: sums its head's q, k, v from the QKV partials
+    BVQ_TRY(launch_gemm_partials<T>(g[0], a.w_i8[0], s));
     T* kn = static_cast<T*>(a.k_new) + (size_t)l * H * B * Dh;
     T* vn = static_cast<T*>(a.v_new) + (size_t)l * H * B * Dh;
     const size_t self_smem = sizeof(float) * (3 * Dh + Lmax + 1);
     self_attn_kernel<T><<<dim3(B, H), 128, self_smem, s>>>(
-        a.qkv, static_cast<const T*>(a.cache_k) + cache_layer * l,
-        static_cast<const T*>(a.cache_v) + cache_layer * l, a.key_pad,
-        a.key_pad_cur, kn, vn, static_cast<T*>(a.ctx), B, H, Dh, Lmax, a.pos,
-        a.q_scale);
+        gemm_out<T>(g[0]), static_cast<const T*>(a.cache_k) + cache_layer * l,
+        static_cast<const T*>(a.cache_v) + cache_layer * l, a.key_pad, a.key_pad_cur, kn, vn,
+        static_cast<T*>(a.ctx), B, H, Dh, Lmax, a.pos, a.q_scale);
     BVQ_TRY(cudaGetLastError());
-    BVQ_TRY(launch_gemm<T>(g[1], a.w_i8[1], false, s));
+    BVQ_TRY((launch_residual_ln<T, T, T>(g[1], a.w_i8[1], false, false, ln + 2 * D, ln + 3 * D,
+                                         xn, s)));
 
-    // ---- cross-attention
-    BVQ_TRY(launch_layernorm<T>(xo, ln + 2 * D, ln + 3 * D, xn, B, D, s));
-    BVQ_TRY(launch_gemm<T>(g[2], a.w_i8[2], true, s));
+    // ---- cross-attention: sums its q from the cross-q partials
+    BVQ_TRY(launch_gemm_partials<T>(g[2], a.w_i8[2], s));
     const size_t cross_smem = sizeof(float) * (Dh + Tc);
     cross_attn_kernel<T><<<dim3(B, H), 128, cross_smem, s>>>(
-        a.qc, static_cast<const T*>(a.ckc) + cross_layer * l,
-        static_cast<const T*>(a.cvc) + cross_layer * l, a.smask,
-        static_cast<T*>(a.ctxc), B, H, Hc, Dh, Tc, a.q_scale);
+        gemm_out<T>(g[2]), static_cast<const T*>(a.ckc) + cross_layer * l,
+        static_cast<const T*>(a.cvc) + cross_layer * l, a.smask, static_cast<T*>(a.ctxc), B, H,
+        Hc, Dh, Tc, a.q_scale);
     BVQ_TRY(cudaGetLastError());
-    BVQ_TRY(launch_gemm<T>(g[3], a.w_i8[3], false, s));
+    BVQ_TRY((launch_residual_ln<T, T, T>(g[3], a.w_i8[3], false, false, ln + 4 * D, ln + 5 * D,
+                                         xn, s)));
 
-    // ---- FFN
-    BVQ_TRY(launch_layernorm<T>(xo, ln + 4 * D, ln + 5 * D, xn, B, D, s));
+    // ---- FFN; the next layer's first LayerNorm comes with the last product
     BVQ_TRY(launch_gemm<T>(g[4], a.w_i8[4], false, s));
-    BVQ_TRY(launch_gemm<T>(g[5], a.w_i8[5], false, s));
+    if (l + 1 < a.layers) {
+      const float* next = ln + 6 * D;
+      BVQ_TRY((launch_residual_ln<T, T, T>(g[5], a.w_i8[5], false, false, next, next + D, xn,
+                                           s)));
+    } else {
+      BVQ_TRY(launch_gemm<T>(g[5], a.w_i8[5], false, s));
+    }
   }
   return cudaSuccess;
 }
@@ -281,12 +299,6 @@ extern "C" int bvq_decode_stack_step(const bvq::StackArgs* a, void* stream) {
   const cudaError_t e = a->act_bf16 ? bvq::stack_step<__nv_bfloat16>(*a, s)
                                     : bvq::stack_step<float>(*a, s);
   return static_cast<int>(e);
-}
-
-// floats of the partial-product workspace `part` that a step needs
-extern "C" long bvq_decode_stack_workspace(const bvq::StackArgs* a) {
-  return static_cast<long>(a->act_bf16 ? bvq::stack_workspace<__nv_bfloat16>(*a)
-                                       : bvq::stack_workspace<float>(*a));
 }
 
 extern "C" const char* bvq_error_string(int err) {

@@ -43,8 +43,8 @@ class StackArgs(ctypes.Structure):
                 ("cache_k", P), ("cache_v", P), ("ckc", P), ("cvc", P),
                 ("smask", P), ("b1", P), ("b2", P), ("key_pad", P),
                 ("key_pad_cur", P), ("x_out", P), ("k_new", P), ("v_new", P),
-                ("xn", P), ("qkv", P), ("ctx", P), ("qc", P), ("ctxc", P),
-                ("h1", P), ("part", P)]
+                ("xn", P), ("ctx", P), ("ctxc", P), ("h1", P), ("part", P),
+                ("part_floats", L)]
 
 
 class HeadArgs(ctypes.Structure):
@@ -123,8 +123,8 @@ class CrossFfnArgs(ctypes.Structure):
                 ("ln_c_bias", P), ("wq", P), ("ck", P), ("cv", P),
                 ("src_pad", P), ("wo", P), ("ln_f_scale", P),
                 ("ln_f_bias", P), ("w1", P), ("b1", P), ("w2", P), ("b2", P),
-                ("out", P), ("xn", P), ("q", P), ("ctx", P), ("x1", P),
-                ("h1", P), ("part", P)]
+                ("out", P), ("xn", P), ("ctx", P), ("x1", P), ("h1", P),
+                ("part", P), ("part_floats", L)]
 
 
 class Int8Args(ctypes.Structure):
@@ -203,8 +203,6 @@ def library() -> ctypes.CDLL:
     lib.bvq_decode_stack_step.restype = I
     lib.bvq_head_argmax.argtypes = [ctypes.POINTER(HeadArgs), P]
     lib.bvq_head_argmax.restype = I
-    lib.bvq_decode_stack_workspace.argtypes = [ctypes.POINTER(StackArgs)]
-    lib.bvq_decode_stack_workspace.restype = L
     lib.bvq_head_workspace.argtypes = [ctypes.POINTER(HeadArgs)]
     lib.bvq_head_workspace.restype = L
     for name in ("bvq_flash_fwd", "bvq_flash_bwd_dkdv", "bvq_flash_bwd_dq"):
@@ -217,9 +215,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(RingBwdArgs), P]
         fn.restype = I
+    lib.bvq_cross_ffn_step.argtypes = [ctypes.POINTER(CrossFfnArgs), P]
+    lib.bvq_cross_ffn_step.restype = I
     for run, workspace, args in (
             ("bvq_self_attn_step", "bvq_self_attn_workspace", SelfAttnArgs),
-            ("bvq_cross_ffn_step", "bvq_cross_ffn_workspace", CrossFfnArgs),
             ("bvq_int8_matmul", "bvq_int8_matmul_workspace", Int8Args)):
         fn = getattr(lib, run)
         fn.argtypes = [ctypes.POINTER(args), P]

@@ -38,7 +38,8 @@ import ctypes
 
 import torch
 
-from blt_vqg_tpu_torch.ops.kernels.decode_stream import layernorm
+from blt_vqg_tpu_torch.ops.kernels.decode_stream import (gemm_workspace,
+                                                          layernorm, scratch)
 from blt_vqg_tpu_torch.ops.masks import MASK_FILL
 
 NEG_INF = -1e30
@@ -103,12 +104,16 @@ def _check(cond: bool, what: str, msg: str) -> None:
 
 
 def _check_tensors(what, x, shapes, f32=()):
+    """Every call checks; a message is only formatted for a failed check."""
     for name, (t, shape) in shapes.items():
+        want = torch.float32 if name in f32 else x.dtype
+        if (t.shape == shape and t.device == x.device and t.is_contiguous()
+                and t.dtype == want):
+            continue
         _check(tuple(t.shape) == shape, what,
                f"{name} shape {tuple(t.shape)} != {shape}")
         _check(t.device == x.device, what, f"{name} on {t.device}, x on {x.device}")
         _check(t.is_contiguous(), what, f"{name} is not contiguous")
-        want = torch.float32 if name in f32 else x.dtype
         _check(t.dtype == want, what, f"{name} dtype {t.dtype} != {want}")
 
 
@@ -193,8 +198,19 @@ def self_attn_step(x, ln_scale, ln_bias, w_qkv, w_out, cache_k, cache_v,
 self_attn_step.launches = 0
 
 
-def _run_cross(lib, x, ln_c_scale, ln_c_bias, wq, ck, cv, src_pad, wo,
-               ln_f_scale, ln_f_bias, w1, b1, w2, b2, nh):
+def cross_products(dim: int, ffn: int):
+    """(groups, depth, width, reduce) of cross_ffn_step's four products (q,
+    out, FFN in, FFN out), as csrc/decode_layer.cu's ``cross_gemms`` sets
+    them up."""
+    return ((1, dim, dim, 0), (1, dim, dim, 1), (1, dim, ffn, 0),
+            (1, ffn, dim, 1))
+
+
+def _prepare_cross(x, ln_c_scale, ln_c_bias, wq, ck, cv, src_pad, wo,
+                   ln_f_scale, ln_f_bias, w1, b1, w2, b2, nh):
+    """Validates the tensors and allocates the output and one scratch
+    buffer; returns the kernel's arguments (``CrossFfnArgs``), the output
+    and the scratch tensor."""
     from blt_vqg_tpu_torch.ops.kernels import _build
 
     what = "cross_ffn_step"
@@ -211,16 +227,15 @@ def _run_cross(lib, x, ln_c_scale, ln_c_bias, wq, ck, cv, src_pad, wo,
         "w2": (w2, (f, d)), "b2": (b2, (d,))},
         f32=("ln_c_scale", "ln_c_bias", "ln_f_scale", "ln_f_bias", "b1",
              "b2"))
-    _check(tuple(src_pad.shape) == (b, tc) and src_pad.dtype == torch.bool
-           and src_pad.device == x.device, what,
-           f"src_pad must be bool [{b}, {tc}] on {x.device}")
-    dev = x.device
+    if not (src_pad.shape == (b, tc) and src_pad.dtype == torch.bool
+            and src_pad.device == x.device):
+        _check(False, what, f"src_pad must be bool [{b}, {tc}] on {x.device}")
     out = torch.empty_like(x)
-    scratch = dict(xn=torch.empty_like(x),
-                   q=torch.empty((b, d), dtype=torch.float32, device=dev),
-                   ctx=torch.empty_like(x),
-                   x1=torch.empty((b, d), dtype=torch.float32, device=dev),
-                   h1=torch.empty((b, f), dtype=x.dtype, device=dev))
+    act = x.element_size()
+    floats = gemm_workspace(b, cross_products(d, f), x.dtype == torch.bfloat16)
+    buf, ptrs = scratch(x.device, dict(
+        xn=b * d * act, ctx=b * d * act, x1=b * d * 4,
+        h1=b * f * act, part=floats * 4))
     a = _build.CrossFfnArgs(
         act_bf16=int(x.dtype == torch.bfloat16), batch=b, dim=d, heads=nh,
         head_dim=dh, tc=tc, ffn=f, sp_sb=src_pad.stride(0),
@@ -230,12 +245,18 @@ def _run_cross(lib, x, ln_c_scale, ln_c_bias, wq, ck, cv, src_pad, wo,
         src_pad=src_pad.data_ptr(), wo=wo.data_ptr(),
         ln_f_scale=ln_f_scale.data_ptr(), ln_f_bias=ln_f_bias.data_ptr(),
         w1=w1.data_ptr(), b1=b1.data_ptr(), w2=w2.data_ptr(),
-        b2=b2.data_ptr(), out=out.data_ptr(),
-        **{k: v.data_ptr() for k, v in scratch.items()})
-    part = _workspace(lib, lib.bvq_cross_ffn_workspace, a, dev)
-    a.part = part.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(lib, lib.bvq_cross_ffn_step(ctypes.byref(a), stream), what)
+        b2=b2.data_ptr(), out=out.data_ptr(), part_floats=floats,
+        **ptrs)
+    return a, out, buf
+
+
+def _run_cross(lib, *args):
+    from blt_vqg_tpu_torch.ops.kernels import _build
+
+    a, out, _buf = _prepare_cross(*args)
+    stream = torch.cuda.current_stream(args[0].device).cuda_stream
+    _build.check(lib, lib.bvq_cross_ffn_step(ctypes.byref(a), stream),
+                 "cross_ffn_step")
     return out
 
 

@@ -4,8 +4,8 @@
 :func:`decode_stack_step` keeps the JAX function's argument layouts (the
 stacked per-head, per-head-group and per-FFN-chunk weight slices) and
 returns ``(x_out, k_new, v_new)``; the caller writes k_new/v_new into the
-caches at ``pos``.  On CUDA tensors it launches the kernel of
-``csrc/decode_stream.cu``; on CPU tensors it computes the plain version
+caches at ``pos``.  On CUDA tensors it launches the kernels of
+``csrc/decode_stream.cu`` (12 a layer and one); on CPU tensors it computes the plain version
 :func:`decode_stack_step_ref`.  The TPU kernel's ``bucketed_cache`` option
 is a DMA schedule with no effect on the result and is not carried over.
 
@@ -25,6 +25,7 @@ Numerics copied from the TPU kernel, in both versions:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -67,6 +68,11 @@ def _dot(a, b):
 
 def _oscale(y, s):
     return y if s is None else y * s
+
+
+@functools.lru_cache(maxsize=None)
+def _q_scale(head_dim: int, dtype) -> float:
+    return float(scaled_q_scale(head_dim, dtype))
 
 
 def scaled_q_scale(head_dim: int, dtype) -> torch.Tensor:
@@ -157,10 +163,54 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _run(lib, x, pos, lns, weights, scales, cache_k, cache_v, ckc, cvc,
-         smask, b1, b2, key_pad, key_pad_cur, hc, fc):
-    """Validates the tensors, allocates outputs and scratch, and launches
-    the kernel of csrc/decode_stream.cu on the current stream."""
+# common.cuh's split-K product: [GEMM_TILE, GEMM_TILE] output tiles, the
+# depth split in parts of 256 rows (bf16 activations) or 128 (f32)
+GEMM_TILE = 64
+
+
+def gemm_splits(depth: int, bf16: bool) -> int:
+    return -(-depth // (256 if bf16 else 128))
+
+
+def gemm_workspace(batch: int, products, bf16: bool) -> int:
+    """The f32 partials that the largest of ``products`` ((groups, depth,
+    width, reduce), ...) needs in the split-K product's workspace
+    (common.cuh ``gemm_partial_floats``): one [row tiles, column tiles]
+    grid of whole tiles per (group, K split)."""
+    tiles = lambda a: -(-a // GEMM_TILE)
+    return max(g * gemm_splits(k, bf16) * tiles(batch) * tiles(n)
+               * GEMM_TILE ** 2 for g, k, n, _ in products)
+
+
+def stack_products(dim: int, heads: int, hc: int, fc: int, ffn: int):
+    """(groups, depth, width, reduce) of the step's six products (QKV, out,
+    cross q, cross out, FFN in, FFN out), as csrc/decode_stream.cu's
+    ``layer_gemms`` sets them up."""
+    dh = dim // heads
+    w, fch = (heads // hc) * dh, ffn // fc
+    return ((heads, dim, 3 * dh, 0), (heads, dh, dim, 1), (hc, dim, w, 0),
+            (hc, w, dim, 1), (fc, dim, fch, 0), (fc, fch, dim, 1))
+
+
+def scratch(dev, pieces: dict):
+    """One allocation for ``pieces`` ({name: bytes}), each at a 256-byte
+    boundary; returns the tensor and {name: its pointer}.  From PyTorch's
+    caching allocator on the current stream, where the kernels run, so
+    dropping it once they are queued is safe: its memory only goes to work
+    queued later on that stream."""
+    offsets, total = {}, 0
+    for name, size in pieces.items():
+        offsets[name] = total
+        total += -(-size // 256) * 256
+    buf = torch.empty((total,), dtype=torch.uint8, device=dev)
+    return buf, {k: buf.data_ptr() + o for k, o in offsets.items()}
+
+
+def _prepare(x, pos, lns, weights, scales, cache_k, cache_v, ckc, cvc,
+             smask, b1, b2, key_pad, key_pad_cur, hc, fc):
+    """Validates the tensors and allocates the outputs and one scratch
+    buffer; returns the kernel's arguments (``StackArgs``), the outputs
+    (x_out, k_new, v_new) and the scratch tensor."""
     from blt_vqg_tpu_torch.ops.kernels import _build
 
     wqkv, wout, wqc, woc, w1, w2 = weights
@@ -191,49 +241,52 @@ def _run(lib, x, pos, lns, weights, scales, cache_k, cache_v, ckc, cvc,
     if key_pad is not None:
         shapes["key_pad"] = (key_pad, (lmax, b))
         shapes["key_pad_cur"] = (key_pad_cur, (1, b))
+    # every call checks; a message is only formatted for a failed check
+    dev = x.device
     for name, (t, shape) in shapes.items():
-        _check(tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
-        _check(t.device == x.device, f"{name} on {t.device}, x on {x.device}")
-        _check(t.is_contiguous(), f"{name} is not contiguous")
+        if t.shape != shape or t.device != dev or not t.is_contiguous():
+            _check(tuple(t.shape) == shape,
+                   f"{name} shape {tuple(t.shape)} != {shape}")
+            _check(t.device == dev, f"{name} on {t.device}, x on {dev}")
+            _check(t.is_contiguous(), f"{name} is not contiguous")
     for name in ("lns", "b1", "b2") + (("key_pad", "key_pad_cur")
                                        if key_pad is not None else ()):
-        _check(shapes[name][0].dtype == torch.float32, f"{name} must be f32")
+        if shapes[name][0].dtype != torch.float32:
+            _check(False, f"{name} must be f32")
     _check(smask.dtype == torch.int32, "smask must be int32")
     for name in ("cache_k", "cache_v", "ckc", "cvc"):
-        _check(shapes[name][0].dtype == dt, f"{name} dtype must be {dt}")
+        if shapes[name][0].dtype != dt:
+            _check(False, f"{name} dtype must be {dt}")
     names = ("wqkv", "wout", "wqc", "woc", "w1", "w2")
     w_i8 = []
     for name, w, s in zip(names, weights, scales):
         if s is None:
-            _check(w.dtype == dt, f"{name} dtype {w.dtype} != {dt}")
+            if w.dtype != dt:
+                _check(False, f"{name} dtype {w.dtype} != {dt}")
         else:
-            _check(w.dtype == torch.int8, f"{name} has scales but is {w.dtype}")
             sshape = tuple(w.shape[:-2]) + (1, w.shape[-1])
-            _check(s.dtype == torch.float32 and tuple(s.shape) == sshape
-                   and s.is_contiguous() and s.device == x.device,
-                   f"{name} scales must be contiguous f32 {sshape}")
+            if not (w.dtype == torch.int8 and s.dtype == torch.float32
+                    and s.shape == sshape and s.is_contiguous()
+                    and s.device == dev):
+                _check(w.dtype == torch.int8,
+                       f"{name} has scales but is {w.dtype}")
+                _check(False, f"{name} scales must be contiguous f32 {sshape}")
         w_i8.append(int(s is not None))
 
-    # Outputs, scratch and workspace come from PyTorch's caching allocator
-    # on the current stream, where the kernels run: dropping the scratch
-    # when this returns is safe, since its memory only goes to work queued
-    # later on that stream.
-    dev = x.device
     x_out = torch.empty_like(x)
     k_new = torch.empty((nl, nh, b, dh), dtype=dt, device=dev)
     v_new = torch.empty((nl, nh, b, dh), dtype=dt, device=dev)
-    scratch = dict(
-        xn=torch.empty((b, d), dtype=dt, device=dev),
-        qkv=torch.empty((nh, b, 3 * dh), dtype=torch.float32, device=dev),
-        ctx=torch.empty((nh, b, dh), dtype=dt, device=dev),
-        qc=torch.empty((hc, b, hpc * dh), dtype=torch.float32, device=dev),
-        ctxc=torch.empty((hc, b, hpc * dh), dtype=dt, device=dev),
-        h1=torch.empty((fc, b, fch), dtype=dt, device=dev))
+    act = x.element_size()
+    floats = gemm_workspace(
+        b, stack_products(d, nh, hc, fc, f), dt == torch.bfloat16)
+    buf, ptrs = scratch(dev, dict(
+        xn=b * d * act, ctx=nh * b * dh * act, ctxc=hc * b * hpc * dh * act,
+        h1=fc * b * fch * act, part=floats * 4))
     a = _build.StackArgs(
         act_bf16=int(dt == torch.bfloat16), batch=b, dim=d, layers=nl,
         heads=nh, head_dim=dh, lmax=lmax, pos=int(pos), tc=tc, hc=hc, fc=fc,
         ffn=f, w_i8=(ctypes.c_int * 6)(*w_i8),
-        q_scale=float(scaled_q_scale(dh, dt)),
+        q_scale=_q_scale(dh, dt),
         x=x.data_ptr(), lns=lns.data_ptr(),
         w=(ctypes.c_void_p * 6)(*[w.data_ptr() for w in weights]),
         s=(ctypes.c_void_p * 6)(*[_ptr(s) for s in scales]),
@@ -241,15 +294,21 @@ def _run(lib, x, pos, lns, weights, scales, cache_k, cache_v, ckc, cvc,
         ckc=ckc.data_ptr(), cvc=cvc.data_ptr(), smask=smask.data_ptr(),
         b1=b1.data_ptr(), b2=b2.data_ptr(), key_pad=_ptr(key_pad),
         key_pad_cur=_ptr(key_pad_cur), x_out=x_out.data_ptr(),
-        k_new=k_new.data_ptr(), v_new=v_new.data_ptr(),
-        **{k: v.data_ptr() for k, v in scratch.items()})
-    part = torch.empty((lib.bvq_decode_stack_workspace(ctypes.byref(a)),),
-                       dtype=torch.float32, device=dev)
-    a.part = part.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+        k_new=k_new.data_ptr(), v_new=v_new.data_ptr(), part_floats=floats,
+        **ptrs)
+    return a, (x_out, k_new, v_new), buf
+
+
+def _run(lib, *args):
+    """Launches the kernels of csrc/decode_stream.cu on the current stream
+    (arguments as :func:`_prepare`'s)."""
+    from blt_vqg_tpu_torch.ops.kernels import _build
+
+    a, out, _buf = _prepare(*args)
+    stream = torch.cuda.current_stream(args[0].device).cuda_stream
     _build.check(lib, lib.bvq_decode_stack_step(ctypes.byref(a), stream),
                  "decode_stack_step")
-    return x_out, k_new, v_new
+    return out
 
 
 def decode_stack_step(x, pos, lns, wqkv, wout, cache_k, cache_v,

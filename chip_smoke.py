@@ -13,14 +13,19 @@ only when every phase passed):
 1. builds the kernels from ``blt_vqg_tpu_torch/csrc`` (one nvcc per
    source, all started together, at first use);
 2. holds each kernel against its plain PyTorch version at the flagship
-   shapes in bf16, on the same CUDA tensors;
+   shapes in bf16, on the same CUDA tensors, the stack step also at b128
+   and b512 (bf16 and int8 weights), and checks by profiler that a stack
+   call runs its launch sequence (12 kernels a layer and one) and nothing
+   else;
 3. serves 3 request rounds of batch 64 through ``blt_vqg_tpu_torch.serve``
    at the flagship configuration (streaming stack, int8 fused head) with
    seed-made weights, checks the tokens and that each kernel launched 51
-   times per round, and replays one round step by step against the plain
-   versions;
+   times per round, serves one more round under the profiler (one self-
+   and one cross-attention kernel a layer per stack call), and replays
+   one round step by step against the plain versions;
 4. times decode questions/s at batch 64 on the kernel path and on the
-   port's plain decode path, and each kernel against its plain version;
+   port's plain decode path, and each kernel against its plain version
+   (the stack step and the head by events and by profiler device time);
 5. holds the three flash-attention kernels (forward, dK/dV, dQ) against
    their plain versions in bf16 at the four attention shapes of the
    flagship train step, at a causal multi-tile shape with unaligned
@@ -46,12 +51,15 @@ only when every phase passed):
    own weights, bf16, at B 64 and B 256, pos 0, 25 and 50, with and
    without a pad-key mask, under a source mask that pads one context
    column and masks one row fully (outputs and the written cache rows),
-   and checks that the plain ``cross_ffn_step`` without its source mask
-   fails the check;
+   checks by profiler that a ``cross_ffn_step`` call runs its 9 kernels
+   and nothing else, and checks that the plain
+   ``cross_ffn_step`` without its source mask fails the check;
 9. drives the per-layer decode path (``use_pallas_decode``) through
    ``make_decode_step`` and ``make_beam_decode_step``: one greedy b64
    decode and one beam decode at b64 x 4 beams, each with exactly 306
-   launches of each kernel (51 steps x 6 layers), a teacher-forced replay
+   launches of each kernel (51 steps x 6 layers; the greedy decode once
+   more under the profiler: one cross-attention kernel per
+   ``cross_ffn_step`` call), a teacher-forced replay
    of the greedy decode holding every kernel call against its plain
    version, and a sampled decode with ``top_k=1`` that must emit the
    greedy tokens;
@@ -86,12 +94,20 @@ only when every phase passed):
    ``scaled_dot_product_attention`` forward and backward (a yardstick the
    port never calls); the ``kernels`` line carries both shapes.
 
-Phase 1 also prints the compiler's registers and spills of the ring and
-flash kernels and checks that the machine code of the bf16 ring
-kernels (the forward, the backward's dK/dV and dQ) and of the three bf16
-flash kernels (forward, dK/dV, dQ) runs on the tensor cores (HMMA or
+Phase 1 also prints the compiler's registers, shared memory and spills
+of the ring and flash kernels and of the decode kernels' split-K product
+and residual + LayerNorm (``gemm_partial_kernel``,
+``residual_ln_kernel``) and checks that the machine code of the bf16
+ring kernels (the forward, the backward's dK/dV and dQ) and of the three
+bf16 flash kernels (forward, dK/dV, dQ) runs on the tensor cores (HMMA or
 HGMMA instructions, by ``cuobjdump -sass``), the flash kernels without
 spills.
+
+``--flash-times-only`` and ``--decode-times-only`` build, take only the
+flash kernels' (phase 7) or the decode kernels' times (the stack step, the
+fused head and ``cross_ffn_step``, by events and by profiler) and stop
+without a result line: to compare two trees on one card, run the same
+script from each tree in turns.
 
 TF32 is off for matmuls and cuDNN throughout.  The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
@@ -142,6 +158,25 @@ HEAD_TPU = "blt_vqg_tpu/ops/pallas/decode_head.py:114"
 STACK_MAX_ULPS = 8.0     # max |kernel - plain| / bf16 ulp of max |plain|
 STACK_REL_NORM = 8e-3    # ||kernel - plain|| / ||plain||
 HEAD_TOL = 1e-3          # token logit within 1e-3 * max|logit| of the max
+# the device kernels of one cross_ffn_step call and of one decode_stack_step
+# call (csrc/decode_layer.cu, csrc/decode_stream.cu): the products'
+# partials, the attention kernels (which sum their q, k, v from the
+# partials), the residual epilogues fused with the LayerNorm after them
+# and the epilogues that stand alone; one LayerNorm launch first
+CROSS_KERNELS = {"layernorm_kernel": 1, "gemm_partial_kernel": 4,
+                 "layer_cross_attn_kernel": 1, "residual_ln_kernel": 1,
+                 "gemm_epilogue_kernel": 1, "residual_epilogue_kernel": 1}
+
+
+def stack_kernels(layers: int) -> dict:
+    """12 a layer and one: the last layer's FFN out has no LayerNorm after
+    it, so its epilogue is a gemm_epilogue_kernel."""
+    return {"layernorm_kernel": 1, "gemm_partial_kernel": 6 * layers,
+            "self_attn_kernel": layers, "cross_attn_kernel": layers,
+            "residual_ln_kernel": 3 * layers - 1,
+            "gemm_epilogue_kernel": layers + 1}
+# stack batches checked beside b64 (phase 2): b128 and b512 (ROADMAP queue 1)
+STACK_BATCHES = (128, 512)
 
 FLASH_SRC = "blt_vqg_tpu_torch/csrc/flash_attention.cu"
 FLASH_TPU = {"flash_attention_fwd": "blt_vqg_tpu/ops/pallas/flash_attention.py:45",
@@ -212,7 +247,8 @@ LAYER_TPU = {"self_attn_step": "blt_vqg_tpu/ops/pallas/decode_layer.py:118",
 LAYER_KERNELS = tuple(LAYER_TPU)
 # the device kernels of csrc/decode_layer.cu, as the profiler names them
 LAYER_KERNEL_NAMES = ("gemm_partial", "gemm_epilogue", "residual_epilogue",
-                      "layer_self_attn", "layer_cross_attn", "layernorm")
+                      "residual_ln", "layer_self_attn", "layer_cross_attn",
+                      "layernorm")
 LAYER_BATCHES = (64, 256)            # greedy b64; beam b64 x 4
 LAYER_POSITIONS = (0, 25, 50)
 LAYER_TIME_POS = 25                  # the timed calls' decode position
@@ -358,6 +394,33 @@ def stack_args(plan, x, caches, quantized: bool, key_pad=None, pos=0):
               ffn_stages=w1.shape[1], weight_scales=scales, key_pad=kp,
               key_pad_cur=kp_cur)
     return args, kw
+
+
+def stack_batch_args(plan, b: int, lmax: int, quantized: bool, pos: int,
+                     seed: int, dev):
+    """Arguments of decode_stack_step at batch ``b`` with the plan's weight
+    stacks: seed-made bf16 x, caches and cross K/V (scale 2), a source
+    mask that pads every third row's last key, and pad-key marks (key 0
+    always marked)."""
+    prep = plan["stream"]
+    nl, nh, _, three_dh = prep["stacks"][0].shape
+    dh = three_dh // 3
+    _, hc, tc, _, w = prep["ckc"].shape
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * 2.0).to(
+            torch.bfloat16)
+
+    smask = torch.zeros((tc, b), dtype=torch.int32, device=dev)
+    smask[tc - 1, ::3] = 1
+    key_pad = torch.rand((b, lmax), generator=g, device=dev) < 0.3
+    key_pad[:, 0] = True
+    caches = (rnd(nl, nh, lmax, b, dh), rnd(nl, nh, lmax, b, dh))
+    stream = dict(prep, ckc=rnd(nl, hc, tc, b, w), cvc=rnd(nl, hc, tc, b, w),
+                  smask=smask)
+    return stack_args({"stream": stream}, rnd(b, nh * dh), caches, quantized,
+                      key_pad, pos)
 
 
 def bf16_ulp(v: float) -> float:
@@ -650,6 +713,39 @@ def device_ms(fn, calls: int) -> float:
                  for n, t in profile_groups(fn, calls).values() if n)
         if ms > 0.0:
             break
+    return ms
+
+
+def kernel_family(name: str, families) -> str:
+    """The entry of ``families`` that the device kernel ``name`` is an
+    instance of (a whole identifier in the profiler's demangled name), or
+    "other"."""
+    return next((f for f in families
+                 if re.search(rf"(?<![A-Za-z0-9_]){f}(?![A-Za-z0-9_])", name)),
+                "other")
+
+
+def launches_per_call(fn, want: dict, what: str) -> float:
+    """Raises unless each call of ``fn`` runs the device kernels ``want``
+    ({kernel: launches per call}) and nothing else (by profiler, which may
+    drop records but never adds one: a kernel recorded fewer times passes,
+    more times fails); returns the device ms per call, each kernel's
+    records rounded up to ``want``."""
+    for _ in range(3):
+        groups = profile_groups(fn, 4)
+        if groups:
+            break
+    got, ms = {}, 0.0
+    for name, (n, t) in groups.items():
+        fam = kernel_family(name, want)
+        got[fam] = got.get(fam, 0.0) + n
+        if n:
+            ms += t / n * want.get(fam, 1)
+    bad = [f for f, n in got.items() if n > want.get(f, 0) + 1e-6]
+    if bad or not got:
+        raise AssertionError(f"{what}: device kernels per call "
+                             f"{ {k: round(v, 3) for k, v in got.items()} }, "
+                             f"want {want}")
     return ms
 
 
@@ -1042,6 +1138,12 @@ def layer_phase(dev, log, pl_model, seeds: int):
             log(f"[8] seed {seed}, {what}, worst of {len(lws)} layers: max "
                 f"err {r['ulps']:.3g} bf16 ulps, relative norm error "
                 f"{r['norm']:.3g}, max abs err {r['err']:.4g}")
+            if seed == 0:
+                launches_per_call(
+                    lambda: decode_layer.cross_ffn_step(*args, nh),
+                    CROSS_KERNELS, what)
+                log(f"[8] {what}: {sum(CROSS_KERNELS.values())} kernels "
+                    f"per call {CROSS_KERNELS} (profiler)")
     # the check must tell a wrong cross step apart: the plain version
     # without its source mask has to fail it
     c = layer_case(cfg, LAYER_BATCHES[0], SEED + 7, dev)
@@ -1102,6 +1204,21 @@ def layer_path_phase(dev, log, pl_cfg, pl_model, latent, images, context,
         f"{vocab}), launches {launches}, "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock, first "
         f"call); first rows {tokens[:2, :8].tolist()}")
+    # the same decode under the profiler: one cross-attention kernel per
+    # cross_ffn_step call
+    calls = decode_layer.cross_ffn_step.launches
+    groups = profile_groups(lambda: make_decode_step(
+        pl_cfg, pl_model, latent, with_probe=False)(
+        images, context, torch.Generator(dev).manual_seed(z_seed)), 1,
+        ("layer_cross_attn_kernel",))
+    calls = (decode_layer.cross_ffn_step.launches - calls) / 2
+    ran = groups.get("layer_cross_attn_kernel", (0.0, 0.0))[0]
+    if calls != steps * nl or not 0 < ran <= calls:
+        raise AssertionError(f"per-layer decode: {calls} cross_ffn_step calls "
+                             f"ran {ran} cross-attention kernels; kernels "
+                             f"{groups}")
+    log(f"[9] a profiled greedy decode: {calls:.0f} cross_ffn_step calls, "
+        f"{ran:.0f} layer_cross_attn_kernel launches")
 
     # teacher-forced replay: the same steps, each kernel call held against
     # its plain version on the same inputs
@@ -1345,7 +1462,7 @@ def layer_timings(dev, card, log, pl_cfg, pl_model, plain_model, latent,
                 len(pairs), ()).values())
             moved, flops = bound_fn(*pairs[0])
             b_ms, b_by = bound(moved, flops)
-            timings[(name, bt)] = (k, p, b_ms, b_by)
+            timings[(name, bt)] = (k, p, b_ms, b_by, device)
             log(f"[11] {card}: {name} b{bt} pos {pos}: kernel "
                 f"{k * 1e3:.1f} us by events ({device * 1e3:.1f} us of "
                 f"device time by profiler), plain {p * 1e3:.1f} us, bound "
@@ -1801,16 +1918,18 @@ def ring_timings(dev, card, log, cfg, kstate, ecfg, estate, batch):
 
 
 def mma_code(lib_path: str, report: str) -> None:
-    """Phase 1: the compiler's registers and spills of the ring and the
-    flash kernels; raises unless the machine code of each bf16
-    tensor-core kernel (RING_MMA, FLASH_MMA) has tensor-core products
-    (HMMA or HGMMA), and unless ptxas reports no spills for the flash
-    kernels (the ring forward's registers are capped for 3 blocks per SM,
-    and it spills a few bytes by design)."""
+    """Phase 1: the compiler's registers and spills of the ring and flash
+    kernels and of the decode kernels' split-K product and fused residual
+    + LayerNorm; raises unless the machine code of each bf16 tensor-core
+    kernel (RING_MMA, FLASH_MMA) has tensor-core products (HMMA or HGMMA),
+    and unless ptxas reports no spills for the flash kernels (the ring
+    forward's registers are capped for 3 blocks per SM, and it spills a
+    few bytes by design)."""
     kernels = RING_MMA + FLASH_MMA
+    watched = ("ring_", "flash_", "gemm_partial_kernel", "residual_ln_kernel")
     for entry in report.split("Compiling entry function")[1:]:
         name = entry.split("'")[1]
-        if "ring_" in name or "flash_" in name:
+        if any(w in name for w in watched):
             used = re.search(r"Used (\d+) registers[^\n]*", entry)
             spill = re.search(r"(\d+) bytes spill stores", entry)
             log(f"    ptxas {name}: {used.group(0) if used else '?'}; "
@@ -1827,7 +1946,7 @@ def mma_code(lib_path: str, report: str) -> None:
     found = set()
     for fn in out.stdout.split("Function : ")[1:]:
         name = fn.split()[0]
-        if "ring_" not in name and "flash_" not in name:
+        if not any(w in name for w in watched):
             continue
         code = [ln.split(";")[0].split("*/")[-1].strip()
                 for ln in fn.splitlines() if "MMA" in ln]
@@ -1842,6 +1961,98 @@ def mma_code(lib_path: str, report: str) -> None:
             found.add(kernel)
     if found != set(kernels):
         raise AssertionError(f"no SASS read for {set(kernels) - found}")
+
+
+def kernel_split(groups: dict) -> dict:
+    """{short kernel name: (launches, device us) per call} of
+    profile_groups' reading."""
+    out = {}
+    for name, (n, ms) in groups.items():
+        short = re.sub(r"^void |^bvq::|<.*$|\(.*$", "", name)
+        short = short.split("::")[-1]
+        m, t = out.get(short, (0.0, 0.0))
+        out[short] = (round(m + n, 3), round(t + ms * 1e3, 2))
+    return out
+
+
+def host_ms(fn, calls: int = 5) -> float:
+    """Host time per call of ``fn``, in ms: ``calls`` calls timed by the
+    host's clock up to the last launch, before the card has caught up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / calls
+
+
+def decode_times(dev, card, log):
+    """--decode-times-only: rows 1, 2 and 4b alone, each by events and by
+    profiler (device time, split by kernel), at the shapes of phases 4 and
+    11: the stack at b64 pos 25 and at b512 (bf16 and int8 weights), the
+    fused head (int8 and bf16) and cross_ffn_step at b64 and b256 (the six
+    layers' weights cycled).  Uses only the port's public functions, so the
+    same script times an older tree."""
+    cfg, model, latent = serve.build_model(seed=SEED, stream=True, device=dev)
+    pl_cfg, pl_model = per_layer_model(model, cfg, dev)
+    with torch.inference_mode():
+        images, context = serve.make_requests(
+            np.random.RandomState(SEED + 100), BATCH, cfg, dev)
+        plan = model.prepare_decode(images, context, cfg.max_decode_length,
+                                    latent, False, cfg.decode_z_source,
+                                    torch.Generator(dev).manual_seed(SEED))
+        lmax = cfg.max_decode_length + 1
+        nl, nh, dh = cfg.num_layers, cfg.num_heads, cfg.head_dim
+        g = torch.Generator(dev).manual_seed(SEED + 1)
+        caches = tuple((torch.randn((nl, nh, lmax, BATCH, dh), generator=g,
+                                    device=dev) * 2.0).to(torch.bfloat16)
+                       for _ in range(2))
+        x = (torch.randn((BATCH, cfg.hidden_dim), generator=g, device=dev)
+             * 2.0).to(torch.bfloat16)
+        for b in (BATCH,) + STACK_BATCHES[-1:]:
+            for quantized in (False, True):
+                if b == BATCH:
+                    args, kw = stack_args(plan, x, caches, quantized, None, 25)
+                else:
+                    args, kw = stack_batch_args(plan, b, lmax, quantized, 25,
+                                                SEED + b, dev)
+                fn = lambda: decode_stream.decode_stack_step(*args, **kw)
+                ev, dv, hs = cuda_ms(fn, 20), device_ms(fn, 5), host_ms(fn)
+                kinds = kernel_split(profile_groups(fn, 3))
+                wbytes = nbytes(*(args[i] for i in (3, 4, 7, 8, 12, 14)),
+                                *(kw["weight_scales"] or ()))
+                log(f"[decode] {card}: decode_stack_step "
+                    f"{'int8' if quantized else 'bf16'} weights b{b} pos 25: "
+                    f"{ev * 1e3:.1f} us by events, {hs * 1e3:.1f} us of host "
+                    f"time, {dv * 1e3:.1f} us of device time "
+                    f"({wbytes / dv / 1e9:.3f} TB/s of weights), "
+                    f"{sum(n for n, _ in kinds.values()):.0f} device "
+                    f"launches per call; per kernel (launches, us): {kinds}")
+                del args, kw
+        for quantized in (True, False):
+            h = head_args(model, quantized)
+            fn = lambda: run_head(h, x, kernel=True)
+            log(f"[decode] {card}: head_argmax "
+                f"{'int8' if quantized else 'bf16'} b{BATCH}: "
+                f"{cuda_ms(fn, 50) * 1e3:.1f} us by events, "
+                f"{device_ms(fn, 5) * 1e3:.1f} us of device time")
+        lws = pl_model.decoder.layer_weights()
+        for bt in LAYER_BATCHES:
+            cs = [layer_case(pl_cfg, bt, SEED + 3 + l, dev)
+                  for l in range(len(lws))]
+            fn = cycled([lambda w=w, c=c: decode_layer.cross_ffn_step(
+                *cross_args(w, c["x"], c["xk"], c["xv"], c["src_pad"]), nh)
+                for w, c in zip(lws, cs)])
+            ev, dv = cuda_ms(fn, 60), device_ms(fn, len(lws))
+            hs = host_ms(fn, 30)
+            kinds = kernel_split(profile_groups(fn, len(lws)))
+            log(f"[decode] {card}: cross_ffn_step b{bt}: {ev * 1e3:.1f} us "
+                f"by events, {hs * 1e3:.1f} us of host time, {dv * 1e3:.1f} "
+                f"us of device time, "
+                f"{sum(n for n, _ in kinds.values()):.0f} device launches "
+                f"per call; per kernel (launches, us): {kinds}")
 
 
 # ---------------------------------------------------------------------------
@@ -1865,6 +2076,11 @@ def main(argv=None):
                         help="build, take phase 7's flash kernel times and "
                         "stop (no result line): to compare two trees' "
                         "kernels on one card, run in turns from each tree")
+    parser.add_argument("--decode-times-only", action="store_true",
+                        help="build, time the decode stack step, the fused "
+                        "head and cross_ffn_step alone (events and "
+                        "profiler) and stop (no result line); runs from an "
+                        "older tree too")
     opts = parser.parse_args(argv)
     card = card_line()
     log(f"card: {card}")
@@ -1890,6 +2106,9 @@ def main(argv=None):
         f"{spills or 'none'}")
     if opts.flash_times_only:
         flash_timings(dev, card, log)
+        return
+    if opts.decode_times_only:
+        decode_times(dev, card, log)
         return
     mma_code(lib_path, report)
 
@@ -1961,6 +2180,33 @@ def main(argv=None):
         log(f"[2] control: the plain version without its last layer reads "
             f"{ulps:.3g} bf16 ulps, relative norm error {rel_norm:.3g} "
             f"(fails the check, as it must)")
+        # the launch sequence per call, and b128 and b512 on the same limits
+        for quantized in (False, True):
+            wt = "int8" if quantized else "bf16"
+            args, kw = stack_args(plan, x, caches, quantized, key_pad, 25)
+            want_kernels = stack_kernels(args[3].shape[0])
+            launches_per_call(
+                lambda: decode_stream.decode_stack_step(*args, **kw),
+                want_kernels, f"decode_stack_step {wt} b{BATCH}")
+            for b in STACK_BATCHES:
+                args, kw = stack_batch_args(plan, b, lmax, quantized, 25,
+                                            SEED + b, dev)
+                got = decode_stream.decode_stack_step(*args, **kw)
+                want = decode_stream.decode_stack_step_ref(*args, **kw)
+                what = f"{wt} b{b} pos 25 key_pad"
+                err, ulps, rel_norm = check_stack(got, want, what)
+                stack_err = max(stack_err, err)
+                launches_per_call(
+                    lambda: decode_stream.decode_stack_step(*args, **kw),
+                    want_kernels, f"decode_stack_step {what}")
+                log(f"[2] decode_stack_step {what}: max |x_out err| "
+                    f"{err:.4g}; worst over x, k, v: max err {ulps:.3g} bf16 "
+                    f"ulps, relative norm error {rel_norm:.3g}")
+                del args, kw, got, want
+        log(f"[2] decode_stack_step: kernels per call {want_kernels} "
+            f"and nothing else, at b{BATCH} and "
+            f"{', '.join(f'b{b}' for b in STACK_BATCHES)}, bf16 and int8 "
+            f"weights (profiler)")
         head_err = 0.0
         hx = torch.cat(x_outs[:4])[:BATCH * 2]
         for quantized in (True, False):
@@ -2010,6 +2256,25 @@ def main(argv=None):
                                  f"{steps * ROUNDS} each")
         log(f"[3] {ROUNDS} rounds: tokens [{BATCH}, {steps}] in [0, "
             f"{model.vocab_size}), launches {launches}")
+        # one more round under the profiler: per stack call one self- and
+        # one cross-attention kernel a layer
+        calls = decode_stream.decode_stack_step.launches
+        groups = {}
+        for name, (n, _) in profile_groups(lambda: serve.serve_rounds(
+                cfg, model, latent, BATCH, 1, SEED, dev, log=lambda m: None),
+                1).items():
+            fam = kernel_family(name, ("self_attn_kernel", "cross_attn_kernel"))
+            groups[fam] = groups.get(fam, 0.0) + n
+        calls = (decode_stream.decode_stack_step.launches - calls) / 2
+        layers = cfg.num_layers
+        attn = [groups.get(k, 0.0) / layers
+                for k in ("self_attn_kernel", "cross_attn_kernel")]
+        if calls != steps or not all(0 < a <= calls for a in attn):
+            raise AssertionError(f"served round: {calls} decode_stack_step "
+                                 f"calls; kernels {groups}")
+        log(f"[3] a profiled round: {calls:.0f} decode_stack_step calls, "
+            f"{attn[0]:.0f} / {attn[1]:.0f} self- / cross-attention launches "
+            f"a layer")
 
         # teacher-forced replay of round 0: the kernel path re-run step by
         # step, each kernel call held against its plain version on the
@@ -2090,20 +2355,33 @@ def main(argv=None):
             args, kw = stack_args(plan, x, caches, quantized, None, 25)
             k = cuda_ms(lambda: decode_stream.decode_stack_step(*args, **kw),
                         20)
+            dms = launches_per_call(
+                lambda: decode_stream.decode_stack_step(*args, **kw),
+                stack_kernels(args[3].shape[0]), "decode_stack_step")
             p = cuda_ms(lambda: decode_stream.decode_stack_step_ref(*args,
                                                                     **kw), 5)
-            timings[("stack", quantized)] = (k, p, stack_bound(args, kw, 25))
+            timings[("stack", quantized)] = (k, p, stack_bound(args, kw, 25),
+                                             dms)
+            wbytes = nbytes(*(args[i] for i in (3, 4, 7, 8, 12, 14)),
+                            *(kw["weight_scales"] or ()))
             log(f"[4] {card}: decode_stack_step "
                 f"{'int8' if quantized else 'bf16'} weights, b{BATCH} pos 25:"
-                f" kernel {k * 1e3:.1f} us, plain {p * 1e3:.1f} us")
+                f" kernel {k * 1e3:.1f} us by events, {dms * 1e3:.1f} us of "
+                f"device time ({sum(stack_kernels(args[3].shape[0]).values())} "
+                f"kernels, profiler; "
+                f"{wbytes / dms / 1e9:.3f} TB/s of {wbytes / 1e6:.1f} MB of "
+                f"weights against {HBM_BYTES_PER_S / 1e12:.2f}), plain "
+                f"{p * 1e3:.1f} us")
         hx = x_outs[0]
         for quantized in (True, False):
             h = head_args(model, quantized)
             k = cuda_ms(lambda: run_head(h, hx, kernel=True), 50)
+            dms = device_ms(lambda: run_head(h, hx, kernel=True), 5)
             p = cuda_ms(lambda: run_head(h, hx, kernel=False), 50)
-            timings[("head", quantized)] = (k, p, head_bound(h, hx))
+            timings[("head", quantized)] = (k, p, head_bound(h, hx), dms)
             log(f"[4] {card}: head_argmax {'int8' if quantized else 'bf16'}"
-                f" b{BATCH} V {h['w'].shape[1]}: kernel {k * 1e3:.1f} us, "
+                f" b{BATCH} V {h['w'].shape[1]}: kernel {k * 1e3:.1f} us by "
+                f"events, {dms * 1e3:.1f} us of device time (profiler), "
                 f"plain {p * 1e3:.1f} us (weights L2-resident across "
                 f"repeats)")
 
@@ -2158,13 +2436,13 @@ def main(argv=None):
             ("decode_stack_step", STACK_SRC, STACK_TPU, ("stack", False),
              stack_err),
             ("head_argmax", HEAD_SRC, HEAD_TPU, ("head", True), head_err)):
-        k_ms, p_ms, (nbytes, flops) = timings[key]
-        b_ms, b_by = bound(nbytes, flops)
+        k_ms, p_ms, (moved, flops), d_ms = timings[key]
+        b_ms, b_by = bound(moved, flops)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu, "launches": launches[name],
                         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})
+                        "library_ms": None, "device_ms": d_ms})
     for name in FLASH_KERNELS:
         tot = flash_totals[name]
         row = {"name": name, "kernel": FLASH_MMA[FLASH_KERNELS.index(name)],
@@ -2184,13 +2462,13 @@ def main(argv=None):
     # call at the vocab-head shape, launches of its phase-10 drive.  No
     # single PyTorch call computes a per-layer step.
     for name in LAYER_KERNELS:
-        k_ms, p_ms, b_ms, b_by = layer_times[(name, BATCH)]
+        k_ms, p_ms, b_ms, b_by, d_ms = layer_times[(name, BATCH)]
         kernels.append({"name": name, "route": "cuda", "source": LAYER_SRC,
                         "replaces": LAYER_TPU[name],
                         "launches": layer_launch[name],
                         "max_abs_err": layer_worst[name]["err"], "ms": k_ms,
                         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})
+                        "library_ms": None, "device_ms": d_ms})
     k_ms, p_ms, b_ms, b_by, lib_ms = layer_times[("int8_matmul",
                                                   INT8_SHAPES[0][0])]
     kernels.append({"name": "int8_matmul", "route": "cuda",

@@ -23,6 +23,7 @@ from blt_vqg_tpu.ops.pallas import decode_layer as jdl
 from blt_vqg_tpu.ops.transformer import TransformerDecoder as JaxDecoder
 from blt_vqg_tpu_torch.convert import to_flax
 from blt_vqg_tpu_torch.ops.kernels import decode_layer as tdl
+from blt_vqg_tpu_torch.ops.kernels import decode_stream as tds
 from blt_vqg_tpu_torch.ops.kernels.decode_stream import layernorm
 from blt_vqg_tpu_torch.ops.transformer import TransformerDecoder
 
@@ -231,3 +232,30 @@ def test_decode_weights_layouts():
     with torch.no_grad():
         layer.ffn.ffn_in.bias.add_(1.0)
     assert layer.decode_weights() is not w
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cross_ffn_args_one_scratch_allocation(dt):
+    """One scratch allocation holds every piece of cross_ffn_step's scratch
+    (256-byte aligned, disjoint) and the split-K workspace its four
+    products need (decode_stream.gemm_workspace), which it hands over."""
+    b, d, h, f, tc = 3, 32, 4, 72, 3
+    z = lambda *s, t=dt: torch.zeros(s, dtype=t)
+    f32 = lambda *s: z(*s, t=torch.float32)
+    a, out, buf = tdl._prepare_cross(
+        z(b, d), f32(d), f32(d), z(d, d), z(b, tc, h, d // h),
+        z(b, tc, h, d // h), torch.zeros((b, tc), dtype=torch.bool), z(d, d),
+        f32(d), f32(d), z(d, f), f32(f), z(f, d), f32(d), h)
+    assert out.shape == (b, d) and out.dtype == dt
+    floats = tds.gemm_workspace(b, tdl.cross_products(d, f),
+                                dt == torch.bfloat16)
+    assert a.part_floats == floats
+    act = torch.finfo(dt).bits // 8
+    sizes = dict(xn=b * d * act, ctx=b * d * act, x1=b * d * 4,
+                 h1=b * f * act, part=floats * 4)
+    lo, hi = buf.data_ptr(), buf.data_ptr() + buf.numel()
+    spans = sorted((getattr(a, n), getattr(a, n) + s) for n, s in sizes.items())
+    assert all((p - lo) % 256 == 0 for p, _ in spans)
+    assert spans[0][0] >= lo and spans[-1][1] <= hi
+    assert all(e <= p for (_, e), (p, _) in zip(spans, spans[1:]))

@@ -165,3 +165,135 @@ def test_stream_prep_matches_jax(weight_dtype):
             np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
     else:
         assert got["scales"] is None and want["scales"] is None
+
+
+# ---------------------------------------------------------------------------
+# the split-K product's tiling (csrc/common.cuh) and the step's one scratch
+# allocation, pure Python
+
+from blt_vqg_tpu_torch.ops.kernels import decode_layer as tdl  # noqa: E402
+
+# (batch, heads, head_dim, ffn) of the card tests' stack cases
+# (tests/test_torch_kernels_cuda.py STACK_CASES) and of the flagship
+# (emb 1024, 8 heads, FFN 2048) at b64, b128 and b512
+STACK_WIDTHS = [(3, 4, 16, 72), (70, 2, 40, 64), (8, 8, 128, 2048),
+                (64, 8, 128, 2048), (128, 8, 128, 2048), (512, 8, 128, 2048)]
+
+
+def _walk(batch, groups, depth, width, bf16):
+    """Walks gemm_partial_kernel's grid: returns {(partial, row tile,
+    column tile): the offsets of its first and last element, for each
+    block that writes it}, a partial being blockIdx.y = group * splits +
+    K split, and the kernel's padded width Np and height Bp."""
+    t = tds.GEMM_TILE
+    splits = tds.gemm_splits(depth, bf16)
+    gx, gy, gz = -(-width // t), groups * splits, -(-batch // t)
+    np_, bp = gx * t, gz * t
+    written = {}
+    for x in range(gx):
+        for y in range(gy):
+            for z in range(gz):
+                first = (y * bp + z * t) * np_ + x * t
+                written.setdefault((y, z, x), []).append(
+                    (first, first + (t - 1) * np_ + t - 1))
+    return written, np_, bp
+
+
+def _check_products(batch, products, bf16):
+    """Each product's blocks write every (partial, tile) once inside the
+    workspace, and the epilogue's reads of output (b, n) — the partials of
+    its group (all groups, in order, for a reduce product) in split order,
+    at (((g * splits + s) * Bp + b) * Np + n) — land in what they wrote."""
+    floats = tds.gemm_workspace(batch, products, bf16)
+    t = tds.GEMM_TILE
+    for groups, depth, width, reduce in products:
+        splits = tds.gemm_splits(depth, bf16)
+        written, np_, bp = _walk(batch, groups, depth, width, bf16)
+        assert sorted(written) == [
+            (y, z, x) for y in range(groups * splits)
+            for z in range(-(-batch // t)) for x in range(-(-width // t))]
+        assert all(len(w) == 1 for w in written.values())
+        assert max(last for (w,) in written.values() for last in w) < floats
+        for b, n in {(0, 0), (batch - 1, width - 1), (batch // 2, width // 3)}:
+            for g in range(groups):
+                for sp in range(splits):
+                    y = g * splits + sp
+                    off = ((y * bp) + b) * np_ + n
+                    (first, last), = written[(y, b // t, n // t)]
+                    assert first <= off <= last
+                    assert (off - first) % np_ == n % t
+                    assert (off - first) // np_ == b % t
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", STACK_WIDTHS,
+                         ids=[f"b{c[0]}-h{c[1]}-dh{c[2]}-f{c[3]}"
+                              for c in STACK_WIDTHS])
+def test_stack_products_partials_reach_their_epilogue(case, bf16):
+    b, h, dh, f = case
+    hc, fc = tds.pick_stages(h, f)
+    _check_products(b, tds.stack_products(h * dh, h, hc, fc, f), bf16)
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", [(3, 32, 72), (70, 80, 64), (20, 1024, 2048),
+                                  (64, 1024, 2048), (256, 1024, 2048)],
+                         ids=["b3", "b70", "b20", "b64", "b256"])
+def test_cross_products_partials_reach_their_epilogue(case, bf16):
+    b, d, f = case
+    _check_products(b, tdl.cross_products(d, f), bf16)
+
+
+def test_stack_products_match_the_weights():
+    """stack_products has the (groups, depth, width) of the stacked weight
+    layouts decode_stack_step takes, the out products reducing."""
+    d, h, f = 64, 4, 72
+    hc, fc = tds.pick_stages(h, f)
+    dh, w, fch = d // h, (h // hc) * d // h, f // fc
+    shapes = [(h, d, 3 * dh), (h, dh, d), (hc, d, w), (hc, w, d),
+              (fc, d, fch), (fc, fch, d)]
+    assert [p[:3] for p in tds.stack_products(d, h, hc, fc, f)] == shapes
+    assert [p[3] for p in tds.stack_products(d, h, hc, fc, f)] == [0, 1] * 3
+
+
+def _scratch_pieces(a, buf, names):
+    """The pieces' pointers: distinct, 256-byte aligned, inside buf."""
+    lo, hi = buf.data_ptr(), buf.data_ptr() + buf.numel()
+    ptrs = [getattr(a, n) for n in names]
+    assert len(set(ptrs)) == len(ptrs)
+    assert all(lo <= p < hi and (p - lo) % 256 == 0 for p in ptrs)
+    return sorted(ptrs)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_stack_args_one_scratch_allocation(dt):
+    b, h, dh, f, nl, lmax, pos = 3, 4, 16, 72, 2, 7, 3
+    hc, fc = tds.pick_stages(h, f)
+    d, w, fch = h * dh, (h // hc) * dh, f // fc
+    z = lambda *s, t=dt: torch.zeros(s, dtype=t)
+    weights = (z(nl, h, d, 3 * dh), z(nl, h, dh, d), z(nl, hc, d, w),
+               z(nl, hc, w, d), z(nl, fc, d, fch), z(nl, fc, fch, d))
+    w8, s8 = tds.quantize_stack(weights[5].float())
+    weights = weights[:5] + (w8,)
+    scales = (None,) * 5 + (s8,)
+    a, (x_out, k_new, v_new), buf = tds._prepare(
+        z(b, d), pos, z(nl, 6, d, t=torch.float32), weights, scales,
+        z(nl, h, lmax, b, dh), z(nl, h, lmax, b, dh), z(nl, hc, 3, b, w),
+        z(nl, hc, 3, b, w), z(3, b, t=torch.int32),
+        z(nl, fc, 1, fch, t=torch.float32), z(nl, 1, d, t=torch.float32),
+        None, None, hc, fc)
+    assert list(a.w_i8) == [0, 0, 0, 0, 0, 1]
+    assert a.act_bf16 == int(dt == torch.bfloat16)
+    assert x_out.shape == (b, d) and k_new.shape == v_new.shape == (nl, h, b, dh)
+    floats = tds.gemm_workspace(b, tds.stack_products(d, h, hc, fc, f),
+                                dt == torch.bfloat16)
+    assert a.part_floats == floats
+    act = torch.finfo(dt).bits // 8
+    sizes = dict(xn=b * d * act, ctx=h * b * dh * act, ctxc=hc * b * w * act,
+                 h1=fc * b * fch * act, part=floats * 4)
+    ptrs = _scratch_pieces(a, buf, sizes)
+    # in order, each piece ends before the next begins
+    ends = [getattr(a, n) + sizes[n] for n in sizes]
+    assert all(e <= p for e, p in zip(sorted(ends)[:-1], ptrs[1:]))
+    assert sorted(ends)[-1] <= buf.data_ptr() + buf.numel()

@@ -28,6 +28,12 @@ per-layer decode kernels (``self_attn_step``, ``cross_ffn_step``: outputs
 and the written cache rows) and ``int8_matmul`` take the stack's limits:
 f32 up to the order of f32 sums, bf16 one-ulp flips of rounded outputs and
 residuals.
+The decode stack step and ``cross_ffn_step`` run their launch sequences
+(programmatic dependent launches): 12 kernels a layer and one (stack) or
+9 (cross/FFN) and nothing else, by profiler (which may drop a record, never
+add one); the stack also at the flagship's widths at b64, b128 and b512
+with bf16 and int8 weights, and the per-layer steps at the flagship's
+widths at b64 and b256.
 The four ring-attention functions (o, m, l, dq, dk, dv, one-way and
 two-way, on rings of 2, 3 and 4 ranks with ragged chunks) take the flash
 limits; their dead rows attend uniformly and must not come out zero.  The
@@ -141,6 +147,96 @@ def test_decode_stack_step_kernel(dev, dt, case):
         err = (g - wv).abs()
         assert float(err.max() / wv.abs().max()) <= rel_max_tol, name
         assert float(err.norm() / wv.norm()) <= rel_norm_tol, name
+
+
+def _kernels_per_call(fn, calls: int = 4) -> dict:
+    """{device kernel name: records per call} of ``calls`` calls of ``fn``
+    by profiler, after a warm-up call (taken again, up to twice, if the
+    profiler recorded nothing)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key: e.count / calls for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        if out:
+            break
+    return out
+
+
+def _runs_sequence(fn, want: dict) -> None:
+    """Each call of ``fn`` runs the kernels ``want`` ({name: launches per
+    call}, matched as whole identifiers) and nothing else; the profiler may
+    drop records, never add them."""
+    import re
+
+    got = {}
+    for name, n in _kernels_per_call(fn).items():
+        fam = next((k for k in want
+                    if re.search(rf"(?<![A-Za-z0-9_]){k}(?![A-Za-z0-9_])",
+                                 name)), name)
+        got[fam] = got.get(fam, 0.0) + n
+    assert got, "the profiler recorded no device kernel"
+    for fam, n in got.items():
+        assert n <= want.get(fam, 0) + 1e-6, got
+
+
+def _stack_kernels(layers: int) -> dict:
+    """A stack call's kernels: per layer 6 products' partials, 2 attention
+    kernels (summing their q, k, v from the partials), 3 residual epilogues
+    with the LayerNorm after them (the last layer's last without) and the
+    FFN-in epilogue; one LayerNorm first."""
+    return {"layernorm_kernel": 1, "gemm_partial_kernel": 6 * layers,
+            "self_attn_kernel": layers, "cross_attn_kernel": layers,
+            "residual_ln_kernel": 3 * layers - 1,
+            "gemm_epilogue_kernel": layers + 1}
+
+
+@pytest.mark.parametrize("case", STACK_CASES,
+                         ids=[f"case{i}" for i in range(len(STACK_CASES))])
+def test_decode_stack_step_launch_sequence(dev, case):
+    b, h, dh, f, nl, lmax, pos, with_kp, quant = case
+    args, kw, kp = _stack_inputs(dev, torch.bfloat16, quant, b, h, dh, f, nl,
+                                 lmax, seed=pos + 11)
+    if with_kp:
+        kw.update(key_pad=kp, key_pad_cur=kp[pos:pos + 1].contiguous())
+    _runs_sequence(
+        lambda: tds.decode_stack_step(args[0], pos, *args[1:], **kw),
+        _stack_kernels(nl))
+
+
+# the flagship's widths (2 of its 6 layers) at b64, b128 and b512, bf16
+# activations, bf16 or int8 weights: (batch, heads, head_dim, ffn, layers,
+# lmax, pos, key_pad, weights)
+STACK_FLAGSHIP = [(b, 8, 128, 2048, 2, 51, 25, True, quant)
+                  for b in (64, 128, 512) for quant in ("none", "all")]
+
+
+@pytest.mark.parametrize("case", STACK_FLAGSHIP,
+                         ids=[f"b{c[0]}-{c[-1]}" for c in STACK_FLAGSHIP])
+def test_decode_stack_step_flagship_kernel(dev, case):
+    b, h, dh, f, nl, lmax, pos, _, quant = case
+    args, kw, kp = _stack_inputs(dev, torch.bfloat16, quant, b, h, dh, f, nl,
+                                 lmax, seed=b)
+    kw.update(key_pad=kp, key_pad_cur=kp[pos:pos + 1].contiguous())
+    x, rest = args[0], args[1:]
+    got = tds.decode_stack_step(x, pos, *rest, **kw)
+    want = tds.decode_stack_step_ref(x, pos, *rest, **kw)
+    rel_max_tol, rel_norm_tol = STACK_TOL[torch.bfloat16]
+    for name, g, wv in zip(("x_out", "k_new", "v_new"), got, want):
+        g, wv = g.float(), wv.float()
+        assert bool(torch.isfinite(g).all()), name
+        err = (g - wv).abs()
+        assert float(err.max() / wv.abs().max()) <= rel_max_tol, name
+        assert float(err.norm() / wv.norm()) <= rel_norm_tol, name
+    _runs_sequence(lambda: tds.decode_stack_step(x, pos, *rest, **kw),
+                   _stack_kernels(nl))
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
@@ -426,6 +522,29 @@ def test_cross_ffn_step_kernel(dev, dt, case):
     bcast[6] = row[None].expand(args[0].shape[0], -1)
     _close(tdl.cross_ffn_step(*bcast, h),
                tdl.cross_ffn_step_ref(*bcast, h), dt, "broadcast mask")
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", LAYER_CASES + [
+    (64, 8, 128, 2048, 51, 25, False), (256, 8, 128, 2048, 51, 25, False)],
+    ids=[f"case{i}" for i in range(len(LAYER_CASES))] + ["b64", "b256"])
+def test_per_layer_steps_launch_sequence(dev, dt, case):
+    """self_attn_step runs 6 kernels a call, cross_ffn_step 9; the
+    flagship's widths within the limits."""
+    self_args, args, kp = _layer_inputs(dev, dt, case, seed=case[0] + 41)
+    h, pos = case[1], case[5]
+    if case[0] >= 64:
+        _close(tdl.cross_ffn_step(*args, h), tdl.cross_ffn_step_ref(*args, h),
+               dt, "out")
+    _runs_sequence(lambda: tdl.cross_ffn_step(*args, h),
+                   {"layernorm_kernel": 1, "gemm_partial_kernel": 4,
+                    "layer_cross_attn_kernel": 1, "residual_ln_kernel": 1,
+                    "gemm_epilogue_kernel": 1, "residual_epilogue_kernel": 1})
+    _runs_sequence(lambda: tdl.self_attn_step(*self_args, pos, h, key_pad=kp),
+                   {"layernorm_kernel": 1, "gemm_partial_kernel": 2,
+                    "gemm_epilogue_kernel": 1, "residual_epilogue_kernel": 1,
+                    "layer_self_attn_kernel": 1})
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
