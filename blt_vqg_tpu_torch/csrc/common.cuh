@@ -1,5 +1,8 @@
 // Shared pieces of the decode kernels: element conversions, reductions, the
-// row LayerNorm and the weight-streaming product both kernels are built on.
+// row LayerNorm, the tensor-core primitives, and the two weight-streaming
+// products the kernels are built on (the split-K product with f32 partials
+// in device memory; the cluster split-K product that sums its partials in
+// distributed shared memory).
 //
 // Activations are float or __nv_bfloat16 (the model's compute dtype);
 // weights are the activation type or int8 with per-column f32 scales.
@@ -10,8 +13,12 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <cooperative_groups.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
+#include <utility>
 
 namespace bvq {
 
@@ -49,6 +56,66 @@ static inline int cdiv(int a, int b) { return (a + b - 1) / b; }
     const cudaError_t e_ = (expr);       \
     if (e_ != cudaSuccess) return e_;    \
   } while (0)
+
+// ---------------------------------------------------------------------------
+// Tensor-core primitives (also the bf16 attention kernels', csrc/mma.cuh).
+// In the fragments of mma.m16n8k16, lane 4 gr + tq holds rows gr and
+// gr + 8, columns 2 tq and 2 tq + 1 of each 8 columns.
+__device__ __forceinline__ uint32_t rf_sa(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes of E elements (16 / sizeof(E) of them) from src into shared dst:
+// one cp.async where all are valid and src is 16-byte aligned, else element
+// loads, `fill` from index `valid` on
+template <typename E>
+__device__ __forceinline__ void rf_load16(E* dst, const E* src, int valid, E fill) {
+  constexpr int N = 16 / sizeof(E);
+  if (valid == N && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(rf_sa(dst)), "l"(src)
+                 : "memory");
+  } else {
+    uint4 u;
+    E* el = reinterpret_cast<E*>(&u);
+    for (int i = 0; i < N; ++i) el[i] = i < valid ? src[i] : fill;
+    *reinterpret_cast<uint4*>(dst) = u;
+  }
+}
+
+__device__ __forceinline__ void rf_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// four 8x8 b16 matrices from shared memory: lane l gives the address of row
+// l % 8 of matrix l / 8; register i holds matrix i (row lane / 4, columns
+// 2 (lane % 4) and + 1; transposed with .trans)
+__device__ __forceinline__ void rf_ldsm(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(rf_sa(p))
+               : "memory");
+}
+__device__ __forceinline__ void rf_ldsm_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(rf_sa(p))
+               : "memory");
+}
+
+// d += a (16 x 16 bf16, row major) * b (16 x 8 bf16, column major), in f32
+__device__ __forceinline__ void rf_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16, lo (the lower column) in the low half
+__device__ __forceinline__ uint32_t rf_pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 // ---------------------------------------------------------------------------
 // 16 bytes of TS elements at p: one load where p is 16-byte aligned and
@@ -535,6 +602,302 @@ static cudaError_t launch_residual_ln(const Gemm& p, bool w_i8, bool round_group
   const int Bp = cdiv(p.B, BM) * BM, Np = cdiv(p.N, BN) * BN;
   residual_ln_kernel<T, TR, TO><<<p.B, LN_THREADS, 0, s>>>(
       p, Bp, Np, (int)round_groups, (int)bias_last, ln_scale, ln_bias, xn);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Cluster split-K product (Hopper): bf16 activations, bf16 or int8 weights,
+// f32 sums; the per-layer self-attention step's QKV and out products and
+// the fused head (csrc/decode_layer.cu, csrc/decode_head.cu) run on it.
+// The stack step and the cross/FFN step (their launch sequences were cut
+// apart from this product) stay on the split-K product above; moving
+// them onto this one is left to a later change that measures it.
+//
+// At decode batch sizes such a product is bound by its weight bytes.  The
+// product above writes each K split's f32 partial tile to device memory
+// and sums the partials in another launch.  Here the C blocks of a thread-
+// block cluster split one [CK_BM, CK_BN] output tile's K and keep their
+// partial tiles in shared memory; after a cluster barrier, rank r sums
+// columns [r BN / C, (r + 1) BN / C) of the tile from every rank, in rank
+// order 0..C-1 (a fixed order), through distributed shared memory, and
+// applies the caller's epilogue; a second barrier keeps each rank's shared
+// memory alive until its peers have read it.  No partial leaves the chip.
+//
+// Each block streams its K slice through a ring of CK_STAGES cp.async
+// stages of CK_KS rows (two chunks in flight while a third is used), the
+// matching x columns beside the weights; int8 weights stay int8 in shared
+// memory and are widened exactly to bf16 as each B fragment is built in
+// registers.  The products run on mma.sync m16n8k16 with f32 accumulators
+// in registers: warp w owns columns [CK_WN w, CK_WN (w + 1)) of the tile
+// and every 16-row slice that holds a live row.  The accumulators stay in the tensor
+// core's sums, as the split-K product's WMMA: summing each 16-deep slice
+// from zero and adding it in f32 tripled the instructions per product, and
+// the loop was bound by their issue.
+// The plan (C, each rank's depth, the groups a block takes) comes from the
+// caller (ops/kernels/decode_stream.py cluster_split and cluster_heads) and
+// is checked here; it takes the fewest ranks that fit the card in one wave
+// of blocks.
+//
+// What bounds it on an H100 (PERF.md; tools/cluster_diag.py): not the
+// bytes.  At the flagship shapes a launch takes 8-16 us against a 1-4 us
+// bound, nearly the same with the L2 warm or cold and with 2, 3 or 4
+// stages, and 10-12 us with no global loads at all: each block is a chain
+// of latencies (the first chunk, about 1.4 us a further 64-deep chunk, the
+// cluster barrier, the epilogue, the last barrier), and a launch lasts
+// about one block's chain per wave of blocks.
+namespace cg = cooperative_groups;
+
+constexpr int CK_BM = 64, CK_BN = 64, CK_KS = 64, CK_STAGES = 3;
+constexpr int CK_WARPS = 4, CK_THREADS = 32 * CK_WARPS;
+constexpr int CK_WN = CK_BN / CK_WARPS, CK_NJ = CK_WN / 8;  // a warp's columns, its n8 tiles
+constexpr int CK_MAX_CLUSTER = 8;  // the portable cluster size
+constexpr int CK_XLD = CK_KS + 8, CK_WLD = CK_BN + 8;  // bf16 pitches: ldmatrix without conflicts
+constexpr int CK_RLD = CK_BN + 16;  // int8 pitch: 16-byte rows, fragment bytes without conflicts
+constexpr int CK_PLD = CK_BN + 4;   // f32 pitch of a partial tile
+constexpr int CK_XBYTES = CK_BM * CK_XLD * 2, CK_WBYTES = CK_KS * CK_WLD * 2;
+constexpr int CK_RBYTES = CK_KS * CK_RLD;
+constexpr int CK_PART_BYTES = CK_BM * CK_PLD * 4;
+
+template <bool I8> __host__ __device__ constexpr int ck_stage_bytes() {
+  return CK_XBYTES + (I8 ? CK_RBYTES : CK_WBYTES);
+}
+// byte offset of a block's partial tiles: with one tile it reuses the
+// stages, idle by then
+template <bool I8> __host__ __device__ constexpr int ck_part_offset(int parts) {
+  return parts == 1 ? 0 : CK_STAGES * ck_stage_bytes<I8>();
+}
+// dynamic shared memory of a block keeping `parts` partial tiles, then
+// `extra` bytes for its epilogue
+template <bool I8> __host__ __device__ constexpr int ck_smem(int parts, int extra) {
+  return (parts == 1 ? (CK_STAGES * ck_stage_bytes<I8>() > CK_PART_BYTES
+                            ? CK_STAGES * ck_stage_bytes<I8>()
+                            : CK_PART_BYTES)
+                     : CK_STAGES * ck_stage_bytes<I8>() + parts * CK_PART_BYTES) +
+         extra;
+}
+
+// Group g's x element (b, k) is x[g xs_g + b xs_b + k]; its weights w[g]
+// are [K, N], row-major, groups contiguous.
+struct CkGemm {
+  const __nv_bfloat16* x;
+  long xs_g, xs_b;
+  const void* w;
+  int B, K, N, G;
+};
+
+// whether (C, kslice) splits depth K over a cluster
+static inline bool ck_split_ok(int C, int kslice, int K) {
+  return C >= 1 && C <= CK_MAX_CLUSTER && (C & (C - 1)) == 0 && kslice > 0 &&
+         kslice % 16 == 0 && (long)C * kslice >= K;
+}
+
+// The block's partial products into its shared memory, one [CK_BM][CK_PLD]
+// f32 tile each for groups g0 .. g0 + parts - 1 (those below G):
+// P[m][n] = sum over k in [k0, k1) of x[g][m0 + m][k] w[g][k][n0 + n], rows
+// past B and columns past N zero.
+template <bool I8>
+__device__ void ck_partials(const CkGemm& p, int g0, int parts, int m0, int n0, int k0,
+                            int k1, unsigned char* smem) {
+  using bf = __nv_bfloat16;
+  using TW = typename std::conditional<I8, int8_t, bf>::type;
+  constexpr int SB = ck_stage_bytes<I8>(), E = 16 / sizeof(TW);
+  constexpr int WLD = I8 ? CK_RLD : CK_WLD;  // pitch of the weights as loaded
+  float* part = reinterpret_cast<float*>(smem + ck_part_offset<I8>(parts));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int mi = lane / 8, lr8 = lane % 8, gr = lane / 4, tq = lane % 4;
+  const int live = min(CK_BM, p.B - m0);
+  const int nch = k1 > k0 ? (k1 - k0 + CK_KS - 1) / CK_KS : 0;
+  const bf zero = __float2bfloat16_rn(0.f);
+  TW wzero;
+  if constexpr (I8) wzero = 0; else wzero = zero;
+  for (int i = 0; i < parts && g0 + i < p.G; ++i) {
+    const int g = g0 + i;
+    const bf* xg = p.x + g * p.xs_g + (size_t)m0 * p.xs_b;
+    const TW* wg = static_cast<const TW*>(p.w) + (size_t)g * p.K * p.N + n0;
+    // chunk c (K rows k0 + c CK_KS onwards) into stage c % CK_STAGES
+    auto load = [&](int c) {
+      unsigned char* st = smem + (c % CK_STAGES) * SB;
+      bf* xs = reinterpret_cast<bf*>(st);
+      TW* ws = reinterpret_cast<TW*>(st + CK_XBYTES);
+      const int kc = k0 + c * CK_KS, kn = min(CK_KS, k1 - kc);
+#pragma unroll
+      for (int j = 0; j < CK_BM * CK_KS / 8 / CK_THREADS; ++j) {
+        const int ch = tid + j * CK_THREADS, m = ch / (CK_KS / 8), k = (ch % (CK_KS / 8)) * 8;
+        rf_load16(xs + m * CK_XLD + k, xg + (size_t)m * p.xs_b + kc + k,
+                  m < live ? max(0, min(8, kn - k)) : 0, zero);
+      }
+#pragma unroll
+      for (int j = 0; j < CK_KS * CK_BN / E / CK_THREADS; ++j) {
+        const int ch = tid + j * CK_THREADS, k = ch / (CK_BN / E), n = (ch % (CK_BN / E)) * E;
+        rf_load16(ws + k * WLD + n, wg + (size_t)(kc + k) * p.N + n,
+                  k < kn ? max(0, min(E, p.N - n0 - n)) : 0, wzero);
+      }
+    };
+    float acc[CK_BM / 16][CK_NJ][4];
+#pragma unroll
+    for (int t = 0; t < CK_BM / 16; ++t)
+#pragma unroll
+      for (int j = 0; j < CK_NJ; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[t][j][q] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CK_STAGES - 1; ++c) {
+      if (c < nch) load(c);
+      rf_commit();
+    }
+    for (int c = 0; c < nch; ++c) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(CK_STAGES - 2) : "memory");  // chunk c
+      __syncthreads();  // chunk c is in; every warp is done with chunk c - 1's stage
+      if (c + CK_STAGES - 1 < nch) load(c + CK_STAGES - 1);  // into chunk c - 1's stage
+      rf_commit();
+      const unsigned char* st = smem + (c % CK_STAGES) * SB;
+      const bf* xs = reinterpret_cast<const bf*>(st);
+      const TW* ws = reinterpret_cast<const TW*>(st + CK_XBYTES);
+      const int kn = min(CK_KS, k1 - (k0 + c * CK_KS));
+#pragma unroll
+      for (int kk = 0; kk < CK_KS; kk += 16) {
+        if (kk >= kn) break;
+        uint32_t bw[CK_NJ][2];  // B fragments of the warp's n8 tiles j: columns CK_WN warp + 8 j
+        if constexpr (I8) {
+          // widened exactly to bf16 in registers: rows kk + 2 tq (+1, +8, +9), column gr
+#pragma unroll
+          for (int j = 0; j < CK_NJ; ++j) {
+            const int8_t* r = ws + (kk + 2 * tq) * CK_RLD + CK_WN * warp + 8 * j + gr;
+            bw[j][0] = rf_pack((float)r[0], (float)r[CK_RLD]);
+            bw[j][1] = rf_pack((float)r[8 * CK_RLD], (float)r[9 * CK_RLD]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < CK_NJ; j += 2) {
+            uint32_t f[4];
+            rf_ldsm_t(f, ws + (kk + 8 * (mi & 1) + lr8) * CK_WLD + CK_WN * warp + 8 * j +
+                             8 * (mi >> 1));
+            bw[j][0] = f[0];
+            bw[j][1] = f[1];
+            bw[j + 1][0] = f[2];
+            bw[j + 1][1] = f[3];
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < CK_BM / 16; ++t) {
+          if (16 * t < live) {
+            uint32_t ax[4];
+            rf_ldsm(ax, xs + (16 * t + 8 * (mi & 1) + lr8) * CK_XLD + kk + 8 * (mi >> 1));
+#pragma unroll
+            for (int j = 0; j < CK_NJ; ++j) rf_mma(acc[t][j], ax, bw[j][0], bw[j][1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with the stages (the partial may reuse them)
+    float* pt = part + (size_t)i * CK_BM * CK_PLD;
+#pragma unroll
+    for (int t = 0; t < CK_BM / 16; ++t)
+#pragma unroll
+      for (int j = 0; j < CK_NJ; ++j) {
+        const int row = 16 * t + gr, col = CK_WN * warp + 8 * j + 2 * tq;
+        *reinterpret_cast<float2*>(pt + row * CK_PLD + col) = make_float2(acc[t][j][0], acc[t][j][1]);
+        *reinterpret_cast<float2*>(pt + (row + 8) * CK_PLD + col) =
+            make_float2(acc[t][j][2], acc[t][j][3]);
+      }
+  }
+}
+
+template <bool I8> __device__ __forceinline__ float* ck_part_tiles(unsigned char* smem, int parts) {
+  return reinterpret_cast<float*>(smem + ck_part_offset<I8>(parts));
+}
+
+// columns (float4 groups) of rank r's share of a tile: [r s, (r + 1) s), s = CK_BN / 4 / C;
+// a thread takes ck_items(C) of the share's (row, float4) items, item j being
+// it = threadIdx.x + j CK_THREADS: row it / s, float4 r s + it % s (so s
+// consecutive lanes share a row)
+__host__ __device__ constexpr int ck_share4(int C) { return CK_BN / 4 / C; }
+__host__ __device__ constexpr int ck_items(int C) { return CK_BM * CK_BN / 4 / C / CK_THREADS; }
+
+// the float4 at (row, col) of partial tile `tile` in rank r's shared memory
+__device__ __forceinline__ float4 ck_peer4(cg::cluster_group& cl, float* tiles, int r,
+                                           int tile, int row, int col) {
+  return *cl.map_shared_rank(
+      reinterpret_cast<float4*>(tiles + ((size_t)tile * CK_BM + row) * CK_PLD + col), r);
+}
+
+// (row, col) of partial tile 0 summed over the C ranks in rank order
+template <int C>
+__device__ __forceinline__ float4 ck_sum4(cg::cluster_group& cl, float* tiles, int row, int col) {
+  float4 v[C];
+#pragma unroll
+  for (int r = 0; r < C; ++r) v[r] = ck_peer4(cl, tiles, r, 0, row, col);
+  float4 s = v[0];
+#pragma unroll
+  for (int r = 1; r < C; ++r) {
+    s.x += v[r].x;
+    s.y += v[r].y;
+    s.z += v[r].z;
+    s.w += v[r].w;
+  }
+  return s;
+}
+
+// Raises kernel's dynamic shared memory allowance to `bytes` where the
+// allowance set so far (`set`, the kernel's own per device) is lower;
+// `max_carveout` also asks for the largest shared-memory carveout: left to
+// choose, CUDA gave the cluster kernels a carveout that held fewer blocks
+// than their shared memory allows, and they ran slower.
+static cudaError_t allow_smem(const void* kernel, int bytes, int (&set)[BVQ_DEVICES],
+                              bool max_carveout = false) {
+  int dev = 0;
+  BVQ_TRY(cudaGetDevice(&dev));
+  if (dev < BVQ_DEVICES && set[dev] >= bytes) return cudaSuccess;
+  BVQ_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  if (max_carveout)
+    BVQ_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared));
+  if (dev < BVQ_DEVICES) set[dev] = bytes;
+  return cudaSuccess;
+}
+
+// A cluster kernel's state per device: its shared-memory allowance and the
+// last (cluster, shared memory) shape found schedulable.
+struct CkLaunch {
+  int smem[BVQ_DEVICES];
+  long shape[BVQ_DEVICES];
+};
+
+// index of a cluster size (1, 2, 4, 8) among a kernel's instantiations
+static inline int ck_size_index(int C) { return C == 1 ? 0 : C == 2 ? 1 : C == 4 ? 2 : 3; }
+
+// Launches kernel on `grid` in clusters of `cluster` blocks along x, with
+// `smem` bytes of dynamic shared memory.  The allowance is raised first,
+// then the card is asked once per shape whether it can hold one such
+// cluster at all (cudaOccupancyMaxActiveClusters): a shape it cannot
+// schedule is an error, never another path.
+template <typename... KArgs, typename... Args>
+static cudaError_t launch_cluster(void (*kernel)(KArgs...), CkLaunch& st, dim3 grid,
+                                  int cluster, int smem, cudaStream_t s, Args&&... args) {
+  if (cluster < 1 || cluster > CK_MAX_CLUSTER || grid.x % cluster) return cudaErrorInvalidValue;
+  int dev = 0;
+  BVQ_TRY(cudaGetDevice(&dev));
+  BVQ_TRY(allow_smem((const void*)kernel, smem, st.smem, true));
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(CK_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const long shape = ((long)cluster << 32) | (unsigned)smem;
+  if (dev >= BVQ_DEVICES || st.shape[dev] != shape) {
+    int clusters = 0;
+    BVQ_TRY(cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg));
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    if (dev < BVQ_DEVICES) st.shape[dev] = shape;
+  }
+  BVQ_TRY(cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...));
   return cudaGetLastError();
 }
 

@@ -50,8 +50,9 @@ class StackArgs(ctypes.Structure):
 class HeadArgs(ctypes.Structure):
     """Mirror of ``bvq::HeadArgs`` in csrc/decode_head.cu."""
     _fields_ = [("act_bf16", I), ("w_i8", I), ("batch", I), ("dim", I),
-                ("vocab", I), ("x", P), ("ln_scale", P), ("ln_bias", P),
-                ("w", P), ("scales", P), ("bias", P), ("xn", P), ("part", P),
+                ("vocab", I), ("cluster", I), ("kslice", I), ("x", P),
+                ("ln_scale", P), ("ln_bias", P), ("w", P), ("scales", P),
+                ("bias", P), ("xn", P), ("part", P), ("part_floats", L),
                 ("tokens", P)]
 
 
@@ -108,11 +109,13 @@ class RingBwdArgs(ctypes.Structure):
 class SelfAttnArgs(ctypes.Structure):
     """Mirror of ``bvq::SelfAttnArgs`` in csrc/decode_layer.cu."""
     _fields_ = [("act_bf16", I), ("batch", I), ("dim", I), ("heads", I),
-                ("head_dim", I), ("lmax", I), ("pos", I), ("kp_sl", L),
-                ("kp_sb", L), ("q_scale", F), ("x", P), ("ln_scale", P),
-                ("ln_bias", P), ("w_qkv", P), ("w_out", P), ("cache_k", P),
-                ("cache_v", P), ("key_pad", P), ("out", P), ("xn", P),
-                ("qkv", P), ("ctx", P), ("part", P)]
+                ("head_dim", I), ("lmax", I), ("pos", I), ("qkv_cluster", I),
+                ("qkv_kslice", I), ("out_cluster", I), ("out_heads", I),
+                ("kp_sl", L), ("kp_sb", L), ("q_scale", F), ("x", P),
+                ("ln_scale", P), ("ln_bias", P), ("w_qkv", P), ("w_out", P),
+                ("cache_k", P), ("cache_v", P), ("key_pad", P), ("out", P),
+                ("xn", P), ("qkv", P), ("ctx", P), ("part", P),
+                ("part_floats", L)]
 
 
 class CrossFfnArgs(ctypes.Structure):
@@ -203,8 +206,6 @@ def library() -> ctypes.CDLL:
     lib.bvq_decode_stack_step.restype = I
     lib.bvq_head_argmax.argtypes = [ctypes.POINTER(HeadArgs), P]
     lib.bvq_head_argmax.restype = I
-    lib.bvq_head_workspace.argtypes = [ctypes.POINTER(HeadArgs)]
-    lib.bvq_head_workspace.restype = L
     for name in ("bvq_flash_fwd", "bvq_flash_bwd_dkdv", "bvq_flash_bwd_dq"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(FlashCall), P]
@@ -215,17 +216,14 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(RingBwdArgs), P]
         fn.restype = I
-    lib.bvq_cross_ffn_step.argtypes = [ctypes.POINTER(CrossFfnArgs), P]
-    lib.bvq_cross_ffn_step.restype = I
-    for run, workspace, args in (
-            ("bvq_self_attn_step", "bvq_self_attn_workspace", SelfAttnArgs),
-            ("bvq_int8_matmul", "bvq_int8_matmul_workspace", Int8Args)):
-        fn = getattr(lib, run)
+    for name, args in (("bvq_cross_ffn_step", CrossFfnArgs),
+                       ("bvq_self_attn_step", SelfAttnArgs),
+                       ("bvq_int8_matmul", Int8Args)):
+        fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(args), P]
         fn.restype = I
-        fn = getattr(lib, workspace)
-        fn.argtypes = [ctypes.POINTER(args)]
-        fn.restype = L
+    lib.bvq_int8_matmul_workspace.argtypes = [ctypes.POINTER(Int8Args)]
+    lib.bvq_int8_matmul_workspace.restype = L
     lib.bvq_error_string.argtypes = [I]
     lib.bvq_error_string.restype = ctypes.c_char_p
     return lib

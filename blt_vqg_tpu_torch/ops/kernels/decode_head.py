@@ -1,9 +1,10 @@
 """Fused decode head (counterpart of ``blt_vqg_tpu/ops/pallas/decode_head.py``):
 final LayerNorm + vocab projection + greedy argmax, no logits stored.
 
-:func:`head_argmax` launches the kernel of ``csrc/decode_head.cu`` on CUDA
-tensors and computes the plain version :func:`head_argmax_ref` on CPU
-tensors.  Ties go to the first maximal index.  The caller pads the weights
+:func:`head_argmax` launches the kernels of ``csrc/decode_head.cu`` on CUDA
+tensors (:func:`head_kernels`: 3 a call with bf16 activations, on the
+cluster split-K product, :func:`head_plan`; 4 with f32) and computes the
+plain version :func:`head_argmax_ref` on CPU tensors.  Ties go to the first maximal index.  The caller pads the weights
 to a chunk multiple with :func:`pad_head` (zero columns, ``PAD_BIAS``
 bias), so padded columns never win.
 """
@@ -15,7 +16,12 @@ import ctypes
 import torch
 from torch.nn import functional as F
 
-from blt_vqg_tpu_torch.ops.kernels.decode_stream import layernorm
+from blt_vqg_tpu_torch.ops.kernels.decode_stream import (CLUSTER_TILE,
+                                                          cluster_grid,
+                                                          cluster_split,
+                                                          gemm_workspace,
+                                                          layernorm, scratch,
+                                                          sm_count)
 
 PAD_BIAS = -1e30
 
@@ -57,14 +63,49 @@ def head_argmax_ref(x, ln_scale, ln_bias, w, b, *,
     return torch.argmax(logits, dim=-1).to(torch.int32)  # first max wins
 
 
+HEAD_TILE_F32 = 256     # vocab columns of a (max, argmax) pair, f32
+
+
+def head_plan(batch: int, dim: int, vocab: int, sms: int = 132) -> dict:
+    """The bf16 head's product on the cluster product, on a card of
+    ``sms`` SMs: the K split (ranks, depth per rank), the grid, the vocab
+    tiles, and the (max, argmax) pairs per row: one per block, each rank's
+    column share of a tile."""
+    tiles = -(-vocab // CLUSTER_TILE)
+    split = cluster_split(dim, tiles * -(-batch // CLUSTER_TILE), sms)
+    grid = cluster_grid(batch, vocab, split[0])
+    return {"split": split, "grid": grid, "tiles": tiles, "pairs": grid[0]}
+
+
+def head_kernels(bf16: bool) -> dict:
+    """{device kernel: launches} of one head_argmax call."""
+    if bf16:
+        return {"layernorm_kernel": 1, "head_cluster_kernel": 1,
+                "head_pick_kernel": 1}
+    return {"layernorm_kernel": 1, "gemm_partial_kernel": 1,
+            "head_tiles_kernel": 1, "head_reduce_kernel": 1}
+
+
+def head_workspace(batch: int, dim: int, vocab: int, bf16: bool,
+                   sms: int = 132) -> int:
+    """f32 words of a call's workspace: the (max, argmax) pairs of every
+    row (bf16: one per block of the product; f32: one per HEAD_TILE_F32
+    columns, after the split-K product's partial logits)."""
+    if bf16:
+        return 2 * batch * head_plan(batch, dim, vocab, sms)["pairs"]
+    return (gemm_workspace(batch, ((1, dim, vocab, 0),), False)
+            + 2 * batch * -(-vocab // HEAD_TILE_F32))
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"head_argmax: {msg}")
 
 
-def _run(lib, x, ln_scale, ln_bias, w, b, scales):
-    """Validates the tensors, allocates outputs and scratch, and launches
-    the two passes of csrc/decode_head.cu on the current stream."""
+def _prepare(x, ln_scale, ln_bias, w, b, scales):
+    """Validates the tensors and allocates the tokens and one scratch
+    buffer; returns the kernel's arguments (``HeadArgs``), the tokens and
+    the scratch tensor."""
     from blt_vqg_tpu_torch.ops.kernels import _build
 
     bsz, d = x.shape
@@ -86,21 +127,36 @@ def _run(lib, x, ln_scale, ln_bias, w, b, scales):
         if name not in ("x", "w"):
             _check(t.dtype == torch.float32, f"{name} must be f32")
 
-    # stream-ordered temporaries, as in decode_stream._run; the C side
-    # sizes the workspace and lays out its partials in it
-    dev = x.device
-    tokens = torch.empty((bsz,), dtype=torch.int32, device=dev)
-    xn = torch.empty_like(x)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:    # the product's epilogue reads bias and scales 16 bytes at a time
+        _check(vp % 8 == 0, f"padded vocab {vp} is not a multiple of 8")
+        _check(b.data_ptr() % 16 == 0 and (not quantized
+                                           or scales.data_ptr() % 16 == 0),
+               "b and scales must start at a 16-byte boundary")
+    # stream-ordered temporaries, as in decode_stream._run
+    tokens = torch.empty((bsz,), dtype=torch.int32, device=x.device)
+    sms = sm_count(x.device)
+    floats = head_workspace(bsz, d, vp, bf16, sms)
+    buf, ptrs = scratch(x.device, dict(xn=bsz * d * x.element_size(),
+                                       part=floats * 4))
+    split = head_plan(bsz, d, vp, sms)["split"]
     a = _build.HeadArgs(
-        act_bf16=int(x.dtype == torch.bfloat16), w_i8=int(quantized),
-        batch=bsz, dim=d, vocab=vp, x=x.data_ptr(),
+        act_bf16=int(bf16), w_i8=int(quantized), batch=bsz, dim=d, vocab=vp,
+        cluster=split[0], kslice=split[1], x=x.data_ptr(),
         ln_scale=ln_scale.data_ptr(), ln_bias=ln_bias.data_ptr(),
         w=w.data_ptr(), scales=scales.data_ptr() if quantized else None,
-        bias=b.data_ptr(), xn=xn.data_ptr(), tokens=tokens.data_ptr())
-    part = torch.empty((lib.bvq_head_workspace(ctypes.byref(a)),),
-                       dtype=torch.float32, device=dev)
-    a.part = part.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+        bias=b.data_ptr(), part_floats=floats, tokens=tokens.data_ptr(),
+        **ptrs)
+    return a, tokens, buf
+
+
+def _run(lib, *args):
+    """Launches the kernels of csrc/decode_head.cu on the current stream
+    (arguments as :func:`_prepare`'s)."""
+    from blt_vqg_tpu_torch.ops.kernels import _build
+
+    a, tokens, _buf = _prepare(*args)
+    stream = torch.cuda.current_stream(args[0].device).cuda_stream
     _build.check(lib, lib.bvq_head_argmax(ctypes.byref(a), stream),
                  "head_argmax")
     return tokens
@@ -117,8 +173,9 @@ def head_argmax(x, ln_scale, ln_bias, w, b, *, chunk: int | None = None,
     TPU kernel; the CUDA kernel tiles the vocab its own way, which cannot
     change the first-index argmax.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel and
-    any problem raises.  ``head_argmax.launches`` counts launches.
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    (:func:`head_kernels`) and any problem raises.  ``head_argmax.launches``
+    counts calls that launched them.
     """
     vp = w.shape[1]
     if chunk is None:

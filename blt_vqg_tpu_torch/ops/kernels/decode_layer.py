@@ -12,7 +12,10 @@ Both keep the JAX functions' signatures and layouts (caches [H, L, B, Dh],
 ``w_qkv`` [H, D, 3*Dh], ``w_out`` [H, Dh, D], weights in flax's [in, out]
 layout).  On CUDA tensors they launch the kernels of
 ``csrc/decode_layer.cu``; on CPU tensors they compute the plain versions
-:func:`self_attn_step_ref` and :func:`cross_ffn_step_ref`.
+:func:`self_attn_step_ref` and :func:`cross_ffn_step_ref`.  With bf16
+activations a :func:`self_attn_step` call is 4 launches on the cluster
+split-K product (:func:`self_plan`, :func:`self_kernels`); f32 keeps a
+6-launch chain, and :func:`cross_ffn_step` is 9 launches in both dtypes.
 
 Numerics copied from the TPU kernels, in both versions:
 
@@ -38,8 +41,13 @@ import ctypes
 
 import torch
 
-from blt_vqg_tpu_torch.ops.kernels.decode_stream import (gemm_workspace,
-                                                          layernorm, scratch)
+from blt_vqg_tpu_torch.ops.kernels.decode_stream import (CLUSTER_TILE,
+                                                          cluster_grid,
+                                                          cluster_heads,
+                                                          cluster_split,
+                                                          gemm_workspace,
+                                                          layernorm, scratch,
+                                                          sm_count)
 from blt_vqg_tpu_torch.ops.masks import MASK_FILL
 
 NEG_INF = -1e30
@@ -117,14 +125,60 @@ def _check_tensors(what, x, shapes, f32=()):
         _check(t.dtype == want, what, f"{name} dtype {t.dtype} != {want}")
 
 
-def _workspace(lib, fn, args, dev):
-    """The f32 partial-product workspace the C side sizes for ``args``."""
-    return torch.empty((fn(ctypes.byref(args)),), dtype=torch.float32,
-                       device=dev)
+SA_WARPS = 4            # (b, h) rows of a self-attention block (one a warp)
 
 
-def _run_self(lib, x, ln_scale, ln_bias, w_qkv, w_out, cache_k, cache_v, pos,
-              nh, key_pad):
+def self_products(dim: int, heads: int):
+    """(groups, depth, width, reduce) of the f32 self_attn_step's two
+    split-K products (QKV, out), as csrc/decode_layer.cu's ``self_gemms``
+    sets them up."""
+    dh = dim // heads
+    return ((heads, dim, 3 * dh, 0), (heads, dh, dim, 1))
+
+
+def self_plan(batch: int, dim: int, heads: int, sms: int = 132) -> dict:
+    """The bf16 self_attn_step's launches on the cluster product: the QKV
+    product's K split (ranks, depth per rank) and grid (one group a head),
+    the attention's grid, and the out product's head split (ranks, heads
+    per rank) and grid, on a card of ``sms`` SMs."""
+    dh = dim // heads
+    tiles = -(-3 * dh // CLUSTER_TILE) * heads * -(-batch // CLUSTER_TILE)
+    qkv, out = cluster_split(dim, tiles, sms), cluster_heads(heads)
+    return {"qkv": qkv, "qkv_grid": cluster_grid(batch, 3 * dh, qkv[0], heads),
+            "attn_grid": (-(-batch // SA_WARPS), heads),
+            "out": out, "out_grid": cluster_grid(batch, dim, out[0])}
+
+
+def self_kernels(bf16: bool) -> dict:
+    """{device kernel: launches} of one self_attn_step call."""
+    if bf16:
+        return {"layernorm_kernel": 1, "qkv_cluster_kernel": 1,
+                "self_attn_warp_kernel": 1, "out_cluster_kernel": 1}
+    return {"layernorm_kernel": 1, "gemm_partial_kernel": 2,
+            "gemm_epilogue_kernel": 1, "layer_self_attn_kernel": 1,
+            "residual_epilogue_kernel": 1}
+
+
+def self_scratch(batch: int, dim: int, heads: int, bf16: bool) -> dict:
+    """{piece: bytes} of a self_attn_step call's one scratch allocation:
+    xn [B, D]; q [H, B, Dh] f32 (bf16) or qkv [H, B, 3*Dh] f32; ctx
+    [H, B, Dh]; f32 also the split-K partials."""
+    dh = dim // heads
+    act = 2 if bf16 else 4
+    pieces = dict(xn=batch * dim * act,
+                  qkv=heads * batch * (1 if bf16 else 3) * dh * 4,
+                  ctx=heads * batch * dh * act)
+    if not bf16:
+        pieces["part"] = 4 * gemm_workspace(batch, self_products(dim, heads),
+                                            False)
+    return pieces
+
+
+def _prepare_self(x, ln_scale, ln_bias, w_qkv, w_out, cache_k, cache_v, pos,
+                  nh, key_pad):
+    """Validates the tensors and allocates the output and one scratch
+    buffer; returns the kernel's arguments (``SelfAttnArgs``), the output
+    and the scratch tensor."""
     from blt_vqg_tpu_torch.ops.kernels import _build
 
     what = "self_attn_step"
@@ -143,31 +197,41 @@ def _run_self(lib, x, ln_scale, ln_bias, w_qkv, w_out, cache_k, cache_v, pos,
         "cache_k": (cache_k, (nh, lmax, b, dh)),
         "cache_v": (cache_v, (nh, lmax, b, dh))},
         f32=("ln_scale", "ln_bias"))
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:    # cache rows and x are read 16 and 8 bytes at a time
+        _check(all(t.data_ptr() % 16 == 0 for t in (x, cache_k, cache_v)),
+               what, "x and the caches must start at a 16-byte boundary")
     kp_strides = (0, 0)
     if key_pad is not None:
         _check(tuple(key_pad.shape) == (lmax, b) and key_pad.dtype
                == torch.float32 and key_pad.device == x.device, what,
                f"key_pad must be f32 [{lmax}, {b}] on {x.device}")
         kp_strides = key_pad.stride()
-    dev = x.device
     out = torch.empty_like(x)
-    xn = torch.empty_like(x)
-    qkv = torch.empty((nh, b, 3 * dh), dtype=torch.float32, device=dev)
-    ctx = torch.empty((nh, b, dh), dtype=x.dtype, device=dev)
+    pieces = self_scratch(b, d, nh, bf16)
+    buf, ptrs = scratch(x.device, pieces)
+    plan = self_plan(b, d, nh, sm_count(x.device))
     a = _build.SelfAttnArgs(
-        act_bf16=int(x.dtype == torch.bfloat16), batch=b, dim=d, heads=nh,
-        head_dim=dh, lmax=lmax, pos=int(pos), kp_sl=kp_strides[0],
-        kp_sb=kp_strides[1], q_scale=dh ** -0.5, x=x.data_ptr(),
-        ln_scale=ln_scale.data_ptr(), ln_bias=ln_bias.data_ptr(),
-        w_qkv=w_qkv.data_ptr(), w_out=w_out.data_ptr(),
-        cache_k=cache_k.data_ptr(), cache_v=cache_v.data_ptr(),
+        act_bf16=int(bf16), batch=b, dim=d, heads=nh, head_dim=dh, lmax=lmax,
+        pos=int(pos), qkv_cluster=plan["qkv"][0], qkv_kslice=plan["qkv"][1],
+        out_cluster=plan["out"][0], out_heads=plan["out"][1],
+        kp_sl=kp_strides[0], kp_sb=kp_strides[1], q_scale=dh ** -0.5,
+        x=x.data_ptr(), ln_scale=ln_scale.data_ptr(),
+        ln_bias=ln_bias.data_ptr(), w_qkv=w_qkv.data_ptr(),
+        w_out=w_out.data_ptr(), cache_k=cache_k.data_ptr(),
+        cache_v=cache_v.data_ptr(),
         key_pad=None if key_pad is None else key_pad.data_ptr(),
-        out=out.data_ptr(), xn=xn.data_ptr(), qkv=qkv.data_ptr(),
-        ctx=ctx.data_ptr())
-    part = _workspace(lib, lib.bvq_self_attn_workspace, a, dev)
-    a.part = part.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(lib, lib.bvq_self_attn_step(ctypes.byref(a), stream), what)
+        out=out.data_ptr(), part_floats=pieces.get("part", 0) // 4, **ptrs)
+    return a, out, buf
+
+
+def _run_self(lib, *args):
+    from blt_vqg_tpu_torch.ops.kernels import _build
+
+    a, out, _buf = _prepare_self(*args)
+    stream = torch.cuda.current_stream(args[0].device).cuda_stream
+    _build.check(lib, lib.bvq_self_attn_step(ctypes.byref(a), stream),
+                 "self_attn_step")
     return out
 
 
@@ -180,8 +244,9 @@ def self_attn_step(x, ln_scale, ln_bias, w_qkv, w_out, cache_k, cache_v,
     never mark a row past ``pos``.  Returns (x + self_attention(LN(x)),
     cache_k, cache_v).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel and
-    any problem raises.  ``self_attn_step.launches`` counts launches."""
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    (:func:`self_kernels`) and any problem raises.
+    ``self_attn_step.launches`` counts calls that launched them."""
     if x.device.type == "cpu":
         return self_attn_step_ref(x, ln_scale, ln_bias, w_qkv, w_out,
                                   cache_k, cache_v, pos, num_heads, key_pad)

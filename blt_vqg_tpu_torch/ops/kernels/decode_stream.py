@@ -182,6 +182,85 @@ def gemm_workspace(batch: int, products, bf16: bool) -> int:
                * GEMM_TILE ** 2 for g, k, n, _ in products)
 
 
+# common.cuh's cluster split-K product (bf16 activations; the per-layer
+# self-attention step and the fused head): [CLUSTER_TILE, CLUSTER_TILE]
+# output tiles whose depth the ranks of a thread-block cluster split (a
+# power of two, at most the portable 8), each rank streaming its rows in
+# CLUSTER_STAGES cp.async stages of 64; the rank r of C sums columns
+# [r * 64 / C, (r + 1) * 64 / C) of its tile over the ranks
+CLUSTER_TILE = 64
+CLUSTER_STAGES = 3
+MAX_CLUSTER = 8
+CLUSTER_MAX_DEPTH = 512     # a rank's depth, unless 8 ranks are too few
+CLUSTER_MIN_DEPTH = 256     # a rank's depth below which ranks stop doubling
+CLUSTER_BLOCKS_PER_SM = 4   # the blocks an SM holds (cluster_smem)
+
+
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors (an H100 SXM's 132 for a
+    tensor off the card, as the CPU tests plan)."""
+    if device.type != "cuda":
+        return 132
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cluster_split(depth: int, tiles: int = 1, sms: int = 132) -> tuple:
+    """(ranks, kslice): rank r takes rows [r * kslice, (r + 1) * kslice)
+    of the depth, kslice the even share rounded up to 16.  The fewest
+    ranks that take at most CLUSTER_MAX_DEPTH rows each; then twice as
+    many while each still takes CLUSTER_MIN_DEPTH rows and the blocks
+    (``tiles`` output tiles, each a cluster) fit the card at once.  On an
+    H100 at D 1,024 the fused head's 192 vocab tiles take 2 ranks of 512
+    (4 ranks need two waves of blocks: 24 us a launch against 16) and the
+    QKV product's 48 tiles 4 ranks of 256 (2 ranks: 12 us against 9.5;
+    tools/cluster_diag.py)."""
+    c = 1
+    while c < MAX_CLUSTER and -(-depth // c) > CLUSTER_MAX_DEPTH:
+        c *= 2
+    while (c < MAX_CLUSTER and -(-depth // (2 * c)) >= CLUSTER_MIN_DEPTH
+           and tiles * 2 * c <= CLUSTER_BLOCKS_PER_SM * sms):
+        c *= 2
+    share = -(-depth // c)
+    return c, -(-share // 16) * 16
+
+
+def cluster_heads(heads: int) -> tuple:
+    """(ranks, heads per rank) of a product whose cluster splits the heads
+    (the self-attention's out projection): rank r takes heads [r * hpb,
+    (r + 1) * hpb), at most 8 ranks."""
+    hpb = -(-heads // MAX_CLUSTER)
+    c = 1
+    while c * hpb < heads:
+        c *= 2
+    return c, hpb
+
+
+def cluster_smem(w_i8: bool, parts: int = 1, extra: int = 0) -> int:
+    """Dynamic shared memory of a cluster product block, as common.cuh's
+    ``ck_smem``: CLUSTER_STAGES stages of a [64, 72] bf16 x tile and a
+    [64, 72] bf16 weight tile (int8: a [64, 80] byte tile); one f32
+    partial tile [64, 68] reusing the stages, or ``parts`` of them after
+    the stages; then ``extra`` bytes."""
+    t = CLUSTER_TILE
+    stages = CLUSTER_STAGES * (t * (t + 8) * 2
+                               + (t * (t + 16) if w_i8 else t * (t + 8) * 2))
+    part = t * (t + 4) * 4
+    return (max(stages, part) if parts == 1 else stages + parts * part) + extra
+
+
+def cluster_grid(batch: int, width: int, ranks: int, groups: int = 1):
+    """A cluster product's grid: (column tiles x ranks, groups, row
+    tiles); block x is rank x % ranks of column tile x // ranks."""
+    t = CLUSTER_TILE
+    return (-(-width // t) * ranks, groups, -(-batch // t))
+
+
 def stack_products(dim: int, heads: int, hc: int, fc: int, ffn: int):
     """(groups, depth, width, reduce) of the step's six products (QKV, out,
     cross q, cross out, FFN in, FFN out), as csrc/decode_stream.cu's

@@ -15,8 +15,8 @@ only when every phase passed):
 2. holds each kernel against its plain PyTorch version at the flagship
    shapes in bf16, on the same CUDA tensors, the stack step also at b128
    and b512 (bf16 and int8 weights), and checks by profiler that a stack
-   call runs its launch sequence (12 kernels a layer and one) and nothing
-   else;
+   call runs its launch sequence (12 kernels a layer and one) and a head
+   call its 3 kernels, and nothing else;
 3. serves 3 request rounds of batch 64 through ``blt_vqg_tpu_torch.serve``
    at the flagship configuration (streaming stack, int8 fused head) with
    seed-made weights, checks the tokens and that each kernel launched 51
@@ -25,7 +25,8 @@ only when every phase passed):
    one round step by step against the plain versions;
 4. times decode questions/s at batch 64 on the kernel path and on the
    port's plain decode path, and each kernel against its plain version
-   (the stack step and the head by events and by profiler device time);
+   (the stack step and the head by events and by profiler device time,
+   the head also with a cold L2);
 5. holds the three flash-attention kernels (forward, dK/dV, dQ) against
    their plain versions in bf16 at the four attention shapes of the
    flagship train step, at a causal multi-tile shape with unaligned
@@ -52,14 +53,16 @@ only when every phase passed):
    without a pad-key mask, under a source mask that pads one context
    column and masks one row fully (outputs and the written cache rows),
    checks by profiler that a ``cross_ffn_step`` call runs its 9 kernels
-   and nothing else, and checks that the plain
+   and a bf16 ``self_attn_step`` call its 4, and nothing else, and checks
+   that the plain
    ``cross_ffn_step`` without its source mask fails the check;
 9. drives the per-layer decode path (``use_pallas_decode``) through
    ``make_decode_step`` and ``make_beam_decode_step``: one greedy b64
    decode and one beam decode at b64 x 4 beams, each with exactly 306
    launches of each kernel (51 steps x 6 layers; the greedy decode once
    more under the profiler: one cross-attention kernel per
-   ``cross_ffn_step`` call), a teacher-forced replay
+   ``cross_ffn_step`` call and one self-attention kernel per
+   ``self_attn_step`` call), a teacher-forced replay
    of the greedy decode holding every kernel call against its plain
    version, and a sampled decode with ``top_k=1`` that must emit the
    greedy tokens;
@@ -95,19 +98,22 @@ only when every phase passed):
    port never calls); the ``kernels`` line carries both shapes.
 
 Phase 1 also prints the compiler's registers, shared memory and spills
-of the ring and flash kernels and of the decode kernels' split-K product
+of the ring and flash kernels, of the decode kernels' split-K product
 and residual + LayerNorm (``gemm_partial_kernel``,
-``residual_ln_kernel``) and checks that the machine code of the bf16
-ring kernels (the forward, the backward's dK/dV and dQ) and of the three
-bf16 flash kernels (forward, dK/dV, dQ) runs on the tensor cores (HMMA or
-HGMMA instructions, by ``cuobjdump -sass``), the flash kernels without
-spills.
+``residual_ln_kernel``) and of the cluster split-K product's kernels
+(``qkv_cluster_kernel``, ``out_cluster_kernel``, ``head_cluster_kernel``)
+and the kernels beside them, and checks that the machine code of the
+bf16 ring kernels (the forward, the backward's dK/dV and dQ), of the
+three bf16 flash kernels (forward, dK/dV, dQ) and of the three cluster
+kernels runs on the tensor cores (HMMA or HGMMA instructions, by
+``cuobjdump -sass``), the flash and cluster kernels without spills.
 
 ``--flash-times-only`` and ``--decode-times-only`` build, take only the
 flash kernels' (phase 7) or the decode kernels' times (the stack step, the
-fused head and ``cross_ffn_step``, by events and by profiler) and stop
-without a result line: to compare two trees on one card, run the same
-script from each tree in turns.
+fused head, also with a cold L2, ``self_attn_step`` and ``cross_ffn_step``,
+by events, host clock and profiler) and stop without a result line: to
+compare two trees on one card, run the same script from each tree in
+turns.
 
 TF32 is off for matmuls and cuDNN throughout.  The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
@@ -166,6 +172,20 @@ HEAD_TOL = 1e-3          # token logit within 1e-3 * max|logit| of the max
 CROSS_KERNELS = {"layernorm_kernel": 1, "gemm_partial_kernel": 4,
                  "layer_cross_attn_kernel": 1, "residual_ln_kernel": 1,
                  "gemm_epilogue_kernel": 1, "residual_epilogue_kernel": 1}
+# the bf16 self_attn_step and fused head on the cluster split-K product
+# (csrc/common.cuh): 4 and 3 kernels a call, no f32 partials stored
+SELF_KERNELS = {"layernorm_kernel": 1, "qkv_cluster_kernel": 1,
+                "self_attn_warp_kernel": 1, "out_cluster_kernel": 1}
+HEAD_KERNELS = {"layernorm_kernel": 1, "head_cluster_kernel": 1,
+                "head_pick_kernel": 1}
+# the cluster product's kernels and the attention kernel beside them: ptxas
+# registers, spills and (the product's) tensor-core SASS in phase 1
+CLUSTER_MMA = ("qkv_cluster_kernel", "out_cluster_kernel",
+               "head_cluster_kernel")
+CLUSTER_OTHER = ("self_attn_warp_kernel", "head_pick_kernel")
+# bytes written between two cold-L2 head calls (the L2 holds 50 MB; a served
+# step streams the stack's 126 MB of weights between two head calls)
+L2_FLUSH_BYTES = 128 << 20
 
 
 def stack_kernels(layers: int) -> dict:
@@ -248,6 +268,7 @@ LAYER_KERNELS = tuple(LAYER_TPU)
 # the device kernels of csrc/decode_layer.cu, as the profiler names them
 LAYER_KERNEL_NAMES = ("gemm_partial", "gemm_epilogue", "residual_epilogue",
                       "residual_ln", "layer_self_attn", "layer_cross_attn",
+                      "qkv_cluster", "self_attn_warp", "out_cluster",
                       "layernorm")
 LAYER_BATCHES = (64, 256)            # greedy b64; beam b64 x 4
 LAYER_POSITIONS = (0, 25, 50)
@@ -517,6 +538,33 @@ def run_head(h, x, kernel: bool):
 def head_logits(h, x):
     return decode_head.head_logits_ref(x, h["ln_scale"], h["ln_bias"],
                                        h["w"], h["b"], h["scales"])
+
+
+def cold_ms(fn, flush, calls: int):
+    """(ms by events, device ms by profiler) per call of ``fn`` with the L2
+    cold: ``flush`` (more bytes than the L2 holds) is written before each
+    call, the events around the call alone, the device time that of the
+    port's kernels (``bvq::``) alone."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(calls):
+        flush.add_(1.0)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    ev = sum(a.elapsed_time(b) for a, b in pairs) / calls
+
+    def flushed():
+        flush.add_(1.0)
+        fn()
+    groups = profile_groups(flushed, calls)
+    dev = sum(t for name, (_, t) in groups.items() if "bvq::" in name)
+    return ev, dev
 
 
 def bound(nbytes: float, flops: float):
@@ -1144,6 +1192,15 @@ def layer_phase(dev, log, pl_model, seeds: int):
                     CROSS_KERNELS, what)
                 log(f"[8] {what}: {sum(CROSS_KERNELS.values())} kernels "
                     f"per call {CROSS_KERNELS} (profiler)")
+                k, v = c["ck"].clone(), c["cv"].clone()
+                kp = key_pad_at(c["marks"], 25)
+                launches_per_call(
+                    lambda: decode_layer.self_attn_step(
+                        *self_args(lws[0], c["x"], k, v, 25, nh), key_pad=kp),
+                    SELF_KERNELS, f"self_attn_step b{b}")
+                log(f"[8] self_attn_step b{b}: "
+                    f"{sum(SELF_KERNELS.values())} kernels per call "
+                    f"{SELF_KERNELS} (profiler)")
     # the check must tell a wrong cross step apart: the plain version
     # without its source mask has to fail it
     c = layer_case(cfg, LAYER_BATCHES[0], SEED + 7, dev)
@@ -1205,20 +1262,22 @@ def layer_path_phase(dev, log, pl_cfg, pl_model, latent, images, context,
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock, first "
         f"call); first rows {tokens[:2, :8].tolist()}")
     # the same decode under the profiler: one cross-attention kernel per
-    # cross_ffn_step call
+    # cross_ffn_step call, one self-attention kernel per self_attn_step call
     calls = decode_layer.cross_ffn_step.launches
     groups = profile_groups(lambda: make_decode_step(
         pl_cfg, pl_model, latent, with_probe=False)(
         images, context, torch.Generator(dev).manual_seed(z_seed)), 1,
-        ("layer_cross_attn_kernel",))
+        ("layer_cross_attn_kernel", "self_attn_warp_kernel"))
     calls = (decode_layer.cross_ffn_step.launches - calls) / 2
-    ran = groups.get("layer_cross_attn_kernel", (0.0, 0.0))[0]
-    if calls != steps * nl or not 0 < ran <= calls:
-        raise AssertionError(f"per-layer decode: {calls} cross_ffn_step calls "
-                             f"ran {ran} cross-attention kernels; kernels "
-                             f"{groups}")
-    log(f"[9] a profiled greedy decode: {calls:.0f} cross_ffn_step calls, "
-        f"{ran:.0f} layer_cross_attn_kernel launches")
+    ran = [groups.get(k, (0.0, 0.0))[0]
+           for k in ("layer_cross_attn_kernel", "self_attn_warp_kernel")]
+    if calls != steps * nl or not all(0 < r <= calls for r in ran):
+        raise AssertionError(f"per-layer decode: {calls} cross_ffn_step and "
+                             f"self_attn_step calls ran {ran} cross- and "
+                             f"self-attention kernels; kernels {groups}")
+    log(f"[9] a profiled greedy decode: {calls:.0f} cross_ffn_step and "
+        f"self_attn_step calls, {ran[0]:.0f} layer_cross_attn_kernel and "
+        f"{ran[1]:.0f} self_attn_warp_kernel launches")
 
     # teacher-forced replay: the same steps, each kernel call held against
     # its plain version on the same inputs
@@ -1919,14 +1978,17 @@ def ring_timings(dev, card, log, cfg, kstate, ecfg, estate, batch):
 
 def mma_code(lib_path: str, report: str) -> None:
     """Phase 1: the compiler's registers and spills of the ring and flash
-    kernels and of the decode kernels' split-K product and fused residual
-    + LayerNorm; raises unless the machine code of each bf16 tensor-core
-    kernel (RING_MMA, FLASH_MMA) has tensor-core products (HMMA or HGMMA),
-    and unless ptxas reports no spills for the flash kernels (the ring
+    kernels, of the decode kernels' split-K product and fused residual
+    + LayerNorm, and of the cluster product's kernels and the kernels
+    beside them (with their dynamic shared memory); raises unless the
+    machine code of each bf16 tensor-core kernel (RING_MMA, FLASH_MMA,
+    CLUSTER_MMA) has tensor-core products (HMMA or HGMMA), and unless
+    ptxas reports no spills for the flash and cluster kernels (the ring
     forward's registers are capped for 3 blocks per SM, and it spills a
     few bytes by design)."""
-    kernels = RING_MMA + FLASH_MMA
-    watched = ("ring_", "flash_", "gemm_partial_kernel", "residual_ln_kernel")
+    kernels = RING_MMA + FLASH_MMA + CLUSTER_MMA
+    watched = ("ring_", "flash_", "gemm_partial_kernel", "residual_ln_kernel",
+               *CLUSTER_MMA, *CLUSTER_OTHER)
     for entry in report.split("Compiling entry function")[1:]:
         name = entry.split("'")[1]
         if any(w in name for w in watched):
@@ -1934,9 +1996,14 @@ def mma_code(lib_path: str, report: str) -> None:
             spill = re.search(r"(\d+) bytes spill stores", entry)
             log(f"    ptxas {name}: {used.group(0) if used else '?'}; "
                 f"spill stores {spill.group(1) if spill else '?'} bytes")
-            if any(k in name for k in FLASH_MMA) and not (
+            if any(k in name for k in FLASH_MMA + CLUSTER_MMA) and not (
                     spill and spill.group(1) == "0"):
                 raise AssertionError(f"{name} spills (or ptxas did not say)")
+    for w_i8 in (False, True):
+        log(f"    cluster product, {'int8' if w_i8 else 'bf16'} weights: "
+            f"{decode_stream.cluster_smem(w_i8)} bytes of dynamic shared "
+            f"memory a block ({decode_stream.cluster_smem(w_i8, 2)} with "
+            f"two partial tiles)")
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         log(f"    cuobjdump not found beside nvcc: SASS not read")
@@ -1948,7 +2015,9 @@ def mma_code(lib_path: str, report: str) -> None:
         name = fn.split()[0]
         if not any(w in name for w in watched):
             continue
-        code = [ln.split(";")[0].split("*/")[-1].strip()
+        # an instruction's text, its guard predicate (@P0, @!P1) dropped
+        code = [re.sub(r"^@!?U?P\w+\s+", "",
+                       ln.split(";")[0].split("*/")[-1].strip())
                 for ln in fn.splitlines() if "MMA" in ln]
         mma = [op for op in code if op.startswith(("HMMA", "HGMMA"))]
         log(f"    SASS {name}: {len(mma)} tensor-core products "
@@ -1989,12 +2058,14 @@ def host_ms(fn, calls: int = 5) -> float:
 
 
 def decode_times(dev, card, log):
-    """--decode-times-only: rows 1, 2 and 4b alone, each by events and by
-    profiler (device time, split by kernel), at the shapes of phases 4 and
-    11: the stack at b64 pos 25 and at b512 (bf16 and int8 weights), the
-    fused head (int8 and bf16) and cross_ffn_step at b64 and b256 (the six
-    layers' weights cycled).  Uses only the port's public functions, so the
-    same script times an older tree."""
+    """--decode-times-only: rows 1, 2, 4a and 4b alone, each by events, by
+    host clock and by profiler (device time, split by kernel, launches per
+    call), at the shapes of phases 4 and 11: the stack at b64 pos 25 and at
+    b512 (bf16 and int8 weights), the fused head (int8 and bf16; warm, and
+    with a cold L2: L2_FLUSH_BYTES written before each call, events around
+    the head alone), and self_attn_step (pos 25) and cross_ffn_step at b64
+    and b256 (the six layers' weights cycled).  Uses only the port's public
+    functions, so the same script times an older tree."""
     cfg, model, latent = serve.build_model(seed=SEED, stream=True, device=dev)
     pl_cfg, pl_model = per_layer_model(model, cfg, dev)
     with torch.inference_mode():
@@ -2031,14 +2102,40 @@ def decode_times(dev, card, log):
                     f"{sum(n for n, _ in kinds.values()):.0f} device "
                     f"launches per call; per kernel (launches, us): {kinds}")
                 del args, kw
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                            device=dev)
         for quantized in (True, False):
             h = head_args(model, quantized)
             fn = lambda: run_head(h, x, kernel=True)
+            ev, dv, hs = cuda_ms(fn, 50), device_ms(fn, 5), host_ms(fn, 30)
+            cold = cold_ms(fn, flush, 30)
+            kinds = kernel_split(profile_groups(fn, 5))
             log(f"[decode] {card}: head_argmax "
                 f"{'int8' if quantized else 'bf16'} b{BATCH}: "
-                f"{cuda_ms(fn, 50) * 1e3:.1f} us by events, "
-                f"{device_ms(fn, 5) * 1e3:.1f} us of device time")
+                f"{ev * 1e3:.1f} us by events, {hs * 1e3:.1f} us of host "
+                f"time, {dv * 1e3:.1f} us of device time; L2 cold "
+                f"({L2_FLUSH_BYTES >> 20} MiB written before each call): "
+                f"{cold[0] * 1e3:.1f} us by events around the call, "
+                f"{cold[1] * 1e3:.1f} us of device time; "
+                f"{sum(n for n, _ in kinds.values()):.0f} device launches "
+                f"per call; per kernel (launches, us): {kinds}")
+        del flush
         lws = pl_model.decoder.layer_weights()
+        for bt in LAYER_BATCHES:
+            cs = [layer_case(pl_cfg, bt, SEED + 3 + l, dev)
+                  for l in range(len(lws))]
+            fn = cycled([lambda w=w, c=c: decode_layer.self_attn_step(
+                *self_args(w, c["x"], c["ck"], c["cv"], LAYER_TIME_POS, nh))
+                for w, c in zip(lws, cs)])
+            ev, dv = cuda_ms(fn, 60), device_ms(fn, len(lws))
+            hs = host_ms(fn, 30)
+            kinds = kernel_split(profile_groups(fn, len(lws)))
+            log(f"[decode] {card}: self_attn_step b{bt} pos "
+                f"{LAYER_TIME_POS}: {ev * 1e3:.1f} us by events, "
+                f"{hs * 1e3:.1f} us of host time, {dv * 1e3:.1f} us of device "
+                f"time, {sum(n for n, _ in kinds.values()):.0f} device "
+                f"launches per call; per kernel (launches, us): {kinds}")
+            del cs
         for bt in LAYER_BATCHES:
             cs = [layer_case(pl_cfg, bt, SEED + 3 + l, dev)
                   for l in range(len(lws))]
@@ -2078,9 +2175,9 @@ def main(argv=None):
                         "kernels on one card, run in turns from each tree")
     parser.add_argument("--decode-times-only", action="store_true",
                         help="build, time the decode stack step, the fused "
-                        "head and cross_ffn_step alone (events and "
-                        "profiler) and stop (no result line); runs from an "
-                        "older tree too")
+                        "head (also with a cold L2), self_attn_step and "
+                        "cross_ffn_step alone (events and profiler) and "
+                        "stop (no result line); runs from an older tree too")
     opts = parser.parse_args(argv)
     card = card_line()
     log(f"card: {card}")
@@ -2219,6 +2316,8 @@ def main(argv=None):
             log(f"[2] head_argmax {'int8' if quantized else 'bf16'}: "
                 f"{int((tok == ref).sum())}/{tok.numel()} equal to the plain "
                 f"argmax, largest logit shortfall {short:.3g}")
+            launches_per_call(lambda: run_head(h, hx, kernel=True),
+                              HEAD_KERNELS, "head_argmax")
             # planted tie: column c2 repeats c1 in another chunk, and both
             # outrank every other column; the first index must win
             c1, c2 = 100, 5000
@@ -2235,7 +2334,8 @@ def main(argv=None):
                 raise AssertionError(f"head_argmax tie: got "
                                      f"{sorted(set(tok.tolist()))}, want {c1}")
             log(f"[2] head_argmax {'int8' if quantized else 'bf16'} planted "
-                f"tie: all rows pick column {c1}")
+                f"tie: all rows pick column {c1}; kernels per call "
+                f"{HEAD_KERNELS} and nothing else (profiler)")
 
         # ---- 3. the serving path
         decode_stream.decode_stack_step.launches = 0
@@ -2373,17 +2473,24 @@ def main(argv=None):
                 f"weights against {HBM_BYTES_PER_S / 1e12:.2f}), plain "
                 f"{p * 1e3:.1f} us")
         hx = x_outs[0]
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                            device=dev)
         for quantized in (True, False):
             h = head_args(model, quantized)
             k = cuda_ms(lambda: run_head(h, hx, kernel=True), 50)
             dms = device_ms(lambda: run_head(h, hx, kernel=True), 5)
             p = cuda_ms(lambda: run_head(h, hx, kernel=False), 50)
+            cold = cold_ms(lambda: run_head(h, hx, kernel=True), flush, 20)
             timings[("head", quantized)] = (k, p, head_bound(h, hx), dms)
+            timings[("head cold", quantized)] = cold
             log(f"[4] {card}: head_argmax {'int8' if quantized else 'bf16'}"
                 f" b{BATCH} V {h['w'].shape[1]}: kernel {k * 1e3:.1f} us by "
                 f"events, {dms * 1e3:.1f} us of device time (profiler), "
                 f"plain {p * 1e3:.1f} us (weights L2-resident across "
-                f"repeats)")
+                f"repeats); L2 cold ({L2_FLUSH_BYTES >> 20} MiB written "
+                f"before each call): {cold[0] * 1e3:.1f} us by events around "
+                f"the call, {cold[1] * 1e3:.1f} us of device time")
+        del flush
 
         # ---- 8-11. the per-layer decode path and int8_matmul
         layer_worst = layer_phase(dev, log, pl_model, opts.layer_seeds)
@@ -2443,6 +2550,9 @@ def main(argv=None):
                         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": None, "device_ms": d_ms})
+        if name == "head_argmax":
+            kernels[-1]["cold_ms"], kernels[-1]["cold_device_ms"] = \
+                timings[("head cold", True)]
     for name in FLASH_KERNELS:
         tot = flash_totals[name]
         row = {"name": name, "kernel": FLASH_MMA[FLASH_KERNELS.index(name)],

@@ -275,6 +275,81 @@ def test_head_argmax_kernel(dev, dt, b, d, v, quantized):
     assert float(short.max()) <= HEAD_TOL[dt] * float(logits.abs().max())
 
 
+def _head_inputs(dev, dt, b, d, v, quantized, seed):
+    r = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32))
+    x = t(r.randn(b, d) * 3.0).to(dt)
+    ln_s, ln_b = t(1.0 + 0.1 * r.randn(d)), t(0.1 * r.randn(d))
+    w, bias = t(r.randn(d, v) * d ** -0.5), t(r.randn(v))
+    chunk = tdh.head_chunk(v)
+    scales = None
+    if quantized:
+        w, scales = tds.quantize_stack(w)
+        w, bias = tdh.pad_head(w, bias, chunk)
+        scales = torch.nn.functional.pad(
+            scales, (0, w.shape[1] - scales.shape[1]), value=1.0).to(dev)
+    else:
+        w, bias = tdh.pad_head(w.to(dt), bias, chunk)
+    return ([a.to(dev).contiguous() for a in (x, ln_s, ln_b, w, bias)],
+            scales, chunk)
+
+
+# (batch, dim, vocab, int8 weights) of the bf16 head on the cluster
+# product: ragged vocabs, B 1, 3, 65 and 256 (four row tiles), depths of
+# one rank (40, 96), two (320) and four (1,024)
+HEAD_CLUSTER_CASES = [
+    (1, 1024, 1000, True), (1, 320, 777, False), (3, 96, 300, False),
+    (3, 1024, 12000, True), (65, 1024, 12000, True), (65, 256, 777, False),
+    (256, 1024, 12000, True), (256, 40, 300, False),
+]
+
+
+@pytest.mark.parametrize("case", HEAD_CLUSTER_CASES,
+                         ids=[f"b{c[0]}-d{c[1]}-v{c[2]}-{'int8' if c[3] else 'bf16'}"
+                              for c in HEAD_CLUSTER_CASES])
+def test_head_argmax_cluster_kernel(dev, case):
+    """The bf16 head (3 launches, no logits stored): every token's plain
+    logit within the limit of the row maximum; a planted three-way tie
+    (two columns of one vocab tile, on two ranks, and one of another tile)
+    picks the lowest column."""
+    b, d, v, quantized = case
+    (x, ln_s, ln_b, w, bias), scales, chunk = _head_inputs(
+        dev, torch.bfloat16, b, d, v, quantized, seed=v + b)
+    before = tdh.head_argmax.launches
+    tok = tdh.head_argmax(x, ln_s, ln_b, w, bias, chunk=chunk, scales=scales)
+    torch.cuda.synchronize()
+    assert tdh.head_argmax.launches == before + 1
+    assert tok.shape == (b,) and bool(((tok >= 0) & (tok < v)).all())
+    logits = tdh.head_logits_ref(x, ln_s, ln_b, w, bias, scales)
+    short = logits.max(-1).values - logits.gather(1, tok.long()[:, None])[:, 0]
+    assert float(short.max()) <= HEAD_TOL[torch.bfloat16] * float(
+        logits.abs().max())
+    c1, c2, c3 = 2, 61, min(v - 1, 200)
+    w, bias = w.clone(), bias.clone()
+    for c in (c2, c3):
+        w[:, c] = w[:, c1]
+        bias[c] = 1e4
+    bias[c1] = 1e4
+    if scales is not None:
+        scales = scales.clone()
+        scales[0, c2] = scales[0, c3] = scales[0, c1]
+    tok = tdh.head_argmax(x, ln_s, ln_b, w, bias, chunk=chunk, scales=scales)
+    assert bool((tok == c1).all()), sorted(set(tok.tolist()))
+    _runs_sequence(lambda: tdh.head_argmax(x, ln_s, ln_b, w, bias,
+                                           chunk=chunk, scales=scales),
+                   tdh.head_kernels(True))
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16w", "int8w"])
+def test_head_argmax_f32_launch_sequence(dev, quantized):
+    """f32 activations keep the split-K chain: 4 kernels a call."""
+    (x, ln_s, ln_b, w, bias), scales, chunk = _head_inputs(
+        dev, torch.float32, 70, 96, 1000, quantized, seed=7)
+    _runs_sequence(lambda: tdh.head_argmax(x, ln_s, ln_b, w, bias,
+                                           chunk=chunk, scales=scales),
+                   tdh.head_kernels(False))
+
+
 # (batch, tq, tk, heads, head_dim, causal, pad): the training shapes, a
 # ragged multi-tile pair, a causal multi-tile square, and "dead" rows (every
 # key of batch row 1 masked) that must come out zero with zero gradients;
@@ -530,8 +605,8 @@ def test_cross_ffn_step_kernel(dev, dt, case):
     (64, 8, 128, 2048, 51, 25, False), (256, 8, 128, 2048, 51, 25, False)],
     ids=[f"case{i}" for i in range(len(LAYER_CASES))] + ["b64", "b256"])
 def test_per_layer_steps_launch_sequence(dev, dt, case):
-    """self_attn_step runs 6 kernels a call, cross_ffn_step 9; the
-    flagship's widths within the limits."""
+    """self_attn_step runs 4 kernels a call in bf16 and 6 in f32,
+    cross_ffn_step 9; the flagship's widths within the limits."""
     self_args, args, kp = _layer_inputs(dev, dt, case, seed=case[0] + 41)
     h, pos = case[1], case[5]
     if case[0] >= 64:
@@ -542,9 +617,49 @@ def test_per_layer_steps_launch_sequence(dev, dt, case):
                     "layer_cross_attn_kernel": 1, "residual_ln_kernel": 1,
                     "gemm_epilogue_kernel": 1, "residual_epilogue_kernel": 1})
     _runs_sequence(lambda: tdl.self_attn_step(*self_args, pos, h, key_pad=kp),
-                   {"layernorm_kernel": 1, "gemm_partial_kernel": 2,
-                    "gemm_epilogue_kernel": 1, "residual_epilogue_kernel": 1,
-                    "layer_self_attn_kernel": 1})
+                   tdl.self_kernels(dt == torch.bfloat16))
+
+
+# (batch, heads, head_dim, lmax, pos, key_pad) of the bf16 step on the
+# cluster product: B 1, 3, 64, 65 and 256 (four row tiles), the first and
+# the last cache row, head dims 64, 80 and 128, 8 heads (one a rank), 12
+# and 16 heads (two a rank) and 3 (an idle rank)
+SELF_CLUSTER_CASES = [
+    (1, 8, 128, 9, 0, False), (1, 8, 128, 9, 8, True),
+    (3, 8, 64, 7, 6, True), (3, 8, 64, 7, 0, False),
+    (64, 8, 128, 51, 25, True), (65, 8, 80, 9, 8, False),
+    (65, 8, 80, 9, 0, True), (256, 8, 128, 51, 50, True),
+    (256, 8, 128, 51, 0, False), (3, 12, 64, 7, 6, True),
+    (5, 16, 64, 5, 4, False), (64, 3, 80, 5, 2, True),
+]
+
+
+@pytest.mark.parametrize("case", SELF_CLUSTER_CASES,
+                         ids=[f"b{c[0]}-h{c[1]}-dh{c[2]}-pos{c[4]}"
+                              f"{'-kp' if c[5] else ''}"
+                              for c in SELF_CLUSTER_CASES])
+def test_self_attn_step_cluster_kernel(dev, case):
+    """The bf16 step (4 launches, no f32 partials in device memory)
+    against its plain version: the output, the written cache rows, the
+    other rows untouched."""
+    b, h, dh, lmax, pos, with_kp = case
+    args, _, kp = _layer_inputs(dev, torch.bfloat16,
+                                (b, h, dh, 8, lmax, pos, with_kp), seed=b + pos)
+    x, ls, lb, wqkv, wout, ck, cv = args
+    before = tdl.self_attn_step.launches
+    got, gk, gv = tdl.self_attn_step(x, ls, lb, wqkv, wout, ck.clone(),
+                                     cv.clone(), pos, h, key_pad=kp)
+    torch.cuda.synchronize()
+    assert tdl.self_attn_step.launches == before + 1
+    want, wk, wv = tdl.self_attn_step_ref(x, ls, lb, wqkv, wout, ck.clone(),
+                                          cv.clone(), pos, h, key_pad=kp)
+    _close(got, want, torch.bfloat16, "out")
+    others = torch.arange(lmax, device=dev) != pos
+    for name, g, w, orig in (("k", gk, wk, ck), ("v", gv, wv, cv)):
+        assert torch.equal(g[:, others], orig[:, others]), name
+        _close(g[:, pos], w[:, pos], torch.bfloat16, name)
+    _runs_sequence(lambda: tdl.self_attn_step(*args, pos, h, key_pad=kp),
+                   tdl.self_kernels(True))
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
