@@ -132,8 +132,8 @@ class CrossFfnArgs(ctypes.Structure):
 
 class Int8Args(ctypes.Structure):
     """Mirror of ``bvq::Int8Args`` in csrc/int8_matmul.cu."""
-    _fields_ = [("act_bf16", I), ("m", I), ("k", I), ("n", I), ("x", P),
-                ("w8", P), ("scale", P), ("y", P), ("part", P)]
+    _fields_ = [("act_bf16", I), ("m", I), ("k", I), ("n", I), ("bn", I),
+                ("x", P), ("w8", P), ("scale", P), ("y", P), ("part", P)]
 
 
 def _nvcc() -> str:

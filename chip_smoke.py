@@ -69,12 +69,15 @@ only when every phase passed):
 10. launches ``int8_matmul`` at the vocab-head shape (M 64, K 1024,
    N 12,000) and at FFN-in at beam width (M 256, K 1024, N 2048) with the
    flagship's own weights quantized, holds it against its plain version,
-   and checks that the plain version with wrong scales fails the check;
+   checks by profiler that a call at each shape runs the TMA + wgmma
+   kernel (``int8_wgmma_kernel``) alone, one launch and no workspace, and
+   checks that the plain version with wrong scales fails the check;
 11. times decode and beam questions/s on the per-layer path against the
    plain path, each per-layer kernel at b64 and b256 (pos 25) and
    ``int8_matmul`` at both shapes against their plain versions, bounds
-   and, for ``int8_matmul``, ``torch._weight_int8pack_mm`` (a yardstick
-   the port never calls);
+   and, for ``int8_matmul`` (events and profiler device time at both
+   shapes), ``torch._weight_int8pack_mm`` (a yardstick the port never
+   calls);
 12. holds the four ring-attention functions (one-way and two-way, forward
    and backward: o, m, l, dq, dk, dv) against their plain versions in bf16
    at the flagship's attention shapes on rings of 4, 3, 2 and 8 ranks
@@ -100,18 +103,21 @@ only when every phase passed):
 Phase 1 also prints the compiler's registers, shared memory and spills
 of the ring and flash kernels, of the decode kernels' split-K product
 and residual + LayerNorm (``gemm_partial_kernel``,
-``residual_ln_kernel``) and of the cluster split-K product's kernels
+``residual_ln_kernel``), of the cluster split-K product's kernels
 (``qkv_cluster_kernel``, ``out_cluster_kernel``, ``head_cluster_kernel``)
-and the kernels beside them, and checks that the machine code of the
-bf16 ring kernels (the forward, the backward's dK/dV and dQ), of the
-three bf16 flash kernels (forward, dK/dV, dQ) and of the three cluster
-kernels runs on the tensor cores (HMMA or HGMMA instructions, by
-``cuobjdump -sass``), the flash and cluster kernels without spills.
+and the kernels beside them, and of ``int8_wgmma_kernel``, and checks that
+the machine code of the bf16 ring kernels (the forward, the backward's
+dK/dV and dQ), of the three bf16 flash kernels (forward, dK/dV, dQ), of the
+three cluster kernels and of ``int8_wgmma_kernel`` runs on the tensor
+cores (HMMA or HGMMA instructions, by ``cuobjdump -sass``; HGMMA, the
+warpgroup product, for ``int8_wgmma_kernel``), the flash, cluster and
+int8 kernels without spills.
 
-``--flash-times-only`` and ``--decode-times-only`` build, take only the
-flash kernels' (phase 7) or the decode kernels' times (the stack step, the
-fused head, also with a cold L2, ``self_attn_step`` and ``cross_ffn_step``,
-by events, host clock and profiler) and stop without a result line: to
+``--flash-times-only``, ``--decode-times-only`` and ``--int8-times-only``
+build, take only the flash kernels' (phase 7), the decode kernels' (the
+stack step, the fused head, also with a cold L2, ``self_attn_step`` and
+``cross_ffn_step``) or ``int8_matmul``'s times at both of its shapes (by
+events, host clock and profiler) and stop without a result line: to
 compare two trees on one card, run the same script from each tree in
 turns.
 
@@ -296,6 +302,9 @@ INT8_SHAPES = (("vocab head", 64, 1024, 12000),
 # version with its scales shifted by one column reads 64 ulps and 0.136.
 INT8_MAX_ULPS = 1.0
 INT8_REL_NORM = 1e-4
+# bf16 calls at both shapes: the TMA + wgmma kernel alone (ptxas and
+# HGMMA checked in phase 1)
+INT8_KERNEL = "int8_wgmma_kernel"
 RING_SRC = "blt_vqg_tpu_torch/csrc/ring_attention.cu"
 RING_TPU = {
     "ring_attention_fwd_shard": "blt_vqg_tpu/ops/pallas/ring_attention.py:186",
@@ -1391,6 +1400,20 @@ def int8_phase(dev, log, model, seeds: int):
                 f"bf16 ulps, relative norm error {reading[2]:.3g}, max abs "
                 f"err {reading[0]:.4g}")
     cases, ys = first
+    # one kernel a call at both shapes: the TMA + wgmma kernel, by profiler
+    for what, x, w8, s in cases:
+        bn = i8mm.tma_columns(x.dtype, x.shape[0], x.shape[1], w8.shape[1])
+        got = {}
+        for name, (n, _) in profile_groups(
+                lambda: i8mm.int8_matmul(x, w8, s), 4).items():
+            fam = kernel_family(name, (INT8_KERNEL, "gemm_partial_kernel",
+                                       "gemm_epilogue_kernel"))
+            got[fam] = got.get(fam, 0.0) + n
+        if not bn or set(got) != {INT8_KERNEL} or got[INT8_KERNEL] > 1 + 1e-6:
+            raise AssertionError(f"int8_matmul {what}: {bn}-column tiles, "
+                                 f"device kernels per call {got}")
+        log(f"[10] int8_matmul {what}: one {INT8_KERNEL} launch a call "
+            f"({bn}-column tiles) and nothing else (profiler)")
     # the check must tell wrong scales apart
     what, x, w8, s = cases[0]
     wrong = i8mm.int8_matmul_ref(x, w8, s.roll(1))
@@ -1549,12 +1572,13 @@ def layer_timings(dev, card, log, pl_cfg, pl_model, plain_model, latent,
                 lib = cuda_ms(cycled([lambda w=w: torch._weight_int8pack_mm(
                     x, w, sb) for w in nk]), 60)
             del nk
-        device = sum(t for _, t in profile_groups(
+        groups = profile_groups(
             cycled([lambda w=w: i8mm.int8_matmul(x, w, s) for w in w8s]),
-            copies, ()).values())
+            copies)
+        device = sum(t for _, t in groups.values())
         moved, flops = int8_bound(x, w8, s)
         b_ms, b_by = bound(moved, flops)
-        timings[("int8_matmul", what)] = (k, p, b_ms, b_by, lib)
+        timings[("int8_matmul", what)] = (k, p, b_ms, b_by, lib, device)
         lib_text = (f"torch._weight_int8pack_mm {lib * 1e3:.1f} us"
                     if lib is not None else f"library: none{why}")
         log(f"[11] {card}: int8_matmul {what} (M {x.shape[0]}, K "
@@ -1563,7 +1587,8 @@ def layer_timings(dev, card, log, pl_cfg, pl_model, plain_model, latent,
             f"({device * 1e3:.1f} us of device time by profiler), plain "
             f"{p * 1e3:.1f} us, "
             f"{lib_text}, bound {b_ms * 1e3:.2f} us ({b_by}: "
-            f"{moved / 1e6:.2f} MB)")
+            f"{moved / 1e6:.2f} MB); per kernel (launches, us): "
+            f"{kernel_split(groups)}")
         del w8s
     return timings
 
@@ -1980,15 +2005,16 @@ def mma_code(lib_path: str, report: str) -> None:
     """Phase 1: the compiler's registers and spills of the ring and flash
     kernels, of the decode kernels' split-K product and fused residual
     + LayerNorm, and of the cluster product's kernels and the kernels
-    beside them (with their dynamic shared memory); raises unless the
-    machine code of each bf16 tensor-core kernel (RING_MMA, FLASH_MMA,
-    CLUSTER_MMA) has tensor-core products (HMMA or HGMMA), and unless
-    ptxas reports no spills for the flash and cluster kernels (the ring
+    beside them (with their dynamic shared memory) and of
+    int8_wgmma_kernel; raises unless the machine code of each bf16
+    tensor-core kernel (RING_MMA, FLASH_MMA, CLUSTER_MMA, INT8_KERNEL) has
+    tensor-core products (HMMA or HGMMA; HGMMA for INT8_KERNEL), and unless
+    ptxas reports no spills for the flash, cluster and int8 kernels (the ring
     forward's registers are capped for 3 blocks per SM, and it spills a
     few bytes by design)."""
-    kernels = RING_MMA + FLASH_MMA + CLUSTER_MMA
+    kernels = RING_MMA + FLASH_MMA + CLUSTER_MMA + (INT8_KERNEL,)
     watched = ("ring_", "flash_", "gemm_partial_kernel", "residual_ln_kernel",
-               *CLUSTER_MMA, *CLUSTER_OTHER)
+               *CLUSTER_MMA, *CLUSTER_OTHER, INT8_KERNEL)
     for entry in report.split("Compiling entry function")[1:]:
         name = entry.split("'")[1]
         if any(w in name for w in watched):
@@ -1996,8 +2022,8 @@ def mma_code(lib_path: str, report: str) -> None:
             spill = re.search(r"(\d+) bytes spill stores", entry)
             log(f"    ptxas {name}: {used.group(0) if used else '?'}; "
                 f"spill stores {spill.group(1) if spill else '?'} bytes")
-            if any(k in name for k in FLASH_MMA + CLUSTER_MMA) and not (
-                    spill and spill.group(1) == "0"):
+            if any(k in name for k in FLASH_MMA + CLUSTER_MMA
+                   + (INT8_KERNEL,)) and not (spill and spill.group(1) == "0"):
                 raise AssertionError(f"{name} spills (or ptxas did not say)")
     for w_i8 in (False, True):
         log(f"    cluster product, {'int8' if w_i8 else 'bf16'} weights: "
@@ -2027,6 +2053,9 @@ def mma_code(lib_path: str, report: str) -> None:
         if kernel is not None:
             if not mma:
                 raise AssertionError(f"{name} has no HMMA/HGMMA instruction")
+            if kernel == INT8_KERNEL and not any(
+                    op.startswith("HGMMA") for op in mma):
+                raise AssertionError(f"{name} has no HGMMA instruction")
             found.add(kernel)
     if found != set(kernels):
         raise AssertionError(f"no SASS read for {set(kernels) - found}")
@@ -2152,6 +2181,61 @@ def decode_times(dev, card, log):
                 f"per call; per kernel (launches, us): {kinds}")
 
 
+def int8_times(dev, card, log):
+    """--int8-times-only: int8_matmul alone (bf16 x, seed-made weights) at
+    both INT8_SHAPES, the weight copies cycled so that they do not sit in
+    L2: events, host clock, and profiler device time split by kernel, with
+    the bound; on a tree that picks a tiling (``tma_columns``), also
+    each of its tilings forced (0: the split-K product).  Uses only
+    functions older trees have."""
+    g = torch.Generator(dev).manual_seed(SEED + 5)
+    pick = getattr(i8mm, "tma_columns", None)
+    # a second of matrix products first, and a first profiler session, so
+    # that the first reading takes neither the card's clocks on their way
+    # up nor the profiler's start
+    warm = torch.randn((4096, 4096), generator=g, device=dev)
+    t_end = time.perf_counter() + 1.0
+    while time.perf_counter() < t_end:
+        warm @ warm
+        torch.cuda.synchronize()
+    profile_groups(lambda: warm @ warm, 2)
+    del warm
+    for what, m, k, n in INT8_SHAPES:
+        x = (torch.randn((m, k), generator=g, device=dev) * 2.0).to(
+            torch.bfloat16)
+        w8, s = i8mm.quantize_int8(torch.randn((k, n), generator=g,
+                                               device=dev) * k ** -0.5)
+        copies = max(1, math.ceil(60e6 / nbytes(w8)))
+        w8s = [w8.clone() for _ in range(copies)]
+        b_ms, b_by = bound(*int8_bound(x, w8, s))
+        for forced in ((None,) if pick is None else (None, 128, 64, 0)):
+            if forced is not None:
+                i8mm.tma_columns = lambda *a, bn=forced, **kw: bn
+            fn = cycled([lambda w=w: i8mm.int8_matmul(x, w, s) for w in w8s])
+            try:
+                ulps, norm = stack_errors([fn()], [i8mm.int8_matmul_ref(
+                    x, w8s[0], s)])
+                ev, hs = cuda_ms(fn, 200), host_ms(fn, 50)
+                for _ in range(3):  # the profiler may drop every record
+                    groups = profile_groups(fn, copies)
+                    if groups:
+                        break
+            finally:
+                if pick is not None:
+                    i8mm.tma_columns = pick
+            dv = sum(t for _, t in groups.values())
+            tiling = ("as picked" if forced is None else
+                      f"forced {forced}-column tiles" if forced else
+                      "forced split-K")
+            log(f"[int8] {card}: int8_matmul {what} (M {m}, K {k}, N {n}), "
+                f"{tiling}: {ev * 1e3:.1f} us by events, {hs * 1e3:.1f} us "
+                f"of host time, {dv * 1e3:.1f} us of device time, bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}); max err {ulps:.3g} bf16 "
+                f"ulps, relative norm error {norm:.3g}; per kernel "
+                f"(launches, us): {kernel_split(groups)}")
+        del w8s
+
+
 # ---------------------------------------------------------------------------
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2178,6 +2262,11 @@ def main(argv=None):
                         "head (also with a cold L2), self_attn_step and "
                         "cross_ffn_step alone (events and profiler) and "
                         "stop (no result line); runs from an older tree too")
+    parser.add_argument("--int8-times-only", action="store_true",
+                        help="build, time int8_matmul alone at both of its "
+                        "shapes (events, host clock and profiler; each "
+                        "tiling where the tree has a choice) and stop (no "
+                        "result line); runs from an older tree too")
     opts = parser.parse_args(argv)
     card = card_line()
     log(f"card: {card}")
@@ -2206,6 +2295,9 @@ def main(argv=None):
         return
     if opts.decode_times_only:
         decode_times(dev, card, log)
+        return
+    if opts.int8_times_only:
+        int8_times(dev, card, log)
         return
     mma_code(lib_path, report)
 
@@ -2569,8 +2661,9 @@ def main(argv=None):
         kernels.append(row)
     # the per-layer kernels: one call at b64 pos 25 (weights of the six
     # layers cycled), launches of the greedy b64 decode; int8_matmul: one
-    # call at the vocab-head shape, launches of its phase-10 drive.  No
-    # single PyTorch call computes a per-layer step.
+    # call at the vocab-head shape (ffn_in_*: FFN in at beam width),
+    # launches of its phase-10 drive.  No single PyTorch call computes a
+    # per-layer step.
     for name in LAYER_KERNELS:
         k_ms, p_ms, b_ms, b_by, d_ms = layer_times[(name, BATCH)]
         kernels.append({"name": name, "route": "cuda", "source": LAYER_SRC,
@@ -2579,14 +2672,19 @@ def main(argv=None):
                         "max_abs_err": layer_worst[name]["err"], "ms": k_ms,
                         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": None, "device_ms": d_ms})
-    k_ms, p_ms, b_ms, b_by, lib_ms = layer_times[("int8_matmul",
-                                                  INT8_SHAPES[0][0])]
-    kernels.append({"name": "int8_matmul", "route": "cuda",
-                    "source": INT8_SRC, "replaces": INT8_TPU,
+    k_ms, p_ms, b_ms, b_by, lib_ms, d_ms = layer_times[(
+        "int8_matmul", INT8_SHAPES[0][0])]
+    f_ms, fp_ms, fb_ms, _, flib_ms, fd_ms = layer_times[(
+        "int8_matmul", INT8_SHAPES[1][0])]
+    kernels.append({"name": "int8_matmul", "kernel": INT8_KERNEL,
+                    "route": "cuda", "source": INT8_SRC, "replaces": INT8_TPU,
                     "launches": int8_launches,
                     "max_abs_err": int8_worst["err"], "ms": k_ms,
                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": lib_ms})
+                    "library_ms": lib_ms, "device_ms": d_ms,
+                    "ffn_in_ms": f_ms, "ffn_in_device_ms": fd_ms,
+                    "ffn_in_plain_ms": fp_ms, "ffn_in_bound_ms": fb_ms,
+                    "ffn_in_library_ms": flib_ms})
     # the ring functions: the 6 ring calls of one latent train step at the
     # training shape (B 64, T 20 on seq 4, causal); launches of the
     # sequence-parallel run (the two-way pair) or, for the one-way pair,

@@ -1,7 +1,8 @@
 """Weights and configuration carried between the JAX package and the port.
 
-- every leaf of the JAX ``IQ.init`` (both phases' trees) maps onto the
-  port's ``state_dict`` with matching shapes and round-trips bit-exact;
+- every leaf of the JAX ``IQ.init`` (both phases' trees, seed-made values
+  in the init's shapes and dtypes) maps onto the port's ``state_dict`` with
+  matching shapes and round-trips bit-exact;
 - an npz checkpoint written by the JAX ``CheckpointManager`` loads through
   ``convert.load_npz`` (no jax) to identical tensors, with f32 and with
   bf16 (void-byte) parameters on disk;
@@ -75,12 +76,18 @@ def _rngs():
 @pytest.fixture(scope="module")
 def jax_variables():
     """The JAX IQ.init tree of the latent phase (the pretrain phase's tree
-    is a subset of it, checked by shape below)."""
+    is a subset of it, checked by shape below): its leaves' paths, shapes
+    and dtypes by ``jax.eval_shape``, filled with seed-made values (what
+    carries between the packages does not depend on the values, and
+    compiling the init took most of this file's time)."""
     cfg = JaxConfig(**TINY)
     model = JaxIQ(cfg, VOCAB)
-    init = jax.jit(lambda rngs, *a: model.init(rngs, *a, latent_mode=True,
-                                               train=False))
-    return jax.tree_util.tree_map(np.asarray, init(_rngs(), *_init_args(cfg)))
+    shapes = jax.eval_shape(
+        lambda rngs, *a: model.init(rngs, *a, latent_mode=True, train=False),
+        _rngs(), *_init_args(cfg))
+    r = np.random.RandomState(0)
+    return jax.tree_util.tree_map(
+        lambda s: (0.5 + r.rand(*s.shape)).astype(s.dtype), shapes)
 
 
 def _flat(tree, prefix=()):
@@ -186,8 +193,9 @@ def test_train_state_round_trip(jax_variables, factored):
     grads = jax.tree_util.tree_map(
         lambda p: jnp.asarray(r.randn(*p.shape).astype(np.float32)), params)
     new_stats = jax.tree_util.tree_map(lambda s: s + 0.5, stats)
-    jstate = jstate.apply_gradients(grads, new_batch_stats=new_stats,
-                                    kliter_inc=1)
+    # one compiled update (the eager one dispatches every leaf's ops)
+    jstate = jax.jit(lambda st, g, bs: st.apply_gradients(
+        g, new_batch_stats=bs, kliter_inc=1))(jstate, grads, new_stats)
 
     state = create_train_state(Config(**TINY, adam_factored_nu=factored),
                                IQ(Config(**TINY), VOCAB), seed=None)

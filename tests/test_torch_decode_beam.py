@@ -67,9 +67,15 @@ def _port(cfg_over, state):
 
 
 def _jax(s, cfg_over, method, **kw):
-    return JaxIQ(JaxConfig(**TINY, **cfg_over), VOCAB).apply(
-        s["variables"], s["images"], s["context"], method=method,
-        rngs={"latent": KEY}, **kw)
+    """The JAX method, compiled as one program (much cheaper than its
+    first eager run): array arguments traced, the rest static."""
+    arrays = {k: v for k, v in kw.items() if isinstance(v, np.ndarray)}
+    static = {k: v for k, v in kw.items() if k not in arrays}
+    model = JaxIQ(JaxConfig(**TINY, **cfg_over), VOCAB)
+    fn = jax.jit(lambda v, images, context, arrays: model.apply(
+        v, images, context, method=method, rngs={"latent": KEY}, **static,
+        **arrays))
+    return fn(s["variables"], s["images"], s["context"], arrays)
 
 
 def _inputs(s):

@@ -10,6 +10,7 @@ CUDA kernel.  Tolerance: 1e-5 absolute and relative on f32 activations
 (the two differ only in the order of f32 sums).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,6 +104,13 @@ CASES = ([(pos, "none", kp) for pos in (0, LMAX // 2, LMAX - 1)
             (1, "w1", True)])
 
 
+# the JAX step compiled once per signature (the weights' dtypes, the
+# key-pad mask present or not) and shared by the cases at other positions:
+# pos reaches the kernel as an array
+_JAX_STEP = jax.jit(jds.decode_stack_step, static_argnames=(
+    "num_heads", "cross_stages", "ffn_stages"))
+
+
 @pytest.mark.parametrize("pos,quant,with_kp", CASES)
 def test_ref_matches_jax_decode_stack_step(pos, quant, with_kp):
     w, o, kp, kp_cur, hc, fc = _stack_inputs(seed=pos + 7)
@@ -115,8 +123,8 @@ def test_ref_matches_jax_decode_stack_step(pos, quant, with_kp):
                 w[k], scales[i] = w8.numpy(), s.numpy()
     if not with_kp:
         kp = kp_cur = None
-    want = _run(jds.decode_stack_step, jnp.asarray, w, o, pos, scales, kp,
-                kp_cur, hc, fc)
+    want = _run(_JAX_STEP, jnp.asarray, w, o, pos, scales, kp, kp_cur, hc,
+                fc)
     before = tds.decode_stack_step.launches
     got = _run(tds.decode_stack_step, torch.from_numpy, w, o, pos, scales,
                kp, kp_cur, hc, fc)

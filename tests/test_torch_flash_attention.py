@@ -54,11 +54,15 @@ def _inputs(b, tq, tk, h, d, seed, pad=None):
 
 def _jax_run(q, k, v, kv_pad, do, causal, dtype=jnp.float32):
     cast = lambda x: jnp.asarray(x, dtype)
-    fn = lambda q, k, v: jflash(q, k, v, None if kv_pad is None
-                                else jnp.asarray(kv_pad), causal=causal)
-    out, vjp = jax.vjp(fn, cast(q), cast(k), cast(v))
-    grads = vjp(cast(do))
-    return [np.asarray(x.astype(jnp.float32)) for x in (out, *grads)]
+
+    @jax.jit   # one program: cheaper than the eager interpret-mode kernels
+    def run(q, k, v, kv_pad, do):
+        fn = lambda q, k, v: jflash(q, k, v, kv_pad, causal=causal)
+        out, vjp = jax.vjp(fn, q, k, v)
+        return (out, *vjp(do))
+    outs = run(cast(q), cast(k), cast(v),
+               None if kv_pad is None else jnp.asarray(kv_pad), cast(do))
+    return [np.asarray(x.astype(jnp.float32)) for x in outs]
 
 
 def _torch_run(q, k, v, kv_pad, do, causal, dtype=torch.float32):

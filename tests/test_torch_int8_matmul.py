@@ -7,6 +7,9 @@ applied to the f32-accumulated product) must compute what the JAX
 ragged N.  Tolerances: f32 within 1e-5 of the output's scale (the order of
 f32 sums); bf16 outputs within 1 bf16 ulp of each value (the rounding of a
 sum taken in another order may flip).  CPU tensors never launch the kernel.
+Which kernel a call on the card takes (the TMA + wgmma kernel, with 64- or
+128-column tiles, or the split-K product) is decided in Python from the
+dtype, the shapes and the addresses, and is checked here in pure Python.
 """
 
 import jax.numpy as jnp
@@ -65,3 +68,29 @@ def test_ref_matches_jax_int8_matmul(dtype, m, k, n):
     else:
         ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
         assert (np.abs(got - want) <= ulp).all()
+
+
+# (dtype, M, K, N, 16-byte aligned, SMs) -> block columns (0: split-K)
+TMA_CASES = [
+    ("bfloat16", 64, 1024, 12000, True, 132, 128),  # the vocab head
+    ("bfloat16", 256, 1024, 2048, True, 132, 64),   # FFN in at beam width
+    ("bfloat16", 5, 1024, 12000, True, 132, 128),   # ragged M
+    ("bfloat16", 130, 512, 4096, True, 132, 128),   # three row tiles
+    ("bfloat16", 1, 8, 16, True, 132, 64),          # the least TMA takes
+    ("bfloat16", 64, 1024, 12000, True, 264, 64),   # more SMs: 64 columns
+    ("bfloat16", 3, 40, 300, True, 132, 0),         # N % 16
+    ("bfloat16", 70, 96, 1000, True, 132, 0),       # N % 16
+    ("bfloat16", 64, 1020, 12000, True, 132, 0),    # K % 8
+    ("bfloat16", 64, 1024, 12000, False, 132, 0),   # an unaligned view
+    ("bfloat16", 0, 1024, 2048, True, 132, 0),      # no rows
+    ("float32", 64, 1024, 12000, True, 132, 0),     # an f32 product
+]
+
+
+@pytest.mark.parametrize("case", TMA_CASES,
+                         ids=[f"{c[0][:4]}-{c[1]}x{c[2]}x{c[3]}"
+                              f"{'' if c[4] else '-unaligned'}-sm{c[5]}"
+                              for c in TMA_CASES])
+def test_tma_path_by_shape(case):
+    dtype, m, k, n, aligned, sms, want = case
+    assert tim.tma_columns(getattr(torch, dtype), m, k, n, aligned, sms) == want

@@ -137,10 +137,11 @@ def test_decode_greedy_matches_jax(slice_setup, case):
     cfg_over, kw = CASES[case]
     s = slice_setup
     jax_cfg = JaxConfig(**TINY, **cfg_over)
-    want = JaxIQ(jax_cfg, VOCAB).apply(
-        s["variables"], s["images"], s["context"],
-        max_decode_length=MAX_DECODE, method=JaxIQ.decode_greedy,
-        rngs={"latent": jax.random.key(0)}, **kw)
+    # compiled as one program: much cheaper than the first eager run
+    want = jax.jit(lambda v, images, context: JaxIQ(jax_cfg, VOCAB).apply(
+        v, images, context, max_decode_length=MAX_DECODE,
+        method=JaxIQ.decode_greedy, rngs={"latent": jax.random.key(0)},
+        **kw))(s["variables"], s["images"], s["context"])
 
     model = _port(cfg_over, s["state"])
     assert model.fused_head_engaged(kw["with_probe"]) == (case[0] in "cd")
@@ -189,11 +190,13 @@ def test_serve_restores_jax_model_dir(tmp_path, slice_setup):
                          "--rounds", "2", "--stream", "--device", "cpu"])
     kw = dict(latent_mode=True, with_probe=False, z_source="prior_mean")
     model = _port(STREAM_H8, s["state"])
+    # the JAX decode compiled once for both rounds
+    jax_decode = jax.jit(lambda v, images, context: JaxIQ(jax_cfg, VOCAB).apply(
+        v, images, context, max_decode_length=MAX_DECODE,
+        method=JaxIQ.decode_greedy, rngs={"latent": jax.random.key(0)}, **kw))
     for r in rounds:
-        want = JaxIQ(jax_cfg, VOCAB).apply(
-            s["variables"], r["images"].numpy(), r["context"].numpy(),
-            max_decode_length=MAX_DECODE, method=JaxIQ.decode_greedy,
-            rngs={"latent": jax.random.key(0)}, **kw)
+        want = jax_decode(s["variables"], r["images"].numpy(),
+                          r["context"].numpy())
         np.testing.assert_array_equal(r["tokens"].numpy(),
                                       np.asarray(want["tokens"]))
         with torch.inference_mode():

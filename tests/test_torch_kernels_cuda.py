@@ -41,6 +41,13 @@ forward and the backward functions are also held alone at chunks of 1 to
 1,024 rows and head dims 64, 80 and 128, with their launches per call;
 the backward's cases include dead rows at a 130-row chunk, whose dv needs
 the query tiles before a causal key tile.
+``int8_matmul`` runs its bf16 calls whose strides TMA can load on one
+``int8_wgmma_kernel`` launch (checked by profiler at the flagship shapes;
+a ragged N takes the split-K product's two kernels), also at ragged M and
+N edges.  Repeated calls on the same inputs (the bf16 ``self_attn_step``
+and ``head_argmax`` on the cluster product, ``int8_matmul``) must give the
+same bits each time: every kernel sums in a fixed order, so a difference
+is a race.
 """
 
 import numpy as np
@@ -662,21 +669,51 @@ def test_self_attn_step_cluster_kernel(dev, case):
                    tdl.self_kernels(True))
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("m,k,n", [(3, 40, 300), (70, 96, 1000),
-                                   (64, 1024, 12000), (256, 1024, 2048)])
-def test_int8_matmul_kernel(dev, dt, m, k, n):
+def _int8_inputs(dev, dt, m, k, n):
     r = np.random.RandomState(m + n)
     x = torch.from_numpy(r.randn(m, k).astype(np.float32)).to(dt).to(dev)
     w8, scale = tim.quantize_int8(torch.from_numpy(
         (r.randn(k, n) * 0.05).astype(np.float32)))
-    w8, scale = w8.to(dev), scale.to(dev)
+    return x, w8.to(dev), scale.to(dev)
+
+
+# (M, K, N): ragged shapes the split-K product takes (N % 16 != 0), the two
+# flagship shapes, and bf16 shapes of the TMA kernel with ragged M and N
+# edges (M 5 in one row tile; M 130 in three, N 4,096 in 32 two-warpgroup
+# column tiles)
+INT8_SHAPES = [(3, 40, 300), (70, 96, 1000), (64, 1024, 12000),
+               (256, 1024, 2048), (5, 1024, 12000), (130, 512, 4096)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_matmul_kernel(dev, dt, m, k, n):
+    x, w8, scale = _int8_inputs(dev, dt, m, k, n)
     before = tim.int8_matmul.launches
     got = tim.int8_matmul(x, w8, scale)
     torch.cuda.synchronize()
     assert tim.int8_matmul.launches == before + 1
     _close(got, tim.int8_matmul_ref(x, w8, scale), dt, "y")
+
+
+@pytest.mark.parametrize("m,k,n,kernels", [
+    (64, 1024, 12000, ("int8_wgmma_kernel",)),
+    (256, 1024, 2048, ("int8_wgmma_kernel",)),
+    (3, 40, 300, ("gemm_partial_kernel", "gemm_epilogue_kernel"))])
+def test_int8_matmul_path(dev, m, k, n, kernels):
+    """bf16 calls at the flagship shapes run the TMA + wgmma kernel alone;
+    a shape TMA cannot load runs the split-K product's two kernels."""
+    import re
+
+    x, w8, scale = _int8_inputs(dev, torch.bfloat16, m, k, n)
+    got = {}
+    for name, calls in _kernels_per_call(
+            lambda: tim.int8_matmul(x, w8, scale)).items():
+        fam = next((f for f in kernels if re.search(
+            rf"(?<![A-Za-z0-9_]){f}(?![A-Za-z0-9_])", name)), name)
+        got[fam] = got.get(fam, 0.0) + calls
+    assert set(got) == set(kernels) and max(got.values()) <= 1 + 1e-6, got
 
 
 # ---------------------------------------------------------------------------
@@ -845,3 +882,61 @@ def test_ring_attention_autograd(dev):
         outs.append((o.detach(), *grads))
     for name, g, w in zip(("o", "dq", "dk", "dv"), *outs):
         _close(g, w, torch.float32, name)
+
+
+# ---------------------------------------------------------------------------
+# repeated calls: the kernels sum in a fixed order, so a call repeated on
+# the same inputs must give the same bits (a difference is a race)
+
+def _repeat_bit_equal(fn, calls: int = 50):
+    first = [t.clone() for t in fn()]
+    torch.cuda.synchronize()
+    for i in range(calls - 1):
+        again = fn()
+        for j, (a, b) in enumerate(zip(first, again)):
+            assert torch.equal(a, b), (
+                f"call {i + 1}, output {j}: {int((a != b).sum())} of "
+                f"{a.numel()} elements differ, max "
+                f"{float((a.float() - b.float()).abs().max()):.4g}")
+
+
+@pytest.mark.parametrize("case", [SELF_CLUSTER_CASES[i] for i in (4, 7, 10)],
+                         ids=["b64-h8-dh128-pos25", "b256-h8-dh128-pos50",
+                              "b5-h16-dh64-pos4"])
+def test_self_attn_step_repeats_bit_equal(dev, case):
+    """50 bf16 calls on the same inputs: the same output and written cache
+    rows every time."""
+    b, h, dh, lmax, pos, with_kp = case
+    args, _, kp = _layer_inputs(dev, torch.bfloat16,
+                                (b, h, dh, 8, lmax, pos, with_kp), seed=b + pos)
+    x, ls, lb, wqkv, wout, ck, cv = args
+
+    def call():
+        out, k, v = tdl.self_attn_step(x, ls, lb, wqkv, wout, ck.clone(),
+                                       cv.clone(), pos, h, key_pad=kp)
+        return out, k[:, pos], v[:, pos]
+    _repeat_bit_equal(call)
+
+
+@pytest.mark.parametrize("quantized", [True, False], ids=["int8w", "bf16w"])
+def test_head_argmax_repeats_bit_equal(dev, quantized):
+    """50 bf16 head calls at the flagship's widths on the same inputs (a
+    planted tie among them): the same tokens every time."""
+    (x, ln_s, ln_b, w, bias), scales, chunk = _head_inputs(
+        dev, torch.bfloat16, 64, 1024, 12000, quantized, seed=7)
+    w, bias = w.clone(), bias.clone()
+    w[:, 61] = w[:, 2]
+    bias[2] = bias[61] = 1e4
+    if scales is not None:
+        scales[0, 61] = scales[0, 2]
+    _repeat_bit_equal(lambda: (tdh.head_argmax(x, ln_s, ln_b, w, bias,
+                                               chunk=chunk, scales=scales),))
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 1024, 12000), (256, 1024, 2048),
+                                   (130, 512, 4096)])
+def test_int8_matmul_repeats_bit_equal(dev, m, k, n):
+    """50 bf16 calls of the TMA + wgmma kernel on the same inputs: the same
+    bits every time."""
+    x, w8, scale = _int8_inputs(dev, torch.bfloat16, m, k, n)
+    _repeat_bit_equal(lambda: (tim.int8_matmul(x, w8, scale),))

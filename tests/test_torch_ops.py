@@ -169,14 +169,15 @@ def test_mha_step(with_key_pad):
     pk = torch.zeros((B, lmax, H, D // H))
     pv = torch.zeros((B, lmax, H, D // H))
     key_pad = np.zeros((B, lmax), bool)
+    # one compiled JAX step for every position (pos is an array)
+    jstep = jax.jit(lambda *a: jmod.apply(
+        v, *a, method=jatt.MultiHeadAttention.step))
     for pos in range(lmax):
         x = _np(13 + pos, B, 1, D)
         key_pad[0, pos] = pos == 0          # a <pad> seed on row 0
         kp = key_pad if with_key_pad else None
-        out_j, ck, cv = jmod.apply(
-            v, x, ck, cv, jnp.asarray(pos),
-            None if kp is None else jnp.asarray(kp),
-            method=jatt.MultiHeadAttention.step)
+        out_j, ck, cv = jstep(x, ck, cv, jnp.asarray(pos),
+                              None if kp is None else jnp.asarray(kp))
         out, pk, pv = port.step(torch.from_numpy(x), pk, pv, pos,
                                 None if kp is None else torch.from_numpy(kp))
         _close(out, out_j)
@@ -216,14 +217,16 @@ def test_decoder_plain_steps(with_key_pad):
         _close(vv, vj)
     caches = port.init_cache(B, lmax)
     key_pad = np.zeros((B, lmax), bool)
+    # one compiled JAX step for every position (pos is an array)
+    jstep = jax.jit(lambda *a: jdec.apply(
+        v, *a, method=jtr.TransformerDecoder.step))
     for pos in range(lmax):
         x = _np(24 + pos, B, 1, D)
         key_pad[1, pos] = pos in (0, 2)
         kp = key_pad if with_key_pad else None
-        y_j, caches_j = jdec.apply(
-            v, x, caches_j, cross_j, jnp.asarray(pos), jnp.asarray(src),
-            None if kp is None else jnp.asarray(kp),
-            method=jtr.TransformerDecoder.step)
+        y_j, caches_j = jstep(x, caches_j, cross_j, jnp.asarray(pos),
+                              jnp.asarray(src),
+                              None if kp is None else jnp.asarray(kp))
         y, caches = port.step(torch.from_numpy(x), caches, cross, pos,
                               torch.from_numpy(src),
                               None if kp is None else torch.from_numpy(kp))
@@ -236,6 +239,7 @@ def test_decoder_plain_steps(with_key_pad):
 def test_encoder_cnn_nhwc_eval():
     port = _randomize(resnet.EncoderCNN(D, F32), 30)
     images = np.random.RandomState(31).rand(2, 32, 32, 3).astype(np.float32)
-    want = jres.EncoderCNN(D, dtype=jnp.float32).apply(
-        _flax(port), images, train=False)
+    # compiled as one program: cheaper than the eager ResNet
+    want = jax.jit(lambda v, im: jres.EncoderCNN(D, dtype=jnp.float32).apply(
+        v, im, train=False))(_flax(port), images)
     _close(port(torch.from_numpy(images)), want)

@@ -109,12 +109,21 @@ def port_model(weights, pallas: bool) -> IQ:
     return model
 
 
+_EPS = {}
+
+
 def jax_eps(variables, cfg, key):
-    """The posterior noise the JAX ``latent`` module draws under ``key``."""
-    draw = lambda m: jax.random.normal(m.latent.make_rng("latent"),
-                                       (BATCH, cfg.latent_dim), jnp.float32)
-    return np.array(JaxIQ(cfg, VOCAB).apply(variables, method=draw,
-                                            rngs={"latent": key}))
+    """The posterior noise the JAX ``latent`` module draws under ``key``
+    (compiled once per configuration, then called for each key)."""
+    fn = _EPS.get(repr(cfg))
+    if fn is None:
+        draw = lambda m: jax.random.normal(m.latent.make_rng("latent"),
+                                           (BATCH, cfg.latent_dim),
+                                           jnp.float32)
+        model = JaxIQ(cfg, VOCAB)
+        fn = _EPS[repr(cfg)] = jax.jit(lambda v, k: model.apply(
+            v, method=draw, rngs={"latent": k}))
+    return np.array(fn(variables, key))
 
 
 @pytest.fixture(scope="module")
