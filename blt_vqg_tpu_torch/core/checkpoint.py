@@ -1,0 +1,303 @@
+"""Step checkpoints of the train state (counterpart of
+``blt_vqg_tpu/core/checkpoint.py``, its npz backend).
+
+The format is the JAX package's, so a checkpoint written by either package
+restores in the other:
+
+- ``<dir>/step_N/state.npz``, one flat archive: ``params/<flax path>``,
+  ``batch_stats/<flax path>``, the ``FusedAdamState`` as
+  ``opt_state/.count``, ``opt_state/.mu/<path>``, ``opt_state/.nu/<path>``
+  (a factored second moment as ``<path>/.r`` and ``<path>/.c``) and
+  ``opt_state/.master/<path>``, then ``__step__`` and ``__kliter__``.
+  Leaves are in flax layout (Dense kernels [in, out]; ``convert.py``
+  maps the names and layouts).  bf16 leaves are stored as raw 2-byte void
+  values beside a ``__dtype__/<key>`` record, as numpy has no bfloat16;
+- ``args.json`` (the ``Config``) and ``extra.json`` beside it;
+- each step is written into ``step_N.tmp`` and renamed, so a step
+  directory is always whole; the ``keep`` newest steps are kept.
+
+``save(block=False)`` copies the state to the host at once (the train step
+updates it in place) and writes the files on a background thread;
+``wait`` joins it.  ``on_disk_param_dtype="bfloat16"`` stores float
+parameters (not moments or statistics) in bf16; restore casts every leaf
+back to the train state's dtype.  A checkpoint whose optimizer layout
+(``adam_factored_nu``) differs from the train state's fails with a message
+that names both.  The orbax backend and the sharded save and restore are
+not ported (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from blt_vqg_tpu_torch.convert import _STATS_BACK, _flax_leaf, _port_layout
+from blt_vqg_tpu_torch.core.config import Config
+from blt_vqg_tpu_torch.train.fused_adam import FactoredNu, FusedAdamState
+
+_STEP_RE = re.compile(r"^step_(\d+)$")
+_OPT_FIELDS = (("mu", ".mu"), ("nu", ".nu"), ("master", ".master"))
+
+
+def _unported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
+                               f"queue 1)")
+
+
+def _layout_name(factored: bool) -> str:
+    return ("adam_factored_nu=True (factored second moments, .r/.c)"
+            if factored else "adam_factored_nu=False (full second moments)")
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` as numpy (bf16 as 2-byte void values)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def _put(flat: dict, key: str, t: torch.Tensor) -> None:
+    flat[key] = _host(t)
+    if t.dtype == torch.bfloat16:
+        flat["__dtype__/" + key] = np.str_("bfloat16")
+
+
+def _get(flat: dict, key: str) -> torch.Tensor:
+    if key not in flat:
+        raise KeyError(f"checkpoint missing leaf {key}")
+    arr = flat[key]
+    if arr.dtype.kind == "V":
+        hint = str(flat.get("__dtype__/" + key, "?"))
+        if hint != "bfloat16" or arr.dtype.itemsize != 2:
+            raise ValueError(f"{key}: stored as {arr.dtype} with dtype "
+                             f"record {hint!r}")
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def _keys(model: torch.nn.Module):
+    """(port name, npz key, flax leaf name) of every ``state_dict`` entry."""
+    out = []
+    for name, t in model.state_dict().items():
+        *mods, last = name.split(".")
+        if last in _STATS_BACK:
+            out.append((name, "batch_stats/" + "/".join(
+                mods + [_STATS_BACK[last]]), None))
+        else:
+            mods, leaf, _ = _flax_leaf(name, t)
+            out.append((name, "params/" + "/".join(mods + [leaf]), leaf))
+    return out
+
+
+def _opt_key(field: str, name: str, p: torch.Tensor):
+    mods, leaf, _ = _flax_leaf(name, p)
+    return f"opt_state/{field}/" + "/".join(mods + [leaf]), leaf
+
+
+def _swapped(leaf: str, p: torch.Tensor) -> bool:
+    """A factored moment's (r, c) pair swaps at a Dense kernel, whose port
+    layout is the flax kernel transposed."""
+    return leaf == "kernel" and p.dim() == 2
+
+
+def flatten_state(state, cast_params=None) -> dict:
+    """The npz entries of a port ``TrainState`` (host copies)."""
+    flat: dict = {}
+    sd = state.model.state_dict()
+    for name, key, leaf in _keys(state.model):
+        t = sd[name]
+        if leaf is not None:
+            t = _flax_leaf(name, t)[2]
+            if cast_params is not None and t.is_floating_point():
+                t = t.to(cast_params)
+        _put(flat, key, t)
+    params = dict(state.model.named_parameters())
+    opt = state.opt_state
+    flat["opt_state/.count"] = np.asarray(opt.count, np.int32)
+    for attr, field in _OPT_FIELDS:
+        for name, v in getattr(opt, attr).items():
+            key, leaf = _opt_key(field, name, params[name])
+            if isinstance(v, FactoredNu):
+                r, c = ((v.c, v.r) if _swapped(leaf, params[name])
+                        else (v.r, v.c))
+                _put(flat, key + "/.r", r)
+                _put(flat, key + "/.c", c)
+            else:
+                _put(flat, key, _flax_leaf(name, v)[2])
+    flat["__step__"] = np.asarray(int(state.step))
+    flat["__kliter__"] = np.asarray(int(state.kliter))
+    return flat
+
+
+def _is_factored(nu: dict) -> bool:
+    return any(isinstance(v, FactoredNu) for v in nu.values())
+
+
+def restore_flat(state, flat: dict, source: str = "checkpoint"):
+    """Fills the port ``TrainState`` ``state`` from npz entries, in place:
+    every leaf cast to the state's dtype and device.  Returns ``state``."""
+    if "opt_state/.count" not in flat:
+        raise ValueError(f"{source} holds no fused Adam state "
+                         f"(opt_state/.count): the port restores only the "
+                         f"fused optimizer's layout")
+    want = _is_factored(state.opt_state.nu)
+    got = any(k.startswith("opt_state/.nu/") and k.endswith("/.r")
+              for k in flat)
+    if got != want:
+        raise ValueError(
+            f"{source} holds optimizer state with {_layout_name(got)}, but "
+            f"the train state was made with {_layout_name(want)}: make the "
+            f"train state with adam_factored_nu={got} to restore it")
+    model = state.model
+    sd = model.state_dict()
+    new_sd = {}
+    for name, key, leaf in _keys(model):
+        t = _get(flat, key)
+        if leaf is not None:
+            t = _port_layout(leaf, t)
+        new_sd[name] = t.to(sd[name].dtype).reshape(sd[name].shape)
+    model.load_state_dict(new_sd)
+
+    params = dict(model.named_parameters())
+    opt = state.opt_state
+    fields = {}
+    for attr, field in _OPT_FIELDS:
+        tree = {}
+        for name, like in getattr(opt, attr).items():
+            key, leaf = _opt_key(field, name, params[name])
+            if isinstance(like, FactoredNu):
+                r, c = _get(flat, key + "/.r"), _get(flat, key + "/.c")
+                if _swapped(leaf, params[name]):
+                    r, c = c, r
+                tree[name] = FactoredNu(
+                    r.to(like.r.device, like.r.dtype).reshape(like.r.shape),
+                    c.to(like.c.device, like.c.dtype).reshape(like.c.shape))
+            else:
+                t = _port_layout(leaf, _get(flat, key))
+                tree[name] = t.to(like.device, like.dtype).reshape(
+                    like.shape)
+        fields[attr] = tree
+    state.opt_state = FusedAdamState(int(flat["opt_state/.count"]),
+                                     **fields)
+    state.step = int(flat["__step__"])
+    state.kliter = int(flat["__kliter__"])
+    return state
+
+
+class CheckpointManager:
+    """``backend="npz"``: the flat-archive format above.  The JAX package's
+    ``"orbax"`` backend raises (not ported)."""
+
+    def __init__(self, directory: str, keep: int = 5,
+                 backend: str = "npz"):
+        if backend == "orbax":
+            raise _unported("the orbax checkpoint backend")
+        if backend != "npz":
+            raise ValueError(f"unknown checkpoint backend {backend!r}")
+        self.directory = directory
+        self.keep = keep
+        self.backend = backend
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        os.makedirs(directory, exist_ok=True)
+
+    # -- paths ----------------------------------------------------------
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step}")
+
+    def all_steps(self):
+        steps = []
+        for name in os.listdir(self.directory):
+            m = _STEP_RE.match(name)
+            if m and os.path.exists(os.path.join(self.directory, name,
+                                                 "state.npz")):
+                steps.append(int(m.group(1)))
+        return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    # -- save / restore -------------------------------------------------
+    def save(self, state, cfg: Optional[Config] = None,
+             extra: Optional[dict] = None, block: bool = True,
+             on_disk_param_dtype: Optional[str] = None) -> str:
+        """Saves ``state`` under ``step_<state.step>``.  The host copy is
+        taken now; with ``block=False`` the files are written on a
+        background thread (one write in flight at a time)."""
+        self.wait()
+        step = int(state.step)
+        path = self._step_dir(step)
+        cast = ({"bfloat16": torch.bfloat16, "float32": torch.float32}
+                [on_disk_param_dtype] if on_disk_param_dtype else None)
+        flat = flatten_state(state, cast)
+        cfg_json = cfg.to_json() if cfg is not None else None
+        extra_json = json.dumps(extra) if extra else None
+
+        def write():
+            tmp = path + ".tmp"
+            os.makedirs(tmp, exist_ok=True)
+            np.savez(os.path.join(tmp, "state.npz"), **flat)
+            if cfg_json is not None:
+                with open(os.path.join(tmp, "args.json"), "w") as f:
+                    f.write(cfg_json)
+            if extra_json is not None:
+                with open(os.path.join(tmp, "extra.json"), "w") as f:
+                    f.write(extra_json)
+            if os.path.exists(path):
+                shutil.rmtree(path)
+            os.rename(tmp, path)
+            self._gc()
+
+        if block:
+            write()
+        else:
+            def guarded():
+                try:
+                    write()
+                except BaseException as e:  # re-raised by wait()
+                    self._error = e
+            self._writer = threading.Thread(target=guarded, daemon=False)
+            self._writer.start()
+        return path
+
+    def wait(self) -> None:
+        """Joins an in-flight async write; raises what it raised."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def restore(self, state, step: Optional[int] = None):
+        """Fills ``state`` from disk in place (the latest step unless
+        ``step``) and returns it."""
+        self.wait()
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        path = os.path.join(self._step_dir(step), "state.npz")
+        with np.load(path, allow_pickle=False) as z:
+            flat = {k: z[k] for k in z.files}
+        return restore_flat(state, flat, source=path)
+
+    def _gc(self):
+        steps = self.all_steps()
+        for step in steps[:-self.keep]:
+            shutil.rmtree(self._step_dir(step), ignore_errors=True)
+
+    def save_sharded(self, state, cfg: Optional[Config] = None) -> str:
+        raise _unported("the sharded (per-host) checkpoint save")
+
+    def restore_sharded(self, state, step: Optional[int] = None):
+        raise _unported("the sharded (per-host) checkpoint restore")

@@ -7,8 +7,9 @@ the training/validation forward (:meth:`IQ.forward`, both phases),
 per-layer and the streaming decode paths (:meth:`IQ.decode_greedy`, greedy
 or sampled, with the fused int8/bf16 head, every z source;
 :meth:`IQ.decode_beam`), the full-prefix :meth:`IQ.inference_logits` and
-``predict_from_answer``/``predict_from_category``.  ``latent_diagnostics``
-is not ported yet (ROADMAP.md queue 1).
+``predict_from_answer``/``predict_from_category``, and
+:meth:`IQ.latent_diagnostics`; :func:`apply_glove_table` puts a GloVe table
+into the embedding.
 
 Random draws come from explicit ``torch.Generator``s, never from a JAX key:
 the prior or posterior noise from ``generator`` (or injected as ``eps``),
@@ -180,6 +181,20 @@ class IQ(nn.Module):
         recon_in = enc[:, 0] if z_proj is None else enc[:, 0] + z_proj
         recon = self.image_reconstructor(recon_in, gen)
         return logits, z_logit, kld, (image_features.float(), recon.float())
+
+    def latent_diagnostics(self, images: torch.Tensor, context: torch.Tensor,
+                           posterior: torch.Tensor) -> dict:
+        """The latent's distribution statistics for a batch
+        (:meth:`Latent.stats`) plus ``active_dims``, the number of dims whose
+        batch-mean KL exceeds 0.01 (the posterior-collapse gauge).  Eval
+        mode, no noise."""
+        image_features = self.encoder_cnn(images)
+        enc, _ = self.encode_context(context, image_features)
+        post_enc = self.posterior_encoder(self.embed_tokens(posterior),
+                                          pad_mask(posterior, PAD))
+        stats = self.latent.stats(enc[:, 0], post_enc[:, 0])
+        stats["active_dims"] = torch.sum(stats["kl_per_dim"] > 0.01)
+        return stats
 
     def z_projection(self, enc: torch.Tensor, latent_mode: bool,
                      z_source: str = "prior_sample", posterior=None,
@@ -485,3 +500,12 @@ class IQ(nn.Module):
             return {"tokens": tokens}
         return {"tokens": tokens, "top_tokens": top_tokens,
                 "top_probs": top_probs}
+
+
+@torch.no_grad()
+def apply_glove_table(model: IQ, table) -> IQ:
+    """Overwrites the embedding with a GloVe-initialised table [V, emb]
+    (numpy or tensor), keeping the embedding's storage dtype; in place."""
+    w = model.embed.weight
+    w.copy_(torch.as_tensor(table).to(device=w.device, dtype=w.dtype))
+    return model

@@ -94,3 +94,27 @@ class Latent(nn.Module):
         std = torch.exp(0.5 * logvar_post.float())
         z = eps * std + mean_post.float()
         return kld, z.to(self.dtype), (mean_post, logvar_post)
+
+    def stats(self, x: torch.Tensor, x_p: torch.Tensor) -> dict:
+        """Distribution diagnostics of the latent (eval mode, no noise):
+        ``kl_per_dim`` [L], the batch mean of the per-dim KL(q || p);
+        ``prior_logvar`` and ``post_logvar``, the mean log-variances;
+        ``prior_mean_var``, the variance of the prior mean across the batch
+        (about 0: the prior ignores its input); ``mean_gap``,
+        E[(mu_q - mu_p)^2].  All f32."""
+        ml_prior = self.prior(x)
+        mu_p = ml_prior[:, :self.latent_dim].float()
+        lv_p = ml_prior[:, self.latent_dim:].float()
+        ml_post = self.posterior(torch.cat([x_p, x], dim=-1))
+        mu_q = ml_post[:, :self.latent_dim].float()
+        lv_q = ml_post[:, self.latent_dim:].float()
+        kl_dim = -0.5 * (1.0 + (lv_q - lv_p)
+                         - torch.square(mu_p - mu_q) / torch.exp(lv_p)
+                         - torch.exp(lv_q) / torch.exp(lv_p))     # [B, L]
+        return {
+            "kl_per_dim": torch.mean(kl_dim, dim=0),
+            "prior_logvar": torch.mean(lv_p),
+            "post_logvar": torch.mean(lv_q),
+            "prior_mean_var": torch.mean(torch.var(mu_p, dim=0, correction=0)),
+            "mean_gap": torch.mean(torch.square(mu_q - mu_p)),
+        }

@@ -9,10 +9,19 @@ statistics still update, as in the JAX package.
 The public input stays NHWC [B, H, W, 3], as in the JAX package; it is
 transposed to NCHW once for ``torch.nn.functional.conv2d``.  Convolutions
 are library calls, as in the JAX package, which leaves them to XLA.
+
+:func:`load_resnet18_checkpoint` reads a torchvision ``resnet18``
+``state_dict`` (a ``.pth`` file, or an ``.npz`` with the same keys) and
+:func:`import_torch_resnet18` maps it onto the backbone's own names, its
+convolution kernels and its batch-norm statistics: the pretrained frozen
+backbone of ``cfg.resnet_ckpt``.
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict
+
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -85,3 +94,61 @@ class EncoderCNN(nn.Module):
         """images [B, H, W, 3] NHWC float -> [B, hidden] in ``dtype``."""
         x = images.permute(0, 3, 1, 2).to(self.dtype)
         return self.feat_bn(self.fc(self.backbone(x, train)), train)
+
+
+# ----------------------------------------------------------------------
+# torchvision state_dict import
+
+_STAGE_NAMES = ("layer1", "layer2", "layer3", "layer4")
+
+
+def import_torch_resnet18(state_dict: Dict[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """Maps a torchvision resnet18 ``state_dict`` (tensors or ndarrays) onto
+    the ``state_dict`` names of :class:`ResNet18Backbone`: convolution
+    kernels (OIHW in both) and batch-norm scale, bias and running
+    statistics, one to one; torchvision's ``fc`` and
+    ``num_batches_tracked`` have no counterpart and are left out."""
+    def arr(key):
+        v = state_dict[key]
+        return (v.detach().cpu() if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.array(v)))
+
+    out: Dict[str, torch.Tensor] = {}
+
+    def conv(name, prefix):
+        out[f"{name}.weight"] = arr(f"{prefix}.weight")
+
+    def bn(name, prefix):
+        for ours, theirs in (("weight", "weight"), ("bias", "bias"),
+                             ("running_mean", "running_mean"),
+                             ("running_var", "running_var")):
+            out[f"{name}.{ours}"] = arr(f"{prefix}.{theirs}")
+
+    conv("stem_conv", "conv1")
+    bn("stem_bn", "bn1")
+    for si, layer in enumerate(_STAGE_NAMES):
+        for bi in range(2):
+            name, tprefix = f"stage{si}_block{bi}", f"{layer}.{bi}"
+            conv(f"{name}.conv1", f"{tprefix}.conv1")
+            bn(f"{name}.bn1", f"{tprefix}.bn1")
+            conv(f"{name}.conv2", f"{tprefix}.conv2")
+            bn(f"{name}.bn2", f"{tprefix}.bn2")
+            if f"{tprefix}.downsample.0.weight" in state_dict:
+                conv(f"{name}.down_conv", f"{tprefix}.downsample.0")
+                bn(f"{name}.down_bn", f"{tprefix}.downsample.1")
+    return out
+
+
+def load_resnet18_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A torchvision resnet18 checkpoint file (``.pth`` state_dict, or
+    ``.npz`` with the same keys) as a :class:`ResNet18Backbone`
+    ``state_dict`` (:func:`import_torch_resnet18`)."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            sd = {k: z[k] for k in z.files}
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if hasattr(sd, "state_dict"):
+            sd = sd.state_dict()
+    return import_torch_resnet18(sd)

@@ -44,7 +44,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
             raise NotImplementedError(
                 f"mesh axis {name!r} of size {mesh.shape[name]}: attention "
                 f"sharded across cards is not ported (ROADMAP.md queue 1, "
-                f"item 6)")
+                f"item 4)")
     c = t // n
     if kv_pad is None:
         kv_pad = torch.zeros((b, t), dtype=torch.bool, device=q.device)

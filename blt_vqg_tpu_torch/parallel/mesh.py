@@ -8,7 +8,7 @@ be larger than 1: its n ranks are shards held on one device by one
 process, and :class:`LocalRing` moves their blocks around the ring.  Data,
 tensor and pipeline parallelism across cards, and a transport between
 cards (``torch.distributed`` with NCCL ``isend``/``irecv``), are not ported
-yet (ROADMAP.md queue 1, item 6).
+yet (ROADMAP.md queue 1, item 4).
 
 :class:`LocalRing` keeps the protocol of the TPU ring kernels
 (ops/pallas/ring_attention.py): each :class:`Channel` is a double-buffered
@@ -179,7 +179,7 @@ def build_mesh(mesh_shape: Tuple[int, ...] = (1, 1),
     """A mesh of the named axes on one device (the card unless the caller
     asks for the CPU).  Any axis but ``seq`` above size 1 raises: it needs
     several cards and a transport between them (ROADMAP.md queue 1, item
-    6)."""
+    4)."""
     if len(mesh_shape) != len(axis_names):
         raise ValueError(f"mesh_shape {mesh_shape} and axis_names "
                          f"{axis_names} differ in length")
@@ -189,7 +189,7 @@ def build_mesh(mesh_shape: Tuple[int, ...] = (1, 1),
         if size > 1 and name != SEQ:
             raise NotImplementedError(
                 f"mesh axis {name!r} of size {size}: only the {SEQ!r} ring "
-                f"is ported, on one device (ROADMAP.md queue 1, item 6)")
+                f"is ported, on one device (ROADMAP.md queue 1, item 4)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} asked for, but torch sees no "

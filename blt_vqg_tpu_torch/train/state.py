@@ -86,12 +86,18 @@ class TrainState:
 
 
 def create_train_state(cfg: Config, model: torch.nn.Module,
-                       seed: Optional[int] = 0) -> TrainState:
+                       seed: Optional[int] = 0,
+                       glove_table=None) -> TrainState:
     """The train state of ``model`` (already on its device).  With ``seed``
     the weights are made from it first; with None the model's own weights
-    (for example loaded from a JAX checkpoint) are kept."""
+    (for example loaded from a JAX checkpoint) are kept.  ``glove_table``
+    [V, emb] replaces the embedding before the optimizer snapshots its f32
+    masters, as in the JAX package."""
     if seed is not None:
         model.init_weights(torch.Generator().manual_seed(seed))
+    if glove_table is not None:
+        from blt_vqg_tpu_torch.models.iq import apply_glove_table
+        apply_glove_table(model, glove_table)
     for name, p in model.named_parameters():
         p.requires_grad_(not is_frozen(name))
     tx = make_optimizer(cfg)

@@ -14,8 +14,10 @@ over the trainable parameters, then ``FusedClipAdam``.  The metrics are the
 JAX package's (``loss``, ``rec``, ``img``, ``ppl``, ``kld``, ``aux``,
 ``elbo``, ``grad_norm`` with ``log_grad_norm``, ``skipped_nonfinite`` with
 ``guard_nonfinite``), as device tensors: nothing waits for the card, except
-``guard_nonfinite``, which reads the loss on the host to decide.  Not
-ported (ROADMAP.md): MoE losses, ``make_multi_step`` and
+``guard_nonfinite``, which reads the loss on the host to decide.
+:func:`make_multi_step` runs G such steps in one call, on batches stacked
+on a leading axis, as eager steps (the JAX package scans them in one
+program).  Not ported (ROADMAP.md): MoE losses and
 ``grad_dtype="bfloat16"``.
 """
 
@@ -130,6 +132,27 @@ def make_train_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
     return step
 
 
+def make_multi_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
+    """G train steps in one call: ``multi(state, batches, generator_of)``,
+    ``batches`` the single step's batch dict with a leading [G, ...] axis,
+    ``generator_of(i)`` the generator of the call's step i.  Step i takes
+    ``batches[k][i]`` and ``generator_of(i)``, so G multi steps equal G
+    single steps on those generators.  Returns (the state, the last step's
+    metrics), as the JAX package's scan does.  ``mesh``: as in
+    :func:`make_train_step`."""
+    step = make_train_step(cfg, latent_mode, mesh)
+
+    def multi(state: TrainState, batches: Dict[str, torch.Tensor],
+              generator_of: Callable[[int], torch.Generator]):
+        metrics = None
+        for i in range(next(iter(batches.values())).shape[0]):
+            state, metrics = step(state, {k: v[i] for k, v in batches.items()},
+                                  generator_of(i))
+        return state, metrics
+
+    return multi
+
+
 def make_eval_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
     """Validation forward: ``step(state, batch, generator=None, eps=None)
     -> metrics``; the same losses, no gradient, batch statistics frozen.
@@ -208,6 +231,20 @@ def make_diag_decode_step(cfg: Config, model, z_source: str) -> Callable:
                 with_probe=False, z_source=z_source,
                 posterior=posterior if uses_post else None,
                 generator=generator)
+
+    return step
+
+
+def make_latent_diag_step(cfg: Config, model) -> Callable:
+    """The latent's distribution diagnostics (:meth:`IQ.latent_diagnostics`):
+    ``step(images, context, posterior) -> dict``, under
+    ``torch.inference_mode()``."""
+    del cfg
+
+    def step(images: torch.Tensor, context: torch.Tensor,
+             posterior: torch.Tensor) -> dict:
+        with torch.inference_mode():
+            return model.latent_diagnostics(images, context, posterior)
 
     return step
 

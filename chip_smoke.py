@@ -98,7 +98,24 @@ only when every phase passed):
    training and the long shape (event time, and device time by profiler)
    against its plain version, its bound and
    ``scaled_dot_product_attention`` forward and backward (a yardstick the
-   port never calls); the ``kernels`` line carries both shapes.
+   port never calls); the ``kernels`` line carries both shapes;
+15. trains the flagship through the port's train CLI
+   (``blt_vqg_tpu_torch.cli.train_iq.main``) on a synthetic packed
+   dataset written with numpy (512 questions over 128 images of 224x224x3
+   uint8, 128 validation questions, vocab 12,000): ``use_pallas_attention``
+   without attention dropout, ``use_pallas_decode``, 2 pretrain and 4
+   latent steps in dispatches of 2, 1, 1 and 2 (``make_multi_step``),
+   validations with the latent report at steps 3 and 6 and a final one,
+   checkpoints every 2 steps; checks the losses, the kld on each side of
+   the boundary, the Adam restart (the checkpoints' counts), the printed
+   and returned validation scores, the exact flash and per-layer launch
+   counts and that the native IO library loaded; times the fit loop by
+   events (also in a run with no validation or checkpoint inside it), the
+   validations and one checkpoint save and restore; then
+   trains 4 steps and resumes to 6 with ``--resume`` and ``--profile_dir``:
+   the resumed state must equal the step-4 checkpoint bit for bit, and the
+   profiled fit loop must show the three bf16 tensor-core flash kernels
+   (no FMA one) and the per-layer kernels a layer step (4 and 9).
 
 Phase 1 also prints the compiler's registers, shared memory and spills
 of the ring and flash kernels, of the decode kernels' split-K product
@@ -113,6 +130,7 @@ cores (HMMA or HGMMA instructions, by ``cuobjdump -sass``; HGMMA, the
 warpgroup product, for ``int8_wgmma_kernel``), the flash, cluster and
 int8 kernels without spills.
 
+``--train-cli-only`` builds and runs phase 15 alone.
 ``--flash-times-only``, ``--decode-times-only`` and ``--int8-times-only``
 build, take only the flash kernels' (phase 7), the decode kernels' (the
 stack step, the fused head, also with a cold L2, ``self_attn_step`` and
@@ -128,6 +146,8 @@ TF32 is off for matmuls and cuDNN throughout.  The line before the last is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -2237,6 +2257,385 @@ def int8_times(dev, card, log):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# the train CLI (phase 15)
+
+def write_packed(directory: str, questions: int, images: int, vocab: int,
+                 seed: int, q_len: int = 20, a_len: int = 4,
+                 categories: int = 8, size: int = 224) -> str:
+    """A synthetic packed dataset (data/packed.py's format: images.npy
+    uint8 and tokens.npz) made with numpy from ``seed``: questions and
+    answers of random words between <start> and <end>, as
+    data/synthetic.py makes them, no h5py."""
+    rng = np.random.RandomState(seed)
+
+    def rand_seq(max_len, lo_len, hi_len):
+        seqs = np.zeros((questions, max_len), np.int32)
+        for i in range(questions):
+            n = min(rng.randint(lo_len, hi_len + 1), max_len - 2)
+            seqs[i, 0] = START
+            seqs[i, 1:1 + n] = rng.randint(6, vocab, size=n)
+            seqs[i, 1 + n] = 3          # <end>
+        return seqs
+
+    os.makedirs(directory)
+    np.save(os.path.join(directory, "images.npy"),
+            rng.randint(0, 256, (images, size, size, 3), dtype=np.uint8))
+    np.savez(os.path.join(directory, "tokens.npz"),
+             questions=rand_seq(q_len, 3, q_len - 2),
+             answers=rand_seq(a_len, 1, a_len - 2),
+             answer_types=rng.randint(0, categories, questions
+                                      ).astype(np.int32),
+             image_indices=rng.randint(0, images, questions).astype(np.int64),
+             image_ids=np.arange(questions, dtype=np.int64) + 1000)
+    with open(os.path.join(directory, "meta.json"), "w") as f:
+        json.dump({"source": "chip_smoke.py", "uint8_images": True}, f)
+    return directory
+
+
+def train_cli_argv(data: dict, out: str, steps: int, *extra) -> list:
+    """The flagship (serve.flagship_config) on the train CLI, with the
+    flash kernels in training and the per-layer kernels in validation."""
+    c = serve.flagship_config()
+    return [f"--emb_dim={c.emb_dim}", f"--hidden_dim={c.hidden_dim}",
+            f"--latent_dim={c.latent_dim}", f"--pwffn_dim={c.pwffn_dim}",
+            f"--num_layers={c.num_layers}", f"--num_heads={c.num_heads}",
+            f"--input_mode={c.input_mode}", f"--dtype={c.dtype}",
+            f"--image_size={c.image_size}", f"--batch_size={BATCH}",
+            "--use_pallas_attention", "--attention_dropout=0.0",
+            "--use_pallas_decode", "--num_pretraining_steps=2",
+            f"--total_training_steps={steps}", "--steps_per_dispatch=2",
+            "--val_check_interval=3", "--limit_val_batches=1",
+            "--checkpoint_every=2", "--latent_diagnostics",
+            f"--seed={SEED}", f"--vocab={data['vocab']}",
+            f"--dataset={data['train']}", f"--val_dataset={data['val']}",
+            f"--output_dir={out}", *extra]
+
+
+def flash_launches():
+    return {fn: getattr(fa, fn).launches for fn in FLASH_KERNELS}
+
+
+def zero_flash_launches():
+    for fn in FLASH_KERNELS:
+        getattr(fa, fn).launches = 0
+
+
+def run_train_cli(argv) -> tuple:
+    """``cli.train_iq.main(argv)`` with its standard output captured:
+    (its result, the text it printed)."""
+    from blt_vqg_tpu_torch.cli import train_iq
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = train_iq.main(argv)
+    return result, buf.getvalue()
+
+
+def validation_blocks(text: str) -> dict:
+    """{step: {name: value}} of each printed validation report (the metric
+    lines after its header; the samples come before it)."""
+    blocks, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"^##### validation @ step (\d+) #####$", line)
+        if m:
+            cur = blocks.setdefault(int(m.group(1)), [])
+            cur.append({})
+            continue
+        parts = line.split(" \t ")
+        if cur is not None and len(parts) == 2:
+            try:
+                cur[-1][parts[0]] = float(parts[1])
+            except ValueError:
+                pass
+        elif cur is not None:
+            cur = None
+    return blocks
+
+
+def opt_count(out: str, step: int) -> int:
+    with np.load(os.path.join(out, "checkpoints", f"step_{step}",
+                              "state.npz")) as z:
+        return int(z["opt_state/.count"])
+
+
+def same_entries(a: dict, b: dict, what: str) -> None:
+    """Raises unless two checkpoint entry dicts hold the same keys and the
+    same bytes."""
+    if set(a) != set(b):
+        raise AssertionError(f"{what}: keys differ: "
+                             f"{sorted(set(a) ^ set(b))[:5]}")
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(
+                np.ascontiguousarray(x).view(np.uint8).ravel(),
+                np.ascontiguousarray(y).view(np.uint8).ravel()):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+# flash launches of one latent validation with the latent report: the eval
+# step (24) and the decodes' encoders, by flash forward alone: the report's
+# decode and the prior-sample and prior-mean decodes 6 each (context
+# encoder), the statistics and the posterior-mean decode 12 each (context
+# and posterior encoders)
+VAL_FLASH_FWD = 24 + 6 + 12 + 6 + 6 + 12
+# greedy decodes of one validation: the report's and three z sources'
+VAL_DECODES = 4
+# per-layer kernels of one layer step: self_attn_step's 4 and
+# cross_ffn_step's 9
+LAYER_STEP_KERNELS = {k: SELF_KERNELS.get(k, 0) + CROSS_KERNELS.get(k, 0)
+                      for k in {**SELF_KERNELS, **CROSS_KERNELS}}
+PROFILE_MIN_SHARE = 0.9   # the profiler may drop a few of many records
+
+
+def trace_kernels(path: str) -> dict:
+    """{kernel name: records} of the device kernels in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def train_cli_phase(dev, card, log):
+    """Phase 15: the flagship trained through the port's train CLI
+    (``cli.train_iq.main``) on a synthetic packed dataset: 2 pretrain
+    steps, the Adam restart, 4 latent steps in dispatches of 2, 1, 1 and 2
+    steps, validations at steps 3 and 6 and a final one, checkpoints every
+    2 steps (after the same 6 steps with no validation or checkpoint inside
+    fit, timed); then 4 steps and a resumed run to 6 under the profiler."""
+    import shutil
+    import tempfile
+    from blt_vqg_tpu_torch.core.checkpoint import (CheckpointManager,
+                                                   flatten_state)
+    from blt_vqg_tpu_torch.data import native
+    from blt_vqg_tpu_torch.text.vocabulary import Vocabulary
+    from blt_vqg_tpu_torch.train.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="train_cli_")
+    try:
+        t0 = time.perf_counter()
+        vocab = Vocabulary()
+        for i in range(serve.FLAGSHIP_VOCAB - len(vocab)):
+            vocab.add_word(f"w{i}")
+        data = {"vocab": os.path.join(root, "vocab.json")}
+        vocab.save(data["vocab"])
+        data["train"] = write_packed(os.path.join(root, "train"), 512, 128,
+                                     len(vocab), SEED + 500)
+        data["val"] = write_packed(os.path.join(root, "val"), 128, 32,
+                                   len(vocab), SEED + 501)
+        log(f"[15] synthetic packed data in {time.perf_counter() - t0:.1f} "
+            f"s: 512 train questions over 128 images 224x224x3 uint8, 128 "
+            f"validation questions over 32 images, vocab {len(vocab)}")
+        if not native.available():
+            raise AssertionError("the native IO library did not load: the "
+                                 "packed dataset would gather on the numpy "
+                                 "fallback")
+        log(f"[15] native IO library loaded: {native.library_path()}")
+
+        # ---- 6 steps with no validation or checkpoint inside fit: the fit
+        # loop's own cost against the bare step (and the first steps' set-up,
+        # so that run A starts warm)
+        out = os.path.join(root, "bare")
+        r, _ = run_train_cli(train_cli_argv(
+            data, out, 6, "--val_check_interval=1000",
+            "--checkpoint_every=1000", "--no_checkpoint_at_end"))
+        tm = r["trainer"].timings
+        fit_ms, n = tm["fit_ms"][0], tm["fit_steps"][0]
+        log(f"[15] {card}: fit loop without validation or checkpoints: {n} "
+            f"steps of b{BATCH} in {fit_ms:.1f} ms by events = "
+            f"{n * BATCH / fit_ms * 1e3:.1f} samples/s; dispatches of 2 steps "
+            f"{[round(x, 1) for x in tm['dispatch_ms']]} ms (the first with "
+            f"the process's first steps)")
+        del r
+        shutil.rmtree(out, ignore_errors=True)
+
+        # ---- run A: 6 steps
+        out = os.path.join(root, "run")
+        zero_flash_launches()
+        zero_layer_launches()
+        t0 = time.perf_counter()
+        r, text = run_train_cli(train_cli_argv(data, out, 6))
+        wall = time.perf_counter() - t0
+        trainer, state, final = r["trainer"], r["state"], r["val"]
+        flash, layer = flash_launches(), layer_launches()
+        if (state.step, state.kliter) != (6, 4):
+            raise AssertionError(f"step {state.step}, kliter {state.kliter}")
+        hist = [(s, {k: float(v) for k, v in m.items()})
+                for s, m in trainer.history]
+        if [s for s, _ in hist] != [2, 3, 4, 6]:
+            raise AssertionError(f"dispatches ended at {[s for s, _ in hist]}")
+        for s, m in hist:
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"step {s}: non-finite metrics {m}")
+            if (m["kld"] > 0.0) != (s > 2):
+                raise AssertionError(f"step {s}: kld {m['kld']}")
+            log(f"[15] after step {s}: loss {m['loss']:.6g}, rec "
+                f"{m['rec']:.5g}, kld {m['kld']:.5g}, aux {m['aux']:.5g}, "
+                f"grad_norm {m['grad_norm']:.5g}")
+        counts = {s: opt_count(out, s) for s in (2, 4, 6)}
+        if counts != {2: 2, 4: 2, 6: 4}:
+            raise AssertionError(f"Adam counts in the checkpoints {counts}, "
+                                 f"want 2, 2 (reset at step 2) and 4")
+        log(f"[15] Adam count in the checkpoints of steps 2, 4, 6: "
+            f"{counts} (reset at the phase boundary)")
+        blocks = validation_blocks(text)
+        want_keys = {"Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR",
+                     "ROUGE_L", "CIDEr", "z_active_dims", "z_kl_top_dim",
+                     "z_prior_logvar", "z_post_logvar", "z_prior_mean_var",
+                     "z_mean_gap", "bleu4_prior_sample", "bleu4_prior_mean",
+                     "bleu4_posterior_mean", "bleu4_prior_gap", "loss"}
+        if sorted((s, len(b)) for s, b in blocks.items()) != [(3, 1), (6, 2)]:
+            raise AssertionError(f"validation reports printed: "
+                                 f"{ {s: len(b) for s, b in blocks.items()} }")
+        for s, bs in sorted(blocks.items()):
+            for b in bs:
+                if not want_keys <= set(b) or not all(
+                        math.isfinite(v) for v in b.values()):
+                    raise AssertionError(f"validation @ {s}: {b}")
+                log(f"[15] validation @ step {s}: " + ", ".join(
+                    f"{k} {b[k]:.4g}" for k in (
+                        "loss", "kld", "Bleu_1", "Bleu_4", "METEOR",
+                        "ROUGE_L", "CIDEr", "z_active_dims",
+                        "bleu4_prior_sample", "bleu4_posterior_mean")))
+        returned = {"nlg_Bleu_4", "nlg_METEOR", "nlg_ROUGE_L", "nlg_CIDEr",
+                    "z_active_dims", "bleu4_prior_gap"}
+        if not returned <= set(final) or "Generated:" not in text:
+            raise AssertionError(f"final validation returned {sorted(final)}")
+        vals = 3
+        want_flash = {"flash_attention_fwd": 2 * 18 + 4 * 24
+                      + vals * VAL_FLASH_FWD,
+                      "flash_attention_bwd_dkdv": 2 * 18 + 4 * 24,
+                      "flash_attention_bwd_dq": 2 * 18 + 4 * 24}
+        steps = serve.flagship_config().max_decode_length + 1
+        layers = serve.flagship_config().num_layers
+        want_layer = vals * VAL_DECODES * steps * layers
+        if flash != want_flash or layer != {k: want_layer
+                                            for k in LAYER_KERNELS}:
+            raise AssertionError(f"launches {flash} {layer}, want "
+                                 f"{want_flash} and {want_layer} each")
+        log(f"[15] launches over the run: {flash}, {layer}")
+        tm = trainer.timings
+        fit_ms, n = tm["fit_ms"][0], tm["fit_steps"][0]
+        step_ms = sum(tm["dispatch_ms"])
+        log(f"[15] {card}: fit loop {n} steps of b{BATCH} in {fit_ms:.1f} ms "
+            f"by events = {n * BATCH / fit_ms * 1e3:.1f} samples/s (with 2 "
+            f"validations and 3 checkpoint copies); the train dispatches "
+            f"{step_ms:.1f} ms = {n * BATCH / step_ms * 1e3:.1f} samples/s "
+            f"(dispatches {[round(x, 1) for x in tm['dispatch_ms']]} ms); "
+            f"validations {[round(x, 1) for x in tm['validate_ms']]} ms "
+            f"(host clock); async checkpoint host copies "
+            f"{[round(x, 1) for x in tm['save_ms']]} ms; the CLI run "
+            f"{wall:.1f} s (host clock)")
+        cfg = trainer.cfg
+        mgr = CheckpointManager(os.path.join(root, "timed"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save(state, cfg, block=True)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(path, "state.npz"))
+        t0 = time.perf_counter()
+        mgr.restore(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        log(f"[15] {card}: one checkpoint of the step-6 state, "
+            f"{nbytes / 1e9:.3f} GB: save {save_s:.2f} s (blocking), "
+            f"restore {restore_s:.2f} s (host clock)")
+        del r, trainer, state, final, mgr
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(os.path.join(root, "timed"), ignore_errors=True)
+
+        # ---- runs B and C: 4 steps, then a resumed run to 6
+        out = os.path.join(root, "resume")
+        rb, _ = run_train_cli(train_cli_argv(data, out, 4))
+        saved = flatten_state(rb["state"])
+        if rb["state"].step != 4:
+            raise AssertionError(f"run to 4 ended at {rb['state'].step}")
+        del rb
+        started = {}
+        init_state = Trainer.init_state
+
+        def spy(self, *a, **k):
+            st = init_state(self, *a, **k)
+            started.update(flatten_state(st))
+            return st
+
+        trace_dir = os.path.join(root, "trace")
+        zero_flash_launches()
+        zero_layer_launches()
+        Trainer.init_state = spy
+        try:
+            rc, _ = run_train_cli(train_cli_argv(data, out, 6, "--resume",
+                                                 f"--profile_dir={trace_dir}"))
+        finally:
+            Trainer.init_state = init_state
+        same_entries(started, saved, "the resumed state against run B's")
+        with np.load(os.path.join(out, "checkpoints", "step_4",
+                                  "state.npz")) as z:
+            same_entries(started, {k: z[k] for k in z.files},
+                         "the resumed state against the step-4 file")
+        log(f"[15] resume: the run to 6 started at step "
+            f"{int(started['__step__'])}, kliter "
+            f"{int(started['__kliter__'])}, Adam count "
+            f"{int(started['opt_state/.count'])}, with its {len(started)} "
+            f"checkpoint entries (parameters, batch statistics, moments) "
+            f"equal bit for bit to the step-4 checkpoint and to run B's "
+            f"final state")
+        del started, saved
+        state, hist = rc["state"], list(rc["trainer"].history)
+        if (state.step, state.kliter) != (6, 4) or [s for s, _ in hist] != [6]:
+            raise AssertionError(f"resumed run: step {state.step}, "
+                                 f"dispatches {[s for s, _ in hist]}")
+        m = {k: float(v) for k, v in hist[0][1].items()}
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"resumed steps 4-5: {m}")
+        if CheckpointManager(os.path.join(out, "checkpoints")
+                             ).latest_step() != 6:
+            raise AssertionError("the resumed run saved no step 6")
+        log(f"[15] resumed steps 4-5 (one dispatch of 2): loss "
+            f"{m['loss']:.6g}, kld {m['kld']:.5g}; step 6 saved")
+        flash, layer = flash_launches(), layer_launches()
+        want_flash = {"flash_attention_fwd": 2 * 24 + 2 * VAL_FLASH_FWD,
+                      "flash_attention_bwd_dkdv": 2 * 24,
+                      "flash_attention_bwd_dq": 2 * 24}
+        if flash != want_flash or layer != {
+                k: 2 * VAL_DECODES * steps * layers for k in LAYER_KERNELS}:
+            raise AssertionError(f"resumed run launches {flash} {layer}")
+        del rc, state
+
+        # the profiled fit loop: 2 latent train steps and one validation
+        kernels = trace_kernels(os.path.join(trace_dir, "trace.json"))
+        fams = {}
+        for name, n in kernels.items():
+            fam = kernel_family(name, FLASH_STEP_KERNELS
+                                + tuple(LAYER_STEP_KERNELS))
+            fams[fam] = fams.get(fam, 0) + n
+        want = {"flash_fwd_mma_kernel": 2 * 24 + VAL_FLASH_FWD,
+                "flash_bwd_dkdv_mma_kernel": 2 * 24,
+                "flash_bwd_dq_mma_kernel": 2 * 24}
+        layer_steps = VAL_DECODES * steps * layers
+        want.update({k: v * layer_steps
+                     for k, v in LAYER_STEP_KERNELS.items()})
+        bad = {k: (fams.get(k, 0), w) for k, w in want.items()
+               if not PROFILE_MIN_SHARE * w <= fams.get(k, 0) <= w}
+        bad.update({k: fams[k] for k in FLASH_FMA if fams.get(k)})
+        log(f"[15] profiled fit loop of the resumed run ({sum(fams.values())}"
+            f" kernel records): " + ", ".join(
+                f"{k} {fams.get(k, 0)}/{w}" for k, w in want.items())
+            + f"; FMA flash kernels "
+            f"{ {k: fams.get(k, 0) for k in FLASH_FMA} }")
+        if bad:
+            raise AssertionError(f"profiled kernels (records, want): {bad}")
+        log(f"[15] the train steps ran the three bf16 tensor-core flash "
+            f"kernels and no FMA one; the validation decode ran "
+            f"self_attn_step's {sum(SELF_KERNELS.values())} and "
+            f"cross_ffn_step's {sum(CROSS_KERNELS.values())} kernels a "
+            f"layer step ({layer_steps} layer steps)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--flash-seeds", type=int, default=3,
@@ -2267,6 +2666,9 @@ def main(argv=None):
                         "shapes (events, host clock and profiler; each "
                         "tiling where the tree has a choice) and stop (no "
                         "result line); runs from an older tree too")
+    parser.add_argument("--train-cli-only", action="store_true",
+                        help="build, run phase 15 (the train CLI) and stop "
+                        "(no result line)")
     opts = parser.parse_args(argv)
     card = card_line()
     log(f"card: {card}")
@@ -2298,6 +2700,9 @@ def main(argv=None):
         return
     if opts.int8_times_only:
         int8_times(dev, card, log)
+        return
+    if opts.train_cli_only:
+        train_cli_phase(dev, card, log)
         return
     mma_code(lib_path, report)
 
@@ -2624,6 +3029,8 @@ def main(argv=None):
     # ---- 14. times
     ring_rows = ring_timings(dev, card, log, *run)
     del run
+    # ---- 15. the train CLI
+    train_cli_phase(dev, card, log)
 
     # decode kernels in their main-path forms: bf16 stack weights, int8
     # head; one call each (the stack at pos 25).  The flash kernels: the

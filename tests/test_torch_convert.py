@@ -12,8 +12,8 @@
   step, kliter and the ``FusedAdamState`` with its masked frozen leaves,
   plain and with the factored second moment) carries into the port's
   train state and back bit-exact;
-- the port, and ``chip_smoke.py``, import with jax, flax and the JAX
-  package unavailable.
+- the port, and ``chip_smoke.py``, import with jax, flax, the JAX
+  package and h5py unavailable (the card's host has no h5py).
 """
 
 import dataclasses
@@ -230,7 +230,7 @@ def test_train_state_round_trip(jax_variables, factored):
 def test_imports_without_jax():
     code = (
         "import sys, importlib, pkgutil\n"
-        "for name in ('jax', 'flax', 'blt_vqg_tpu'):\n"
+        "for name in ('jax', 'flax', 'blt_vqg_tpu', 'h5py'):\n"
         "    sys.modules[name] = None\n"
         "import blt_vqg_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "

@@ -403,7 +403,7 @@ def test_cpu_takes_the_plain_version():
 
 
 def test_mesh_and_shape_checks():
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         build_mesh((2, 4), ("data", "seq"), device="cpu")
     mesh = build_mesh((1, 4), ("data", "seq"), device="cpu")
     assert mesh.shape == {"data": 1, "seq": 4}
