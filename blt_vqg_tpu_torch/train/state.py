@@ -43,8 +43,9 @@ def is_f32_consumed(name: str) -> bool:
 def make_optimizer(cfg: Config) -> FusedClipAdam:
     if not cfg.fused_adam:
         raise NotImplementedError(
-            "the unfused optax chain (fused_adam=False) is not ported; the "
-            "fused update computes the same numbers")
+            "the unfused optax chain (fused_adam=False) is not ported yet "
+            "(ROADMAP.md queue 1 item 2); the fused update computes the same "
+            "numbers")
     mixed = cfg.param_dtype == "bfloat16"
     return FusedClipAdam(
         cfg.grad_clip, is_frozen, mu_dtype=_DTYPES[cfg.adam_mu_dtype],
@@ -87,12 +88,13 @@ class TrainState:
 
 def create_train_state(cfg: Config, model: torch.nn.Module,
                        seed: Optional[int] = 0,
-                       glove_table=None) -> TrainState:
+                       glove_table=None, opt_device=None) -> TrainState:
     """The train state of ``model`` (already on its device).  With ``seed``
     the weights are made from it first; with None the model's own weights
     (for example loaded from a JAX checkpoint) are kept.  ``glove_table``
     [V, emb] replaces the embedding before the optimizer snapshots its f32
-    masters, as in the JAX package."""
+    masters, as in the JAX package.  ``opt_device`` puts the optimizer
+    state elsewhere than the model (evaluation keeps it on the host)."""
     if seed is not None:
         model.init_weights(torch.Generator().manual_seed(seed))
     if glove_table is not None:
@@ -102,7 +104,10 @@ def create_train_state(cfg: Config, model: torch.nn.Module,
         p.requires_grad_(not is_frozen(name))
     tx = make_optimizer(cfg)
     params = dict(model.named_parameters())
-    opt_state = tx.init(params)   # masters snapshot the f32 parameters
+    # masters snapshot the f32 parameters
+    opt_state = tx.init(params if opt_device is None else
+                        {n: p.detach().to(opt_device)
+                         for n, p in params.items()})
     tx.cast_params(params)
     return TrainState(step=0, kliter=0, model=model, opt_state=opt_state,
                       tx=tx, lr_fn=noam_schedule(cfg.hidden_dim,

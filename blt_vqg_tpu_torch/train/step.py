@@ -93,7 +93,8 @@ def make_train_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
     del mesh
     if cfg.grad_dtype != "float32":
         raise NotImplementedError(
-            "grad_dtype='bfloat16' is not ported yet (ROADMAP.md)")
+            "grad_dtype='bfloat16' is not ported yet (ROADMAP.md queue 1 "
+            "item 2)")
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: torch.Generator,

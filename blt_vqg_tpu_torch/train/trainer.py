@@ -140,14 +140,11 @@ class Trainer:
         self.augment_train = make_augment_fn(cfg.image_size, train=True)
         self.augment_eval = make_augment_fn(cfg.image_size, train=False)
 
-        self._train_steps = {m: make_train_step(cfg, latent_mode=m, mesh=mesh)
-                             for m in (False, True)}
-        # steps_per_dispatch > 1: G steps per call (train/step.py
-        # make_multi_step)
-        self._multi_steps = ({m: make_multi_step(cfg, latent_mode=m,
-                                                 mesh=mesh)
-                              for m in (False, True)}
-                             if cfg.steps_per_dispatch > 1 else None)
+        # the train steps are built at their first use (``_train_step``), so
+        # a trainer that only evaluates builds none, as the JAX package
+        # compiles none: ``make_train_step`` raises for options the port's
+        # train step does not take yet
+        self._train_steps: Dict = {}
         self._eval_steps = {m: make_eval_step(cfg, latent_mode=m, mesh=mesh)
                             for m in (False, True)}
         self._decode_steps = {m: make_decode_step(cfg, self.model,
@@ -174,19 +171,31 @@ class Trainer:
             cfg.lr, cfg.batch_size, cfg.print_note)
 
     # ------------------------------------------------------------------
+    def _train_step(self, latent: bool, multi: bool = False):
+        """The train step of a phase (``multi``: its G-step form,
+        train/step.py ``make_multi_step``), built at first use."""
+        if (latent, multi) not in self._train_steps:
+            make = make_multi_step if multi else make_train_step
+            self._train_steps[latent, multi] = make(self.cfg,
+                                                    latent_mode=latent,
+                                                    mesh=self.mesh)
+        return self._train_steps[latent, multi]
+
     def _key(self, step: int) -> torch.Generator:
         return self.rngs.key(step, self.device)
 
     def init_state(self, sample_batch: Dict, glove_table=None,
-                   resume: bool = True) -> TrainState:
+                   resume: bool = True, opt_device=None) -> TrainState:
         """Seed-made weights (``cfg.seed``; ``sample_batch`` is taken for
         the JAX signature: the port's modules know their shapes), the
         GloVe table before the optimizer's snapshot, the pretrained
         backbone of ``cfg.resnet_ckpt``, then the latest checkpoint when
-        ``resume``."""
+        ``resume``.  ``opt_device``: where the optimizer state lives, if
+        not beside the model (train/state.py ``create_train_state``)."""
         del sample_batch
         state = create_train_state(self.cfg, self.model, seed=self.cfg.seed,
-                                   glove_table=glove_table)
+                                   glove_table=glove_table,
+                                   opt_device=opt_device)
         rc = self.cfg.resnet_ckpt
         if rc and self.cfg.image_encoder == "resnet18":
             # before a resume (checkpointed weights win); the backbone is
@@ -278,14 +287,14 @@ class Trainer:
                              step)
 
                 n = (self._chunk_len(step, max_steps, log_every)
-                     if self._multi_steps is not None else 1)
+                     if cfg.steps_per_dispatch > 1 else 1)
                 if n > 1:
                     mbs = [self._model_batch(next(train_iter), step + i,
                                              train=True) for i in range(n)]
                     stacked = {k: torch.stack([m[k] for m in mbs])
                                for k in mbs[0]}
                     t0 = clock.mark()
-                    state, metrics = self._multi_steps[latent](
+                    state, metrics = self._train_step(latent, multi=True)(
                         state, stacked,
                         lambda i, s=step: self._key(s + i))
                     marks.append((t0, clock.mark()))
@@ -293,7 +302,7 @@ class Trainer:
                 else:
                     mb = self._model_batch(next(train_iter), step, train=True)
                     t0 = clock.mark()
-                    state, metrics = self._train_steps[latent](
+                    state, metrics = self._train_step(latent)(
                         state, mb, self._key(step))
                     marks.append((t0, clock.mark()))
 

@@ -115,7 +115,24 @@ only when every phase passed):
    trains 4 steps and resumes to 6 with ``--resume`` and ``--profile_dir``:
    the resumed state must equal the step-4 checkpoint bit for bit, and the
    profiled fit loop must show the three bf16 tensor-core flash kernels
-   (no FMA one) and the per-layer kernels a layer step (4 and 9).
+   (no FMA one) and the per-layer kernels a layer step (4 and 9);
+16. evaluates the step-6 checkpoint of phase 15's 6-step run through the
+   port's evaluation entry points (``cli.evaluate_iq.main``, its per-layer
+   kernels at b64 over the 128 validation questions): greedy with 3 prior
+   draws per image and infomax consistency and validity maps written from
+   the synthetic corpus (every output file, the metric ranges, exactly
+   306 launches of each per-layer kernel per decode, and batch 0's tokens
+   equal to a direct decode step call), ``cli.test_iq.main`` (the same
+   files), beam search at b64 x 4 (306 launches), a sampled decode with
+   ``--decode-top-k 1`` (the greedy questions), and a copy of the
+   directory with ``use_stream_decode`` and int8 stack weights (51
+   ``decode_stack_step`` launches per batch, tokens equal to a direct
+   ``make_decode_step`` call); then ``cli.tune`` over the reference
+   space, 2 samples, rungs 2 and 4, ``--parallel 2`` with both slots on
+   card 0 (``use_pallas_attention``): each child reports the card, every
+   rung's validation loss is finite and the analysis names the best trial.
+   It prints the evaluation's questions/s by events on both paths, the
+   restore and scoring times and each tune child's wall time.
 
 Phase 1 also prints the compiler's registers, shared memory and spills
 of the ring and flash kernels, of the decode kernels' split-K product
@@ -130,7 +147,8 @@ cores (HMMA or HGMMA instructions, by ``cuobjdump -sass``; HGMMA, the
 warpgroup product, for ``int8_wgmma_kernel``), the flash, cluster and
 int8 kernels without spills.
 
-``--train-cli-only`` builds and runs phase 15 alone.
+``--train-cli-only`` builds and runs phase 15 alone; ``--eval-cli-only``
+builds, runs the 6-step train CLI run and phase 16.
 ``--flash-times-only``, ``--decode-times-only`` and ``--int8-times-only``
 build, take only the flash kernels' (phase 7), the decode kernels' (the
 stack step, the fused head, also with a cold L2, ``self_attn_step`` and
@@ -153,6 +171,7 @@ import math
 import os
 import re
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -2398,41 +2417,51 @@ def trace_kernels(path: str) -> dict:
     return out
 
 
-def train_cli_phase(dev, card, log):
+def cli_data(root: str, log, tag: str = "15") -> dict:
+    """The train CLI's synthetic packed datasets and vocab under ``root``;
+    checks that the native IO library loaded."""
+    from blt_vqg_tpu_torch.data import native
+    from blt_vqg_tpu_torch.text.vocabulary import Vocabulary
+
+    t0 = time.perf_counter()
+    vocab = Vocabulary()
+    for i in range(serve.FLAGSHIP_VOCAB - len(vocab)):
+        vocab.add_word(f"w{i}")
+    data = {"vocab": os.path.join(root, "vocab.json")}
+    vocab.save(data["vocab"])
+    data["train"] = write_packed(os.path.join(root, "train"), 512, 128,
+                                 len(vocab), SEED + 500)
+    data["val"] = write_packed(os.path.join(root, "val"), 128, 32,
+                               len(vocab), SEED + 501)
+    log(f"[{tag}] synthetic packed data in {time.perf_counter() - t0:.1f} "
+        f"s: 512 train questions over 128 images 224x224x3 uint8, 128 "
+        f"validation questions over 32 images, vocab {len(vocab)}")
+    if not native.available():
+        raise AssertionError("the native IO library did not load: the "
+                             "packed dataset would gather on the numpy "
+                             "fallback")
+    log(f"[{tag}] native IO library loaded: {native.library_path()}")
+    return data
+
+
+def train_cli_phase(dev, card, log, then=None):
     """Phase 15: the flagship trained through the port's train CLI
     (``cli.train_iq.main``) on a synthetic packed dataset: 2 pretrain
     steps, the Adam restart, 4 latent steps in dispatches of 2, 1, 1 and 2
     steps, validations at steps 3 and 6 and a final one, checkpoints every
     2 steps (after the same 6 steps with no validation or checkpoint inside
-    fit, timed); then 4 steps and a resumed run to 6 under the profiler."""
+    fit, timed); then 4 steps and a resumed run to 6 under the profiler.
+    ``then(data, model_dir)`` runs last, on the data and the model
+    directory of the 6-step run (phase 16)."""
     import shutil
     import tempfile
     from blt_vqg_tpu_torch.core.checkpoint import (CheckpointManager,
                                                    flatten_state)
-    from blt_vqg_tpu_torch.data import native
-    from blt_vqg_tpu_torch.text.vocabulary import Vocabulary
     from blt_vqg_tpu_torch.train.trainer import Trainer
 
     root = tempfile.mkdtemp(prefix="train_cli_")
     try:
-        t0 = time.perf_counter()
-        vocab = Vocabulary()
-        for i in range(serve.FLAGSHIP_VOCAB - len(vocab)):
-            vocab.add_word(f"w{i}")
-        data = {"vocab": os.path.join(root, "vocab.json")}
-        vocab.save(data["vocab"])
-        data["train"] = write_packed(os.path.join(root, "train"), 512, 128,
-                                     len(vocab), SEED + 500)
-        data["val"] = write_packed(os.path.join(root, "val"), 128, 32,
-                                   len(vocab), SEED + 501)
-        log(f"[15] synthetic packed data in {time.perf_counter() - t0:.1f} "
-            f"s: 512 train questions over 128 images 224x224x3 uint8, 128 "
-            f"validation questions over 32 images, vocab {len(vocab)}")
-        if not native.available():
-            raise AssertionError("the native IO library did not load: the "
-                                 "packed dataset would gather on the numpy "
-                                 "fallback")
-        log(f"[15] native IO library loaded: {native.library_path()}")
+        data = cli_data(root, log)
 
         # ---- 6 steps with no validation or checkpoint inside fit: the fit
         # loop's own cost against the bare step (and the first steps' set-up,
@@ -2543,7 +2572,7 @@ def train_cli_phase(dev, card, log):
             f"{nbytes / 1e9:.3f} GB: save {save_s:.2f} s (blocking), "
             f"restore {restore_s:.2f} s (host clock)")
         del r, trainer, state, final, mgr
-        shutil.rmtree(out, ignore_errors=True)
+        model_dir = out     # phase 16 evaluates its step-6 checkpoint
         shutil.rmtree(os.path.join(root, "timed"), ignore_errors=True)
 
         # ---- runs B and C: 4 steps, then a resumed run to 6
@@ -2632,6 +2661,408 @@ def train_cli_phase(dev, card, log):
             f"self_attn_step's {sum(SELF_KERNELS.values())} and "
             f"cross_ffn_step's {sum(CROSS_KERNELS.values())} kernels a "
             f"layer step ({layer_steps} layer steps)")
+        if then is not None:
+            then(data, model_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the evaluation CLIs (phase 16)
+
+EVAL_Z = 3            # prior draws per image of the greedy evaluation
+EVAL_QUESTIONS = 128  # the validation split of cli_data
+
+
+class EvalSpy:
+    """Around a run of the evaluation CLI: the trainer it builds, the tokens
+    and CUDA-event marks of each call of the trainer's decode steps (greedy
+    and the prior draws), the restore time and the NLG and infomax scoring
+    times (host clock)."""
+
+    def __init__(self):
+        self.trainers, self.calls = [], []
+        self.restore_s, self.nlg_s, self.infomax_s = [], [], []
+
+    def _timed_step(self, fn):
+        def step(images, context, generator=None, sample_generator=None):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(images, context, generator, sample_generator)
+            b.record()
+            self.calls.append((out["tokens"].clone(), a, b))
+            return out
+        return step
+
+    def decode_ms(self, calls) -> float:
+        return sum(self.call_ms(calls))
+
+    def call_ms(self, calls) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for _, a, b in calls]
+
+    @contextlib.contextmanager
+    def on(self):
+        from blt_vqg_tpu_torch.core.checkpoint import CheckpointManager
+        from blt_vqg_tpu_torch.train import infomax
+        from blt_vqg_tpu_torch.train.nlg_metrics import NLGEval
+        from blt_vqg_tpu_torch.train.trainer import Trainer
+
+        originals = (Trainer.__init__, CheckpointManager.restore,
+                     NLGEval.compute_metrics, infomax.diversity_metrics)
+        init, restore, nlg, div = originals
+
+        def host_timed(fn, into, sync=False):
+            def timed(*a, **k):
+                if sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                if sync:
+                    torch.cuda.synchronize()
+                into.append(time.perf_counter() - t0)
+                return out
+            return timed
+
+        def trainer_init(tr, *a, **k):
+            init(tr, *a, **k)
+            self.trainers.append(tr)
+            tr._decode_steps = {m: self._timed_step(f)
+                                for m, f in tr._decode_steps.items()}
+
+        Trainer.__init__ = trainer_init
+        CheckpointManager.restore = host_timed(restore, self.restore_s, True)
+        NLGEval.compute_metrics = host_timed(nlg, self.nlg_s)
+        infomax.diversity_metrics = host_timed(div, self.infomax_s)
+        try:
+            yield self
+        finally:
+            (Trainer.__init__, CheckpointManager.restore,
+             NLGEval.compute_metrics, infomax.diversity_metrics) = originals
+
+
+def stack_launches() -> int:
+    return decode_stream.decode_stack_step.launches
+
+
+def run_eval_cli(main, model_dir: str, out: str, *flags) -> tuple:
+    """``main`` (``cli.evaluate_iq.main`` or ``cli.test_iq.main``) on
+    ``model_dir`` with its launch counts set to 0 before it:
+    (the files it wrote, the spy, the launches, its wall seconds)."""
+    spy = EvalSpy()
+    zero_layer_launches()
+    decode_stream.decode_stack_step.launches = 0
+    decode_head.head_argmax.launches = 0
+    t0 = time.perf_counter()
+    with spy.on():
+        rc = main(["--model-dir", model_dir, "--results-dir", out, *flags])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"evaluation {flags} returned {rc}")
+    launches = {**layer_launches(), "decode_stack_step": stack_launches(),
+                "head_argmax": decode_head.head_argmax.launches}
+    files = {}
+    for name in ("results", "preds", "gts", "z_samples"):
+        path = os.path.join(out, name + ".json")
+        if os.path.exists(path):
+            with open(path) as f:
+                files[name] = json.load(f)
+    return files, spy, launches, wall
+
+
+def first_eval_batch(trainer, cfg, dataset_dir: str):
+    """The eval-augmented images and the context of the evaluation's first
+    batch (the same loader as the CLI's)."""
+    from blt_vqg_tpu_torch.data.loader import make_loader
+    from blt_vqg_tpu_torch.data.packed import PackedDataset
+
+    loader = make_loader(PackedDataset(dataset_dir, trainer.vocab),
+                         cfg.batch_size, cfg.input_mode, shuffle=False,
+                         epochs=1, device=trainer.device)
+    try:
+        batch = next(loader)
+    finally:
+        loader.close()
+    return trainer.augment_eval(batch["images"]), batch["context"]
+
+
+def tune_cli_run(argv, log_path: str) -> int:
+    """``cli.tune.main(argv)`` with this process's and its children's
+    standard output and error sent to ``log_path``."""
+    from blt_vqg_tpu_torch.cli import tune as tune_cli
+
+    sys.stdout.flush()
+    sys.stderr.flush()
+    saved = os.dup(1), os.dup(2)
+    with open(log_path, "w") as f:
+        os.dup2(f.fileno(), 1)
+        os.dup2(f.fileno(), 2)
+        try:
+            return tune_cli.main(argv)
+        finally:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os.dup2(saved[0], 1)
+            os.dup2(saved[1], 2)
+            os.close(saved[0])
+            os.close(saved[1])
+
+
+def eval_cli_phase(dev, card, log, data: dict, model_dir: str):
+    """Phase 16: the step-6 latent checkpoint of the train CLI's run
+    evaluated through the port's evaluation entry points, on the
+    per-layer kernels (``use_pallas_decode`` in its args.json): greedy with
+    3 prior draws and the infomax maps, beam search, sampled top-1, the
+    stream path on a copy of the directory, ``test_iq``; then
+    ``cli.tune`` with two trial children on the card."""
+    from blt_vqg_tpu_torch.cli import evaluate_iq, test_iq
+    from blt_vqg_tpu_torch.core.config import Config
+    from blt_vqg_tpu_torch.data.packed import PackedDataset
+    from blt_vqg_tpu_torch.text.vocabulary import load_vocab
+    from blt_vqg_tpu_torch.train.step import make_decode_step
+    from blt_vqg_tpu_torch.train.trainer import filter_special_tokens
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(model_dir)
+    cfg = Config.load(os.path.join(model_dir, "args.json"))
+    if not cfg.use_pallas_decode or cfg.use_stream_decode:
+        raise AssertionError("phase 16 evaluates a per-layer decode model")
+    steps, layers = cfg.max_decode_length + 1, cfg.num_layers
+    nbatch = EVAL_QUESTIONS // cfg.batch_size
+    per_decode = steps * layers    # launches of each per-layer kernel
+
+    # the infomax maps from the synthetic corpus: each category word must
+    # appear in its questions; each validation question is the one valid
+    # question of its own combo
+    vocab = load_vocab(cfg.vocab)
+    cats = sorted(set(int(c) for c in PackedDataset(
+        data["val"], vocab).answer_types_raw))
+    cmap = {vocab.idx2word[6 + c]: [vocab.idx2word[6 + c]] for c in cats}
+    questions = np.load(os.path.join(data["val"], "tokens.npz"))["questions"]
+    valid = {str(i): [" ".join(filter_special_tokens(
+        [vocab.idx2word[int(t)] for t in row]))]
+        for i, row in enumerate(questions)}
+    maps = {}
+    for name, obj in (("consistency_map", cmap), ("valid_map", valid)):
+        maps[name] = os.path.join(root, name + ".json")
+        with open(maps[name], "w") as f:
+            json.dump(obj, f)
+    greedy_flags = ["--num-z-samples", str(EVAL_Z), "--consistency-map",
+                    maps["consistency_map"], "--valid-map", maps["valid_map"]]
+
+    # ---- greedy with 3 prior draws per image
+    files, spy, launches, wall = run_eval_cli(
+        evaluate_iq.main, model_dir, os.path.join(root, "eval_greedy"),
+        *greedy_flags)
+    if set(files) != {"results", "preds", "gts", "z_samples"}:
+        raise AssertionError(f"greedy evaluation wrote {sorted(files)}")
+    zs = files["z_samples"]
+    if (len(files["preds"]) != EVAL_QUESTIONS
+            or len(files["gts"]) != EVAL_QUESTIONS
+            or len(zs["samples"]) != EVAL_Z
+            or any(len(q) != EVAL_QUESTIONS for q in zs["samples"])
+            or len(zs["contexts"]) != EVAL_QUESTIONS):
+        raise AssertionError("greedy evaluation: output sizes")
+    res = files["results"]
+    infomax_keys = {"distinct_rate", "distinct_1", "distinct_2", "self_bleu",
+                    "consistency", "valid_rate", "distinct_valid"}
+    nlg_keys = {"Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L",
+                "CIDEr"}
+    if set(res) != nlg_keys | {f"infomax_{k}" for k in infomax_keys}:
+        raise AssertionError(f"results.json keys {sorted(res)}")
+    for k, v in res.items():
+        top = EVAL_Z if k == "infomax_distinct_valid" else (
+            10.0 if k == "CIDEr" else 1.0)
+        if not (math.isfinite(v) and 0.0 <= v <= top):
+            raise AssertionError(f"results.json {k} = {v}")
+    want = per_decode * (1 + EVAL_Z) * nbatch
+    if launches != {**{k: want for k in LAYER_KERNELS},
+                    "decode_stack_step": 0, "head_argmax": 0}:
+        raise AssertionError(f"greedy evaluation launches {launches}, want "
+                             f"{want} of each per-layer kernel")
+    trainer = spy.trainers[0]
+    greedy = spy.calls[0][0]    # batch 0's greedy decode
+    images, context = first_eval_batch(trainer, cfg, data["val"])
+    direct = make_decode_step(cfg, trainer.model, True)(
+        images, context, trainer._key(0))["tokens"]
+    if not torch.equal(direct, greedy):
+        raise AssertionError("the greedy evaluation's tokens differ from a "
+                             "direct decode step call")
+    calls = len(spy.calls)
+    greedy_ms = spy.decode_ms(spy.calls[::1 + EVAL_Z])
+    all_ms = spy.decode_ms(spy.calls)
+    log(f"[16] greedy evaluation of step 6 ({EVAL_QUESTIONS} questions, "
+        f"{nbatch} batches of {cfg.batch_size}, {EVAL_Z} prior draws each): "
+        f"{', '.join(f'{k} {v:.4g}' for k, v in res.items())}")
+    log(f"[16] launches {launches} = {per_decode} x (1 + {EVAL_Z}) x "
+        f"{nbatch}; batch 0's greedy tokens equal a direct make_decode_step "
+        f"call on the same batch and generator")
+    log(f"[16] {card}: per-layer evaluation decode {EVAL_QUESTIONS / greedy_ms * 1e3:.1f}"
+        f" questions/s by events (greedy calls {greedy_ms:.1f} ms), "
+        f"{calls * cfg.batch_size / all_ms * 1e3:.1f} over all {calls} "
+        f"decode calls with the draws ({all_ms:.1f} ms; calls "
+        f"{[round(x, 1) for x in spy.call_ms(spy.calls)]} ms, the first "
+        f"building the per-layer weights); restore "
+        f"{spy.restore_s[0]:.2f} s, NLG scoring {spy.nlg_s[0]:.2f} s, "
+        f"infomax scoring {spy.infomax_s[0]:.3f} s (host clock); the CLI "
+        f"run {wall:.1f} s")
+    del trainer, spy, images, context
+
+    # ---- test_iq: the same machinery, the same results
+    t_files, _, t_launches, t_wall = run_eval_cli(
+        test_iq.main, model_dir, os.path.join(root, "test_iq"),
+        *greedy_flags)
+    if t_files != files or t_launches != launches:
+        raise AssertionError("test_iq wrote other results than evaluate_iq")
+    log(f"[16] test_iq: results, preds, gts and z_samples equal to "
+        f"evaluate_iq's, the same launches ({t_wall:.1f} s)")
+
+    # ---- beam search, 4 beams, one batch
+    b_files, _, b_launches, b_wall = run_eval_cli(
+        evaluate_iq.main, model_dir, os.path.join(root, "eval_beam"),
+        "--beam-size", str(BEAM), "--max-batches", "1")
+    if (b_launches != {**{k: per_decode for k in LAYER_KERNELS},
+                       "decode_stack_step": 0, "head_argmax": 0}
+            or len(b_files["preds"]) != cfg.batch_size
+            or "z_samples" in b_files
+            or not all(math.isfinite(v) for v in b_files["results"].values())):
+        raise AssertionError(f"beam evaluation: launches {b_launches}, "
+                             f"{len(b_files['preds'])} questions")
+    log(f"[16] beam evaluation (b{cfg.batch_size} x {BEAM}, one batch): "
+        f"launches {b_launches}; Bleu_4 {b_files['results']['Bleu_4']:.4g} "
+        f"({b_wall:.1f} s)")
+
+    # ---- sampled decode with top-k 1: the greedy questions
+    s_files, _, s_launches, s_wall = run_eval_cli(
+        evaluate_iq.main, model_dir, os.path.join(root, "eval_top1"),
+        "--decode-sampling", "--decode-top-k", "1", "--num-z-samples", "1",
+        "--max-batches", "1")
+    if s_files["preds"] != files["preds"][:cfg.batch_size] or (
+            s_launches[LAYER_KERNELS[0]] != per_decode):
+        raise AssertionError("sampled top-1 evaluation differs from greedy")
+    log(f"[16] sampled evaluation with --decode-top-k 1: its "
+        f"{len(s_files['preds'])} questions equal the greedy ones "
+        f"({s_wall:.1f} s)")
+
+    # ---- the stream path: a copy of the directory with int8 stack weights
+    stream_dir = os.path.join(root, "run_stream")
+    os.makedirs(stream_dir)
+    os.symlink(os.path.join(model_dir, "checkpoints"),
+               os.path.join(stream_dir, "checkpoints"))
+    cfg.replace(use_stream_decode=True, stream_weight_dtype="int8").save(
+        os.path.join(stream_dir, "args.json"))
+    st_files, st_spy, st_launches, st_wall = run_eval_cli(
+        evaluate_iq.main, stream_dir, os.path.join(root, "eval_stream"),
+        "--num-z-samples", "1")
+    if st_launches != {**{k: 0 for k in LAYER_KERNELS},
+                       "decode_stack_step": steps * nbatch,
+                       "head_argmax": 0}:
+        raise AssertionError(f"stream evaluation launches {st_launches}")
+    trainer = st_spy.trainers[0]
+    images, context = first_eval_batch(trainer, trainer.cfg, data["val"])
+    direct = make_decode_step(trainer.cfg, trainer.model, True)(
+        images, context, trainer._key(0))["tokens"]
+    if not torch.equal(direct, st_spy.calls[0][0]):
+        raise AssertionError("the stream evaluation's tokens differ from a "
+                             "direct make_decode_step call")
+    st_ms = st_spy.decode_ms(st_spy.calls)
+    same = sum(a == b for a, b in zip(st_files["preds"], files["preds"]))
+    log(f"[16] stream evaluation (int8 stack weights, the probe keeps the "
+        f"head off the fused kernel): launches {st_launches} = {steps} x "
+        f"{nbatch}; batch 0's tokens equal a direct make_decode_step call; "
+        f"{same}/{EVAL_QUESTIONS} questions equal to the per-layer bf16 "
+        f"path's; Bleu_4 {st_files['results']['Bleu_4']:.4g}")
+    log(f"[16] {card}: stream evaluation decode {EVAL_QUESTIONS / st_ms * 1e3:.1f} "
+        f"questions/s by events ({st_ms:.1f} ms; calls "
+        f"{[round(x, 1) for x in st_spy.call_ms(st_spy.calls)]} ms, the "
+        f"first building the int8 weight stacks); restore "
+        f"{st_spy.restore_s[0]:.2f} s, NLG scoring {st_spy.nlg_s[0]:.2f} s "
+        f"(host clock); the CLI run {st_wall:.1f} s")
+    del trainer, st_spy, images, context
+    torch.cuda.empty_cache()
+
+    # ---- cli.tune: two trials of the reference space as children on card 0
+    c = serve.flagship_config()
+    tune_dir = os.path.join(root, "tune")
+    argv = [f"--emb_dim={c.emb_dim}", f"--input_mode={c.input_mode}",
+            f"--dtype={c.dtype}", f"--image_size={c.image_size}",
+            f"--seed={SEED}", "--use_pallas_attention",
+            "--attention_dropout=0.0", "--num_pretraining_steps=2",
+            "--total_training_steps=4", "--val_check_interval=1000",
+            "--checkpoint_every=1000", "--limit_val_batches=1",
+            f"--vocab={data['vocab']}", f"--dataset={data['train']}",
+            f"--val_dataset={data['val']}", "--tune-space", "reference",
+            "--num-samples", "2", "--parallel", "2", "--tune-dir", tune_dir,
+            "--slot-env", "0:CUDA_VISIBLE_DEVICES=0",
+            "--slot-env", "1:CUDA_VISIBLE_DEVICES=0"]
+    tune_log = os.path.join(root, "tune.log")
+    t0 = time.perf_counter()
+    rc = tune_cli_run(argv, tune_log)
+    tune_s = time.perf_counter() - t0
+    with open(tune_log) as f:
+        text = f.read()
+    devices = re.findall(r"^tune trial (\S+): device (\S+) \((.*)\)$", text,
+                         re.M)
+    walls = re.findall(r"^tune trial (\S+) to step (\d+): val loss (\S+) in "
+                       r"(\S+) s$", text, re.M)
+    analysis_path = os.path.join(tune_dir, "analysis.json")
+    if rc != 0 or not os.path.exists(analysis_path):
+        raise AssertionError(f"cli.tune returned {rc}; its output ends:\n"
+                             + text[-4000:])
+    with open(analysis_path) as f:
+        analysis = json.load(f)
+    trials = analysis["trials"]
+    if (len(trials) != 2 or analysis["best_trial"] not in (0, 1)
+            or any(t["metric"] is None or not math.isfinite(t["metric"])
+                   or t["step"] not in (2, 4) for t in trials)):
+        raise AssertionError(f"tune analysis {analysis}; output ends:\n"
+                             + text[-4000:])
+    for t in trials:
+        for rung in (2, 4)[:(2, 4).index(t["step"]) + 1]:
+            with open(os.path.join(tune_dir, f"trial_{t['id']}",
+                                   f"result_{rung}.json")) as f:
+                m = json.load(f)["metric"]
+            if not math.isfinite(m):
+                raise AssertionError(f"trial {t['id']} rung {rung}: {m}")
+    if (len(devices) != len(walls) or len(walls) < 3
+            or {d for _, d, _ in devices} != {"cuda"}
+            or {os.path.basename(d) for d, _, _ in devices}
+            != {"trial_0", "trial_1"}):
+        raise AssertionError(f"tune children: devices {devices}, reports "
+                             f"{walls}")
+    log(f"[16] cli.tune (reference space, 2 samples, --parallel 2 on card "
+        f"0, rungs 2 and 4): best trial {analysis['best_trial']}, " + "; ".join(
+            f"trial {t['id']} {t['overrides']['hidden_dim']}x"
+            f"{t['overrides']['num_heads']}h x{t['overrides']['num_layers']} "
+            f"b{t['overrides']['batch_size']} to step {t['step']}, val loss "
+            f"{t['metric']:.5g}" for t in trials))
+    on = {d: name for d, _, name in devices}
+    log(f"[16] {card}: tune children (host clock) " + "; ".join(
+        f"{os.path.basename(d)} to step {s}: {float(w):.1f} s on {on[d]}"
+        for d, s, _, w in walls) + f"; the tune run {tune_s:.1f} s")
+    log(f"[16] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def eval_cli_only(dev, card, log):
+    """``--eval-cli-only``: the 6-step train CLI run phase 16 needs (no
+    validation inside fit), then phase 16."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="eval_cli_")
+    try:
+        data = cli_data(root, log, "16")
+        out = os.path.join(root, "run")
+        t0 = time.perf_counter()
+        r, _ = run_train_cli(train_cli_argv(data, out, 6,
+                                            "--val_check_interval=1000"))
+        if r["state"].step != 6:
+            raise AssertionError(f"train CLI run ended at {r['state'].step}")
+        del r
+        log(f"[16] the 6-step train CLI run in "
+            f"{time.perf_counter() - t0:.1f} s")
+        eval_cli_phase(dev, card, log, data, out)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2669,6 +3100,10 @@ def main(argv=None):
     parser.add_argument("--train-cli-only", action="store_true",
                         help="build, run phase 15 (the train CLI) and stop "
                         "(no result line)")
+    parser.add_argument("--eval-cli-only", action="store_true",
+                        help="build, run the 6-step train CLI run phase 16 "
+                        "needs, then phase 16 (the evaluation and tune "
+                        "CLIs), and stop (no result line)")
     opts = parser.parse_args(argv)
     card = card_line()
     log(f"card: {card}")
@@ -2703,6 +3138,9 @@ def main(argv=None):
         return
     if opts.train_cli_only:
         train_cli_phase(dev, card, log)
+        return
+    if opts.eval_cli_only:
+        eval_cli_only(dev, card, log)
         return
     mma_code(lib_path, report)
 
@@ -3029,8 +3467,9 @@ def main(argv=None):
     # ---- 14. times
     ring_rows = ring_timings(dev, card, log, *run)
     del run
-    # ---- 15. the train CLI
-    train_cli_phase(dev, card, log)
+    # ---- 15. the train CLI, then 16. the evaluation CLIs on its model
+    train_cli_phase(dev, card, log, then=lambda data, model_dir:
+                    eval_cli_phase(dev, card, log, data, model_dir))
 
     # decode kernels in their main-path forms: bf16 stack weights, int8
     # head; one call each (the stack at pos 25).  The flash kernels: the
