@@ -5,11 +5,16 @@
   module path joined with dots, Dense kernels [in, out] transposed to
   Linear [out, in], conv kernels HWIO to OIHW, LayerNorm/BatchNorm
   ``scale`` to ``weight``, ``embedding`` to ``weight``, batch-stat
-  ``mean``/``var`` to ``running_mean``/``running_var``.
+  ``mean``/``var`` to ``running_mean``/``running_var``; the parameters a
+  module declares itself (the MoE FFN's ``router``, ``expert_in[_bias]``
+  and ``expert_out[_bias]``, the ViT's ``cls_token`` and ``pos_embed``)
+  keep their names and layouts.
 - :func:`to_flax` is the inverse.
 - :func:`load_train_state` carries a JAX ``TrainState`` (step, kliter,
   params, batch stats and the ``FusedAdamState`` count and mu/nu/master
-  trees, whose frozen leaves hold ``optax.MaskedNode``) into the port's
+  trees, whose frozen leaves hold ``optax.MaskedNode``; or the
+  ``fused_adam=False`` optax chain's ``scale_by_adam`` count and moments)
+  into the port's
   :class:`~blt_vqg_tpu_torch.train.state.TrainState`;
   :func:`train_state_to_flax` is the inverse.  A factored second moment's
   (r, c) pair swaps at a Dense kernel, whose port layout is transposed.
@@ -32,6 +37,10 @@ import torch
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS_BACK = {v: k for k, v in _STATS.items()}
 _EMBED_MODULES = {"embed"}   # modules whose 2-D weight is a lookup table
+# parameters declared by name (not Dense/Conv/norm leaves): the same name
+# and layout in both packages
+_RAW_LEAVES = {"router", "expert_in", "expert_in_bias", "expert_out",
+               "expert_out_bias", "cls_token", "pos_embed"}
 
 
 def _leaves(tree, prefix=()):
@@ -52,6 +61,8 @@ def _tensor(v) -> torch.Tensor:
 
 
 def _port_name(mods, leaf: str) -> str:
+    if leaf in _RAW_LEAVES:
+        return ".".join(mods + [leaf])
     if leaf in ("kernel", "scale", "embedding"):
         return ".".join(mods + ["weight"])
     if leaf == "bias":
@@ -92,8 +103,8 @@ def _flax_leaf(key: str, t: torch.Tensor):
     """(module path, flax leaf name, the tensor in flax layout) of a port
     parameter."""
     *mods, name = key.split(".")
-    if name == "bias":
-        return mods, "bias", t
+    if name == "bias" or name in _RAW_LEAVES:
+        return mods, name, t
     if name == "weight" and t.ndim == 4:
         return mods, "kernel", t.permute(2, 3, 1, 0)
     if name == "weight" and t.ndim == 2:
@@ -148,8 +159,9 @@ def _moments_from_flax(tree, order) -> dict:
 
 def load_train_state(state, jax_state):
     """Loads a JAX ``TrainState`` (anything with ``step``, ``kliter``,
-    ``params``, ``batch_stats`` and a ``FusedAdamState`` ``opt_state``;
-    arrays or numpy) into the port's ``state``, in place; returns it."""
+    ``params``, ``batch_stats`` and a ``FusedAdamState`` ``opt_state``, or
+    the optax chain's ``multi_transform`` state; arrays or numpy) into the
+    port's ``state``, in place; returns it."""
     from blt_vqg_tpu_torch.train.fused_adam import FactoredNu, FusedAdamState
 
     model = state.model
@@ -164,8 +176,13 @@ def load_train_state(state, jax_state):
 
     opt = jax_state.opt_state
     state.step, state.kliter = int(jax_state.step), int(jax_state.kliter)
+    if hasattr(opt, "inner_states"):   # the chain: scale_by_adam's state
+        opt = opt.inner_states["train"].inner_state[1]
+        master = {}
+    else:
+        master = moved(opt.master)
     state.opt_state = FusedAdamState(int(opt.count), moved(opt.mu),
-                                     moved(opt.nu), moved(opt.master))
+                                     moved(opt.nu), master)
     return state
 
 

@@ -8,7 +8,12 @@ restores in the other:
   ``batch_stats/<flax path>``, the ``FusedAdamState`` as
   ``opt_state/.count``, ``opt_state/.mu/<path>``, ``opt_state/.nu/<path>``
   (a factored second moment as ``<path>/.r`` and ``<path>/.c``) and
-  ``opt_state/.master/<path>``, then ``__step__`` and ``__kliter__``.
+  ``opt_state/.master/<path>``, then ``__step__`` and ``__kliter__``.  A
+  ``fused_adam=False`` state (the optax chain) holds its count and moments
+  where the chain's ``multi_transform`` tree puts them:
+  ``opt_state/.inner_states/train/.inner_state/1/.count``, ``.../.mu/<path>``
+  and ``.../.nu/<path>`` (``scale_by_adam``'s state; the clip, the scale and
+  the frozen branch hold no arrays);
   Leaves are in flax layout (Dense kernels [in, out]; ``convert.py``
   maps the names and layouts).  bf16 leaves are stored as raw 2-byte void
   values beside a ``__dtype__/<key>`` record, as numpy has no bfloat16;
@@ -21,9 +26,9 @@ updates it in place) and writes the files on a background thread;
 ``wait`` joins it.  ``on_disk_param_dtype="bfloat16"`` stores float
 parameters (not moments or statistics) in bf16; restore casts every leaf
 back to the train state's dtype.  A checkpoint whose optimizer layout
-(``adam_factored_nu``) differs from the train state's fails with a message
-that names both.  The orbax backend and the sharded save and restore are
-not ported (ROADMAP.md).
+(``adam_factored_nu``, ``fused_adam``) differs from the train state's fails
+with a message that names both.  The orbax backend and the sharded save
+and restore are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ from blt_vqg_tpu_torch.train.fused_adam import FactoredNu, FusedAdamState
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _OPT_FIELDS = (("mu", ".mu"), ("nu", ".nu"), ("master", ".master"))
+FUSED_PREFIX = "opt_state/"
+CHAIN_PREFIX = "opt_state/.inner_states/train/.inner_state/1/"
 
 
 def _unported(what: str):
@@ -98,9 +105,18 @@ def _keys(model: torch.nn.Module):
     return out
 
 
-def _opt_key(field: str, name: str, p: torch.Tensor):
+def _opt_key(base: str, field: str, name: str, p: torch.Tensor):
     mods, leaf, _ = _flax_leaf(name, p)
-    return f"opt_state/{field}/" + "/".join(mods + [leaf]), leaf
+    return f"{base}{field}/" + "/".join(mods + [leaf]), leaf
+
+
+def _opt_base(chain: bool) -> str:
+    return CHAIN_PREFIX if chain else FUSED_PREFIX
+
+
+def _optimizer_name(chain: bool) -> str:
+    return ("fused_adam=False (the optax chain's state)" if chain
+            else "fused_adam=True (the fused Adam state)")
 
 
 def _swapped(leaf: str, p: torch.Tensor) -> bool:
@@ -122,10 +138,11 @@ def flatten_state(state, cast_params=None) -> dict:
         _put(flat, key, t)
     params = dict(state.model.named_parameters())
     opt = state.opt_state
-    flat["opt_state/.count"] = np.asarray(opt.count, np.int32)
+    base = _opt_base(state.tx.chain)
+    flat[base + ".count"] = np.asarray(opt.count, np.int32)
     for attr, field in _OPT_FIELDS:
         for name, v in getattr(opt, attr).items():
-            key, leaf = _opt_key(field, name, params[name])
+            key, leaf = _opt_key(base, field, name, params[name])
             if isinstance(v, FactoredNu):
                 r, c = ((v.c, v.r) if _swapped(leaf, params[name])
                         else (v.r, v.c))
@@ -145,12 +162,18 @@ def _is_factored(nu: dict) -> bool:
 def restore_flat(state, flat: dict, source: str = "checkpoint"):
     """Fills the port ``TrainState`` ``state`` from npz entries, in place:
     every leaf cast to the state's dtype and device.  Returns ``state``."""
-    if "opt_state/.count" not in flat:
-        raise ValueError(f"{source} holds no fused Adam state "
-                         f"(opt_state/.count): the port restores only the "
-                         f"fused optimizer's layout")
+    chain = state.tx.chain
+    base = _opt_base(chain)
+    if base + ".count" not in flat:
+        other = _opt_base(not chain)
+        held = (_optimizer_name(not chain) if other + ".count" in flat
+                else "no Adam state the port knows")
+        raise ValueError(
+            f"{source} holds {held}, but the train state was made with "
+            f"{_optimizer_name(chain)}: make the train state with the "
+            f"checkpoint's fused_adam to restore it")
     want = _is_factored(state.opt_state.nu)
-    got = any(k.startswith("opt_state/.nu/") and k.endswith("/.r")
+    got = any(k.startswith(base + ".nu/") and k.endswith("/.r")
               for k in flat)
     if got != want:
         raise ValueError(
@@ -173,7 +196,7 @@ def restore_flat(state, flat: dict, source: str = "checkpoint"):
     for attr, field in _OPT_FIELDS:
         tree = {}
         for name, like in getattr(opt, attr).items():
-            key, leaf = _opt_key(field, name, params[name])
+            key, leaf = _opt_key(base, field, name, params[name])
             if isinstance(like, FactoredNu):
                 r, c = _get(flat, key + "/.r"), _get(flat, key + "/.c")
                 if _swapped(leaf, params[name]):
@@ -186,8 +209,7 @@ def restore_flat(state, flat: dict, source: str = "checkpoint"):
                 tree[name] = t.to(like.device, like.dtype).reshape(
                     like.shape)
         fields[attr] = tree
-    state.opt_state = FusedAdamState(int(flat["opt_state/.count"]),
-                                     **fields)
+    state.opt_state = FusedAdamState(int(flat[base + ".count"]), **fields)
     state.step = int(flat["__step__"])
     state.kliter = int(flat["__kliter__"])
     return state

@@ -5,7 +5,7 @@
 // the custom VJP of `_make_flash`).  q [B, Tq, H, D] arrives already scaled;
 // k, v [B, Tk, H, D]; an optional key-pad mask [B, Tk] (nonzero = masked);
 // `causal` masks key j > query i.  Activations f32 or bf16, D a multiple of
-// 8 up to FA_DMAX.  The [B, T, H, D] tensors are read in place through
+// 8 up to FA_DMAX (256).  The [B, T, H, D] tensors are read in place through
 // their strides: no copy to the TPU kernel's folded [B*H, T, D] layout.
 //
 // What the TPU kernels compute, and this file copies:
@@ -26,10 +26,10 @@
 // Blocks run in no order on this card, so each block's inner loop takes the
 // place of the TPU's sequential grid axis.
 //  - f32 (a check path, not a speed target): plain f32 FMA tiles of 64
-//    rows, one (b, h) per block.  Forward and dQ loop over key tiles for
-//    one (b*h, 64-row query tile); dK/dV loops over query tiles for one
-//    (b*h, 64-key tile).  Tiles live in shared memory as f32 rows padded by
-//    one word.
+//    rows (32 above head dim 128), one (b, h) per block.  Forward and dQ
+//    loop over key tiles for one (b*h, query tile); dK/dV loops over query
+//    tiles for one (b*h, key tile).  Tiles live in shared memory as f32
+//    rows padded by one word.
 //  - bf16: flash_fwd_mma_kernel, flash_bwd_dkdv_mma_kernel and
 //    flash_bwd_dq_mma_kernel, tensor cores (mma.sync m16n8k16, csrc/mma.cuh;
 //    the forward's S excepted, below) on the tiling of the ring kernels
@@ -40,7 +40,10 @@
 //    comes in tiles of its length rounded up to 16, at most 64, through two
 //    cp.async stages when there is more than one tile; the head dim is
 //    zero-padded to 16.  The tiling (`FlashGeom`) is computed on the host
-//    (ops/kernels/flash_attention.py `mma_geom`) and checked here.
+//    (ops/kernels/flash_attention.py `mma_geom`) and checked here.  Head
+//    dims 136-256 run a second instantiation whose blocks split the
+//    accumulators' columns in two halves (`FmCols`); the kernels up to 128
+//    are the ones measured below, unchanged.
 //
 // Bound on this card: the bytes of the operands once each at 3.35 TB/s, or
 // the operations of the visible (query, key) pairs at 989 TF/s (bf16);
@@ -63,10 +66,20 @@
 namespace bvq {
 
 constexpr float FA_NEG_INF = -1e30f;
-constexpr int FA_BQ = 64, FA_BK = 64, FA_THREADS = 256, FA_DMAX = 128;
-constexpr int FA_DC = FA_DMAX / 4;    // d columns a thread owns: d = lane4 + 4c
-constexpr int FA_JC = FA_BK / 4;      // key columns a thread scores: j = lane4 + 4c
-constexpr int FA_PLD = FA_BK + 1;     // row stride of the [64][64] score tiles
+constexpr int FA_DMAX = 256;          // the largest head dim
+
+// The f32 FMA tiles of the kernels instantiated for head dims up to DMAX
+// (128 or 256): tiles of BQ query rows and BK keys, 4 threads a row.  Up to
+// D 128, 64-row tiles (the tiles the training shapes were measured on);
+// above it 32-row tiles, since the dK/dV kernel's four 64-row f32 tiles of
+// D 256 would not fit in an SM's shared memory.
+template <int DMAX>
+struct FaTile {
+  static constexpr int BQ = DMAX > 128 ? 32 : 64, BK = BQ, THREADS = 4 * BQ;
+  static constexpr int DC = DMAX / 4;  // d columns a thread owns: d = lane4 + 4c
+  static constexpr int JC = BK / 4;    // key columns a thread scores: j = lane4 + 4c
+  static constexpr int PLD = BK + 1;   // row stride of the [BQ][BK] score tiles
+};
 
 // The bf16 kernels' tiling, computed on the host (`mma_geom` in
 // ops/kernels/flash_attention.py, which a CPU test covers), passed beside
@@ -119,14 +132,14 @@ struct FlashCall {
   FlashGeom geom;
 };
 
-// rows [r0, r0 + 64) of x [B, T, H, D] at (b, h) into dst [64][D + 1] as
+// rows [r0, r0 + R) of x [B, T, H, D] at (b, h) into dst [R][D + 1] as
 // f32; rows at or past `len` are zero
-template <typename T>
+template <typename T, int R>
 __device__ void flash_load_tile(float* dst, const void* x, int b, int h, int r0,
                                 int len, const FlashArgs& a) {
   const int D = a.dim;
   const T* src = static_cast<const T*>(x);
-  for (int e = threadIdx.x; e < 64 * D; e += blockDim.x) {
+  for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
     const int r = e / D, d = e % D, t = r0 + r;
     dst[r * (D + 1) + d] =
         t < len ? to_f<T>(src[(((size_t)b * len + t) * a.heads + h) * D + d]) : 0.f;
@@ -158,33 +171,34 @@ __device__ __forceinline__ float quad_sum(float v) {
 // Forward, f32: block (b*h, query tile); thread (row = tid / 4, lane4 =
 // tid % 4) scores key columns lane4 + 4c and owns output columns lane4 + 4c
 // of its row.
-template <typename T>
-__global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(FlashArgs a) {
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(FaTile<DMAX>::THREADS) flash_fwd_kernel(FlashArgs a) {
+  using F = FaTile<DMAX>;
   extern __shared__ float fa_smem[];
   const int D = a.dim, LD = D + 1;
   float* qs = fa_smem;          // [BQ][LD]
-  float* ks = qs + FA_BQ * LD;  // [BK][LD]
-  float* vs = ks + FA_BK * LD;  // [BK][LD]
-  float* ps = vs + FA_BK * LD;  // [BQ][PLD] p rounded to T
+  float* ks = qs + F::BQ * LD;  // [BK][LD]
+  float* vs = ks + F::BK * LD;  // [BK][LD]
+  float* ps = vs + F::BK * LD;  // [BQ][PLD] p rounded to T
   const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
-  const int q0 = blockIdx.y * FA_BQ;
+  const int q0 = blockIdx.y * F::BQ;
   const int tid = threadIdx.x, row = tid / 4, lane4 = tid % 4, i = q0 + row;
 
-  flash_load_tile<T>(qs, a.q, b, h, q0, a.tq, a);
-  float m = FA_NEG_INF, l = 0.f, acc[FA_DC];
+  flash_load_tile<T, F::BQ>(qs, a.q, b, h, q0, a.tq, a);
+  float m = FA_NEG_INF, l = 0.f, acc[F::DC];
 #pragma unroll
-  for (int c = 0; c < FA_DC; ++c) acc[c] = 0.f;
+  for (int c = 0; c < F::DC; ++c) acc[c] = 0.f;
 
-  for (int k0 = 0; k0 < a.tk; k0 += FA_BK) {
-    if (a.causal && k0 > q0 + FA_BQ - 1) break;  // every key in the future
+  for (int k0 = 0; k0 < a.tk; k0 += F::BK) {
+    if (a.causal && k0 > q0 + F::BQ - 1) break;  // every key in the future
     __syncthreads();  // the previous tile's reads are done
-    flash_load_tile<T>(ks, a.k, b, h, k0, a.tk, a);
-    flash_load_tile<T>(vs, a.v, b, h, k0, a.tk, a);
+    flash_load_tile<T, F::BK>(ks, a.k, b, h, k0, a.tk, a);
+    flash_load_tile<T, F::BK>(vs, a.v, b, h, k0, a.tk, a);
     __syncthreads();
-    float s[FA_JC];
+    float s[F::JC];
     float mcur = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < FA_JC; ++c) {
+    for (int c = 0; c < F::JC; ++c) {
       const int j = lane4 + 4 * c, kj = k0 + j;
       const bool valid = kj < a.tk;
       s[c] = !valid || flash_masked(a, b, i, kj) ? FA_NEG_INF
@@ -195,21 +209,21 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(FlashArgs a) {
     const float alpha = expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int c = 0; c < FA_JC; ++c) {
+    for (int c = 0; c < F::JC; ++c) {
       const int j = lane4 + 4 * c;
       const float p = k0 + j < a.tk ? expf(s[c] - m_new) : 0.f;
       psum += p;
-      ps[row * FA_PLD + j] = round_to<T>(p);
+      ps[row * F::PLD + j] = round_to<T>(p);
     }
     l = l * alpha + quad_sum(psum);
     m = m_new;
     __syncwarp();  // the row's p was written by the 4 lanes that read it
 #pragma unroll
-    for (int c = 0; c < FA_DC; ++c) {
+    for (int c = 0; c < F::DC; ++c) {
       const int d = lane4 + 4 * c;
       if (d < D) {
         float pv = 0.f;
-        for (int j = 0; j < FA_BK; ++j) pv = fmaf(ps[row * FA_PLD + j], vs[j * LD + d], pv);
+        for (int j = 0; j < F::BK; ++j) pv = fmaf(ps[row * F::PLD + j], vs[j * LD + d], pv);
         acc[c] = acc[c] * alpha + pv;
       }
     }
@@ -220,7 +234,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(FlashArgs a) {
     const float safe = l == 0.f ? 1.f : l;
     T* o = static_cast<T*>(a.o) + (((size_t)b * a.tq + i) * a.heads + h) * D;
 #pragma unroll
-    for (int c = 0; c < FA_DC; ++c) {
+    for (int c = 0; c < F::DC; ++c) {
       const int d = lane4 + 4 * c;
       if (d < D) o[d] = from_f<T>(dead ? 0.f : acc[c] / safe);
     }
@@ -241,8 +255,9 @@ struct FlashRows {
   float* delta;  // [BQ]
 };
 
+template <int BQ>
 __device__ void flash_load_rows(const FlashArgs& a, const FlashRows& r, int bh, int q0) {
-  for (int t = threadIdx.x; t < FA_BQ; t += blockDim.x) {
+  for (int t = threadIdx.x; t < BQ; t += blockDim.x) {
     const int i = q0 + t;
     const bool in = i < a.tq;
     r.m[t] = in ? a.m[(size_t)bh * a.tq + i] : 0.f;
@@ -251,15 +266,17 @@ __device__ void flash_load_rows(const FlashArgs& a, const FlashRows& r, int bh, 
   }
 }
 
+template <int DMAX>
 __device__ void flash_scores_bwd(const FlashArgs& a, const FlashRows& r, const float* qs,
                                  const float* dos, const float* ks, const float* vs,
                                  float* ps, float* dss, int b, int q0, int k0) {
+  using F = FaTile<DMAX>;
   const int D = a.dim, LD = D + 1;
   const int row = threadIdx.x / 4, lane4 = threadIdx.x % 4, i = q0 + row;
   const float m = r.m[row], linv = r.linv[row], delta = r.delta[row];
   const bool dead = m <= 0.5f * FA_NEG_INF;
 #pragma unroll 4
-  for (int c = 0; c < FA_JC; ++c) {
+  for (int c = 0; c < F::JC; ++c) {
     const int j = lane4 + 4 * c, kj = k0 + j;
     float p = 0.f, ds = 0.f;
     if (i < a.tq && kj < a.tk) {
@@ -269,52 +286,53 @@ __device__ void flash_scores_bwd(const FlashArgs& a, const FlashRows& r, const f
       ds = s <= 0.5f * FA_NEG_INF ? 0.f
                                    : p * (dot_rows(dos + row * LD, vs + j * LD, D) - delta);
     }
-    if (ps) ps[row * FA_PLD + j] = p;
-    dss[row * FA_PLD + j] = ds;
+    if (ps) ps[row * F::PLD + j] = p;
+    dss[row * F::PLD + j] = ds;
   }
 }
 
 // dK/dV: block (b*h, key tile); thread (key row jr = tid / 4, lane4) owns
 // columns lane4 + 4c of dk and dv for its key.
-template <typename T>
-__global__ void __launch_bounds__(FA_THREADS) flash_bwd_dkdv_kernel(FlashArgs a) {
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(FaTile<DMAX>::THREADS) flash_bwd_dkdv_kernel(FlashArgs a) {
+  using F = FaTile<DMAX>;
   extern __shared__ float fa_smem[];
   const int D = a.dim, LD = D + 1;
   float* ks = fa_smem;
-  float* vs = ks + FA_BK * LD;
-  float* qs = vs + FA_BK * LD;
-  float* dos = qs + FA_BQ * LD;
-  float* ps = dos + FA_BQ * LD;   // [BQ][PLD]
-  float* dss = ps + FA_BQ * FA_PLD;
-  const FlashRows rows{dss + FA_BQ * FA_PLD, dss + FA_BQ * FA_PLD + FA_BQ,
-                       dss + FA_BQ * FA_PLD + 2 * FA_BQ};
+  float* vs = ks + F::BK * LD;
+  float* qs = vs + F::BK * LD;
+  float* dos = qs + F::BQ * LD;
+  float* ps = dos + F::BQ * LD;   // [BQ][PLD]
+  float* dss = ps + F::BQ * F::PLD;
+  const FlashRows rows{dss + F::BQ * F::PLD, dss + F::BQ * F::PLD + F::BQ,
+                       dss + F::BQ * F::PLD + 2 * F::BQ};
   const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
-  const int k0 = blockIdx.y * FA_BK;
+  const int k0 = blockIdx.y * F::BK;
   const int tid = threadIdx.x, jr = tid / 4, lane4 = tid % 4;
 
-  flash_load_tile<T>(ks, a.k, b, h, k0, a.tk, a);
-  flash_load_tile<T>(vs, a.v, b, h, k0, a.tk, a);
-  float dk[FA_DC], dv[FA_DC];
+  flash_load_tile<T, F::BK>(ks, a.k, b, h, k0, a.tk, a);
+  flash_load_tile<T, F::BK>(vs, a.v, b, h, k0, a.tk, a);
+  float dk[F::DC], dv[F::DC];
 #pragma unroll
-  for (int c = 0; c < FA_DC; ++c) dk[c] = dv[c] = 0.f;
+  for (int c = 0; c < F::DC; ++c) dk[c] = dv[c] = 0.f;
 
-  for (int q0 = 0; q0 < a.tq; q0 += FA_BQ) {
-    if (a.causal && k0 > q0 + FA_BQ - 1) continue;  // every key in the future
+  for (int q0 = 0; q0 < a.tq; q0 += F::BQ) {
+    if (a.causal && k0 > q0 + F::BQ - 1) continue;  // every key in the future
     __syncthreads();
-    flash_load_tile<T>(qs, a.q, b, h, q0, a.tq, a);
-    flash_load_tile<T>(dos, a.dout, b, h, q0, a.tq, a);
-    flash_load_rows(a, rows, bh, q0);
+    flash_load_tile<T, F::BQ>(qs, a.q, b, h, q0, a.tq, a);
+    flash_load_tile<T, F::BQ>(dos, a.dout, b, h, q0, a.tq, a);
+    flash_load_rows<F::BQ>(a, rows, bh, q0);
     __syncthreads();
-    flash_scores_bwd(a, rows, qs, dos, ks, vs, ps, dss, b, q0, k0);
+    flash_scores_bwd<DMAX>(a, rows, qs, dos, ks, vs, ps, dss, b, q0, k0);
     __syncthreads();
 #pragma unroll
-    for (int c = 0; c < FA_DC; ++c) {
+    for (int c = 0; c < F::DC; ++c) {
       const int d = lane4 + 4 * c;
       if (d < D) {
         float sv = 0.f, sk = 0.f;
-        for (int r = 0; r < FA_BQ; ++r) {
-          sv = fmaf(ps[r * FA_PLD + jr], dos[r * LD + d], sv);
-          sk = fmaf(dss[r * FA_PLD + jr], qs[r * LD + d], sk);
+        for (int r = 0; r < F::BQ; ++r) {
+          sv = fmaf(ps[r * F::PLD + jr], dos[r * LD + d], sv);
+          sk = fmaf(dss[r * F::PLD + jr], qs[r * LD + d], sk);
         }
         dv[c] += sv;
         dk[c] += sk;
@@ -328,7 +346,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_bwd_dkdv_kernel(FlashArgs a)
     T* dkp = static_cast<T*>(a.dk) + off;
     T* dvp = static_cast<T*>(a.dv) + off;
 #pragma unroll
-    for (int c = 0; c < FA_DC; ++c) {
+    for (int c = 0; c < F::DC; ++c) {
       const int d = lane4 + 4 * c;
       if (d < D) {
         dkp[d] = from_f<T>(dk[c]);
@@ -340,42 +358,43 @@ __global__ void __launch_bounds__(FA_THREADS) flash_bwd_dkdv_kernel(FlashArgs a)
 
 // dQ: block (b*h, query tile); thread (row, lane4) owns columns lane4 + 4c of
 // its row's dq.
-template <typename T>
-__global__ void __launch_bounds__(FA_THREADS) flash_bwd_dq_kernel(FlashArgs a) {
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(FaTile<DMAX>::THREADS) flash_bwd_dq_kernel(FlashArgs a) {
+  using F = FaTile<DMAX>;
   extern __shared__ float fa_smem[];
   const int D = a.dim, LD = D + 1;
   float* qs = fa_smem;
-  float* dos = qs + FA_BQ * LD;
-  float* ks = dos + FA_BQ * LD;
-  float* vs = ks + FA_BK * LD;
-  float* dss = vs + FA_BK * LD;   // [BQ][PLD]
-  const FlashRows rows{dss + FA_BQ * FA_PLD, dss + FA_BQ * FA_PLD + FA_BQ,
-                       dss + FA_BQ * FA_PLD + 2 * FA_BQ};
+  float* dos = qs + F::BQ * LD;
+  float* ks = dos + F::BQ * LD;
+  float* vs = ks + F::BK * LD;
+  float* dss = vs + F::BK * LD;   // [BQ][PLD]
+  const FlashRows rows{dss + F::BQ * F::PLD, dss + F::BQ * F::PLD + F::BQ,
+                       dss + F::BQ * F::PLD + 2 * F::BQ};
   const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
-  const int q0 = blockIdx.y * FA_BQ;
+  const int q0 = blockIdx.y * F::BQ;
   const int tid = threadIdx.x, row = tid / 4, lane4 = tid % 4, i = q0 + row;
 
-  flash_load_tile<T>(qs, a.q, b, h, q0, a.tq, a);
-  flash_load_tile<T>(dos, a.dout, b, h, q0, a.tq, a);
-  flash_load_rows(a, rows, bh, q0);
-  float dq[FA_DC];
+  flash_load_tile<T, F::BQ>(qs, a.q, b, h, q0, a.tq, a);
+  flash_load_tile<T, F::BQ>(dos, a.dout, b, h, q0, a.tq, a);
+  flash_load_rows<F::BQ>(a, rows, bh, q0);
+  float dq[F::DC];
 #pragma unroll
-  for (int c = 0; c < FA_DC; ++c) dq[c] = 0.f;
+  for (int c = 0; c < F::DC; ++c) dq[c] = 0.f;
 
-  for (int k0 = 0; k0 < a.tk; k0 += FA_BK) {
-    if (a.causal && k0 > q0 + FA_BQ - 1) break;  // every key in the future
+  for (int k0 = 0; k0 < a.tk; k0 += F::BK) {
+    if (a.causal && k0 > q0 + F::BQ - 1) break;  // every key in the future
     __syncthreads();
-    flash_load_tile<T>(ks, a.k, b, h, k0, a.tk, a);
-    flash_load_tile<T>(vs, a.v, b, h, k0, a.tk, a);
+    flash_load_tile<T, F::BK>(ks, a.k, b, h, k0, a.tk, a);
+    flash_load_tile<T, F::BK>(vs, a.v, b, h, k0, a.tk, a);
     __syncthreads();
-    flash_scores_bwd(a, rows, qs, dos, ks, vs, nullptr, dss, b, q0, k0);
+    flash_scores_bwd<DMAX>(a, rows, qs, dos, ks, vs, nullptr, dss, b, q0, k0);
     __syncwarp();  // the row's ds was written by the 4 lanes that read it
 #pragma unroll
-    for (int c = 0; c < FA_DC; ++c) {
+    for (int c = 0; c < F::DC; ++c) {
       const int d = lane4 + 4 * c;
       if (d < D) {
         float s = 0.f;
-        for (int j = 0; j < FA_BK; ++j) s = fmaf(dss[row * FA_PLD + j], ks[j * LD + d], s);
+        for (int j = 0; j < F::BK; ++j) s = fmaf(dss[row * F::PLD + j], ks[j * LD + d], s);
         dq[c] += s;
       }
     }
@@ -384,13 +403,12 @@ __global__ void __launch_bounds__(FA_THREADS) flash_bwd_dq_kernel(FlashArgs a) {
   if (i < a.tq) {
     T* dqp = static_cast<T*>(a.dq) + (((size_t)b * a.tq + i) * a.heads + h) * D;
 #pragma unroll
-    for (int c = 0; c < FA_DC; ++c) {
+    for (int c = 0; c < F::DC; ++c) {
       const int d = lane4 + 4 * c;
       if (d < D) dqp[d] = from_f<T>(dq[c]);
     }
   }
 }
-
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16, bf16 x bf16 -> f32), 4 warps a
 // block.  The forward's products are S = q k^T and o += p v, p rounded to
@@ -411,6 +429,29 @@ constexpr int FM_WARPS = 4;
 constexpr int FM_THREADS = 32 * FM_WARPS;
 constexpr int FM_BLOCKS_PER_SM = 2;
 constexpr int FM_SMEM_MAX = 232448;  // dynamic shared memory a block may take on sm_90
+constexpr int FM_KTMAX = 64;         // rows of a walked tile, at most
+
+// Head dims up to 128 take the kernels instantiated with DMAX 128: a warp
+// holds its 16 rows' accumulators over every column (16 rows x 128 in
+// registers).  Head dims 136-256 take DMAX 256, which splits the columns of
+// the accumulators (o, dk and dv, dq) between two blocks, grid dimension z
+// (`fm_cols`): each block computes the products that contract over the head
+// dim (S and dP) whole and accumulates its own 128 columns, so a thread's
+// accumulators stay those of DMAX 128.  The blocks of a pair recompute the
+// same S, the price of the split.
+struct FmCols {
+  int c0;  // the block's first column
+  int dp;  // its columns, zero-padded: min(geom dp - c0, 128)
+};
+
+template <int DMAX>
+__device__ __forceinline__ FmCols fm_cols(int dp) {
+  if (DMAX > 128) {
+    const int c0 = 128 * blockIdx.z;
+    return FmCols{c0, min(dp - c0, 128)};
+  }
+  return FmCols{0, dp};
+}
 
 // offset of element (b, t, h, 0) of a [B, T, H, D] operand
 __device__ __forceinline__ size_t fa_at(int b, int t, int h, int T, int H, int D) {
@@ -503,12 +544,14 @@ __device__ __forceinline__ void fwd_scores_fma(float (&s)[2][2][2], const float*
 // them twice: first K alone, for the rows' max, then K and V, the online
 // update starting from that max (alpha = 1).  The one-tile blocks of the
 // training shapes walk once.
+template <int DMAX>
 __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
     flash_fwd_mma_kernel(const __grid_constant__ FlashArgs a,
                          const __grid_constant__ FlashGeom g) {
   using T = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char fm_smem[];
   const int D = a.dim, H = a.heads, Tq = a.tq, Tk = a.tk;
+  const FmCols cols = fm_cols<DMAX>(g.dp);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq4 = lane % 4;
   const int grp = warp / g.wq;
   const int gtid = threadIdx.x - grp * 32 * g.wq, gthreads = 32 * g.wq;
@@ -579,9 +622,9 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
       // S: the warp's rows x 16 keys per slice jp, in the accumulator
       // layout of mma.m16n8k16 (s[jp][x][c]: row gr + 8 (c >> 1), key
       // 16 jp + 8 x + 2 tq4 + (c & 1))
-      float s[FA_BK / 16][2][4];
+      float s[FM_KTMAX / 16][2][4];
 #pragma unroll
-      for (int jp = 0; jp < FA_BK / 16; ++jp) {
+      for (int jp = 0; jp < FM_KTMAX / 16; ++jp) {
         float t[2][2][2] = {};
         if (jp < nsl) {
           const T* const kr[4] = {ks + (16 * jp + 2 * tq4) * g.lds,
@@ -604,7 +647,7 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
                         (a.causal && k0 + kn - 1 > r0);
       float mx[2] = {FA_NEG_INF, FA_NEG_INF};
 #pragma unroll
-      for (int jp = 0; jp < FA_BK / 16; ++jp) {
+      for (int jp = 0; jp < FM_KTMAX / 16; ++jp) {
         if (jp < nsl) {
 #pragma unroll
           for (int x = 0; x < 2; ++x) {
@@ -630,7 +673,7 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
           mr[y] = m_new;
         }
 #pragma unroll
-        for (int jp = 0; jp < FA_BK / 16; ++jp) {
+        for (int jp = 0; jp < FM_KTMAX / 16; ++jp) {
           if (jp < nsl) {
 #pragma unroll
             for (int x = 0; x < 2; ++x) {
@@ -654,13 +697,13 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
         }
         // o += p v, p rounded to bf16 as the A operand, keys 16 jp .. + 15
 #pragma unroll
-        for (int jp = 0; jp < FA_BK / 16; ++jp) {
+        for (int jp = 0; jp < FM_KTMAX / 16; ++jp) {
           if (jp < nsl) {
             const uint32_t pa[4] = {rf_pack(s[jp][0][0], s[jp][0][1]),
                                     rf_pack(s[jp][0][2], s[jp][0][3]),
                                     rf_pack(s[jp][1][0], s[jp][1][1]),
                                     rf_pack(s[jp][1][2], s[jp][1][3])};
-            rf_mma_tile_t(acc, pa, vs + 16 * jp * g.lds, g.lds, g.dp, lane);
+            rf_mma_tile_t(acc, pa, vs + 16 * jp * g.lds + cols.c0, g.lds, cols.dp, lane);
           }
         }
       }
@@ -682,12 +725,12 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
         reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(a.o) + fa_at(b, i, h, Tq, H, D));
 #pragma unroll
     for (int n = 0; n < MMA_DT; ++n) {
-      const int d = 8 * n + 2 * tq4;
+      const int d = cols.c0 + 8 * n + 2 * tq4;
       if (d < D)
         o[d / 2] = dead ? __floats2bfloat162_rn(0.f, 0.f)
                         : __floats2bfloat162_rn(acc[n][2 * y] / safe, acc[n][2 * y + 1] / safe);
     }
-    if (tq4 == 0) {
+    if (tq4 == 0 && cols.c0 == 0) {
       a.m[(size_t)bh * Tq + i] = mr[y];
       a.l[(size_t)bh * Tq + i] = dead ? 1.f : safe;
     }
@@ -706,12 +749,14 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
 // computes S^T = k q^T and dP^T = v dO^T, so p^T and ds^T come out of the
 // accumulators as the A operands of dV += p^T dO and dK += ds^T q (dO and
 // q read by ldmatrix.trans).
+template <int DMAX>
 __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
     flash_bwd_dkdv_mma_kernel(const __grid_constant__ FlashArgs a,
                               const __grid_constant__ FlashGeom g) {
   using T = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char fm_smem[];
   const int D = a.dim, H = a.heads, Tq = a.tq, Tk = a.tk;
+  const FmCols cols = fm_cols<DMAX>(g.dp);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq4 = lane % 4;
   const int grp = warp / g.wq;
   const int gtid = threadIdx.x - grp * 32 * g.wq, gthreads = 32 * g.wq;
@@ -818,7 +863,7 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
         // S^T and dP^T: the warp's 16 keys x 16 queries
         float s[2][4] = {}, dpv[2][4] = {};
 #pragma unroll
-        for (int kk = 0; kk < FA_DMAX / 16; ++kk) {
+        for (int kk = 0; kk < DMAX / 16; ++kk) {
           if (kk < g.dp / 16) {
             uint32_t af[4];
             rf_ldsm(af, ks + (kw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
@@ -846,9 +891,9 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
         }
         uint32_t hi[4], lo[4];
         rb_split(s, hi, lo);
-        rb_mma_pair(dv, hi, lo, os + 16 * qc * g.lds, g.lds, g.dp, lane);
+        rb_mma_pair(dv, hi, lo, os + 16 * qc * g.lds + cols.c0, g.lds, cols.dp, lane);
         rb_split(dpv, hi, lo);
-        rb_mma_pair(dk, hi, lo, qs + 16 * qc * g.lds, g.lds, g.dp, lane);
+        rb_mma_pair(dk, hi, lo, qs + 16 * qc * g.lds + cols.c0, g.lds, cols.dp, lane);
       }
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
@@ -864,7 +909,7 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
     __nv_bfloat162* dvp = reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(a.dv) + off);
 #pragma unroll
     for (int n = 0; n < MMA_DT; ++n) {
-      const int d = 8 * n + 2 * tq4;
+      const int d = cols.c0 + 8 * n + 2 * tq4;
       if (d < D) {
         dkp[d / 2] = __floats2bfloat162_rn(dk[n][2 * y], dk[n][2 * y + 1]);
         dvp[d / 2] = __floats2bfloat162_rn(dv[n][2 * y], dv[n][2 * y + 1]);
@@ -881,12 +926,14 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
 // q and dO as A fragments and dq (16 rows x D) in registers; the block
 // walks the key tiles (K, V and the keys' pad bytes) through the stages and
 // computes S = q k^T, dP = dO v^T and dQ += ds k.
+template <int DMAX>
 __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
     flash_bwd_dq_mma_kernel(const __grid_constant__ FlashArgs a,
                             const __grid_constant__ FlashGeom g) {
   using T = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char fm_smem[];
   const int D = a.dim, H = a.heads, Tq = a.tq, Tk = a.tk;
+  const FmCols cols = fm_cols<DMAX>(g.dp);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq4 = lane % 4;
   const int grp = warp / g.wq;
   const int gtid = threadIdx.x - grp * 32 * g.wq, gthreads = 32 * g.wq;
@@ -904,9 +951,9 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
   unsigned char* gsm = fm_smem + (size_t)grp * g.nst * g.stage;
 
   // q and dO rows r0 + gr and + 8 as A fragments, zero past Tq and the dim
-  uint32_t qf[FA_DMAX / 16][4], of[FA_DMAX / 16][4];
+  uint32_t qf[DMAX / 16][4], of[DMAX / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < FA_DMAX / 16; ++kk) {
+  for (int kk = 0; kk < DMAX / 16; ++kk) {
     if (kk < g.dp / 16) {
 #pragma unroll
       for (int y = 0; y < 4; ++y) {
@@ -972,7 +1019,7 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
         // S and dP: the warp's 16 rows x 16 keys
         float s[2][4] = {}, dpv[2][4] = {};
 #pragma unroll
-        for (int kk = 0; kk < FA_DMAX / 16; ++kk) {
+        for (int kk = 0; kk < DMAX / 16; ++kk) {
           if (kk < g.dp / 16) {
             rb_scores(s, qf[kk], ks + 16 * kc * g.lds + 16 * kk, g.lds, lane);
             rb_scores(dpv, of[kk], vs + 16 * kc * g.lds + 16 * kk, g.lds, lane);
@@ -993,7 +1040,7 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
         }
         uint32_t hi[4], lo[4];
         rb_split(s, hi, lo);
-        rb_mma_pair(dq, hi, lo, ks + 16 * kc * g.lds, g.lds, g.dp, lane);
+        rb_mma_pair(dq, hi, lo, ks + 16 * kc * g.lds + cols.c0, g.lds, cols.dp, lane);
       }
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
@@ -1009,7 +1056,7 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
         reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(a.dq) + fa_at(b, i, h, Tq, H, D));
 #pragma unroll
     for (int n = 0; n < MMA_DT; ++n) {
-      const int d = 8 * n + 2 * tq4;
+      const int d = cols.c0 + 8 * n + 2 * tq4;
       if (d < D) p[d / 2] = __floats2bfloat162_rn(dq[n][2 * y], dq[n][2 * y + 1]);
     }
   }
@@ -1018,13 +1065,15 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
 // ---------------------------------------------------------------------------
 enum FlashKernel { FA_FWD, FA_DKDV, FA_DQ };
 
+template <int DMAX>
 static size_t flash_smem(FlashKernel which, int D) {
-  const size_t tile = (size_t)64 * (D + 1);
-  const size_t scores = (size_t)FA_BQ * FA_PLD;
+  using F = FaTile<DMAX>;
+  const size_t tile = (size_t)F::BQ * (D + 1);
+  const size_t scores = (size_t)F::BQ * F::PLD;
   switch (which) {
     case FA_FWD: return (3 * tile + scores) * sizeof(float);
-    case FA_DKDV: return (4 * tile + 2 * scores + 3 * FA_BQ) * sizeof(float);
-    default: return (4 * tile + scores + 3 * FA_BQ) * sizeof(float);
+    case FA_DKDV: return (4 * tile + 2 * scores + 3 * F::BQ) * sizeof(float);
+    default: return (4 * tile + scores + 3 * F::BQ) * sizeof(float);
   }
 }
 
@@ -1046,38 +1095,51 @@ static bool flash_geom_ok(const FlashArgs& a, const FlashGeom& g, FlashKernel wh
          (long)g.grid_x * g.groups >= (long)a.batch * a.heads && g.grid_y * 16 * g.wq >= owned;
 }
 
+// the DMAX instantiation of each kernel; above 128, two blocks per tile of
+// rows, one for each half of the head dim's columns (grid z)
+template <int DMAX>
 static cudaError_t flash_mma_launch(const FlashArgs& a, const FlashGeom& g, FlashKernel which,
                                     cudaStream_t s) {
-  if (!flash_geom_ok(a, g, which)) return cudaErrorInvalidValue;
-  const dim3 grid(g.grid_x, g.grid_y);
+  const dim3 grid(g.grid_x, g.grid_y, DMAX / 128);
   const cudaFuncAttribute smem = cudaFuncAttributeMaxDynamicSharedMemorySize;
   if (which == FA_FWD) {
-    BVQ_TRY(cudaFuncSetAttribute(flash_fwd_mma_kernel, smem, g.smem));
-    flash_fwd_mma_kernel<<<grid, FM_THREADS, g.smem, s>>>(a, g);
+    BVQ_TRY(cudaFuncSetAttribute(flash_fwd_mma_kernel<DMAX>, smem, g.smem));
+    flash_fwd_mma_kernel<DMAX><<<grid, FM_THREADS, g.smem, s>>>(a, g);
   } else if (which == FA_DKDV) {
-    BVQ_TRY(cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel, smem, g.smem));
-    flash_bwd_dkdv_mma_kernel<<<grid, FM_THREADS, g.smem, s>>>(a, g);
+    BVQ_TRY(cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<DMAX>, smem, g.smem));
+    flash_bwd_dkdv_mma_kernel<DMAX><<<grid, FM_THREADS, g.smem, s>>>(a, g);
   } else {
-    BVQ_TRY(cudaFuncSetAttribute(flash_bwd_dq_mma_kernel, smem, g.smem));
-    flash_bwd_dq_mma_kernel<<<grid, FM_THREADS, g.smem, s>>>(a, g);
+    BVQ_TRY(cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<DMAX>, smem, g.smem));
+    flash_bwd_dq_mma_kernel<DMAX><<<grid, FM_THREADS, g.smem, s>>>(a, g);
   }
   return cudaGetLastError();
 }
 
-// bf16 on the tensor cores; f32 on the FMA tiles
+template <int DMAX>
+static cudaError_t flash_fma_launch(const FlashArgs& a, FlashKernel which, cudaStream_t s) {
+  using F = FaTile<DMAX>;
+  void (*kernel)(FlashArgs) = which == FA_DKDV ? flash_bwd_dkdv_kernel<float, DMAX>
+                              : which == FA_DQ ? flash_bwd_dq_kernel<float, DMAX>
+                                               : flash_fwd_kernel<float, DMAX>;
+  const int smem = (int)flash_smem<DMAX>(which, a.dim);
+  BVQ_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  const int tiles = which == FA_DKDV ? cdiv(a.tk, F::BK) : cdiv(a.tq, F::BQ);
+  kernel<<<dim3(a.batch * a.heads, tiles), F::THREADS, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// bf16 on the tensor cores; f32 on the FMA tiles; head dims up to 128 on
+// the DMAX 128 kernels, 136-256 on the DMAX 256 ones
 static cudaError_t flash_launch(const FlashCall& c, FlashKernel which, cudaStream_t s) {
   const FlashArgs& a = c.a;
   if (a.dim % 8 != 0 || a.dim <= 0 || a.dim > FA_DMAX || a.tq <= 0 || a.tk <= 0)
     return cudaErrorInvalidValue;
-  if (a.act_bf16) return flash_mma_launch(a, c.geom, which, s);
-  void (*kernel)(FlashArgs) = which == FA_DKDV ? flash_bwd_dkdv_kernel<float>
-                              : which == FA_DQ ? flash_bwd_dq_kernel<float>
-                                               : flash_fwd_kernel<float>;
-  const int smem = (int)flash_smem(which, a.dim);
-  BVQ_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  const int tiles = which == FA_DKDV ? cdiv(a.tk, FA_BK) : cdiv(a.tq, FA_BQ);
-  kernel<<<dim3(a.batch * a.heads, tiles), FA_THREADS, smem, s>>>(a);
-  return cudaGetLastError();
+  if (a.act_bf16) {
+    if (!flash_geom_ok(a, c.geom, which)) return cudaErrorInvalidValue;
+    return c.geom.dp > 128 ? flash_mma_launch<256>(a, c.geom, which, s)
+                           : flash_mma_launch<128>(a, c.geom, which, s);
+  }
+  return a.dim > 128 ? flash_fma_launch<256>(a, which, s) : flash_fma_launch<128>(a, which, s);
 }
 
 static int flash_entry(const FlashCall* c, FlashKernel which, void* stream) {

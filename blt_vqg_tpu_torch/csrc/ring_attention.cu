@@ -37,7 +37,7 @@
 //    holds 2 or 4 (b, h), 1 or 2 warps each, and key tiles of the chunk
 //    rounded up to 16, so the step's ranks x B x H warps fill the card.
 //    The head dim is zero-padded to 16 in shared memory and registers (any
-//    dim 1-128).  Only a tile with a padded key, a key past the chunk or a
+//    dim 1-128; 129-256 on a second instantiation, `DMAX` 256).  Only a tile with a padded key, a key past the chunk or a
 //    key after the warp's first row is masked element by element; once
 //    every row of a block has seen a visible key, key tiles wholly in its
 //    future are skipped (they would add p = 0 exactly).
@@ -115,34 +115,50 @@
 // work: wgmma (warpgroup products from shared memory, fed by TMA), the
 // carry kept on chip across ring steps, and a hop fused into the block
 // kernel.
+//
+// Head dims 129-256 (the reference tune space's hidden 1024 over 4 heads)
+// run instantiations of the same kernels with `DMAX` 256: the f32 FMA tiles
+// hold 32 rows, the bf16 backward kernels split the accumulators' columns
+// between two blocks (`rb_cols`) and the bf16 forward holds 16 rows x 256 a
+// warp.  The instantiations up to 128 are the ones measured above, unchanged.
 #include "mma.cuh"
 
 namespace bvq {
 
 constexpr float RA_NEG_INF = -1e30f;
-constexpr int RA_T = 64, RA_THREADS = 256, RA_DMAX = 128;
-constexpr int RA_DC = RA_DMAX / 4;   // d columns a thread owns: d = lane4 + 4c
-constexpr int RA_JC = RA_T / 4;      // key columns a thread scores: j = lane4 + 4c
-constexpr int RA_PLD = RA_T + 1;     // row stride of the [64][64] score tiles
+constexpr int RA_DMAX = 256;         // the largest head dim
+
+// The f32 FMA tiles of the kernels instantiated for head dims up to DMAX
+// (128 or 256): T-row tiles, 4 threads a row; 64 rows up to D 128, 32 above
+// it (four 64-row f32 tiles of D 256 would not fit in shared memory).
+template <int DMAX>
+struct RaTile {
+  static constexpr int T = DMAX > 128 ? 32 : 64, THREADS = 4 * T;
+  static constexpr int DC = DMAX / 4;  // d columns a thread owns: d = lane4 + 4c
+  static constexpr int JC = T / 4;     // key columns a thread scores: j = lane4 + 4c
+  static constexpr int PLD = T + 1;    // row stride of the [T][T] score tiles
+};
 
 // offset of element (b, t, h, 0) of a [B, rows, H, D] operand
 __device__ __forceinline__ size_t ra_at(long sb, int b, int t, int h, int H, int D) {
   return (size_t)b * sb + ((size_t)t * H + h) * D;
 }
 
-// the rows a tile holds: 64, or the whole chunk when it is shorter (the
-// shared memory of a block is sized by it, so short chunks fill the card)
+// the rows a tile holds: RT (64 or 32), or the whole chunk when it is
+// shorter (the shared memory of a block is sized by it, so short chunks fill
+// the card)
+template <int RT>
 __host__ __device__ __forceinline__ int ra_tile_rows(int chunk) {
-  return chunk < RA_T ? chunk : RA_T;
+  return chunk < RT ? chunk : RT;
 }
 
-// rows [r0, r0 + 64) of x at (b, h), as far as the chunk C goes, into dst
+// rows [r0, r0 + RT) of x at (b, h), as far as the chunk C goes, into dst
 // [rows][D + 1] as f32.  Rows past the chunk are never read: every loop
 // over a tile stops at the chunk's edge.
-template <typename T>
+template <typename T, int RT>
 __device__ void ra_load_tile(float* dst, const T* src, long sb, int b, int h, int r0,
                              int D, int C, int H) {
-  const int n = min(RA_T, C - r0) * D;
+  const int n = min(RT, C - r0) * D;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     const int r = e / D, d = e % D;
     dst[r * (D + 1) + d] = to_f<T>(src[ra_at(sb, b, r0 + r, h, H, D) + d]);
@@ -193,8 +209,6 @@ constexpr int RF_BLOCKS_PER_SM = 3; // its registers are capped for 3 blocks per
 constexpr int RF_THREADS = 32 * RF_WARPS;
 constexpr int RF_KT = 64;           // keys per tile of the tensor-core kernel
 constexpr int RF_NT = RF_KT / 8;    // its key columns of 8
-constexpr int RF_DT = RA_DMAX / 8;  // its head-dim columns of 8
-static_assert(RF_DT == MMA_DT, "the tensor-core helpers take RA_DMAX columns");
 
 struct RingFwdArgs {
   int act_bf16, causal, batch, heads, chunk, dim;
@@ -256,10 +270,12 @@ __device__ __forceinline__ RfBlock<T> rf_block(const RingFwdArgs& a, int e, int 
 // f32: block (b*h, 64-row query tile, entry); thread (row = tid / 4, lane4 =
 // tid % 4) scores key columns lane4 + 4c and owns carry columns lane4 + 4c
 // of its row.
-__global__ void __launch_bounds__(RA_THREADS)
+template <int DMAX>
+__global__ void __launch_bounds__(RaTile<DMAX>::THREADS)
     ring_fwd_fma_kernel(const __grid_constant__ RingFwdArgs a) {
+  using F = RaTile<DMAX>;
   extern __shared__ float ra_smem[];
-  const int D = a.dim, LD = D + 1, C = a.chunk, H = a.heads, TR = ra_tile_rows(C);
+  const int D = a.dim, LD = D + 1, C = a.chunk, H = a.heads, TR = ra_tile_rows<F::T>(C);
   float* qs = ra_smem;          // [TR][LD]
   float* ks = qs + TR * LD;     // [TR][LD]
   float* vs = ks + TR * LD;     // [TR][LD]
@@ -267,21 +283,21 @@ __global__ void __launch_bounds__(RA_THREADS)
   const int e = blockIdx.z;
   const RfLocal<float> x = rf_local<float>(a, e);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * RA_T;
+  const int q0 = blockIdx.y * F::T;
   const int tid = threadIdx.x, row = tid / 4, lane4 = tid % 4, i = q0 + row;
   const long sbk = (long)C * H * D;
   const size_t ri = (size_t)b * (a.sb / D) + (size_t)i * H + h;
   const size_t oi = ra_at(a.sb, b, i, h, H, D);
 
-  ra_load_tile<float>(qs, x.q, a.sb, b, h, q0, D, C, H);
-  float m = RA_NEG_INF, l = 0.f, acc[RA_DC];
+  ra_load_tile<float, F::T>(qs, x.q, a.sb, b, h, q0, D, C, H);
+  float m = RA_NEG_INF, l = 0.f, acc[F::DC];
 #pragma unroll
-  for (int c = 0; c < RA_DC; ++c) acc[c] = 0.f;
+  for (int c = 0; c < F::DC; ++c) acc[c] = 0.f;
   if (!x.first && i < C) {
     m = x.m[ri];
     l = x.l[ri];
 #pragma unroll
-    for (int c = 0; c < RA_DC; ++c) {
+    for (int c = 0; c < F::DC; ++c) {
       const int d = lane4 + 4 * c;
       if (d < D) acc[c] = x.acc[oi + d];
     }
@@ -289,15 +305,15 @@ __global__ void __launch_bounds__(RA_THREADS)
 
   for (int blk = 0; blk < x.nblk; ++blk) {
     const RfBlock<float> kb = rf_block<float>(a, e, blk);
-    for (int k0 = 0; k0 < C; k0 += RA_T) {
+    for (int k0 = 0; k0 < C; k0 += F::T) {
       __syncthreads();  // the previous tile's reads are done
-      ra_load_tile<float>(ks, kb.k, sbk, b, h, k0, D, C, H);
-      ra_load_tile<float>(vs, kb.v, sbk, b, h, k0, D, C, H);
+      ra_load_tile<float, F::T>(ks, kb.k, sbk, b, h, k0, D, C, H);
+      ra_load_tile<float, F::T>(vs, kb.v, sbk, b, h, k0, D, C, H);
       __syncthreads();
-      float s[RA_JC];
+      float s[F::JC];
       float mcur = -INFINITY;
 #pragma unroll
-      for (int c = 0; c < RA_JC; ++c) {
+      for (int c = 0; c < F::JC; ++c) {
         const int j = lane4 + 4 * c, kj = k0 + j;
         const bool valid = kj < C;
         // rows past the chunk take part in the row reductions only
@@ -311,23 +327,23 @@ __global__ void __launch_bounds__(RA_THREADS)
       const float alpha = expf(m - m_new);
       float psum = 0.f;
 #pragma unroll
-      for (int c = 0; c < RA_JC; ++c) {
+      for (int c = 0; c < F::JC; ++c) {
         const int j = lane4 + 4 * c;
         const float p = k0 + j < C ? expf(s[c] - m_new) : 0.f;
         psum += p;
-        if (row < TR) ps[row * RA_PLD + j] = p;
+        if (row < TR) ps[row * F::PLD + j] = p;
       }
       l = l * alpha + ra_quad_sum(psum);
       m = m_new;
       __syncwarp();  // the row's p was written by the 4 lanes that read it
       // keys past the chunk have p = 0: the sum stops at the chunk's edge
-      const int jn = min(RA_T, C - k0);
+      const int jn = min(F::T, C - k0);
 #pragma unroll
-      for (int c = 0; c < RA_DC; ++c) {
+      for (int c = 0; c < F::DC; ++c) {
         const int d = lane4 + 4 * c;
         if (d < D && i < C) {
           float pv = 0.f;
-          for (int j = 0; j < jn; ++j) pv = fmaf(ps[row * RA_PLD + j], vs[j * LD + d], pv);
+          for (int j = 0; j < jn; ++j) pv = fmaf(ps[row * F::PLD + j], vs[j * LD + d], pv);
           acc[c] = acc[c] * alpha + pv;
         }
       }
@@ -338,14 +354,14 @@ __global__ void __launch_bounds__(RA_THREADS)
   if (x.last) {  // o = acc / safe-l, l := safe-l
     const float safe = l == 0.f ? 1.f : l;
 #pragma unroll
-    for (int c = 0; c < RA_DC; ++c) {
+    for (int c = 0; c < F::DC; ++c) {
       const int d = lane4 + 4 * c;
       if (d < D) x.o[oi + d] = acc[c] / safe;
     }
     l = safe;
   } else {
 #pragma unroll
-    for (int c = 0; c < RA_DC; ++c) {
+    for (int c = 0; c < F::DC; ++c) {
       const int d = lane4 + 4 * c;
       if (d < D) x.acc[oi + d] = acc[c];
     }
@@ -386,8 +402,17 @@ __host__ __device__ __forceinline__ RfGeom rf_geom(int C, int D) {
 // columns 2 tq and 2 tq + 1 of each 8 columns.  The key tiles of the entry's
 // blocks run in schedule order through two shared stages per group: the
 // load of the next tile is issued before the products of this one.
-__global__ void __launch_bounds__(RF_THREADS, RF_BLOCKS_PER_SM)
+//
+// Head dims up to 128 take the DMAX 128 instantiation, registers capped for
+// 3 blocks per SM; 136-256 take DMAX 256, whose q fragments and carry (16
+// rows x 256) hold a warp's registers twice over: it is capped for one
+// block per SM, which is all its shared memory allows.  (The backward
+// kernels split the columns between blocks instead; here both blocks of a
+// pair would read and write the same carried m and l.)
+template <int DMAX>
+__global__ void __launch_bounds__(RF_THREADS, DMAX > 128 ? 1 : RF_BLOCKS_PER_SM)
     ring_fwd_mma_kernel(const __grid_constant__ RingFwdArgs a) {
+  constexpr int RF_DT = DMAX / 8;  // head-dim columns of 8
   using T = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char rf_smem[];
   const int C = a.chunk, D = a.dim, H = a.heads, e = blockIdx.z;
@@ -408,9 +433,9 @@ __global__ void __launch_bounds__(RF_THREADS, RF_BLOCKS_PER_SM)
   const int mi = lane / 8, lr8 = lane % 8;         // ldmatrix: matrix and row
 
   // q rows r0 + gr and + 8 as A fragments, zero past the chunk and the dim
-  uint32_t qf[RA_DMAX / 16][4];
+  uint32_t qf[DMAX / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < RA_DMAX / 16; ++kk) {
+  for (int kk = 0; kk < DMAX / 16; ++kk) {
     if (kk < g.dp / 16) {
 #pragma unroll
       for (int y = 0; y < 4; ++y) {
@@ -506,7 +531,7 @@ __global__ void __launch_bounds__(RF_THREADS, RF_BLOCKS_PER_SM)
       for (int jp = 0; jp < RF_NT / 2; ++jp) {
         if (jp < g.kt / 16) {
 #pragma unroll
-          for (int kk = 0; kk < RA_DMAX / 16; ++kk) {
+          for (int kk = 0; kk < DMAX / 16; ++kk) {
             if (kk < g.dp / 16) {
               uint32_t kf[4];
               rf_ldsm(kf, ks + (16 * jp + 8 * (mi >> 1) + lr8) * g.lds + 16 * kk + 8 * (mi & 1));
@@ -707,9 +732,10 @@ __device__ __forceinline__ RbBlock<T> rb_block(const RingBwdArgs& a, int e, int 
 // block.  For query row `row` of the tile at q0 and key columns lane4 + 4c of
 // the tile at k0, p = exp(s - m) / l and ds = p * (dp - delta) (zeroed at
 // masked logits), into ps / dss rows.
+template <int RT>
 __device__ void rb_load_rows(float* rm, float* rl, float* rd, const RbLocal<float>& x,
                              long sr, int b, int h, int H, int C, int q0) {
-  for (int t = threadIdx.x; t < RA_T; t += blockDim.x) {
+  for (int t = threadIdx.x; t < RT; t += blockDim.x) {
     const int i = q0 + t;
     const bool in = i < C;
     const size_t ri = (size_t)b * sr + (size_t)i * H + h;
@@ -719,15 +745,17 @@ __device__ void rb_load_rows(float* rm, float* rl, float* rd, const RbLocal<floa
   }
 }
 
+template <int DMAX>
 __device__ void rb_scores_fma(const RingBwdArgs& a, const RbLocal<float>& x,
                               const RbBlock<float>& kb, const float* rows, const float* qs,
                               const float* dos, const float* ks, const float* vs, float* ps,
                               float* dss, int b, int q0, int k0) {
+  using F = RaTile<DMAX>;
   const int D = a.dim, LD = D + 1, C = a.chunk;
   const int row = threadIdx.x / 4, lane4 = threadIdx.x % 4, i = q0 + row;
-  const float m = rows[row], linv = rows[RA_T + row], delta = rows[2 * RA_T + row];
+  const float m = rows[row], linv = rows[F::T + row], delta = rows[2 * F::T + row];
 #pragma unroll 4
-  for (int c = 0; c < RA_JC; ++c) {
+  for (int c = 0; c < F::JC; ++c) {
     const int j = lane4 + 4 * c, kj = k0 + j;
     float p = 0.f, ds = 0.f;
     if (i < C && kj < C) {
@@ -736,9 +764,9 @@ __device__ void rb_scores_fma(const RingBwdArgs& a, const RbLocal<float>& x,
       p = expf(s - m) * linv;
       ds = masked ? 0.f : p * (ra_dot(dos + row * LD, vs + j * LD, D) - delta);
     }
-    if (row < ra_tile_rows(C)) {
-      if (ps) ps[row * RA_PLD + j] = p;
-      dss[row * RA_PLD + j] = ds;
+    if (row < ra_tile_rows<F::T>(C)) {
+      if (ps) ps[row * F::PLD + j] = p;
+      dss[row * F::PLD + j] = ds;
     }
   }
 }
@@ -746,49 +774,51 @@ __device__ void rb_scores_fma(const RingBwdArgs& a, const RbLocal<float>& x,
 // dK/dV: block (b*h, key tile, pair); thread (key row jr = tid / 4, lane4)
 // owns columns lane4 + 4c of dk and dv for its key, and adds them to the
 // block's rider.
-__global__ void __launch_bounds__(RA_THREADS)
+template <int DMAX>
+__global__ void __launch_bounds__(RaTile<DMAX>::THREADS)
     ring_bwd_dkdv_fma_kernel(const __grid_constant__ RingBwdArgs a) {
+  using F = RaTile<DMAX>;
   extern __shared__ float ra_smem[];
-  const int D = a.dim, LD = D + 1, C = a.chunk, H = a.heads, TR = ra_tile_rows(C);
+  const int D = a.dim, LD = D + 1, C = a.chunk, H = a.heads, TR = ra_tile_rows<F::T>(C);
   float* ks = ra_smem;           // [TR][LD]
   float* vs = ks + TR * LD;
   float* qs = vs + TR * LD;
   float* dos = qs + TR * LD;
   float* ps = dos + TR * LD;     // [TR][PLD]
-  float* dss = ps + TR * RA_PLD;
-  float* rows = dss + TR * RA_PLD;  // m, 1 / l, delta: [3][RA_T]
+  float* dss = ps + TR * F::PLD;
+  float* rows = dss + TR * F::PLD;  // m, 1 / l, delta: [3][T]
   const int pr = a.step.pair[blockIdx.z];
   const RbLocal<float> x = rb_local<float>(a, pr >> 1);
   const RbBlock<float> kb = rb_block<float>(a, pr >> 1, pr & 1);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.y * RA_T;
+  const int k0 = blockIdx.y * F::T;
   const int tid = threadIdx.x, jr = tid / 4, lane4 = tid % 4;
   const long sbk = (long)C * H * D, sr = a.sb / D;
 
-  ra_load_tile<float>(ks, kb.k, sbk, b, h, k0, D, C, H);
-  ra_load_tile<float>(vs, kb.v, sbk, b, h, k0, D, C, H);
-  float dk[RA_DC], dv[RA_DC];
+  ra_load_tile<float, F::T>(ks, kb.k, sbk, b, h, k0, D, C, H);
+  ra_load_tile<float, F::T>(vs, kb.v, sbk, b, h, k0, D, C, H);
+  float dk[F::DC], dv[F::DC];
 #pragma unroll
-  for (int c = 0; c < RA_DC; ++c) dk[c] = dv[c] = 0.f;
+  for (int c = 0; c < F::DC; ++c) dk[c] = dv[c] = 0.f;
 
-  for (int q0 = 0; q0 < C; q0 += RA_T) {
+  for (int q0 = 0; q0 < C; q0 += F::T) {
     __syncthreads();
-    ra_load_tile<float>(qs, x.q, a.sb, b, h, q0, D, C, H);
-    ra_load_tile<float>(dos, x.dout, a.sb, b, h, q0, D, C, H);
-    rb_load_rows(rows, rows + RA_T, rows + 2 * RA_T, x, sr, b, h, H, C, q0);
+    ra_load_tile<float, F::T>(qs, x.q, a.sb, b, h, q0, D, C, H);
+    ra_load_tile<float, F::T>(dos, x.dout, a.sb, b, h, q0, D, C, H);
+    rb_load_rows<F::T>(rows, rows + F::T, rows + 2 * F::T, x, sr, b, h, H, C, q0);
     __syncthreads();
-    rb_scores_fma(a, x, kb, rows, qs, dos, ks, vs, ps, dss, b, q0, k0);
+    rb_scores_fma<DMAX>(a, x, kb, rows, qs, dos, ks, vs, ps, dss, b, q0, k0);
     __syncthreads();
     // query rows past the chunk have p = ds = 0
-    const int rn = min(RA_T, C - q0);
+    const int rn = min(F::T, C - q0);
 #pragma unroll
-    for (int c = 0; c < RA_DC; ++c) {
+    for (int c = 0; c < F::DC; ++c) {
       const int d = lane4 + 4 * c;
       if (d < D && k0 + jr < C) {
         float sv = 0.f, sk = 0.f;
         for (int r = 0; r < rn; ++r) {
-          sv = fmaf(ps[r * RA_PLD + jr], dos[r * LD + d], sv);
-          sk = fmaf(dss[r * RA_PLD + jr], qs[r * LD + d], sk);
+          sv = fmaf(ps[r * F::PLD + jr], dos[r * LD + d], sv);
+          sk = fmaf(dss[r * F::PLD + jr], qs[r * LD + d], sk);
         }
         dv[c] += sv;
         dk[c] += sk;
@@ -801,7 +831,7 @@ __global__ void __launch_bounds__(RA_THREADS)
     float* rk = kb.rider + ra_at(sbk, b, kj, h, H, D);
     float* rv = rk + (size_t)a.batch * sbk;
 #pragma unroll
-    for (int c = 0; c < RA_DC; ++c) {
+    for (int c = 0; c < F::DC; ++c) {
       const int d = lane4 + 4 * c;
       if (d < D) {
         rk[d] += dk[c];
@@ -814,46 +844,48 @@ __global__ void __launch_bounds__(RA_THREADS)
 // dQ: block (b*h, query tile, entry); thread (row, lane4) owns columns
 // lane4 + 4c of its row's dq, summed over the entry's visiting blocks in
 // order, then added to the carry (written at the rank's first live step).
-__global__ void __launch_bounds__(RA_THREADS)
+template <int DMAX>
+__global__ void __launch_bounds__(RaTile<DMAX>::THREADS)
     ring_bwd_dq_fma_kernel(const __grid_constant__ RingBwdArgs a) {
+  using F = RaTile<DMAX>;
   extern __shared__ float ra_smem[];
-  const int D = a.dim, LD = D + 1, C = a.chunk, H = a.heads, TR = ra_tile_rows(C);
+  const int D = a.dim, LD = D + 1, C = a.chunk, H = a.heads, TR = ra_tile_rows<F::T>(C);
   float* qs = ra_smem;           // [TR][LD]
   float* dos = qs + TR * LD;
   float* ks = dos + TR * LD;
   float* vs = ks + TR * LD;
   float* dss = vs + TR * LD;     // [TR][PLD]
-  float* rows = dss + TR * RA_PLD;
+  float* rows = dss + TR * F::PLD;
   const int e = blockIdx.z;
   const RbLocal<float> x = rb_local<float>(a, e);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * RA_T;
+  const int q0 = blockIdx.y * F::T;
   const int tid = threadIdx.x, row = tid / 4, lane4 = tid % 4, i = q0 + row;
   const long sbk = (long)C * H * D, sr = a.sb / D;
 
-  ra_load_tile<float>(qs, x.q, a.sb, b, h, q0, D, C, H);
-  ra_load_tile<float>(dos, x.dout, a.sb, b, h, q0, D, C, H);
-  rb_load_rows(rows, rows + RA_T, rows + 2 * RA_T, x, sr, b, h, H, C, q0);
-  float dq[RA_DC];
+  ra_load_tile<float, F::T>(qs, x.q, a.sb, b, h, q0, D, C, H);
+  ra_load_tile<float, F::T>(dos, x.dout, a.sb, b, h, q0, D, C, H);
+  rb_load_rows<F::T>(rows, rows + F::T, rows + 2 * F::T, x, sr, b, h, H, C, q0);
+  float dq[F::DC];
 #pragma unroll
-  for (int c = 0; c < RA_DC; ++c) dq[c] = 0.f;
+  for (int c = 0; c < F::DC; ++c) dq[c] = 0.f;
 
   for (int blk = 0; blk < x.nblk; ++blk) {
     const RbBlock<float> kb = rb_block<float>(a, e, blk);
-    for (int k0 = 0; k0 < C; k0 += RA_T) {
+    for (int k0 = 0; k0 < C; k0 += F::T) {
       __syncthreads();
-      ra_load_tile<float>(ks, kb.k, sbk, b, h, k0, D, C, H);
-      ra_load_tile<float>(vs, kb.v, sbk, b, h, k0, D, C, H);
+      ra_load_tile<float, F::T>(ks, kb.k, sbk, b, h, k0, D, C, H);
+      ra_load_tile<float, F::T>(vs, kb.v, sbk, b, h, k0, D, C, H);
       __syncthreads();
-      rb_scores_fma(a, x, kb, rows, qs, dos, ks, vs, nullptr, dss, b, q0, k0);
+      rb_scores_fma<DMAX>(a, x, kb, rows, qs, dos, ks, vs, nullptr, dss, b, q0, k0);
       __syncwarp();  // the row's ds was written by the 4 lanes that read it
-      const int jn = min(RA_T, C - k0);   // ds = 0 past the chunk's edge
+      const int jn = min(F::T, C - k0);   // ds = 0 past the chunk's edge
 #pragma unroll
-      for (int c = 0; c < RA_DC; ++c) {
+      for (int c = 0; c < F::DC; ++c) {
         const int d = lane4 + 4 * c;
         if (d < D && i < C) {
           float s = 0.f;
-          for (int j = 0; j < jn; ++j) s = fmaf(dss[row * RA_PLD + j], ks[j * LD + d], s);
+          for (int j = 0; j < jn; ++j) s = fmaf(dss[row * F::PLD + j], ks[j * LD + d], s);
           dq[c] += s;
         }
       }
@@ -863,7 +895,7 @@ __global__ void __launch_bounds__(RA_THREADS)
   if (i < C) {
     float* dqp = x.dq + ra_at(a.sb, b, i, h, H, D);
 #pragma unroll
-    for (int c = 0; c < RA_DC; ++c) {
+    for (int c = 0; c < F::DC; ++c) {
       const int d = lane4 + 4 * c;
       if (d < D) dqp[d] = x.first ? dq[c] : dqp[d] + dq[c];
     }
@@ -882,6 +914,28 @@ __global__ void __launch_bounds__(RA_THREADS)
 constexpr int RB_WARPS = 4;
 constexpr int RB_THREADS = 32 * RB_WARPS;
 constexpr int RB_BLOCKS_PER_SM = 2;
+
+// Head dims up to 128 take the kernels instantiated with DMAX 128; 136-256
+// take DMAX 256, which splits the columns of the accumulators (dk and dv,
+// dq) between two blocks: grid dimension y runs over (tile of owned rows,
+// half), and each block computes S and dP over the whole head dim and
+// accumulates its own 128 columns (`rb_cols`), so a thread's accumulators
+// stay those of DMAX 128.  The halves write disjoint columns of the riders
+// and the dq carry.
+struct RbCols {
+  int yb;  // the block's tile of owned rows
+  int c0;  // its first column
+  int dp;  // its columns, zero-padded: min(geom dp - c0, 128)
+};
+
+template <int DMAX>
+__device__ __forceinline__ RbCols rb_cols(int dp) {
+  if (DMAX > 128) {
+    const int c0 = 128 * (blockIdx.y % 2);
+    return RbCols{(int)blockIdx.y / 2, c0, min(dp - c0, 128)};
+  }
+  return RbCols{(int)blockIdx.y, 0, dp};
+}
 
 // the tiling of a chunk of C rows at head dim D
 struct RbGeom {
@@ -928,6 +982,7 @@ __host__ __device__ __forceinline__ RbGeom rb_geom(int C, int D, bool dkdv) {
 // masked logits), and to dv only through dead rows (m = NEG_INF: p = 1 / l
 // at every masked key of a live block): they are skipped up to the first
 // tile that holds a dead row of any of the block's (b, h).
+template <int DMAX>
 __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
     ring_bwd_dkdv_mma_kernel(const __grid_constant__ RingBwdArgs a) {
   using T = __nv_bfloat16;
@@ -935,6 +990,7 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
   __shared__ int first_dead;
   const int C = a.chunk, D = a.dim, H = a.heads;
   const RbGeom g = rb_geom(C, D, true);
+  const RbCols cols = rb_cols<DMAX>(g.dp);
   const int pr = a.step.pair[blockIdx.z];
   const RbLocal<T> x = rb_local<T>(a, pr >> 1);
   const RbBlock<T> kb = rb_block<T>(a, pr >> 1, pr & 1);
@@ -944,7 +1000,7 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
   const int bh = blockIdx.x * g.groups + grp;
   const bool active = bh < a.batch * H;  // the last block's groups may be idle
   const int b = active ? bh / H : 0, h = active ? bh % H : 0;
-  const int kb0 = blockIdx.y * g.own;           // the block's first key
+  const int kb0 = cols.yb * g.own;              // the block's first key
   const int kw = 16 * (warp % g.wq);            // the warp's keys in the owned tile
   const int nd = g.dp / 8, ntq = (C + g.kt - 1) / g.kt;
   const long sbk = (long)C * H * D, sr = a.sb / D;
@@ -1028,9 +1084,9 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
     }
   };
 
-  float dk[RF_DT][4], dv[RF_DT][4];
+  float dk[MMA_DT][4], dv[MMA_DT][4];
 #pragma unroll
-  for (int n = 0; n < RF_DT; ++n)
+  for (int n = 0; n < MMA_DT; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
 
@@ -1054,7 +1110,7 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
         // S^T and dP^T: the warp's 16 keys x 16 queries
         float s[2][4] = {}, dpv[2][4] = {};
 #pragma unroll
-        for (int kk = 0; kk < RA_DMAX / 16; ++kk) {
+        for (int kk = 0; kk < DMAX / 16; ++kk) {
           if (kk < g.dp / 16) {
             uint32_t af[4];
             rf_ldsm(af, ks + (kw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
@@ -1082,9 +1138,9 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
         }
         uint32_t hi[4], lo[4];
         rb_split(s, hi, lo);
-        rb_mma_pair(dv, hi, lo, os + 16 * qc * g.lds, g.lds, g.dp, lane);
+        rb_mma_pair(dv, hi, lo, os + 16 * qc * g.lds + cols.c0, g.lds, cols.dp, lane);
         rb_split(dpv, hi, lo);
-        rb_mma_pair(dk, hi, lo, qs + 16 * qc * g.lds, g.lds, g.dp, lane);
+        rb_mma_pair(dk, hi, lo, qs + 16 * qc * g.lds + cols.c0, g.lds, cols.dp, lane);
       }
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
@@ -1099,8 +1155,8 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
     if (!kin[y]) continue;
     const size_t off = ra_at(sbk, b, kb0 + kw + gr + 8 * y, h, H, D);
 #pragma unroll
-    for (int n = 0; n < RF_DT; ++n) {
-      const int d = 8 * n + 2 * tq;
+    for (int n = 0; n < MMA_DT; ++n) {
+      const int d = cols.c0 + 8 * n + 2 * tq;
       if (d + 1 < D && D % 2 == 0) {
         float2* pk = reinterpret_cast<float2*>(rk + off + d);
         float2* pv = reinterpret_cast<float2*>(rv + off + d);
@@ -1127,12 +1183,14 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
 // visiting blocks in order (K, V and the keys' pads) through two cp.async
 // stages.  Key tiles wholly after the block's last row add nothing (ds = 0
 // at masked logits) and are not walked.
+template <int DMAX>
 __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
     ring_bwd_dq_mma_kernel(const __grid_constant__ RingBwdArgs a) {
   using T = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char rb_smem[];
   const int C = a.chunk, D = a.dim, H = a.heads, e = blockIdx.z;
   const RbGeom g = rb_geom(C, D, false);
+  const RbCols cols = rb_cols<DMAX>(g.dp);
   const RbLocal<T> x = rb_local<T>(a, e);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
   const int grp = warp / g.wq;
@@ -1140,7 +1198,7 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
   const int bh = blockIdx.x * g.groups + grp;
   const bool active = bh < a.batch * H;
   const int b = active ? bh / H : 0, h = active ? bh % H : 0;
-  const int qb = blockIdx.y * g.own;               // the block's first query row
+  const int qb = cols.yb * g.own;                  // the block's first query row
   const int r0 = qb + 16 * (warp % g.wq);          // the warp's
   const int qlast = min(C, qb + g.own) - 1;        // the block's last row in the chunk
   const int nd = g.dp / 8, ntk = (C + g.kt - 1) / g.kt;
@@ -1150,9 +1208,9 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
   const T zero = __float2bfloat16_rn(0.f);
 
   // q and dO rows r0 + gr and + 8 as A fragments, zero past the chunk and the dim
-  uint32_t qf[RA_DMAX / 16][4], of[RA_DMAX / 16][4];
+  uint32_t qf[DMAX / 16][4], of[DMAX / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < RA_DMAX / 16; ++kk) {
+  for (int kk = 0; kk < DMAX / 16; ++kk) {
     if (kk < g.dp / 16) {
 #pragma unroll
       for (int y = 0; y < 4; ++y) {
@@ -1219,9 +1277,9 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
     }
   };
 
-  float dq[RF_DT][4];
+  float dq[MMA_DT][4];
 #pragma unroll
-  for (int n = 0; n < RF_DT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  for (int n = 0; n < MMA_DT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
   if (nt > 0) load(0, 0);
   rf_commit();
@@ -1242,7 +1300,7 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
         // S and dP: the warp's 16 rows x 16 keys
         float s[2][4] = {}, dpv[2][4] = {};
 #pragma unroll
-        for (int kk = 0; kk < RA_DMAX / 16; ++kk) {
+        for (int kk = 0; kk < DMAX / 16; ++kk) {
           if (kk < g.dp / 16) {
             rb_scores(s, qf[kk], ks + 16 * kc * g.lds + 16 * kk, g.lds, lane);
             rb_scores(dpv, of[kk], vs + 16 * kc * g.lds + 16 * kk, g.lds, lane);
@@ -1263,7 +1321,7 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
         }
         uint32_t hi[4], lo[4];
         rb_split(s, hi, lo);
-        rb_mma_pair(dq, hi, lo, ks + 16 * kc * g.lds, g.lds, g.dp, lane);
+        rb_mma_pair(dq, hi, lo, ks + 16 * kc * g.lds + cols.c0, g.lds, cols.dp, lane);
       }
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
@@ -1277,8 +1335,8 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
     if (i >= C) continue;  // rows past the chunk belong to the next rank
     float* p = x.dq + ra_at(a.sb, b, i, h, H, D);
 #pragma unroll
-    for (int n = 0; n < RF_DT; ++n) {
-      const int d = 8 * n + 2 * tq;
+    for (int n = 0; n < MMA_DT; ++n) {
+      const int d = cols.c0 + 8 * n + 2 * tq;
       if (d < D) p[d] = x.first ? dq[n][2 * y] : p[d] + dq[n][2 * y];
       if (d + 1 < D) p[d + 1] = x.first ? dq[n][2 * y + 1] : p[d + 1] + dq[n][2 * y + 1];
     }
@@ -1308,24 +1366,51 @@ __global__ void ring_land_kernel(const __grid_constant__ RingBwdArgs a) {
 // ---------------------------------------------------------------------------
 // The largest dynamic shared memory each kernel was allowed so far, per
 // device: cudaFuncSetAttribute (a host call of its own) runs once per kernel
-// and size, not once per launch.
+// and size, not once per launch.  A kernel's DMAX 256 instantiation has a
+// slot of its own (`rs_slot`).
 constexpr int RF_DEVICES = 16;
 enum RingSmemSlot { RS_FWD_MMA, RS_FWD_FMA, RS_DKDV_MMA, RS_DQ_MMA, RS_DKDV_FMA, RS_DQ_FMA,
                     RS_SLOTS };
 
+template <int DMAX>
+constexpr int rs_slot(RingSmemSlot which) {
+  return DMAX > 128 ? RS_SLOTS + which : which;
+}
+
 template <typename Kernel>
-static cudaError_t rf_allow_smem(Kernel kernel, RingSmemSlot which, size_t bytes) {
-  static int allowed[RF_DEVICES][RS_SLOTS] = {};
+static cudaError_t rf_allow_smem(Kernel kernel, int slot, size_t bytes) {
+  static int allowed[RF_DEVICES][2 * RS_SLOTS] = {};
   if (bytes <= 48 * 1024) return cudaSuccess;
   int dev = 0;
   BVQ_TRY(cudaGetDevice(&dev));
-  if (dev < RF_DEVICES && (int)bytes <= allowed[dev][which]) return cudaSuccess;
+  if (dev < RF_DEVICES && (int)bytes <= allowed[dev][slot]) return cudaSuccess;
   BVQ_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)bytes));
-  if (dev < RF_DEVICES) allowed[dev][which] = (int)bytes;
+  if (dev < RF_DEVICES) allowed[dev][slot] = (int)bytes;
   return cudaSuccess;
 }
 
+template <int DMAX>
+static cudaError_t ring_fwd_kernels(const RingFwdArgs& a, cudaStream_t s) {
+  const int C = a.chunk, D = a.dim, n = a.step.nent, bh = a.batch * a.heads;
+  if (a.act_bf16) {
+    const RfGeom g = rf_geom(C, D);
+    const size_t smem = (size_t)g.groups * 2 * g.stage;
+    BVQ_TRY(rf_allow_smem(ring_fwd_mma_kernel<DMAX>, rs_slot<DMAX>(RS_FWD_MMA), smem));
+    const dim3 grid(cdiv(bh, g.groups), cdiv(C, 16 * g.wq), n);
+    ring_fwd_mma_kernel<DMAX><<<grid, RF_THREADS, smem, s>>>(a);
+  } else {
+    using F = RaTile<DMAX>;
+    const size_t tr = ra_tile_rows<F::T>(C);
+    const size_t smem = (3 * tr * (D + 1) + tr * F::PLD) * sizeof(float);
+    BVQ_TRY(rf_allow_smem(ring_fwd_fma_kernel<DMAX>, rs_slot<DMAX>(RS_FWD_FMA), smem));
+    const dim3 grid(bh, cdiv(C, F::T), n);
+    ring_fwd_fma_kernel<DMAX><<<grid, F::THREADS, smem, s>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+// head dims up to 128 on the DMAX 128 kernels, 136-256 on the DMAX 256 ones
 static cudaError_t ring_fwd_launch(const RingFwdArgs& a, cudaStream_t s) {
   const int C = a.chunk, D = a.dim, n = a.step.nent;
   const long rows = (long)C * a.heads * D;
@@ -1336,24 +1421,44 @@ static cudaError_t ring_fwd_launch(const RingFwdArgs& a, cudaStream_t s) {
     const int nblk = a.step.info[e] & 3;
     if (nblk < 1 || nblk > 2) return cudaErrorInvalidValue;
   }
-  const int bh = a.batch * a.heads;
-  if (a.act_bf16) {
-    const RfGeom g = rf_geom(C, D);
-    const size_t smem = (size_t)g.groups * 2 * g.stage;
-    BVQ_TRY(rf_allow_smem(ring_fwd_mma_kernel, RS_FWD_MMA, smem));
-    const dim3 grid(cdiv(bh, g.groups), cdiv(C, 16 * g.wq), n);
-    ring_fwd_mma_kernel<<<grid, RF_THREADS, smem, s>>>(a);
-  } else {
-    const size_t tr = ra_tile_rows(C);
-    const size_t smem = (3 * tr * (D + 1) + tr * RA_PLD) * sizeof(float);
-    BVQ_TRY(rf_allow_smem(ring_fwd_fma_kernel, RS_FWD_FMA, smem));
-    const dim3 grid(bh, cdiv(C, RA_T), n);
-    ring_fwd_fma_kernel<<<grid, RA_THREADS, smem, s>>>(a);
-  }
-  return cudaGetLastError();
+  return D > 128 ? ring_fwd_kernels<256>(a, s) : ring_fwd_kernels<128>(a, s);
 }
 
 enum RingBwdKernel { RB_DKDV, RB_DQ, RB_LAND };
+
+template <int DMAX>
+static cudaError_t ring_bwd_kernels(const RingBwdArgs& a, RingBwdKernel which, cudaStream_t s) {
+  const int C = a.chunk, D = a.dim;
+  const int bh = a.batch * a.heads, z = which == RB_DKDV ? a.step.npair : a.step.nent;
+  if (a.act_bf16) {
+    const RbGeom g = rb_geom(C, D, which == RB_DKDV);
+    const size_t smem = (size_t)g.groups * (g.fixed + g.nst * g.stage);
+    // grid y: the tiles of owned rows, times the column halves (rb_cols)
+    const dim3 grid(cdiv(bh, g.groups), cdiv(C, g.own) * (DMAX / 128), z);
+    if (which == RB_DKDV) {
+      BVQ_TRY(rf_allow_smem(ring_bwd_dkdv_mma_kernel<DMAX>, rs_slot<DMAX>(RS_DKDV_MMA), smem));
+      ring_bwd_dkdv_mma_kernel<DMAX><<<grid, RB_THREADS, smem, s>>>(a);
+    } else {
+      BVQ_TRY(rf_allow_smem(ring_bwd_dq_mma_kernel<DMAX>, rs_slot<DMAX>(RS_DQ_MMA), smem));
+      ring_bwd_dq_mma_kernel<DMAX><<<grid, RB_THREADS, smem, s>>>(a);
+    }
+  } else {
+    using F = RaTile<DMAX>;
+    const size_t tr = ra_tile_rows<F::T>(C);
+    const size_t tile = tr * (D + 1), scores = tr * F::PLD;
+    const dim3 grid(bh, cdiv(C, F::T), z);
+    if (which == RB_DKDV) {
+      const size_t smem = (4 * tile + 2 * scores + 3 * F::T) * sizeof(float);
+      BVQ_TRY(rf_allow_smem(ring_bwd_dkdv_fma_kernel<DMAX>, rs_slot<DMAX>(RS_DKDV_FMA), smem));
+      ring_bwd_dkdv_fma_kernel<DMAX><<<grid, F::THREADS, smem, s>>>(a);
+    } else {
+      const size_t smem = (4 * tile + scores + 3 * F::T) * sizeof(float);
+      BVQ_TRY(rf_allow_smem(ring_bwd_dq_fma_kernel<DMAX>, rs_slot<DMAX>(RS_DQ_FMA), smem));
+      ring_bwd_dq_fma_kernel<DMAX><<<grid, F::THREADS, smem, s>>>(a);
+    }
+  }
+  return cudaGetLastError();
+}
 
 static cudaError_t ring_bwd_launch(const RingBwdArgs& a, RingBwdKernel which, cudaStream_t s) {
   const int C = a.chunk, D = a.dim, n = a.step.nent, np = a.step.npair;
@@ -1379,33 +1484,7 @@ static cudaError_t ring_bwd_launch(const RingBwdArgs& a, RingBwdKernel which, cu
     const int e = a.step.pair[p] >> 1, j = a.step.pair[p] & 1;
     if (a.step.pair[p] < 0 || e >= n || j >= (a.step.info[e] & 3)) return cudaErrorInvalidValue;
   }
-  const int bh = a.batch * a.heads, z = which == RB_DKDV ? np : n;
-  if (a.act_bf16) {
-    const RbGeom g = rb_geom(C, D, which == RB_DKDV);
-    const size_t smem = (size_t)g.groups * (g.fixed + g.nst * g.stage);
-    const dim3 grid(cdiv(bh, g.groups), cdiv(C, g.own), z);
-    if (which == RB_DKDV) {
-      BVQ_TRY(rf_allow_smem(ring_bwd_dkdv_mma_kernel, RS_DKDV_MMA, smem));
-      ring_bwd_dkdv_mma_kernel<<<grid, RB_THREADS, smem, s>>>(a);
-    } else {
-      BVQ_TRY(rf_allow_smem(ring_bwd_dq_mma_kernel, RS_DQ_MMA, smem));
-      ring_bwd_dq_mma_kernel<<<grid, RB_THREADS, smem, s>>>(a);
-    }
-  } else {
-    const size_t tr = ra_tile_rows(C);
-    const size_t tile = tr * (D + 1), scores = tr * RA_PLD;
-    const dim3 grid(bh, cdiv(C, RA_T), z);
-    if (which == RB_DKDV) {
-      const size_t smem = (4 * tile + 2 * scores + 3 * RA_T) * sizeof(float);
-      BVQ_TRY(rf_allow_smem(ring_bwd_dkdv_fma_kernel, RS_DKDV_FMA, smem));
-      ring_bwd_dkdv_fma_kernel<<<grid, RA_THREADS, smem, s>>>(a);
-    } else {
-      const size_t smem = (4 * tile + scores + 3 * RA_T) * sizeof(float);
-      BVQ_TRY(rf_allow_smem(ring_bwd_dq_fma_kernel, RS_DQ_FMA, smem));
-      ring_bwd_dq_fma_kernel<<<grid, RA_THREADS, smem, s>>>(a);
-    }
-  }
-  return cudaGetLastError();
+  return D > 128 ? ring_bwd_kernels<256>(a, which, s) : ring_bwd_kernels<128>(a, which, s);
 }
 
 }  // namespace bvq

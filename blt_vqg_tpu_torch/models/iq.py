@@ -31,6 +31,7 @@ from blt_vqg_tpu_torch.ops.latent import Latent
 from blt_vqg_tpu_torch.ops.layers import Dense, Embed, cached, init_weights_
 from blt_vqg_tpu_torch.ops.masks import pad_mask
 from blt_vqg_tpu_torch.ops.mlp import MLP
+from blt_vqg_tpu_torch.ops.moe import top_k as _top_k
 from blt_vqg_tpu_torch.ops.resnet import EncoderCNN
 from blt_vqg_tpu_torch.ops.sampling import sample_token
 from blt_vqg_tpu_torch.ops.transformer import (TransformerDecoder,
@@ -49,33 +50,28 @@ def _add_at_0(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[:, :1] + v.to(x.dtype)[:, None], x[:, 1:]], dim=1)
 
 
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1)")
-
-
-def _top_k(x: torch.Tensor, k: int):
-    """(values, indices) of the k largest entries of each row, in
-    descending order, ties to the lower index (``jax.lax.top_k``'s order):
-    a stable descending sort, since ``torch.topk`` leaves tie order open."""
-    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[:, :k], indices[:, :k]
-
-
 class IQ(nn.Module):
     """``mesh`` (``parallel.build_mesh`` with a ``seq`` axis) turns on ring
     attention in the encoder and decoder self-attentions when
-    ``cfg.sequence_parallel``, with ``cfg.ring_attention_impl``."""
+    ``cfg.sequence_parallel``, with ``cfg.ring_attention_impl``.
+    ``cfg.image_encoder`` "vit_b16" takes the ViT (``ops/vit.py``), any
+    other value the ResNet-18, as in the JAX package; with
+    ``cfg.moe_num_experts`` > 1 the encoders' and the decoder's FFNs are
+    mixtures of experts (``ops/moe.py``) on every ``cfg.moe_every``-th
+    layer."""
 
     def __init__(self, cfg: Config, vocab_size: int, mesh=None):
         super().__init__()
-        if cfg.image_encoder != "resnet18":
-            raise _unported(f"image_encoder={cfg.image_encoder!r}")
         self.cfg, self.vocab_size, self.mesh = cfg, vocab_size, mesh
         dtype = self.dtype = _DTYPES[cfg.dtype]
         d = cfg.hidden_dim
         self.embed = Embed(vocab_size, cfg.emb_dim, dtype, init_std=0.01)
         self.embed_proj = Dense(cfg.emb_dim, d, dtype=dtype)
-        self.encoder_cnn = EncoderCNN(d, dtype)
+        if cfg.image_encoder == "vit_b16":
+            from blt_vqg_tpu_torch.ops.vit import ViTEncoder
+            self.encoder_cnn = ViTEncoder(d, cfg.image_size, dtype)
+        else:
+            self.encoder_cnn = EncoderCNN(d, dtype)
         enc_kw = dict(hidden_dim=d, num_layers=cfg.num_layers,
                       num_heads=cfg.num_heads, pwffn_dim=cfg.pwffn_dim,
                       dtype=dtype, use_pallas=cfg.use_pallas_attention,
@@ -83,6 +79,10 @@ class IQ(nn.Module):
                       ring_mesh=mesh if cfg.sequence_parallel else None,
                       ring_impl=cfg.ring_attention_impl,
                       moe_num_experts=cfg.moe_num_experts,
+                      moe_top_k=cfg.moe_top_k,
+                      moe_capacity_factor=cfg.moe_capacity_factor,
+                      moe_router_noise=cfg.moe_router_noise,
+                      moe_every=cfg.moe_every,
                       attention_dropout=cfg.attention_dropout,
                       relu_dropout=cfg.relu_dropout,
                       layer_dropout=cfg.layer_dropout,
@@ -120,20 +120,24 @@ class IQ(nn.Module):
         return self.embed_proj(self.embed(tokens))
 
     def encode_context(self, context: torch.Tensor,
-                       image_features: torch.Tensor, generator=None):
+                       image_features: torch.Tensor, generator=None,
+                       aux=None):
         """Context encoder + image features added at position 0."""
         src_mask = pad_mask(context, PAD)
         enc = self.context_encoder(self.embed_tokens(context), src_mask,
-                                   generator)
+                                   generator, aux)
         return _add_at_0(enc, image_features), src_mask
 
     def forward(self, images: torch.Tensor, context: torch.Tensor,
                 posterior: torch.Tensor, target: torch.Tensor,
                 latent_mode: bool = False, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                eps: Optional[torch.Tensor] = None):
+                eps: Optional[torch.Tensor] = None,
+                moe_losses: Optional[list] = None):
         """Training/validation forward: ``(logits [B, T, V] f32, z_logit
         [B, V] f32 or None, kld f32, (image features, reconstruction) f32)``.
+        ``moe_losses``, a list, receives each MoE layer's (balance,
+        router_z) losses (the JAX package's ``"moe"`` collection).
 
         images [B, H, W, 3] NHWC; context [B, Tc]; posterior [B, Tp];
         target [B, T].  ``latent_mode`` adds the posterior encoder, the
@@ -144,13 +148,15 @@ class IQ(nn.Module):
         """
         gen = generator if train else None
         image_features = self.encoder_cnn(images, train=train)
-        enc, src_mask = self.encode_context(context, image_features, gen)
+        enc, src_mask = self.encode_context(context, image_features, gen,
+                                            moe_losses)
 
         kld = torch.zeros((), dtype=torch.float32, device=images.device)
         z_proj = z_logit = None
         if latent_mode:
             post_enc = self.posterior_encoder(
-                self.embed_tokens(posterior), pad_mask(posterior, PAD), gen)
+                self.embed_tokens(posterior), pad_mask(posterior, PAD), gen,
+                moe_losses)
             kld, z, _ = self.latent(enc[:, 0], post_enc[:, 0], eps=eps,
                                     generator=generator, train=train)
             z_proj = self.latent_projection(z)
@@ -175,7 +181,7 @@ class IQ(nn.Module):
                                   torch.full_like(shifted, UNK), shifted)
         inject = image_features if z_proj is None else image_features + z_proj
         temb = _add_at_0(self.embed_tokens(shifted), inject)
-        dec_out = self.decoder(temb, enc, src_mask, trg_mask, gen)
+        dec_out = self.decoder(temb, enc, src_mask, trg_mask, gen, moe_losses)
         logits = self.output_proj(dec_out.float())
 
         recon_in = enc[:, 0] if z_proj is None else enc[:, 0] + z_proj

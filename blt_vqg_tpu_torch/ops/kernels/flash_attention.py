@@ -35,7 +35,7 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256         # as the decode kernels (decode_layer.py)
 MMA_WARPS = 4              # warps of a tensor-core kernel's block
 SM_SMEM = 233_472          # shared memory of an H100 SM (228 KB)
 BLOCK_RESERVED = 1_024     # shared memory the card reserves per block
@@ -116,7 +116,8 @@ def mma_geom(kernel: str, tq: int, tk: int, dim: int, batch_heads: int):
     side's rows are walked in tiles of ``kt`` rows (their length rounded
     up to 16, at most 64, and less where the block would not fit twice on
     an SM: a short owned side with a long walked one), through two stages
-    when there is more than one tile.  The head dim is zero-padded to
+    when there is more than one tile (above head dim 128 even 16-row
+    tiles may leave a block the SM alone).  The head dim is zero-padded to
     ``dp`` (a multiple of 16) in rows of ``lds`` = dp + 8 elements.  Per
     group, ``fixed`` bytes hold the dK/dV kernel's K and V or the
     forward's q rows (f32, rows of dp + 4), and a stage holds the walked q
@@ -134,7 +135,7 @@ def mma_geom(kernel: str, tq: int, tk: int, dim: int, batch_heads: int):
     fixed = (2 * 16 * wq * lds * 2 if dkdv else
              16 * wq * (dp + 4) * 4 if kernel == "fwd" else 0)
     budget = SM_SMEM // MMA_BLOCKS_PER_SM - BLOCK_RESERVED
-    for kt in range(min(_up(walked, 16), 64), 0, -16):   # 16 always fits
+    for kt in range(min(_up(walked, 16), 64), 0, -16):   # 16 at the least
         stage = _up(2 * kt * lds * 2 + (3 * kt * 4 if dkdv else kt), 16)
         nst = 2 if walked > kt else 1
         if groups * (fixed + nst * stage) <= budget:

@@ -57,7 +57,7 @@ import torch
 from blt_vqg_tpu_torch.ops.kernels.flash_attention import _on_cuda
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256         # as the flash and decode kernels
 
 
 def ring_steps(n: int, bidir: bool) -> int:

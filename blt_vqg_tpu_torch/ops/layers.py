@@ -51,19 +51,22 @@ class Dense(nn.Module):
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` without bias on NCHW tensors, ``weight`` OIHW."""
+    """flax ``nn.Conv`` on NCHW tensors, ``weight`` OIHW; without bias
+    unless ``bias``."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int = 0, dtype=torch.bfloat16):
+                 padding: int = 0, dtype=torch.bfloat16, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.stride, self.padding = stride, padding
         self.compute_dtype = dtype
         self.init_std = 1.0 / math.sqrt(cin * kernel * kernel)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
                         self.padding)
 
 
@@ -127,6 +130,13 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype)
 
 
+def activation_fn(name: str):
+    """"relu" or "gelu" (flax's ``nn.gelu``: the tanh approximation)."""
+    if name == "gelu":
+        return lambda h: F.gelu(h, approximate="tanh")
+    return torch.relu
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: torch.Generator | None) -> torch.Tensor:
     """flax ``nn.Dropout``; deterministic when ``rate`` is 0 or there is no
@@ -174,9 +184,13 @@ def cached(module: nn.Module, name: str, build, params=None):
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seed-made weights at the JAX initializers' scales: normal kernels
     with each layer's ``init_std``, zero biases, unit norm scales, and
-    identity batch-norm statistics.  Draws on the CPU from ``generator``."""
+    identity batch-norm statistics; a module with parameters of its own
+    (the MoE FFN, the ViT's tokens) makes them in its ``seed_init``.  Draws
+    on the CPU from ``generator``."""
     for m in model.modules():
-        if isinstance(m, (Dense, Conv, Embed)):
+        if hasattr(m, "seed_init"):
+            m.seed_init(generator)
+        elif isinstance(m, (Dense, Conv, Embed)):
             w = torch.randn(m.weight.shape, generator=generator)
             m.weight.copy_(w * m.init_std)
             if getattr(m, "bias", None) is not None:

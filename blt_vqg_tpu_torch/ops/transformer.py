@@ -21,8 +21,13 @@ the same function:
   :meth:`TransformerDecoder.stream_prep`.
 
 All write the caches in place; :attr:`TransformerDecoder.cache_batch_axis`
-names the batch axis of each layout.  Not ported yet (ROADMAP.md): MoE
-FFNs and GPipe; asking for them raises.
+names the batch axis of each layout.  A layer's FFN is a mixture of experts
+(``ops/moe.py``) on every ``moe_every``-th layer when ``moe_num_experts``
+exceeds 1; such a stack decodes on the plain step only, and the per-layer
+and streaming steps refuse it, as in the JAX package.  The full-sequence
+forwards take ``aux``, a list that each MoE layer appends its
+(balance, router_z) losses to.  Not ported yet (ROADMAP.md): GPipe; asking
+for it raises.
 ``remat`` (the JAX package's activation recompute) is not carried: it
 changes memory, not values.
 """
@@ -36,45 +41,74 @@ from torch import nn
 
 from blt_vqg_tpu_torch.ops.attention import MultiHeadAttention
 from blt_vqg_tpu_torch.ops.kernels import decode_layer, decode_stream
-from blt_vqg_tpu_torch.ops.layers import Dense, LayerNorm, cached, dropout
+from blt_vqg_tpu_torch.ops.layers import (Dense, LayerNorm, activation_fn,
+                                          cached, dropout)
+from blt_vqg_tpu_torch.ops.moe import MoEFeedForward
 from blt_vqg_tpu_torch.ops.timing import timing_signal
 
 
 class PositionwiseFeedForward(nn.Module):
-    """linear -> ReLU -> dropout -> linear; ``compat_trailing_relu`` adds
-    the reference's ReLU + dropout after the last linear too."""
+    """linear -> activation -> dropout -> linear; ``compat_trailing_relu``
+    adds the reference's activation + dropout after the last linear too.
+    ``aux`` is taken for the MoE FFN's signature and unused."""
 
     def __init__(self, hidden_dim: int, pwffn_dim: int, dtype,
                  compat_trailing_relu: bool = False,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, activation: str = "relu"):
         super().__init__()
         self.ffn_in = Dense(hidden_dim, pwffn_dim, dtype=dtype)
         self.ffn_out = Dense(pwffn_dim, hidden_dim, dtype=dtype)
         self.compat_trailing_relu = compat_trailing_relu
         self.dropout_rate = dropout_rate
+        self.act = activation_fn(activation)
 
-    def forward(self, x, generator=None):
-        h = dropout(torch.relu(self.ffn_in(x)), self.dropout_rate, generator)
+    def forward(self, x, generator=None, aux=None):
+        h = dropout(self.act(self.ffn_in(x)), self.dropout_rate, generator)
         h = self.ffn_out(h)
         if self.compat_trailing_relu:
-            h = dropout(torch.relu(h), self.dropout_rate, generator)
+            h = dropout(self.act(h), self.dropout_rate, generator)
         return h
 
 
-def _check_unported(moe_num_experts=0, pipeline_stages=1):
-    if moe_num_experts > 1:
-        raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP.md)")
+def make_ffn(hidden_dim, pwffn_dim, dtype, compat_trailing_relu=False,
+             relu_dropout=0.1, activation="relu", moe=None):
+    """The dense FFN, or a mixture of experts when ``moe`` (the
+    :class:`MoEFeedForward` keywords, ``num_experts`` > 1) is given."""
+    if moe is not None:
+        return MoEFeedForward(hidden_dim, pwffn_dim, dtype=dtype,
+                              dropout_rate=relu_dropout,
+                              activation=activation, **moe)
+    return PositionwiseFeedForward(hidden_dim, pwffn_dim, dtype,
+                                   compat_trailing_relu, relu_dropout,
+                                   activation)
+
+
+def layer_moe(i: int, moe_num_experts=0, moe_top_k=2,
+              moe_capacity_factor=1.25, moe_router_noise=0.0, moe_every=1):
+    """The MoE keywords of layer ``i``, or None for a dense FFN: MoE on
+    every ``moe_every``-th layer, the last of each group (JAX
+    ``_layer_experts``)."""
+    if moe_num_experts <= 1 or i % moe_every != moe_every - 1:
+        return None
+    return dict(num_experts=moe_num_experts, top_k=moe_top_k,
+                capacity_factor=moe_capacity_factor,
+                router_noise=moe_router_noise)
+
+
+def _check_unported(pipeline_stages=1):
     if pipeline_stages > 1:
-        raise NotImplementedError("GPipe is not ported yet (ROADMAP.md)")
+        raise NotImplementedError("GPipe is not ported yet (ROADMAP.md "
+                                  "queue 1 item 4)")
 
 
 class EncoderLayer(nn.Module):
+    """``moe``: the layer's MoE keywords (:func:`layer_moe`), or None."""
+
     def __init__(self, hidden_dim, num_heads, pwffn_dim, dtype,
                  use_pallas=False, compat_trailing_relu=False, ring_mesh=None,
-                 moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
-                 layer_dropout=0.0, ring_impl="xla"):
+                 moe=None, attention_dropout=0.1, relu_dropout=0.1,
+                 layer_dropout=0.0, ring_impl="xla", activation="relu"):
         super().__init__()
-        _check_unported(moe_num_experts)
         self.ln_mha = LayerNorm(hidden_dim, dtype)
         self.mha = MultiHeadAttention(hidden_dim, num_heads, dtype,
                                       use_pallas=use_pallas,
@@ -82,15 +116,16 @@ class EncoderLayer(nn.Module):
                                       dropout_rate=attention_dropout,
                                       ring_impl=ring_impl)
         self.ln_ffn = LayerNorm(hidden_dim, dtype)
-        self.ffn = PositionwiseFeedForward(hidden_dim, pwffn_dim, dtype,
-                                           compat_trailing_relu, relu_dropout)
+        self.ffn = make_ffn(hidden_dim, pwffn_dim, dtype,
+                            compat_trailing_relu, relu_dropout, activation,
+                            moe)
         self.layer_dropout = layer_dropout
 
-    def forward(self, x, mask=None, generator=None):
+    def forward(self, x, mask=None, generator=None, aux=None):
         xn = self.ln_mha(x)
         x = dropout(x + self.mha(xn, xn, mask, generator),
                     self.layer_dropout, generator)
-        return dropout(x + self.ffn(self.ln_ffn(x), generator),
+        return dropout(x + self.ffn(self.ln_ffn(x), generator, aux),
                        self.layer_dropout, generator)
 
 
@@ -102,14 +137,18 @@ class TransformerEncoder(nn.Module):
                  dtype=torch.bfloat16, use_pallas=False,
                  compat_trailing_relu=False, ring_mesh=None,
                  moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
-                 layer_dropout=0.0, input_dropout=0.0, ring_impl="xla"):
+                 layer_dropout=0.0, input_dropout=0.0, ring_impl="xla",
+                 moe_top_k=2, moe_capacity_factor=1.25, moe_router_noise=0.0,
+                 moe_every=1):
         super().__init__()
         self.hidden_dim, self.num_layers = hidden_dim, num_layers
         self.input_dropout = input_dropout
         for i in range(num_layers):
             self.add_module(f"layer_{i}", EncoderLayer(
                 hidden_dim, num_heads, pwffn_dim, dtype, use_pallas,
-                compat_trailing_relu, ring_mesh, moe_num_experts,
+                compat_trailing_relu, ring_mesh,
+                layer_moe(i, moe_num_experts, moe_top_k, moe_capacity_factor,
+                          moe_router_noise, moe_every),
                 attention_dropout, relu_dropout, layer_dropout, ring_impl))
         self.final_ln = LayerNorm(hidden_dim, dtype)
 
@@ -117,22 +156,28 @@ class TransformerEncoder(nn.Module):
     def layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
 
-    def forward(self, x, mask=None, generator=None):
+    def forward(self, x, mask=None, generator=None, aux=None):
         x = dropout(x, self.input_dropout, generator)
         x = x + timing_signal(x.shape[1], self.hidden_dim, dtype=x.dtype,
                               device=x.device)
         for layer in self.layers:
-            x = layer(x, mask, generator)
+            x = layer(x, mask, generator, aux)
         return self.final_ln(x)
 
 
 class DecoderLayer(nn.Module):
+    """``moe``: the layer's MoE keywords (:func:`layer_moe`), or None."""
+
     def __init__(self, hidden_dim, num_heads, pwffn_dim, dtype,
                  use_pallas=False, compat_trailing_relu=False, ring_mesh=None,
-                 moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
+                 moe=None, attention_dropout=0.1, relu_dropout=0.1,
                  layer_dropout=0.0, use_pallas_decode=False, ring_impl="xla"):
         super().__init__()
-        _check_unported(moe_num_experts)
+        if moe is not None and use_pallas_decode:
+            raise ValueError(
+                "MoE FFNs are not supported on the fused Pallas decode "
+                "path (use_pallas_decode reads dense ffn_in/ffn_out "
+                "kernels); decode MoE models on the XLA path")
         self.hidden_dim, self.num_heads, self.dtype = hidden_dim, num_heads, dtype
         self.use_pallas_decode = use_pallas_decode
         self.ln_self = LayerNorm(hidden_dim, dtype)
@@ -148,12 +193,12 @@ class DecoderLayer(nn.Module):
                                              use_pallas=use_pallas,
                                              dropout_rate=attention_dropout)
         self.ln_ffn = LayerNorm(hidden_dim, dtype)
-        self.ffn = PositionwiseFeedForward(hidden_dim, pwffn_dim, dtype,
-                                           compat_trailing_relu, relu_dropout)
+        self.ffn = make_ffn(hidden_dim, pwffn_dim, dtype,
+                            compat_trailing_relu, relu_dropout, moe=moe)
         self.layer_dropout = layer_dropout
 
     def forward(self, x, enc_out, src_mask=None, trg_mask=None,
-                generator=None):
+                generator=None, aux=None):
         """Teacher-forced layer.  ``trg_mask`` is the target key-padding
         mask [B, 1, 1, T]; causality comes from ``self_attn.causal``."""
         rate = self.layer_dropout
@@ -162,7 +207,7 @@ class DecoderLayer(nn.Module):
                     generator)
         x = dropout(x + self.cross_attn(self.ln_cross(x), enc_out, src_mask,
                                         generator), rate, generator)
-        return dropout(x + self.ffn(self.ln_ffn(x), generator), rate,
+        return dropout(x + self.ffn(self.ln_ffn(x), generator, aux), rate,
                        generator)
 
     def cross_kv(self, enc_out):
@@ -251,9 +296,24 @@ class TransformerDecoder(nn.Module):
                  use_pallas_decode=False, use_stream_decode=False,
                  stream_weight_dtype="bfloat16", pipeline_stages=1,
                  moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
-                 layer_dropout=0.0, input_dropout=0.0, ring_impl="xla"):
+                 layer_dropout=0.0, input_dropout=0.0, ring_impl="xla",
+                 moe_top_k=2, moe_capacity_factor=1.25, moe_router_noise=0.0,
+                 moe_every=1):
         super().__init__()
-        _check_unported(moe_num_experts, pipeline_stages)
+        if moe_num_experts > 1:
+            if use_stream_decode:
+                raise ValueError(
+                    "MoE FFNs are not supported on the streaming decode "
+                    "path (use_stream_decode streams dense FFN stacks); "
+                    "decode MoE models on the XLA path")
+            if pipeline_stages > 1:
+                raise ValueError(
+                    "MoE + GPipe is not supported: the pipelined stage "
+                    "apply (parallel/pipeline.py) does not thread the "
+                    "'moe' sow collection, so the load-balance loss would "
+                    "be silently dropped — shard experts over an 'expert' "
+                    "mesh axis instead (EP replaces PP's memory win here)")
+        _check_unported(pipeline_stages)
         self.hidden_dim, self.num_layers = hidden_dim, num_layers
         self.num_heads, self.pwffn_dim, self.dtype = num_heads, pwffn_dim, dtype
         self.use_stream_decode = use_stream_decode
@@ -264,7 +324,9 @@ class TransformerDecoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer_{i}", DecoderLayer(
                 hidden_dim, num_heads, pwffn_dim, dtype, use_pallas,
-                compat_trailing_relu, ring_mesh, moe_num_experts,
+                compat_trailing_relu, ring_mesh,
+                layer_moe(i, moe_num_experts, moe_top_k, moe_capacity_factor,
+                          moe_router_noise, moe_every),
                 attention_dropout, relu_dropout, layer_dropout,
                 self.use_pallas_decode, ring_impl))
         self.final_ln = LayerNorm(hidden_dim, dtype)
@@ -277,13 +339,13 @@ class TransformerDecoder(nn.Module):
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
 
     def forward(self, x, enc_out, src_mask=None, trg_mask=None,
-                generator=None):
+                generator=None, aux=None):
         """Teacher-forced decoder over the whole target: x [B, T, D]."""
         x = dropout(x, self.input_dropout, generator)
         x = x + timing_signal(x.shape[1], self.hidden_dim, dtype=x.dtype,
                               device=x.device)
         for layer in self.layers:
-            x = layer(x, enc_out, src_mask, trg_mask, generator)
+            x = layer(x, enc_out, src_mask, trg_mask, generator, aux)
         return self.final_ln(x)
 
     # ---- decode path ----

@@ -68,13 +68,16 @@ class FusedClipAdam:
                  mu_dtype=torch.float32, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8,
                  master_fn: Optional[Callable[[str], bool]] = None,
-                 factored_nu: bool = False):
+                 factored_nu: bool = False, chain: bool = False):
         self.grad_clip = float(grad_clip)
         self.frozen_fn = frozen_fn
         self.mu_dtype = mu_dtype
         self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
         self.master_fn = master_fn
         self.factored_nu = bool(factored_nu)
+        # the optax chain of fused_adam=False: the same update, its state
+        # laid out as the chain's in checkpoints
+        self.chain = bool(chain)
 
     def _is_master(self, name: str) -> bool:
         return (self.master_fn is not None and not self.frozen_fn(name)
@@ -135,7 +138,12 @@ class FusedClipAdam:
         for n in names:
             p, mu, nu = params[n], state.mu[n], state.nu[n]
             mastered = n in state.master
-            g = gs[n].float() if mastered else gs[n]
+            # bf16 gradients (grad_dtype="bfloat16") of f32 parameters are
+            # promoted too: XLA, which the JAX package runs on, computes
+            # their moment arithmetic in f32 (it may keep excess precision
+            # across bf16 elementwise ops), so only the gradient's own
+            # rounding to bf16 remains
+            g = gs[n].float() if mastered or gs[n].dtype != p.dtype else gs[n]
             gc = torch.where(trigger, g, (g / g_norm.to(g.dtype)) * clip)
             mu32 = (1 - b1) * gc + _weak(b1, mu) * mu
             mu_hat = mu32 / bc1

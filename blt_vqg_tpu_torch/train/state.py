@@ -10,6 +10,14 @@ rate keeps its global clock.  The ResNet backbone is frozen: it carries no
 moments and builds no gradient (its parameters have ``requires_grad``
 off), though its batch-norm statistics still update in train mode.
 
+``fused_adam=False`` is the JAX package's unfused optax chain
+(clip_by_global_norm, scale_by_adam, scale(-1) under ``multi_transform``,
+``set_to_zero`` on the frozen backbone), which the JAX package holds
+bit-equal to the fused pass: the update here is the fused one, and the
+optimizer is marked ``chain``, so its checkpoints hold the chain's state
+layout (core/checkpoint.py).  As in the JAX package the chain takes no
+bf16 parameter storage and no factored second moment.
+
 Unlike the JAX package's immutable state, this one is updated in place: a
 train step changes the model's parameters and statistics and returns the
 same object.
@@ -41,16 +49,18 @@ def is_f32_consumed(name: str) -> bool:
 
 
 def make_optimizer(cfg: Config) -> FusedClipAdam:
-    if not cfg.fused_adam:
-        raise NotImplementedError(
-            "the unfused optax chain (fused_adam=False) is not ported yet "
-            "(ROADMAP.md queue 1 item 2); the fused update computes the same "
-            "numbers")
     mixed = cfg.param_dtype == "bfloat16"
+    if not cfg.fused_adam:
+        if mixed:
+            raise ValueError("param_dtype='bfloat16' requires fused_adam=True "
+                             "(the optax chain has no f32 master copy)")
+        if cfg.adam_factored_nu:
+            raise ValueError("adam_factored_nu requires fused_adam=True "
+                             "(the optax chain has no factored second moment)")
     return FusedClipAdam(
         cfg.grad_clip, is_frozen, mu_dtype=_DTYPES[cfg.adam_mu_dtype],
         master_fn=(lambda n: not is_f32_consumed(n)) if mixed else None,
-        factored_nu=cfg.adam_factored_nu)
+        factored_nu=cfg.adam_factored_nu, chain=not cfg.fused_adam)
 
 
 @dataclass

@@ -10,19 +10,24 @@ Batch contract (keys as in the JAX package):
 A train step is ``step(state, batch, generator) -> (state, metrics)``: the
 forward in train mode (dropout and the posterior noise drawn from
 ``generator``, batch-norm statistics updated), the losses, the backward
-over the trainable parameters, then ``FusedClipAdam``.  The metrics are the
-JAX package's (``loss``, ``rec``, ``img``, ``ppl``, ``kld``, ``aux``,
-``elbo``, ``grad_norm`` with ``log_grad_norm``, ``skipped_nonfinite`` with
-``guard_nonfinite``), as device tensors: nothing waits for the card, except
-``guard_nonfinite``, which reads the loss on the host to decide.
-:func:`make_multi_step` runs G such steps in one call, on batches stacked
-on a leading axis, as eager steps (the JAX package scans them in one
-program).  Not ported (ROADMAP.md): MoE losses and
-``grad_dtype="bfloat16"``.
+over the trainable parameters (cast to bf16 under
+``grad_dtype="bfloat16"``, before the norm and the update, as the JAX
+package casts its gradient tree), then ``FusedClipAdam``.  With MoE FFNs
+(``moe_num_experts`` > 1) the loss adds ``moe_aux_weight`` times the mean
+balance loss and ``moe_router_z_weight`` times the mean router-z loss over
+the MoE layers (the JAX ``_collect_moe_losses``).  The metrics are the JAX
+package's (``loss``, ``rec``, ``img``, ``ppl``, ``kld``, ``aux``, ``elbo``,
+``moe_balance`` and ``moe_router_z`` with MoE, ``grad_norm`` with
+``log_grad_norm``, ``skipped_nonfinite`` with ``guard_nonfinite``), as
+device tensors: nothing waits for the card, except ``guard_nonfinite``,
+which reads the loss on the host to decide.  :func:`make_multi_step` runs G
+such steps in one call, on batches stacked on a leading axis, as eager
+steps (the JAX package scans them in one program).
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -78,10 +83,22 @@ def _losses(cfg: Config, state: TrainState, batch, outputs, latent_mode):
         full_kl_step=cfg.full_kl_step, kl_floor=cfg.kl_floor)
 
 
-def _forward(state: TrainState, batch, latent_mode, train, generator, eps):
+def _forward(state: TrainState, batch, latent_mode, train, generator, eps,
+             **kw):
     return state.model(batch["images"], batch["context"], batch["posterior"],
                        batch["target"], latent_mode=latent_mode, train=train,
-                       generator=generator, eps=eps)
+                       generator=generator, eps=eps, **kw)
+
+
+def collect_moe_losses(losses: list, device):
+    """(balance, router_z): the means over the MoE layers of their
+    losses (zeros when there are none)."""
+    if not losses:
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        return zero, zero
+    n = len(losses)
+    return (sum(b.float() for b, _ in losses) / n,
+            sum(z.float() for _, z in losses) / n)
 
 
 def make_train_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
@@ -91,10 +108,8 @@ def make_train_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
     for the JAX signature and unused: a sequence-parallel mesh goes with
     the model (``IQ(cfg, vocab, mesh)``)."""
     del mesh
-    if cfg.grad_dtype != "float32":
-        raise NotImplementedError(
-            "grad_dtype='bfloat16' is not ported yet (ROADMAP.md queue 1 "
-            "item 2)")
+    moe = cfg.moe_num_experts > 1
+    grad_dtype = {"float32": None, "bfloat16": torch.bfloat16}[cfg.grad_dtype]
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: torch.Generator,
@@ -102,16 +117,28 @@ def make_train_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
         stats = None
         if cfg.guard_nonfinite:
             stats = {n: b.clone() for n, b in state.model.named_buffers()}
+        moe_losses = [] if moe else None
         out = _losses(cfg, state, batch,
                       _forward(state, batch, latent_mode, True, generator,
-                               eps), latent_mode)
+                               eps, moe_losses=moe_losses), latent_mode)
+        metrics = {k: v.detach() for k, v in out.as_dict().items()}
+        loss = out.loss
+        if moe:
+            balance, router_z = collect_moe_losses(moe_losses, loss.device)
+            loss = (loss + cfg.moe_aux_weight * balance
+                    + cfg.moe_router_z_weight * router_z)
+            metrics.update(moe_balance=balance.detach(),
+                           moe_router_z=router_z.detach(), loss=loss.detach())
         params = state.trainable()
-        grads = torch.autograd.grad(out.loss, list(params.values()),
+        grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
+        if grad_dtype is not None:
+            # bf16 gradient storage: the norm and the update read the bf16
+            # values; the optimizer promotes them back to f32
+            grads = [None if g is None else g.to(grad_dtype) for g in grads]
         grads = dict(zip(params, grads))
         kliter_inc = 1 if latent_mode else 0
-        metrics = {k: v.detach() for k, v in out.as_dict().items()}
-        skipped = stats is not None and not bool(torch.isfinite(out.loss))
+        skipped = stats is not None and not bool(torch.isfinite(loss))
         if skipped:
             # keep the previous parameters, moments and statistics; the
             # step and kliter still advance
@@ -127,7 +154,7 @@ def make_train_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
             metrics["grad_norm"] = gnorm
         if stats is not None:
             metrics["skipped_nonfinite"] = torch.tensor(
-                float(skipped), device=out.loss.device)
+                float(skipped), device=loss.device)
         return state, metrics
 
     return step
@@ -197,7 +224,9 @@ def make_decode_step(cfg: Config, model, latent_mode: bool,
     and ``decode_top_p``) select the loop exit, the latent z and the token
     choice as in the JAX package.  ``generator`` supplies the prior
     sample's noise; sampled tokens come from ``sample_generator``, a stream
-    of their own.  Runs under ``torch.inference_mode()``."""
+    of their own.  As in the JAX package, the model's ``decode_greedy`` is
+    given only the keywords it takes (IQRNN's takes no probe, z source or
+    sampling).  Runs under ``torch.inference_mode()``."""
     kwargs = dict(max_decode_length=cfg.max_decode_length,
                   latent_mode=latent_mode, with_probe=with_probe,
                   early_stop=cfg.decode_early_stop,
@@ -205,14 +234,18 @@ def make_decode_step(cfg: Config, model, latent_mode: bool,
     if cfg.decode_sampling:
         kwargs.update(sample=True, temperature=cfg.decode_temperature,
                       top_k=cfg.decode_top_k, top_p=cfg.decode_top_p)
+    takes = inspect.signature(type(model).decode_greedy).parameters
+    kwargs = {k: v for k, v in kwargs.items() if k in takes}
+    with_sampling = "sample_generator" in takes
 
     def step(images: torch.Tensor, context: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              sample_generator: Optional[torch.Generator] = None) -> dict:
+        extra = ({"sample_generator": sample_generator} if with_sampling
+                 else {})
         with torch.inference_mode():
             return model.decode_greedy(images, context, generator=generator,
-                                       sample_generator=sample_generator,
-                                       **kwargs)
+                                       **extra, **kwargs)
 
     return step
 

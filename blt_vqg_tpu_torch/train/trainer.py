@@ -16,8 +16,11 @@
 
 Every random draw takes a generator from one ``RngStream`` by (step,
 purpose), as the JAX package takes its keys, so a resumed run draws what
-an uninterrupted one would at the same steps.  ``model_family="rnn"`` and
-a mesh whose ``data`` axis exceeds 1 are not ported (ROADMAP.md).
+an uninterrupted one would at the same steps.  ``model_family="rnn"``
+trains ``models/iq_rnn.py``'s IQRNN, whose validation report decodes
+greedy (the family has no beam search).  A mesh with an axis other than
+``seq`` over 1 (data, model or expert parallelism) is not ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -113,12 +116,12 @@ class Trainer:
 
     def __init__(self, cfg: Config, vocab, mesh=None,
                  profile_dir: Optional[str] = None, device="cuda"):
-        if cfg.model_family == "rnn":
-            raise NotImplementedError("model_family='rnn' is not ported yet "
-                                      "(ROADMAP.md queue 1)")
-        if mesh is not None and mesh.shape.get("data", 1) > 1:
+        wide = [a for a, n in (mesh.shape.items() if mesh is not None
+                               else ()) if n > 1 and a != "seq"]
+        if wide:
             raise NotImplementedError(
-                "a data-parallel mesh is not ported yet (ROADMAP.md queue 1)")
+                f"mesh axes {wide} over 1 (data, model or expert "
+                f"parallelism) are not ported yet (ROADMAP.md queue 1 item 4)")
         self.cfg = cfg
         self.vocab = vocab
         self.mesh = mesh
@@ -126,10 +129,14 @@ class Trainer:
         if cfg.debug_nans:
             from blt_vqg_tpu_torch.core.debug import enable_nan_checks
             enable_nan_checks(True)
-        self.model = IQ(cfg, len(vocab),
-                        mesh=(mesh if (cfg.sequence_parallel
-                                       or cfg.pipeline_stages > 1)
-                              else None)).to(self.device)
+        if cfg.model_family == "rnn":
+            from blt_vqg_tpu_torch.models.iq_rnn import IQRNN
+            self.model = IQRNN(cfg, len(vocab)).to(self.device)
+        else:
+            self.model = IQ(cfg, len(vocab),
+                            mesh=(mesh if (cfg.sequence_parallel
+                                           or cfg.pipeline_stages > 1)
+                                  else None)).to(self.device)
         self.rngs = RngStream(cfg.seed)
         self.nlge = NLGEval(no_glove=True, no_skipthoughts=True)
         self.writer = MetricWriter(cfg.output_dir)
@@ -151,11 +158,13 @@ class Trainer:
                                                   latent_mode=m)
                               for m in (False, True)}
         # cfg.beam_size > 1 switches the validation decode report to beam
-        # search
+        # search (the RNN family has no beam decoder: it stays greedy)
         self._beam_steps = ({m: make_beam_decode_step(cfg, self.model,
                                                       latent_mode=m)
                              for m in (False, True)}
-                            if cfg.beam_size > 1 else None)
+                            if cfg.beam_size > 1
+                            and hasattr(type(self.model), "decode_beam")
+                            else None)
         self._diag_steps = None   # built at the first latent report
         # the fit loop's readings: CUDA events on the card, else host clock
         # (validate_ms, and save_ms, the host copy of an async save)

@@ -132,7 +132,31 @@ only when every phase passed):
    card 0 (``use_pallas_attention``): each child reports the card, every
    rung's validation loss is finite and the analysis names the best trial.
    It prints the evaluation's questions/s by events on both paths, the
-   restore and scoring times and each tune child's wall time.
+   restore and scoring times and each tune child's wall time;
+17. the model variants and train-step options at the flagship's widths
+   (seed-made weights, ``make_batch`` data, the launch counts of each
+   path read around it and its time by CUDA events): (a) head dim 256
+   (hidden 1024 over 4 heads): the three flash kernels against their plain
+   versions at the four training shapes and B 8, T 512 causal, the one-
+   and two-way ring at the training shape on seq 4, each timed with its
+   bound and SDPA, one latent train step on the flash path against the
+   einsum path within phase 7's limits, and a ``cli.tune`` trial child of
+   that trial with ``use_pallas_attention``; (b) ViT-B/16 (BASELINE config
+   4): the train CLI with ``--image_encoder vit_b16`` for 2 pretrain and
+   2 latent steps on the flash kernels and one validation on the
+   per-layer kernels (exact launch counts), then the directory served at
+   b64 on the stream path with int8 stack weights and the fused head (51
+   stack and head launches); (c) MoE (8 experts, top 2, capacity 1.25,
+   every layer): a latent step on the flash path against the einsum path
+   (limits of its own, set from readings: the router turns the paths'
+   rounding into other experts for tokens near a tie), the balance and
+   router-z losses finite and in the loss, greedy b64 on
+   the plain path, and the per-layer and stream decode paths refused;
+   (d) LSTM, then GRU: 2 pretrain and 1 latent step and greedy b64;
+   (e) 3 latent steps with ``grad_dtype="bfloat16"`` and 3 with
+   ``fused_adam=False`` on the flash path, and a ``fused_adam=False``
+   checkpoint saved and restored bit for bit.  The ``kernels`` line's
+   flash and ring rows carry the head-dim-256 readings (``dh256_*``).
 
 Phase 1 also prints the compiler's registers, shared memory and spills
 of the ring and flash kernels, of the decode kernels' split-K product
@@ -148,8 +172,10 @@ warpgroup product, for ``int8_wgmma_kernel``), the flash, cluster and
 int8 kernels without spills.
 
 ``--train-cli-only`` builds and runs phase 15 alone; ``--eval-cli-only``
-builds, runs the 6-step train CLI run and phase 16.
-``--flash-times-only``, ``--decode-times-only`` and ``--int8-times-only``
+builds, runs the 6-step train CLI run and phase 16; ``--variants-only``
+builds, checks phase 1's machine code and runs phase 17 alone.
+``--flash-times-only``, ``--ring-times-only`` (the ring functions at the
+training shape, phase 14), ``--decode-times-only`` and ``--int8-times-only``
 build, take only the flash kernels' (phase 7), the decode kernels' (the
 stack step, the fused head, also with a cold L2, ``self_attn_step`` and
 ``cross_ffn_step``) or ``int8_matmul``'s times at both of its shapes (by
@@ -170,8 +196,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -276,6 +304,8 @@ FLASH_MMA = ("flash_fwd_mma_kernel", "flash_bwd_dkdv_mma_kernel",
 FLASH_FMA = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
              "flash_bwd_dq_kernel")
 FLASH_STEP_KERNELS = FLASH_MMA + FLASH_FMA
+# the mangled-name mark of a kernel's head-dim-256 instantiation (DMAX 256)
+DMAX256 = "ILi256E"
 # o, dq, dk, dv are bf16: the kernel and the plain version round p and every
 # output to bf16 after f32 sums taken in other orders.  Readings over 8
 # seeds x 6 cases (48; NVIDIA H100 80GB HBM3, 700 W): max error up to 1
@@ -889,10 +919,10 @@ def flash_shape_times(dev, b, h, d, tq, tk, causal, pad, iters):
     return t, flash_bounds(q, k, kv_pad, causal)
 
 
-def flash_shape_line(card, what, t) -> str:
+def flash_shape_line(card, what, t, tag: str = "7") -> str:
     us = lambda key: f"{t[key] * 1e3:.1f} us"
     both = lambda key: f"{us(key)} (device {us(key + ':device')})"
-    return (f"[7] {card}: flash {what}, per call, by events (device time "
+    return (f"[{tag}] {card}: flash {what}, per call, by events (device time "
             f"by profiler): fwd kernel {both('flash_attention_fwd')}, plain "
             f"{us('plain_fwd')}, SDPA {both('sdpa_fwd')}; dK/dV kernel "
             f"{both('flash_attention_bwd_dkdv')} + dQ kernel "
@@ -900,19 +930,20 @@ def flash_shape_line(card, what, t) -> str:
             f"{us('plain_bwd')}, SDPA backward {both('sdpa_bwd')}")
 
 
-def flash_timings(dev, card, log):
-    """Phase 7 (kernels): per-call times at the four training shapes, the
-    totals of one latent train step's calls, and one call at the
-    multi-tile shape (``long_*``).  The two backward rows share their
-    plain and library times: the plain backward and SDPA's backward each
-    compute dq, dk and dv in one call."""
+def flash_timings(dev, card, log, h: int = 8, d: int = 128, tag: str = "7",
+                  multi: bool = True):
+    """Phase 7 (kernels): per-call times at the four training shapes (B 64,
+    ``h`` heads of ``d``), the totals of one latent train step's calls,
+    and, with ``multi``, one call at the multi-tile shape (``long_*``).
+    The two backward rows share their plain and library times: the plain
+    backward and SDPA's backward each compute dq, dk and dv in one call."""
     totals = {n: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "library_ms": 0.0,
                   "library_device_ms": 0.0, "bytes": 0.0, "flops": 0.0}
               for n in FLASH_KERNELS}
     fwd = []    # the forward's and SDPA forward's device times per call
     for what, tq, tk, causal, calls in FLASH_SHAPES:
-        t, bounds = flash_shape_times(dev, BATCH, 8, 128, tq, tk, causal,
+        t, bounds = flash_shape_times(dev, BATCH, h, d, tq, tk, causal,
                                       "tail", 50)
         fwd.append((f"{tq}x{tk}{' causal' if causal else ''}", t))
         for name, (nbytes, flops) in bounds.items():
@@ -927,19 +958,23 @@ def flash_timings(dev, card, log):
             tot["bound_ms"] += calls * b_ms
             tot["bytes"] += calls * nbytes
             tot["flops"] += calls * flops
-        log(flash_shape_line(card, f"{what} (B {BATCH}, H 8, Dh 128, Tq {tq},"
-                             f" Tk {tk}{', causal' if causal else ''})", t))
+        log(flash_shape_line(card, f"{what} (B {BATCH}, H {h}, Dh {d}, Tq "
+                             f"{tq}, Tk {tk}{', causal' if causal else ''})",
+                             t, tag))
     for name, tot in totals.items():
         tot["bound_by"] = bound(tot["bytes"], tot["flops"])[1]
         shared = ("" if name.endswith("fwd") else
                   " (shared by both backward rows: dq, dk and dv in one call)")
-        log(f"[7] {card}: {name}, the 24 calls of a latent train step: "
+        log(f"[{tag}] {card}: {name} (H {h}, Dh {d}), the 24 calls of a "
+            f"latent train step: "
             f"kernel {tot['ms'] * 1e3:.1f} us by events, "
             f"{tot['device_ms'] * 1e3:.1f} us device, bound "
             f"{tot['bound_ms'] * 1e3:.2f} us ({tot['bound_by']}); plain "
             f"{tot['plain_ms'] * 1e3:.1f} us and SDPA "
             f"{tot['library_ms'] * 1e3:.1f} us "
             f"({tot['library_device_ms'] * 1e3:.1f} us device){shared}")
+    if not multi:
+        return totals
     what, (b, h, d, tq, tk, causal), pad = FLASH_MULTI_TILE
     t, bounds = flash_shape_times(dev, b, h, d, tq, tk, causal, pad, 10)
     log(flash_shape_line(card, what, t))
@@ -1635,12 +1670,12 @@ def layer_timings(dev, card, log, pl_cfg, pl_model, plain_model, latent,
 # ---------------------------------------------------------------------------
 # ring attention
 
-def ring_inputs(dev, b, n, c, pad, seed, d=128):
-    """bf16 q (scaled), k, v, dO [B, T, H 8, Dh d] and a key-pad mask
+def ring_inputs(dev, b, n, c, pad, seed, d=128, h=8):
+    """bf16 q (scaled), k, v, dO [B, T, H h, Dh d] and a key-pad mask
     [B, T]: trailing pads of random lengths ("tail"), none ("none"), the
     last 10% of keys ("long"), or "dead": key 0 padded (the causal query 0
     sees no key) and every key of batch row 1."""
-    t, h = n * c, 8
+    t = n * c
     g = torch.Generator(dev).manual_seed(seed)
     r = lambda *s: torch.randn(s, generator=g, device=dev)
     q = (r(b, t, h, d) * d ** -0.5).to(torch.bfloat16)
@@ -1940,6 +1975,78 @@ def ring_bounds(b: int, n: int, c: int, kv_pad, causal: bool, h: int = 8,
     return {name: fwd if "fwd" in name else bwd for name in RING_KERNELS}
 
 
+def ring_case_times(dev, card, log, label, case, h: int = 8, d: int = 128,
+                    tag: str = "14") -> dict:
+    """Each ring function at one shape of RING_CASES (``h`` heads of
+    ``d``), per call: by events, device time by profiler (ring kernels and
+    the rest), the plain version, the bound and SDPA.  Returns {function:
+    {ms, device_ms, launches_per_call, plain_ms, bound_ms, bound_by,
+    library_ms}}."""
+    what, b, n, c, causal, pad = case
+    q, k, v, kv_pad, do = ring_inputs(dev, b, n, c, pad, SEED + 1, d, h)
+    ring = build_mesh((n,), ("seq",), dev).ring()
+    sh = [ring_shards(x, n) for x in (q, k, v, kv_pad, do)]
+    o, m, l = ra.ring_attention_fwd_bidir_shard_ref(*sh[:4], ring=ring,
+                                                    causal=causal)
+    iters = 20 if label == "training" else 5
+    allowed = ~kv_pad[:, None, None, :]
+    if causal:
+        t = n * c
+        allowed = allowed & ~torch.ones((t, t), dtype=torch.bool,
+                                        device=dev).triu(1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=allowed, scale=1.0), iters)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, attn_mask=allowed, scale=1.0)
+    dot = do.transpose(1, 2)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), dot, retain_graph=True), iters)
+    bounds = ring_bounds(b, n, c, kv_pad, causal, h, d)
+    times = {}
+    for name in RING_KERNELS:
+        fwd = "fwd" in name
+        args = sh[:4] if fwd else (*sh[:4], o, m, l, sh[4])
+        fn, ref = getattr(ra, name), getattr(ra, name + "_ref")
+        h0 = ring.hop_bytes
+        fn(*args, ring=ring, causal=causal)
+        hops = ring.hop_bytes - h0
+        k_ms = cuda_ms(lambda: fn(*args, ring=ring, causal=causal), iters)
+        p_ms = cuda_ms(lambda: ref(*args, ring=ring, causal=causal),
+                       max(2, iters // 4))
+        # device time per call: the ring kernels (by kernel), and the
+        # rest (hop and seed copies, layout copies, delta)
+        # (a profile that recorded no ring kernel is taken again, up to
+        # twice more: every call launches them)
+        for _ in range(3):
+            groups = profile_groups(lambda: fn(*args, ring=ring,
+                                               causal=causal), 3,
+                                    RING_KERNEL_NAMES)
+            kn, kdev = (sum(groups.get(k, (0, 0.0))[i]
+                            for k in RING_KERNEL_NAMES) for i in (0, 1))
+            if kn:
+                break
+        on, odev = groups.get("other", (0, 0.0))
+        nbytes, flops = bounds[name]
+        b_ms, b_by = bound(nbytes, flops)
+        lib = sdpa_fwd if fwd else sdpa_bwd
+        log(f"[{tag}] {card}: {name}, {label} shape ({what}; B {b}, H {h}, "
+            f"Dh {d}), per call: kernel {k_ms * 1e3:.1f} us by events, "
+            f"device time {kdev * 1e3:.1f} us in {kn:.0f} ring kernel "
+            f"launches (+ {odev * 1e3:.1f} us in {on:.0f} other device "
+            f"operations: copies), plain {p_ms * 1e3:.1f} us, bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}), SDPA "
+            f"{'forward' if fwd else 'backward'} {lib * 1e3:.1f} us;"
+            f" hops move {hops} bytes; by kernel: " + ", ".join(
+                f"{k} {groups[k][1] * 1e3:.1f} us in {groups[k][0]:.0f}"
+                for k in RING_KERNEL_NAMES if k in groups))
+        times[name] = {"ms": k_ms, "device_ms": kdev, "launches_per_call": kn,
+                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": lib}
+    return times
+
+
 def ring_timings(dev, card, log, cfg, kstate, ecfg, estate, batch):
     """Phase 14: the sequence-parallel train step against the einsum path
     (and its device time by profiler), then each ring function at the
@@ -1973,70 +2080,21 @@ def ring_timings(dev, card, log, cfg, kstate, ecfg, estate, batch):
 
     rows = {}
     calls = cfg.num_layers          # ring calls of one latent train step
-    for label, (what, b, n, c, causal, pad) in (("training", RING_TRAIN_CASE),
-                                               ("long", RING_LONG_CASE)):
-        q, k, v, kv_pad, do = ring_inputs(dev, b, n, c, pad, SEED + 1)
-        ring = build_mesh((n,), ("seq",), dev).ring()
-        sh = [ring_shards(x, n) for x in (q, k, v, kv_pad, do)]
-        o, m, l = ra.ring_attention_fwd_bidir_shard_ref(*sh[:4], ring=ring,
-                                                        causal=causal)
-        iters = 20 if label == "training" else 5
-        allowed = ~kv_pad[:, None, None, :]
-        if causal:
-            t = n * c
-            allowed = allowed & ~torch.ones((t, t), dtype=torch.bool,
-                                            device=dev).triu(1)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa_fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=allowed, scale=1.0), iters)
-        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qg, kg, vg, attn_mask=allowed, scale=1.0)
-        dot = do.transpose(1, 2)
-        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
-            out, (qg, kg, vg), dot, retain_graph=True), iters)
-        bounds = ring_bounds(b, n, c, kv_pad, causal)
-        for name in RING_KERNELS:
-            fwd = "fwd" in name
-            args = sh[:4] if fwd else (*sh[:4], o, m, l, sh[4])
-            fn, ref = getattr(ra, name), getattr(ra, name + "_ref")
-            h0 = ring.hop_bytes
-            fn(*args, ring=ring, causal=causal)
-            hops = ring.hop_bytes - h0
-            k_ms = cuda_ms(lambda: fn(*args, ring=ring, causal=causal), iters)
-            p_ms = cuda_ms(lambda: ref(*args, ring=ring, causal=causal),
-                           max(2, iters // 4))
-            # device time per call: the ring kernels (by kernel), and the
-            # rest (hop and seed copies, layout copies, delta)
-            groups = profile_groups(lambda: fn(*args, ring=ring,
-                                               causal=causal), 3,
-                                    RING_KERNEL_NAMES)
-            kn, kdev = (sum(groups.get(k, (0, 0.0))[i]
-                            for k in RING_KERNEL_NAMES) for i in (0, 1))
-            on, odev = groups.get("other", (0, 0.0))
-            nbytes, flops = bounds[name]
-            b_ms, b_by = bound(nbytes, flops)
-            lib = sdpa_fwd if fwd else sdpa_bwd
-            log(f"[14] {card}: {name}, {label} shape ({what}; B {b}, H 8, Dh "
-                f"128), per call: kernel {k_ms * 1e3:.1f} us by events, "
-                f"device time {kdev * 1e3:.1f} us in {kn:.0f} ring kernel "
-                f"launches (+ {odev * 1e3:.1f} us in {on:.0f} other device "
-                f"operations: copies), plain {p_ms * 1e3:.1f} us, bound "
-                f"{b_ms * 1e3:.2f} us ({b_by}), SDPA "
-                f"{'forward' if fwd else 'backward'} {lib * 1e3:.1f} us;"
-                f" hops move {hops} bytes; by kernel: " + ", ".join(
-                    f"{k} {groups[k][1] * 1e3:.1f} us in {groups[k][0]:.0f}"
-                    for k in RING_KERNEL_NAMES if k in groups))
+    for label, case in (("training", RING_TRAIN_CASE),
+                        ("long", RING_LONG_CASE)):
+        for name, t in ring_case_times(dev, card, log, label, case).items():
             if label == "training":
-                rows[name] = {"ms": calls * k_ms, "plain_ms": calls * p_ms,
-                              "bound_ms": calls * b_ms, "bound_by": b_by,
-                              "library_ms": calls * lib,
-                              "device_ms": calls * kdev,
-                              "launches_per_call": kn}
+                rows[name] = {"ms": calls * t["ms"],
+                              "plain_ms": calls * t["plain_ms"],
+                              "bound_ms": calls * t["bound_ms"],
+                              "bound_by": t["bound_by"],
+                              "library_ms": calls * t["library_ms"],
+                              "device_ms": calls * t["device_ms"],
+                              "launches_per_call": t["launches_per_call"]}
             else:           # one call at the long shape
-                rows[name].update(long_ms=k_ms, long_device_ms=kdev,
-                                  long_plain_ms=p_ms, long_bound_ms=b_ms,
-                                  long_bound_by=b_by, long_library_ms=lib)
+                rows[name].update({"long_" + k: t[k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")})
     return rows
 
 
@@ -2048,9 +2106,11 @@ def mma_code(lib_path: str, report: str) -> None:
     int8_wgmma_kernel; raises unless the machine code of each bf16
     tensor-core kernel (RING_MMA, FLASH_MMA, CLUSTER_MMA, INT8_KERNEL) has
     tensor-core products (HMMA or HGMMA; HGMMA for INT8_KERNEL), and unless
-    ptxas reports no spills for the flash, cluster and int8 kernels (the ring
-    forward's registers are capped for 3 blocks per SM, and it spills a
-    few bytes by design)."""
+    ptxas reports no spills for the flash (head dims up to 128: the
+    ``DMAX`` 128 instantiations the training shapes run), cluster and int8
+    kernels (the ring forward's registers are capped for 3 blocks per SM,
+    and it spills a few bytes by design; the head-dim-256 instantiations'
+    spills are printed, not refused)."""
     kernels = RING_MMA + FLASH_MMA + CLUSTER_MMA + (INT8_KERNEL,)
     watched = ("ring_", "flash_", "gemm_partial_kernel", "residual_ln_kernel",
                *CLUSTER_MMA, *CLUSTER_OTHER, INT8_KERNEL)
@@ -2061,8 +2121,9 @@ def mma_code(lib_path: str, report: str) -> None:
             spill = re.search(r"(\d+) bytes spill stores", entry)
             log(f"    ptxas {name}: {used.group(0) if used else '?'}; "
                 f"spill stores {spill.group(1) if spill else '?'} bytes")
-            if any(k in name for k in FLASH_MMA + CLUSTER_MMA
-                   + (INT8_KERNEL,)) and not (spill and spill.group(1) == "0"):
+            if (any(k in name for k in FLASH_MMA + CLUSTER_MMA
+                    + (INT8_KERNEL,)) and DMAX256 not in name
+                    and not (spill and spill.group(1) == "0")):
                 raise AssertionError(f"{name} spills (or ptxas did not say)")
     for w_i8 in (False, True):
         log(f"    cluster product, {'int8' if w_i8 else 'bf16'} weights: "
@@ -3067,6 +3128,485 @@ def eval_cli_only(dev, card, log):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the model variants and the train-step options
+
+# hidden 1024 over 4 heads, head dim 256: the reference tune space's widest
+# heads (train/tune.py default_search_space)
+DH256_HEADS, DH256_DIM = 4, 256
+DH256_EXTRA = ("B 8 T 512 causal, scattered pads",
+               (8, DH256_HEADS, DH256_DIM, 512, 512, True), "random")
+# flash launches of one latent train step (6 context, 6 posterior and 12
+# decoder attention calls)
+STEP_FLASH = 24
+MOE = dict(moe_num_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+           moe_every=1)
+# MoE: the flash path against the einsum path after a latent step.  The
+# two paths round attention at different places; the router turns that
+# into another expert (and, past a full expert's capacity, a dropped
+# token) for a token near a routing tie, which phase 7's dense model has
+# no counterpart of.  Readings over 4 weight/batch seeds (NVIDIA H100 80GB
+# HBM3, 700 W): loss up to 3.56e-4 relative, grad_norm up to 7.58e-3
+# (phase 7's limits hold the head-dim-256 model over the same 4 seeds:
+# 2.64e-5 and 3.65e-4); parameters 0 of their motion after one step.
+MOE_LOSS_REL = 8e-4
+MOE_GNORM_REL = 1.5e-2
+RNN_CELLS = ("lstm", "gru")
+
+
+def all_launches() -> dict:
+    """Every kernel wrapper's launch count."""
+    return {**flash_launches(), **layer_launches(),
+            **{name: getattr(ra, name).launches for name in RING_KERNELS},
+            "decode_stack_step": stack_launches(),
+            "head_argmax": decode_head.head_argmax.launches,
+            "int8_matmul": i8mm.int8_matmul.launches}
+
+
+def zero_all_launches() -> None:
+    zero_flash_launches()
+    zero_layer_launches()
+    for name in RING_KERNELS:
+        getattr(ra, name).launches = 0
+    decode_stream.decode_stack_step.launches = 0
+    decode_head.head_argmax.launches = 0
+    i8mm.int8_matmul.launches = 0
+
+
+def launched(counts: dict) -> dict:
+    """The kernels that launched, and how often."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def timed(fn):
+    """(fn's result, its milliseconds by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def flagship_states(dev, over: dict, seed: int, einsum: bool = True):
+    """The flagship configuration with ``over`` on the flash kernels
+    (attention dropout 0), its seed-made train state, and the same weights
+    on the einsum path (with ``einsum``)."""
+    cfg = serve.flagship_config().replace(use_pallas_attention=True,
+                                          attention_dropout=0.0, **over)
+    kstate = create_train_state(cfg, IQ(cfg, serve.FLAGSHIP_VOCAB).to(dev),
+                                seed=seed)
+    if not einsum:
+        return cfg, kstate, None, None
+    ecfg = cfg.replace(use_pallas_attention=False)
+    emodel = IQ(ecfg, serve.FLAGSHIP_VOCAB).to(dev)
+    emodel.load_state_dict(kstate.model.state_dict())
+    return cfg, kstate, ecfg, create_train_state(ecfg, emodel, seed=None)
+
+
+def variant_compare(dev, card, log, tag: str, over: dict, steps: int,
+                    seed: int, limits):
+    """``steps`` latent train steps of the flagship with ``over`` on the
+    flash path against the einsum path, from the same weights, batch and
+    generator seeds (made from ``seed``), held to ``limits`` (loss,
+    grad_norm, parameters: relative); exact flash launches.  Returns (the
+    flash path's last metrics, its state, the batch)."""
+    cfg, kstate, ecfg, estate = flagship_states(dev, over, seed)
+    batch = make_batch(cfg, serve.FLAGSHIP_VOCAB, BATCH,
+                       np.random.RandomState(seed + 200), dev)
+    theta0 = flat_params(estate.model)
+    gens = [torch.Generator(dev).manual_seed(seed + 300) for _ in range(2)]
+    worst = {"loss": 0.0, "gnorm": 0.0, "param": 0.0}
+    zero_all_launches()
+    step_k, step_e = (make_train_step(c, True) for c in (cfg, ecfg))
+    for i in range(steps):
+        mk, ms = timed(lambda: step_k(kstate, batch, gens[0])[1])
+        counts = launched(all_launches())
+        me = step_e(estate, batch, gens[1])[1]
+        mk = {n: float(v) for n, v in mk.items()}
+        me = {n: float(v) for n, v in me.items()}
+        if not all(math.isfinite(v) for v in (*mk.values(), *me.values())):
+            raise AssertionError(f"[{tag}] step {i}: non-finite {mk} {me}")
+        if not mk["kld"] > 0.0:
+            raise AssertionError(f"[{tag}] latent step {i}: kld {mk['kld']}")
+        loss_rel = abs(mk["loss"] - me["loss"]) / abs(me["loss"])
+        gnorm_rel = abs(mk["grad_norm"] - me["grad_norm"]) / me["grad_norm"]
+        theta_k, theta_e = flat_params(kstate.model), flat_params(estate.model)
+        param_rel = float((theta_k - theta_e).norm()
+                          / (theta_e - theta0).norm().clamp_min(1e-30))
+        del theta_k, theta_e
+        for key, val in zip(worst, (loss_rel, gnorm_rel, param_rel)):
+            worst[key] = max(worst[key], val)
+        log(f"[{tag}] {card}: latent step {i}: {ms:.2f} ms by events on the "
+            f"flash path, launches {counts}; loss {mk['loss']:.6g} (einsum "
+            f"{me['loss']:.6g}), kld {mk['kld']:.5g}, grad_norm "
+            f"{mk['grad_norm']:.6g}" + "".join(
+                f", {k} {mk[k]:.5g}" for k in ("moe_balance", "moe_router_z")
+                if k in mk) + f"; relative: loss {loss_rel:.3g}, grad_norm "
+            f"{gnorm_rel:.3g}, parameters {param_rel:.3g} of their motion")
+        want = {k: STEP_FLASH * (i + 1) for k in FLASH_KERNELS}
+        if counts != want:
+            raise AssertionError(f"[{tag}] launches {counts}, want {want}")
+    log(f"[{tag}] seed {seed}: flash path against einsum path, worst: loss "
+        f"{worst['loss']:.3g}, grad_norm {worst['gnorm']:.3g}, parameters "
+        f"{worst['param']:.3g} (limits {limits})")
+    if not all(w <= lim for w, lim in zip(worst.values(), limits)):
+        raise AssertionError(f"[{tag}] flash path against einsum path: "
+                             f"{worst} (limits {limits})")
+    del estate
+    return mk, kstate, batch
+
+
+def compare_seeds(dev, card, log, tag: str, over: dict, seeds: int, limits):
+    """variant_compare over ``seeds`` weight/batch seeds, the first kept
+    (run last); the readings of every seed are printed before any limit
+    fails."""
+    failed = []
+    for i in range(seeds - 1, -1, -1):
+        try:
+            out = variant_compare(dev, card, log, tag, over, 1, SEED + i,
+                                  limits)
+        except AssertionError as e:
+            failed.append(str(e))
+        if i:
+            out = None
+            torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def dh256_phase(dev, card, log, data: dict, seeds: int):
+    """17(a): the flash and ring kernels at head dim 256 against their
+    plain versions and timed; the flagship at hidden 1024 over 4 heads
+    trained on the flash path against the einsum path; a ``cli.tune``
+    child of that trial.  Returns (flash totals, ring times per call,
+    worst errors by function)."""
+    worst = dict.fromkeys(FLASH_KERNELS + RING_KERNELS, 0.0)
+    cases = [(f"{what} Tq {tq} Tk {tk}{' causal' if causal else ''}",
+              (BATCH, DH256_HEADS, DH256_DIM, tq, tk, causal), "tail")
+             for what, tq, tk, causal, _ in FLASH_SHAPES] + [DH256_EXTRA]
+    for what, (b, h, d, tq, tk, causal), pad in cases:
+        q, k, v, kv_pad, do = flash_inputs(dev, b, h, d, tq, tk, causal,
+                                           SEED + 17, pad)
+        errs, ulps, norm, ml = check_flash_case(q, k, v, kv_pad, do, causal,
+                                                f"Dh 256 {what}")
+        for name, val in errs.items():
+            worst[name] = max(worst[name], val)
+        log(f"[17a] flash Dh 256 {what} (B {b}, H {h}): max err {ulps:.3g} "
+            f"bf16 ulps, relative norm error {norm:.3g}, m/l relative error "
+            f"{ml:.3g} (limits {FLASH_MAX_ULPS}, {FLASH_REL_NORM}, "
+            f"{FLASH_ML_REL})")
+    what, b, n, c, causal, pad = RING_TRAIN_CASE
+    q, k, v, kv_pad, do = ring_inputs(dev, b, n, c, pad, SEED + 17,
+                                      DH256_DIM, DH256_HEADS)
+    errs, ulps, norm, ml, _, _ = check_ring_case(q, k, v, kv_pad, do, n,
+                                                 causal, f"Dh 256 {what}")
+    for name, val in errs.items():
+        worst[name] = max(worst[name], val)
+    log(f"[17a] ring Dh 256 {what} (B {b}, H {DH256_HEADS}), one-way and "
+        f"two-way: max err {ulps:.3g} bf16 ulps, relative norm error "
+        f"{norm:.3g}, m/l relative error {ml:.3g} (limits {RING_MAX_ULPS}, "
+        f"{RING_REL_NORM}, {RING_ML_REL})")
+    del q, k, v, kv_pad, do
+    ftot = flash_timings(dev, card, log, DH256_HEADS, DH256_DIM, "17a",
+                         multi=False)
+    rtimes = ring_case_times(dev, card, log, "training", RING_TRAIN_CASE,
+                             DH256_HEADS, DH256_DIM, "17a")
+
+    compare_seeds(dev, card, log, "17a", dict(num_heads=DH256_HEADS), seeds,
+                  (TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_PARAM_REL))
+    torch.cuda.empty_cache()
+
+    # a cli.tune trial child on that trial: the flagship widths over 4 heads
+    from blt_vqg_tpu_torch.train.tune import result_path
+    trial = os.path.join(data["root"], "tune_dh256")
+    os.makedirs(trial)
+    c = serve.flagship_config()
+    tcfg = c.replace(num_heads=DH256_HEADS, use_pallas_attention=True,
+                     attention_dropout=0.0, batch_size=BATCH,
+                     num_pretraining_steps=1, total_training_steps=2,
+                     val_check_interval=1000, checkpoint_every=1000,
+                     limit_val_batches=1, seed=SEED, vocab=data["vocab"],
+                     dataset=data["train"], val_dataset=data["val"],
+                     output_dir=trial)
+    cfg_path = os.path.join(trial, "trial.json")
+    with open(cfg_path, "w") as f:
+        f.write(tcfg.to_json())
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "blt_vqg_tpu_torch.cli.tune", "--run-trial",
+         "--trial-config", cfg_path, "--trial-dir", trial,
+         "--stop-at-step", "2", "--device", "cuda"],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    res = result_path(trial, 2)
+    if proc.returncode != 0 or not os.path.exists(res):
+        raise AssertionError(f"tune child (hidden 1024 x 4 heads) returned "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(res) as f:
+        metric = json.load(f)["metric"]
+    if not math.isfinite(metric):
+        raise AssertionError(f"tune child: val loss {metric}")
+    log(f"[17a] {card}: cli.tune child, hidden 1024 x 4 heads (head dim "
+        f"256) x 6 layers b{BATCH}, use_pallas_attention, to step 2: val "
+        f"loss {metric:.5g} in {wall:.1f} s (host clock, the process "
+        f"included)")
+    return ftot, rtimes, worst
+
+
+def vit_phase(dev, card, log, data: dict):
+    """17(b): BASELINE config 4, the ViT-B/16 image encoder: the train CLI
+    (2 pretrain, 2 latent steps, the flash kernels, one validation on the
+    per-layer kernels), then the directory served at b64 on the stream
+    path with int8 stack weights and the fused head."""
+    out = os.path.join(data["root"], "vit")
+    zero_all_launches()
+    t0 = time.perf_counter()
+    r, text = run_train_cli(train_cli_argv(
+        data, out, 4, "--image_encoder=vit_b16", "--val_check_interval=1000",
+        "--checkpoint_every=1000"))
+    wall = time.perf_counter() - t0
+    counts = launched(all_launches())
+    trainer, state = r["trainer"], r["state"]
+    if (state.step, state.kliter) != (4, 2):
+        raise AssertionError(f"ViT run: step {state.step}, kliter "
+                             f"{state.kliter}")
+    if type(trainer.model.encoder_cnn).__name__ != "ViTEncoder":
+        raise AssertionError("the ViT run did not build the ViT encoder")
+    for s, m in trainer.history:
+        m = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(v) for v in m.values()) or (
+                (m["kld"] > 0.0) != (s > 2)):
+            raise AssertionError(f"ViT run, step {s}: {m}")
+        log(f"[17b] ViT-B/16 after step {s}: loss {m['loss']:.6g}, kld "
+            f"{m['kld']:.5g}, grad_norm {m['grad_norm']:.5g}")
+    steps = serve.flagship_config().max_decode_length + 1
+    layers = serve.flagship_config().num_layers
+    want = {"flash_attention_fwd": 2 * 18 + 2 * 24 + VAL_FLASH_FWD,
+            "flash_attention_bwd_dkdv": 2 * 18 + 2 * 24,
+            "flash_attention_bwd_dq": 2 * 18 + 2 * 24,
+            **{k: VAL_DECODES * steps * layers for k in LAYER_KERNELS}}
+    if counts != want:
+        raise AssertionError(f"ViT run launches {counts}, want {want}")
+    tm = trainer.timings
+    log(f"[17b] {card}: ViT-B/16 train CLI, 4 steps of b{BATCH} in "
+        f"{tm['fit_ms'][0]:.1f} ms by events (dispatches "
+        f"{[round(x, 1) for x in tm['dispatch_ms']]} ms, the validation "
+        f"{[round(x, 1) for x in tm['validate_ms']]} ms host clock); launches "
+        f"{counts}; the CLI run {wall:.1f} s")
+    del r, trainer, state
+    torch.cuda.empty_cache()
+
+    cfg, model, latent = serve.build_model(out, stream=True,
+                                           stream_weight_dtype="int8",
+                                           device=dev)
+    if not (latent and model.fused_head_engaged(with_probe=False)):
+        raise AssertionError("the ViT directory must serve in latent mode "
+                             "on the fused head")
+    # serve_rounds' decode step on one request batch, after a warm-up
+    decode = make_decode_step(cfg, model, latent_mode=latent,
+                              with_probe=False)
+    images, context = serve.make_requests(np.random.RandomState(SEED + 3),
+                                          BATCH, cfg, dev)
+    decode(images, context, torch.Generator(dev).manual_seed(0))
+    zero_all_launches()
+    res, ms = timed(lambda: decode(images, context,
+                                   torch.Generator(dev).manual_seed(1)))
+    counts = launched(all_launches())
+    check_tokens(res["tokens"], BATCH, steps, model.vocab_size, "ViT serve")
+    # the context encoder's flash forward once a batch, then a stack step
+    # and a head call a decode step
+    want = {"flash_attention_fwd": cfg.num_layers,
+            "decode_stack_step": steps, "head_argmax": steps}
+    if counts != want:
+        raise AssertionError(f"ViT serve launches {counts}, want {want}")
+    log(f"[17b] {card}: ViT-B/16 served b{BATCH} on the stream path (int8 "
+        f"stack, int8 fused head): {ms:.2f} ms by events = "
+        f"{BATCH / ms * 1e3:.1f} q/s; launches {counts}")
+    del model, decode
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def moe_phase(dev, card, log, seeds: int):
+    """17(c): MoE FFNs (8 experts, top 2, capacity 1.25, every layer): a
+    latent step on the flash path against the einsum path, the balance
+    and router-z losses finite and in the loss, greedy b64 on the plain
+    decode path, and the kernel decode paths' refusals."""
+    from blt_vqg_tpu_torch.train.step import (_forward, _losses,
+                                              collect_moe_losses)
+
+    _, kstate, batch = compare_seeds(dev, card, log, "17c", MOE, seeds,
+                                     (MOE_LOSS_REL, MOE_GNORM_REL,
+                                      TRAIN_PARAM_REL))
+    cfg = kstate.model.cfg
+    # the losses enter the loss: a forward and a step from one generator
+    # state give base + weights x (balance, router_z) and the step's loss
+    losses = []
+    with torch.no_grad():
+        outputs = _forward(kstate, batch, True, True,
+                           torch.Generator(dev).manual_seed(5), None,
+                           moe_losses=losses)
+        base = float(_losses(cfg, kstate, batch, outputs, True).loss)
+    m = make_train_step(cfg, True)(kstate, batch,
+                                   torch.Generator(dev).manual_seed(5))[1]
+    bal, rz = (float(x) for x in collect_moe_losses(losses, dev))
+    total = base + cfg.moe_aux_weight * bal + cfg.moe_router_z_weight * rz
+    if not (len(losses) == 3 * cfg.num_layers and math.isfinite(total)
+            and abs(float(m["loss"]) - total) <= 1e-4 * abs(total)
+            and float(m["moe_balance"]) > 0 and float(m["moe_router_z"]) > 0):
+        raise AssertionError(f"MoE losses: {len(losses)} layers, base {base},"
+                             f" balance {bal}, router_z {rz}, step {m}")
+    log(f"[17c] MoE losses over {len(losses)} layers: balance {bal:.5g}, "
+        f"router_z {rz:.5g}; the step's loss {float(m['loss']):.6g} = base "
+        f"{base:.6g} + {cfg.moe_aux_weight} x balance + "
+        f"{cfg.moe_router_z_weight} x router_z")
+    model = kstate.model.eval()
+    images, context = serve.make_requests(np.random.RandomState(SEED + 7),
+                                          BATCH, cfg, dev)
+    decode = make_decode_step(cfg, model, latent_mode=True, with_probe=False)
+    zero_all_launches()
+    out, ms = timed(lambda: decode(images, context,
+                                   torch.Generator(dev).manual_seed(1)))
+    steps = cfg.max_decode_length + 1
+    check_tokens(out["tokens"], BATCH, steps, model.vocab_size, "MoE greedy")
+    log(f"[17c] {card}: MoE greedy b{BATCH} on the plain decode path: "
+        f"{ms:.2f} ms by events = {BATCH / ms * 1e3:.1f} q/s; launches "
+        f"{launched(all_launches())}")
+    for path in ("use_pallas_decode", "use_stream_decode"):
+        try:
+            IQ(cfg.replace(**{path: True}), serve.FLAGSHIP_VOCAB)
+        except ValueError as e:
+            log(f"[17c] MoE with {path} refused: {e}")
+        else:
+            raise AssertionError(f"MoE with {path} was not refused")
+    del kstate, model
+    torch.cuda.empty_cache()
+
+
+def rnn_phase(dev, card, log):
+    """17(d): the RNN family (LSTM, then GRU) at the flagship's widths: 2
+    pretrain and, after the Adam restart, 1 latent step, then greedy b64;
+    it runs no hand-written kernel."""
+    from blt_vqg_tpu_torch.models.iq_rnn import IQRNN
+
+    for cell in RNN_CELLS:
+        cfg = serve.flagship_config().replace(model_family="rnn",
+                                              rnn_cell=cell)
+        state = create_train_state(cfg, IQRNN(cfg, serve.FLAGSHIP_VOCAB).to(
+            dev), seed=SEED)
+        batch = make_batch(cfg, serve.FLAGSHIP_VOCAB, BATCH,
+                           np.random.RandomState(SEED + 9), dev)
+        gen = torch.Generator(dev).manual_seed(SEED + 10)
+        zero_all_launches()
+        for i, latent in enumerate((False, False, True)):
+            if i == 2:
+                state.reset_optimizer()
+            m, ms = timed(lambda: make_train_step(cfg, latent)(state, batch,
+                                                               gen)[1])
+            m = {k: float(v) for k, v in m.items()}
+            if not all(math.isfinite(v) for v in m.values()) or (
+                    (m["kld"] > 0.0) != latent):
+                raise AssertionError(f"{cell} step {i}: {m}")
+            kind = "latent" if latent else "pretrain"
+            log(f"[17d] {card}: {cell.upper()} {kind} step {i}: {ms:.2f} ms "
+                f"by events; loss "
+                f"{m['loss']:.6g}, kld {m['kld']:.5g}, grad_norm "
+                f"{m['grad_norm']:.5g}")
+        decode = make_decode_step(cfg, state.model.eval(), latent_mode=True)
+        images, context = serve.make_requests(
+            np.random.RandomState(SEED + 11), BATCH, cfg, dev)
+        out, ms = timed(lambda: decode(images, context,
+                                       torch.Generator(dev).manual_seed(1)))
+        check_tokens(out["tokens"], BATCH, cfg.max_decode_length + 1,
+                     serve.FLAGSHIP_VOCAB, f"{cell} greedy")
+        log(f"[17d] {card}: {cell.upper()} greedy b{BATCH}: {ms:.2f} ms by "
+            f"events = {BATCH / ms * 1e3:.1f} q/s; launches over the phase "
+            f"{launched(all_launches()) or 'none (no kernel on this path)'}")
+        del state, decode
+        torch.cuda.empty_cache()
+
+
+def options_phase(dev, card, log, root: str):
+    """17(e): 3 latent steps with bf16 gradients and 3 with the unfused
+    optax chain (f32 parameters) on the flash path; a ``fused_adam=False``
+    checkpoint saved and restored bit for bit."""
+    from blt_vqg_tpu_torch.core.checkpoint import (CheckpointManager,
+                                                   flatten_state)
+
+    for over in ({"grad_dtype": "bfloat16"}, {"fused_adam": False}):
+        cfg, state, _, _ = flagship_states(dev, over, SEED, einsum=False)
+        batch = make_batch(cfg, serve.FLAGSHIP_VOCAB, BATCH,
+                           np.random.RandomState(SEED + 13), dev)
+        gen = torch.Generator(dev).manual_seed(SEED + 14)
+        step = make_train_step(cfg, True)
+        zero_all_launches()
+        for i in range(3):
+            m, ms = timed(lambda: step(state, batch, gen)[1])
+            m = {k: float(v) for k, v in m.items()}
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{over} step {i}: {m}")
+            log(f"[17e] {card}: {over} latent step {i}: {ms:.2f} ms by "
+                f"events, launches {launched(all_launches())}; loss "
+                f"{m['loss']:.6g}, grad_norm {m['grad_norm']:.6g}")
+        if launched(all_launches()) != {k: 3 * STEP_FLASH
+                                        for k in FLASH_KERNELS}:
+            raise AssertionError(f"{over}: launches {all_launches()}")
+        if not cfg.fused_adam:
+            path = os.path.join(root, "chain_ckpt")
+            mgr = CheckpointManager(path)
+            t0 = time.perf_counter()
+            mgr.save(state, cfg)
+            save_s = time.perf_counter() - t0
+            fresh = create_train_state(cfg, IQ(cfg, serve.FLAGSHIP_VOCAB).to(
+                dev), seed=SEED + 1)
+            t0 = time.perf_counter()
+            back = mgr.restore(fresh)
+            restore_s = time.perf_counter() - t0
+            a, b = flatten_state(state), flatten_state(back)
+            if not any("inner_states/train" in k for k in a):
+                raise AssertionError("the chain's state layout is missing")
+            same_entries(a, b, "fused_adam=False checkpoint")
+            log(f"[17e] fused_adam=False checkpoint (the optax chain's "
+                f"layout, {len(a)} entries) saved in {save_s:.1f} s and "
+                f"restored in {restore_s:.1f} s (host clock), bit for bit")
+            del fresh, back, a, b
+            shutil.rmtree(path, ignore_errors=True)
+        del state
+        torch.cuda.empty_cache()
+
+
+def variants_phase(dev, card, log, seeds: int = 1):
+    """Phase 17: (a) head dim 256, (b) ViT-B/16, (c) MoE, (d) the RNN
+    family, (e) the train-step options.  Returns 17(a)'s (flash totals,
+    ring times per call, worst errors)."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="variants_")
+    try:
+        data = cli_data(root, log, "17")
+        data["root"] = root
+        parts = {}
+        t0 = time.perf_counter()
+        dh256 = dh256_phase(dev, card, log, data, seeds)
+        parts["a"] = time.perf_counter() - t0
+        for key, fn in (("b", lambda: vit_phase(dev, card, log, data)),
+                        ("d", lambda: rnn_phase(dev, card, log)),
+                        ("e", lambda: options_phase(dev, card, log, root)),
+                        ("c", lambda: moe_phase(dev, card, log, seeds))):
+            t0 = time.perf_counter()
+            fn()
+            parts[key] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[17] phase 17 took {time.perf_counter() - t_phase:.1f} s (host "
+        f"clock; by part: " + ", ".join(f"({k}) {v:.1f} s"
+                                        for k, v in parts.items()) + ")")
+    return dh256
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--flash-seeds", type=int, default=3,
@@ -3080,6 +3620,9 @@ def main(argv=None):
                         "limits)")
     parser.add_argument("--ring-seeds", type=int, default=1,
                         help="input seeds of each ring-attention check case")
+    parser.add_argument("--variant-seeds", type=int, default=1,
+                        help="weight and batch seeds of phase 17's flash "
+                        "against einsum comparisons (head dim 256, MoE)")
     parser.add_argument("--sp-seeds", type=int, default=1,
                         help="weight and batch seeds of the "
                         "sequence-parallel training comparison")
@@ -3087,6 +3630,11 @@ def main(argv=None):
                         help="build, take phase 7's flash kernel times and "
                         "stop (no result line): to compare two trees' "
                         "kernels on one card, run in turns from each tree")
+    parser.add_argument("--ring-times-only", action="store_true",
+                        help="build, take phase 14's ring function times at "
+                        "the training shape and stop (no result line): to "
+                        "compare two trees' kernels on one card, run in "
+                        "turns from each tree")
     parser.add_argument("--decode-times-only", action="store_true",
                         help="build, time the decode stack step, the fused "
                         "head (also with a cold L2), self_attn_step and "
@@ -3100,6 +3648,10 @@ def main(argv=None):
     parser.add_argument("--train-cli-only", action="store_true",
                         help="build, run phase 15 (the train CLI) and stop "
                         "(no result line)")
+    parser.add_argument("--variants-only", action="store_true",
+                        help="build, run phase 17 (the model variants and "
+                        "train-step options, head dim 256) and stop (no "
+                        "result line)")
     parser.add_argument("--eval-cli-only", action="store_true",
                         help="build, run the 6-step train CLI run phase 16 "
                         "needs, then phase 16 (the evaluation and tune "
@@ -3130,6 +3682,9 @@ def main(argv=None):
     if opts.flash_times_only:
         flash_timings(dev, card, log)
         return
+    if opts.ring_times_only:
+        ring_case_times(dev, card, log, "training", RING_TRAIN_CASE)
+        return
     if opts.decode_times_only:
         decode_times(dev, card, log)
         return
@@ -3141,6 +3696,10 @@ def main(argv=None):
         return
     if opts.eval_cli_only:
         eval_cli_only(dev, card, log)
+        return
+    if opts.variants_only:
+        mma_code(lib_path, report)
+        variants_phase(dev, card, log, opts.variant_seeds)
         return
     mma_code(lib_path, report)
 
@@ -3470,6 +4029,9 @@ def main(argv=None):
     # ---- 15. the train CLI, then 16. the evaluation CLIs on its model
     train_cli_phase(dev, card, log, then=lambda data, model_dir:
                     eval_cli_phase(dev, card, log, data, model_dir))
+    # ---- 17. the model variants and the train-step options
+    dh_flash, dh_ring, dh_err = variants_phase(dev, card, log,
+                                               opts.variant_seeds)
 
     # decode kernels in their main-path forms: bf16 stack weights, int8
     # head; one call each (the stack at pos 25).  The flash kernels: the
@@ -3504,6 +4066,10 @@ def main(argv=None):
         if not name.endswith("fwd"):
             row["shared"] = ("plain_ms and library_ms: one backward call "
                              "computing dq, dk and dv")
+        # head dim 256 (phase 17a): the 24 calls of a latent step at H 4
+        row.update({f"dh256_{k}": dh_flash[name][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}, dh256_max_abs_err=dh_err[name])
         kernels.append(row)
     # the per-layer kernels: one call at b64 pos 25 (weights of the six
     # layers cycled), launches of the greedy b64 decode; int8_matmul: one
@@ -3543,6 +4109,11 @@ def main(argv=None):
                "max_abs_err": ring_worst["err"][name], **ring_rows[name]}
         if not sp_launches[name]:
             row["launches_from"] = "phase 12 drive (not on the model path)"
+        # head dim 256 (phase 17a): 6 calls at the training shape, H 4
+        row.update({f"dh256_{k}": (dh_ring[name][k] if k == "bound_by"
+                                   else 6 * dh_ring[name][k]) for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}, dh256_max_abs_err=dh_err[name])
         kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     log(card)

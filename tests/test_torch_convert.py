@@ -238,9 +238,12 @@ def test_imports_without_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    names = set(out.stdout.split())
+    assert len(names) >= 15
+    assert {f"blt_vqg_tpu_torch.{m}" for m in (
+        "ops.moe", "ops.vit", "ops.rnn", "models.iq_rnn")} <= names

@@ -16,8 +16,10 @@ package restores the port's npz checkpoints.  Then, on the same directory:
   ``test_iq`` writes what ``evaluate_iq`` writes; a sampled decode with
   ``--decode-top-k 1`` gives the greedy questions.
 - A directory trained with ``grad_dtype="bfloat16"`` evaluates as the f32
-  one does; with ``fused_adam=False`` evaluation raises, naming ROADMAP.md,
-  before it decodes anything.
+  one does, and so does one with ``fused_adam=False``, whose checkpoints
+  hold the optax chain's optimizer state (the fused checkpoints with their
+  count and moments moved to the chain's keys: the two optimizers hold the
+  same numbers).
 """
 
 import json
@@ -25,6 +27,7 @@ import os
 import shutil
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,7 +35,6 @@ from blt_vqg_tpu.cli import evaluate_iq as jax_evaluate
 from blt_vqg_tpu_torch.cli import evaluate_iq, test_iq, train_iq
 from blt_vqg_tpu_torch.data.packed import pack_hdf5
 from blt_vqg_tpu_torch.data.synthetic import write_synthetic_hdf5
-from blt_vqg_tpu_torch.models.iq import IQ
 from blt_vqg_tpu_torch.text.vocabulary import Vocabulary
 
 # the learnable corpus's recipe of tests/test_decode.py: after 50 pretrain
@@ -166,21 +168,40 @@ def _variant(model_dir, tmp_path, **over):
 
 
 def test_bf16_grad_dir_evaluates(model_dir, jax_runs, tmp_path):
-    """``grad_dtype`` is a training option: the port's train step does not
-    take bf16 gradients yet, but evaluation builds no train step."""
+    """``grad_dtype`` is a training option: evaluation builds no train
+    step."""
     d = _variant(model_dir, tmp_path, grad_dtype="bfloat16")
     got = _evaluate(evaluate_iq.main, d, tmp_path / "out", *RUNS["greedy"])
     _assert_same(got, jax_runs["greedy"])
 
 
-def test_unfused_adam_dir_raises_before_decoding(model_dir, tmp_path,
-                                                 monkeypatch):
+# where the optax chain of fused_adam=False keeps scale_by_adam's state
+CHAIN = "opt_state/.inner_states/train/.inner_state/1/"
+
+
+def _to_chain(directory: str) -> None:
+    """Rewrites each step's npz with the fused optimizer state moved to the
+    chain's keys (count, mu, nu; the chain has no masters)."""
+    root = os.path.join(directory, "checkpoints")
+    for step in os.listdir(root):
+        path = os.path.join(root, step, "state.npz")
+        with np.load(path) as z:
+            flat = {k: z[k] for k in z.files}
+        assert not any(".master/" in k for k in flat)
+        out = {}
+        for k, v in flat.items():
+            if k.replace("__dtype__/", "", 1).startswith(
+                    ("opt_state/.count", "opt_state/.mu/", "opt_state/.nu/")):
+                k = k.replace("opt_state/", CHAIN, 1)
+            out[k] = v
+        np.savez(path, **out)
+
+
+def test_unfused_adam_dir_raises_before_decoding(model_dir, jax_runs,
+                                                 tmp_path):
+    """A ``fused_adam=False`` directory (chain checkpoints) evaluates to
+    the JAX CLI's outputs; the port restores its optimizer state."""
     d = _variant(model_dir, tmp_path, fused_adam=False)
-    decoded = []
-    for name in ("decode_greedy", "decode_beam"):
-        monkeypatch.setattr(IQ, name, lambda *a, **k: decoded.append(a))
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1 item 2"):
-        evaluate_iq.main(["--model-dir", d, "--results-dir",
-                          str(tmp_path / "out"), "--device", "cpu"])
-    assert not decoded and not os.path.exists(tmp_path / "out")
+    _to_chain(d)
+    got = _evaluate(evaluate_iq.main, d, tmp_path / "out", *RUNS["greedy"])
+    _assert_same(got, jax_runs["greedy"])

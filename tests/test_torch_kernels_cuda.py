@@ -38,7 +38,8 @@ The four ring-attention functions (o, m, l, dq, dk, dv, one-way and
 two-way, on rings of 2, 3 and 4 ranks with ragged chunks) take the flash
 limits; their dead rows attend uniformly and must not come out zero.  The
 forward and the backward functions are also held alone at chunks of 1 to
-1,024 rows and head dims 64, 80 and 128, with their launches per call;
+1,024 rows and head dims 64, 80, 128, 136 and 256, with their launches
+per call (the flash kernels also at head dims 136 and 256);
 the backward's cases include dead rows at a 130-row chunk, whose dv needs
 the query tiles before a causal key tile.
 ``int8_matmul`` runs its bf16 calls whose strides TMA can load on one
@@ -364,7 +365,10 @@ def test_head_argmax_f32_launch_sequence(dev, quantized):
 # 32 and 64 rows and past them (1, 2 or 4 warps per (b, h)), walked lengths
 # of one tile and of several (a second stage, causal tiles skipped), Tq
 # above and below Tk, head dims 8, 40, 80 and 128 (padded to 16), and B*H
-# of 3, which leaves groups of the last block idle
+# of 3, which leaves groups of the last block idle; then head dims 136 and
+# 256, whose blocks split the accumulators' columns in two halves (the
+# reference tune space's hidden 1024 over 4 heads), at training lengths,
+# at several key tiles with dead rows, and ragged
 FLASH_CASES = [
     (4, 20, 20, 8, 128, True, "tail"),
     (4, 20, 3, 8, 128, False, "tail"),
@@ -381,6 +385,10 @@ FLASH_CASES = [
     (3, 33, 65, 2, 80, True, "random"),
     (2, 64, 64, 4, 128, False, "dead"),
     (3, 65, 130, 1, 8, True, "random"),
+    (4, 21, 21, 4, 256, False, "tail"),
+    (4, 20, 20, 4, 256, True, "tail"),
+    (3, 70, 130, 2, 256, True, "dead"),
+    (3, 33, 65, 2, 136, True, "random"),
 ]
 
 
@@ -456,7 +464,8 @@ def test_flash_attention_kernels(dev, dt, case):
 # causal, pad): the four training shapes; 16 queries against 1,024 keys
 # (two stages, 16-key tiles walked twice: the max, then the online pass);
 # one key; head dims 8 and 80 (causal 130 x 70: blocks of one and of two
-# key tiles); a dead batch row
+# key tiles); a dead batch row; head dim 256 at a training shape and at
+# 1,024 keys
 FWD_MAX_ULPS, FWD_REL_NORM, FWD_ML_REL = 2.0, 2e-3, 4e-7
 FWD_CASES = [
     (64, 3, 3, 8, 128, False, "tail"),
@@ -467,6 +476,8 @@ FWD_CASES = [
     (16, 20, 1, 8, 128, False, "dead"),
     (5, 130, 70, 3, 8, True, "random"),
     (5, 70, 37, 3, 80, False, "dead"),
+    (64, 21, 21, 4, 256, False, "tail"),
+    (8, 16, 1024, 4, 256, False, "tail"),
 ]
 
 
@@ -778,7 +789,8 @@ def test_ring_attention_kernels(dev, dt, case, bidir):
 # (ranks, batch, chunk, heads, head_dim, causal, pad): the forward's chunk
 # lengths (1, 3, 5, 7 and 10 take the short-chunk tiling; 64, 65 and 1,024
 # the 64-row tiles: one full, one ragged, many key tiles) at head dims 64,
-# 80 and 128, with dead rows on odd and even rings
+# 80 and 128, with dead rows on odd and even rings; then head dims 256 and
+# 136 (the DMAX 256 instantiations) short, ragged and long
 RING_FWD_CASES = [
     (4, 2, 1, 2, 64, True, "dead"),
     (3, 3, 3, 2, 80, False, "dead"),
@@ -788,6 +800,9 @@ RING_FWD_CASES = [
     (4, 2, 64, 2, 128, True, "tail"),
     (3, 2, 65, 2, 80, True, "dead"),
     (2, 1, 1024, 2, 64, True, "random"),
+    (4, 3, 5, 2, 256, True, "tail"),
+    (3, 2, 65, 2, 256, True, "dead"),
+    (2, 1, 300, 2, 136, True, "random"),
 ]
 
 

@@ -369,7 +369,7 @@ def test_unported_paths_raise(synthetic, tmp_path):
     cfg = Config(**E2E, output_dir=str(tmp_path))
     vocab = synthetic["vocab"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg.replace(model_family="rnn"), vocab, device="cpu")
+        Trainer(cfg.replace(pipeline_stages=2), vocab, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, vocab, mesh=Mesh({"data": 2, "model": 1}, "cpu"),
                 device="cpu")
