@@ -10,7 +10,20 @@ onto the device, GloVe-initialises the embedding when ``--emb_file``
 exists, trains with the two-phase schedule, validates every
 ``val_check_interval`` steps, checkpoints every ``checkpoint_every`` steps,
 and runs a final validation.  Runs on the CUDA card unless ``--device cpu``
-asks for the CPU.  Beyond the JAX flags: ``--device``, and
+asks for the CPU.
+
+Over several processes, one per card, launch it with
+``torch.distributed.run``::
+
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m blt_vqg_tpu_torch.cli.train_iq ... --num_data_shards 2 \
+        --num_model_shards 2 [--fsdp | --shard_opt_state]
+
+It joins the job first (``core/distributed.py``: NCCL on the cards, gloo
+with ``--device cpu``), then lays the world out over the mesh of the
+``--num_*_shards`` flags; each rank loads its rows of the global
+``--batch_size``.  Rank 0 writes ``args.json``, the logs, metrics and
+checkpoints.  Beyond the JAX flags: ``--device``, and
 ``--attention_dropout``, which the JAX CLI leaves at its ``Config``
 default (the flash-attention kernels run in training only without
 attention dropout).  ``main`` returns the run's trainer, final state and
@@ -23,6 +36,8 @@ import argparse
 import logging
 import os
 import sys
+
+import torch
 
 
 def main(argv=None):
@@ -51,6 +66,10 @@ def main(argv=None):
                         format="%(asctime)s %(levelname)s %(message)s")
     log = logging.getLogger("train_iq")
 
+    from blt_vqg_tpu_torch.core.distributed import (initialize_distributed,
+                                                    is_main_process)
+    initialize_distributed(device=args.device)
+
     from blt_vqg_tpu_torch.text.vocabulary import load_vocab
     from blt_vqg_tpu_torch.text.build import build_vocab
     from blt_vqg_tpu_torch.text.glove import load_glove_embeddings
@@ -62,6 +81,8 @@ def main(argv=None):
     from blt_vqg_tpu_torch.train.trainer import Trainer
 
     device = check_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if os.path.exists(cfg.vocab):
         vocab = load_vocab(cfg.vocab)
         log.info("loaded vocab (%d words) from %s", len(vocab), cfg.vocab)
@@ -95,7 +116,8 @@ def main(argv=None):
         glove = load_glove_embeddings(vocab, cfg.emb_dim, cfg.emb_file)
 
     os.makedirs(cfg.output_dir, exist_ok=True)
-    cfg.save(os.path.join(cfg.output_dir, "args.json"))
+    if is_main_process():
+        cfg.save(os.path.join(cfg.output_dir, "args.json"))
 
     trainer = Trainer(cfg, vocab, mesh=mesh, profile_dir=args.profile_dir,
                       device=device)

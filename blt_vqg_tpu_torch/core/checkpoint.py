@@ -27,8 +27,21 @@ updates it in place) and writes the files on a background thread;
 parameters (not moments or statistics) in bf16; restore casts every leaf
 back to the train state's dtype.  A checkpoint whose optimizer layout
 (``adam_factored_nu``, ``fused_adam``) differs from the train state's fails
-with a message that names both.  The orbax backend and the sharded save
-and restore are not ported (ROADMAP.md).
+with a message that names both.
+
+Across processes (a state with a ``placement``, ``parallel/sharding.py``)
+:meth:`CheckpointManager.save` gathers the tensor-parallel, ZeRO and FSDP
+shards and rank 0 writes the same ``state.npz`` as a single-process run;
+:meth:`~CheckpointManager.restore` reads it on every rank and keeps each
+rank's blocks.  :meth:`~CheckpointManager.save_sharded` is the JAX
+package's per-host format: each rank writes ``step_N/shard_h{rank}.npz``
+with its own blocks in the flax layout, keys ``<key>@0`` beside
+``__idx__/<key>@0``, the block's [start, stop) per flax dimension (and
+``__dtype__/<key>@0`` for bf16), so either package restores the other's
+files (``restore_sharded`` merges every rank's file and checks that the
+blocks cover each leaf).  Every rank calls ``save``, ``save_sharded`` and
+the restores (they are collectives); ``_barrier`` is ``dist.barrier``.
+The orbax backend is not ported (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -40,6 +53,8 @@ import shutil
 import threading
 from typing import Optional
 
+import torch.distributed as dist
+
 import numpy as np
 import torch
 
@@ -48,6 +63,8 @@ from blt_vqg_tpu_torch.core.config import Config
 from blt_vqg_tpu_torch.train.fused_adam import FactoredNu, FusedAdamState
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
+_SHARD_RE = re.compile(r"^shard_h(\d+)\.npz$")
+_CHUNK_RE = re.compile(r"^(.*)@(\d+)$")
 _OPT_FIELDS = (("mu", ".mu"), ("nu", ".nu"), ("master", ".master"))
 FUSED_PREFIX = "opt_state/"
 CHAIN_PREFIX = "opt_state/.inner_states/train/.inner_state/1/"
@@ -125,10 +142,17 @@ def _swapped(leaf: str, p: torch.Tensor) -> bool:
     return leaf == "kernel" and p.dim() == 2
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def flatten_state(state, cast_params=None) -> dict:
-    """The npz entries of a port ``TrainState`` (host copies)."""
+    """The npz entries of a port ``TrainState`` (host copies).  A placed
+    state is gathered whole first (a collective)."""
     flat: dict = {}
-    sd = state.model.state_dict()
+    pl = state.placement
+    sd = (state.model.state_dict() if pl is None
+          else pl.full_state_dict(state.model))
     for name, key, leaf in _keys(state.model):
         t = sd[name]
         if leaf is not None:
@@ -137,7 +161,7 @@ def flatten_state(state, cast_params=None) -> dict:
                 t = t.to(cast_params)
         _put(flat, key, t)
     params = dict(state.model.named_parameters())
-    opt = state.opt_state
+    opt = state.opt_state if pl is None else pl.full_opt(state.opt_state)
     base = _opt_base(state.tx.chain)
     flat[base + ".count"] = np.asarray(opt.count, np.int32)
     for attr, field in _OPT_FIELDS:
@@ -161,7 +185,14 @@ def _is_factored(nu: dict) -> bool:
 
 def restore_flat(state, flat: dict, source: str = "checkpoint"):
     """Fills the port ``TrainState`` ``state`` from npz entries, in place:
-    every leaf cast to the state's dtype and device.  Returns ``state``."""
+    every leaf cast to the state's dtype and device (a placed state keeps
+    each rank's blocks of the whole leaves).  Returns ``state``."""
+    pl = state.placement
+    specs = None if pl is None else pl.opt_specs(state.opt_state)
+
+    def cut(t, spec):
+        return t if spec is None else pl.local(t, spec).contiguous()
+
     chain = state.tx.chain
     base = _opt_base(chain)
     if base + ".count" not in flat:
@@ -187,6 +218,8 @@ def restore_flat(state, flat: dict, source: str = "checkpoint"):
         t = _get(flat, key)
         if leaf is not None:
             t = _port_layout(leaf, t)
+        if pl is not None and name in pl.store:
+            t = cut(t.reshape(pl.full_shapes[name]), pl.store[name])
         new_sd[name] = t.to(sd[name].dtype).reshape(sd[name].shape)
     model.load_state_dict(new_sd)
 
@@ -197,15 +230,20 @@ def restore_flat(state, flat: dict, source: str = "checkpoint"):
         tree = {}
         for name, like in getattr(opt, attr).items():
             key, leaf = _opt_key(base, field, name, params[name])
+            spec = None if specs is None else specs[attr][name]
             if isinstance(like, FactoredNu):
                 r, c = _get(flat, key + "/.r"), _get(flat, key + "/.c")
                 if _swapped(leaf, params[name]):
                     r, c = c, r
+                if spec is not None:
+                    r, c = cut(r, spec.r), cut(c, spec.c)
                 tree[name] = FactoredNu(
                     r.to(like.r.device, like.r.dtype).reshape(like.r.shape),
                     c.to(like.c.device, like.c.dtype).reshape(like.c.shape))
             else:
                 t = _port_layout(leaf, _get(flat, key))
+                if spec is not None:
+                    t = cut(t.reshape(pl.full_shapes[name]), spec)
                 tree[name] = t.to(like.device, like.dtype).reshape(
                     like.shape)
         fields[attr] = tree
@@ -240,8 +278,9 @@ class CheckpointManager:
         steps = []
         for name in os.listdir(self.directory):
             m = _STEP_RE.match(name)
-            if m and os.path.exists(os.path.join(self.directory, name,
-                                                 "state.npz")):
+            d = os.path.join(self.directory, name)
+            if m and (os.path.exists(os.path.join(d, "state.npz"))
+                      or any(_SHARD_RE.match(f) for f in os.listdir(d))):
                 steps.append(int(m.group(1)))
         return sorted(steps)
 
@@ -255,13 +294,17 @@ class CheckpointManager:
              on_disk_param_dtype: Optional[str] = None) -> str:
         """Saves ``state`` under ``step_<state.step>``.  The host copy is
         taken now; with ``block=False`` the files are written on a
-        background thread (one write in flight at a time)."""
+        background thread (one write in flight at a time).  Across
+        processes every rank calls it (the state is gathered) and rank 0
+        writes."""
         self.wait()
         step = int(state.step)
         path = self._step_dir(step)
         cast = ({"bfloat16": torch.bfloat16, "float32": torch.float32}
                 [on_disk_param_dtype] if on_disk_param_dtype else None)
         flat = flatten_state(state, cast)
+        if _rank() != 0:
+            return path
         cfg_json = cfg.to_json() if cfg is not None else None
         extra_json = json.dumps(extra) if extra else None
 
@@ -303,12 +346,15 @@ class CheckpointManager:
 
     def restore(self, state, step: Optional[int] = None):
         """Fills ``state`` from disk in place (the latest step unless
-        ``step``) and returns it."""
+        ``step``) and returns it; every rank reads the file and keeps its
+        blocks."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         path = os.path.join(self._step_dir(step), "state.npz")
+        if not os.path.exists(path):
+            return self.restore_sharded(state, step)
         with np.load(path, allow_pickle=False) as z:
             flat = {k: z[k] for k in z.files}
         return restore_flat(state, flat, source=path)
@@ -318,8 +364,155 @@ class CheckpointManager:
         for step in steps[:-self.keep]:
             shutil.rmtree(self._step_dir(step), ignore_errors=True)
 
+    # -- sharded (per-rank) save / restore ------------------------------
+    @staticmethod
+    def _barrier() -> None:
+        """Every rank waits for the others (no-op single-process)."""
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
+
     def save_sharded(self, state, cfg: Optional[Config] = None) -> str:
-        raise _unported("the sharded (per-host) checkpoint save")
+        """Each rank writes ``shard_h{rank}.npz``: its own blocks of every
+        leaf in the flax layout with their slices; nothing is gathered.
+        Rank 0 writes ``args.json`` and drops old steps."""
+        self.wait()
+        step = int(state.step)
+        path = self._step_dir(step)
+        os.makedirs(path, exist_ok=True)
+        flat = {"__step__": np.asarray(int(state.step)),
+                "__kliter__": np.asarray(int(state.kliter))}
+        for key, (t, idx) in _shard_entries(state).items():
+            _put(flat, key, t)
+            flat["__idx__/" + key] = np.asarray(idx, np.int64).reshape(-1, 2)
+        rank = _rank()
+        fname = os.path.join(path, f"shard_h{rank}.npz")
+        np.savez(fname + ".tmp.npz", **flat)
+        os.replace(fname + ".tmp.npz", fname)
+        if rank == 0:
+            if cfg is not None:
+                with open(os.path.join(path, "args.json"), "w") as f:
+                    f.write(cfg.to_json())
+            self._gc()
+        self._barrier()
+        return path
 
     def restore_sharded(self, state, step: Optional[int] = None):
-        raise _unported("the sharded (per-host) checkpoint restore")
+        """Fills ``state`` from the union of every rank's shard files of
+        ``step`` (the latest unless given; written by either package,
+        by any number of ranks), in place, and returns it."""
+        self.wait()
+        self._barrier()
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        path = self._step_dir(step)
+        files = sorted(f for f in os.listdir(path) if _SHARD_RE.match(f))
+        if not files:
+            raise FileNotFoundError(f"no shard files in {path}")
+        chunks: dict = {}
+        flat: dict = {}
+        for f in files:
+            with np.load(os.path.join(path, f), allow_pickle=False) as z:
+                names = set(z.files)
+                for k in sorted(names):
+                    if k.startswith(("__idx__/", "__dtype__/")):
+                        continue
+                    m = _CHUNK_RE.match(k)
+                    if not m:
+                        flat.setdefault(k, z[k])    # __step__, __kliter__
+                        continue
+                    idx = z["__idx__/" + k].reshape(-1, 2)
+                    chunks.setdefault(m.group(1), []).append(
+                        (z[k], idx, str(z["__dtype__/" + k])
+                         if "__dtype__/" + k in names else None))
+        for key, parts in chunks.items():
+            flat.update(_assemble(key, parts, path))
+        restore_flat(state, flat, source=path)
+        return state
+
+
+def _shard_entries(state) -> dict:
+    """{key@0: (this rank's block in the flax layout, its [start, stop)
+    per flax dim)} of every leaf of ``state``."""
+    from blt_vqg_tpu_torch.parallel.sharding import flax_leaf
+    pl = state.placement
+    out = {}
+
+    def add(key, t, spec, full_shape, perm):
+        idx = ([(0, n) for n in full_shape] if pl is None or spec is None
+               else pl.index(spec, full_shape))
+        flax_idx = [None] * len(idx)
+        for i, p in enumerate(perm):
+            flax_idx[p] = idx[i]
+        out[key + "@0"] = (t, flax_idx)
+
+    params = dict(state.model.named_parameters())
+    sd = state.model.state_dict()
+    for name, key, leaf in _keys(state.model):
+        t = sd[name]
+        if leaf is None:            # batch statistics: whole on every rank
+            add(key, t, None, tuple(t.shape), tuple(range(t.dim())))
+            continue
+        full = pl.full_shapes[name] if pl is not None else tuple(t.shape)
+        _, _, perm = flax_leaf(name, full)
+        add(key, _flax_leaf(name, t)[2], None if pl is None
+            else pl.store[name], full, perm)
+    opt = state.opt_state
+    base = _opt_base(state.tx.chain)
+    out[base + ".count@0"] = (torch.tensor(opt.count, dtype=torch.int32), [])
+    specs = None if pl is None else pl.opt_specs(opt)
+    for attr, field in _OPT_FIELDS:
+        for name, v in getattr(opt, attr).items():
+            key, leaf = _opt_key(base, field, name, params[name])
+            spec = None if specs is None else specs[attr][name]
+            if isinstance(v, FactoredNu):
+                sr, sc = (None, None) if spec is None else spec
+                rs = v.r.shape if pl is None else \
+                    pl.factored_shapes(name)[0]
+                cs = v.c.shape if pl is None else \
+                    pl.factored_shapes(name)[1]
+                pairs = [(".r", v.r, sr, rs), (".c", v.c, sc, cs)]
+                if _swapped(leaf, params[name]):
+                    pairs = [(".r", v.c, sc, cs), (".c", v.r, sr, rs)]
+                for suffix, t, s_, fs in pairs:
+                    add(key + "/" + suffix, t, s_, tuple(fs),
+                        tuple(range(len(fs))))
+            else:
+                full = (pl.full_shapes[name] if pl is not None
+                        else tuple(v.shape))
+                _, _, perm = flax_leaf(name, full)
+                add(key, _flax_leaf(name, v)[2], spec, full, perm)
+    return out
+
+
+def _assemble(key: str, parts: list, source: str) -> dict:
+    """The whole leaf ``key`` (and its dtype record) from its blocks
+    [(data, idx, dtype name)]; blocks may repeat (replicated leaves) but
+    must agree, and must cover every element."""
+    ndim = parts[0][1].shape[0]
+    shape = tuple(int(max(idx[d, 1] for _, idx, _ in parts))
+                  for d in range(ndim))
+    dt = parts[0][2]
+    first = parts[0][0]
+    flat = {} if dt is None else {"__dtype__/" + key: np.str_(dt)}
+    if len(parts) == 1 and first.shape == shape:   # one whole block
+        flat[key] = first
+        return flat
+    out = np.zeros(shape, dtype=first.dtype)
+    seen = np.zeros(shape, dtype=bool)
+    for data, idx, _ in parts:
+        sl = tuple(slice(int(a), int(b)) for a, b in idx)
+        block = np.asarray(data).reshape(np.shape(out[sl]))
+        prev = np.asarray(seen[sl])
+        if prev.any() and (np.asarray(out[sl])[prev].tobytes()
+                           != block[prev].tobytes()):
+            raise ValueError(f"{source}: leaf {key}: overlapping blocks "
+                             f"disagree at {sl}")
+        out[sl] = block
+        seen[sl] = True
+    if not seen.all():
+        raise ValueError(f"{source}: leaf {key}: the blocks cover "
+                         f"{int(seen.sum())} of {seen.size} elements (a "
+                         f"rank's shard file missing?)")
+    flat[key] = out
+    return flat

@@ -6,7 +6,8 @@ normalisation run there as a few batched tensor operations: per-example
 random crop geometry, a bilinear resample of each crop box by four batched
 gathers and a lerp (:func:`_batched_crop_resize`, the JAX package's
 algorithm), then ImageNet mean/std normalisation.  The crop boxes are drawn
-from an explicit ``torch.Generator``.
+from an explicit ``torch.Generator``; in a sharded step each rank draws
+the global batch's boxes and keeps its rows' (``collectives.draw``).
 
 As in the JAX package, ``scale`` is the area fraction of the image and the
 default (1.0, 1.2) asks for crops at least as large as the image: the
@@ -20,6 +21,8 @@ import math
 from typing import Tuple
 
 import torch
+
+from blt_vqg_tpu_torch.parallel import collectives as col
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -41,7 +44,7 @@ def _sample_crop_boxes(generator: torch.Generator, batch: int, in_size: int,
     device = generator.device if device is None else device
 
     def uniform(lo: float, hi: float):
-        u = torch.rand((batch,), generator=generator, device=device)
+        u = col.draw(torch.rand, (batch,), generator, device)
         return lo + u * (hi - lo)
 
     area_frac = uniform(scale[0], scale[1])

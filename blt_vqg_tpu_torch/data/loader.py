@@ -8,7 +8,14 @@ each batch to the model's device from a background thread: on a CUDA
 device through pinned memory with ``non_blocking=True`` on a side stream,
 keeping ``depth`` batches in flight; the consumer's stream waits for a
 batch's copy before using it.  Augmentation runs on the device
-(``data/augment.py``).  Multihost assembly is not ported.
+(``data/augment.py``).
+
+Across processes every rank draws the same global permutation and loads
+only the ``batch_size / D`` rows of its coordinate along the mesh's batch
+axes (``dcn_data`` and ``data``), not of its global rank: ranks that differ
+only along ``model`` or ``expert`` load the same rows.  Those rows stay the
+rank's own (``core/distributed.py`` ``host_local_batch_to_global``); the
+train step reduces across ranks what needs the whole batch.
 """
 
 from __future__ import annotations
@@ -23,19 +30,15 @@ import torch
 from blt_vqg_tpu_torch.data.dataset import example_from_row
 
 
-def _multihost_unported():
-    return NotImplementedError(
-        "multihost batch assembly is not ported yet (ROADMAP.md queue 1)")
-
-
 class Prefetcher:
     """Wraps a host-batch iterator and yields its batches as tensors on
-    ``device``, copied ahead of use by a background thread."""
+    ``device``, copied ahead of use by a background thread.  ``multihost``
+    is taken for the JAX signature: each rank's batch is its own rows
+    already, so nothing is assembled."""
 
     def __init__(self, it: Iterator[Dict[str, np.ndarray]], device="cuda",
                  depth: int = 2, multihost: Optional[bool] = None):
-        if multihost:
-            raise _multihost_unported()
+        del multihost
         from blt_vqg_tpu_torch.serve import check_device
         self._device = check_device(device)
         self._cuda = self._device.type == "cuda"
@@ -149,15 +152,30 @@ def make_loader(dataset, batch_size: int, input_mode: str = "ans",
     """Infinite (``epochs=None``) or bounded stream of model-ready batches.
 
     ``device=False`` yields the host (numpy) batches; ``True`` (the CUDA
-    card) or a device prefetches them onto that device.  ``mesh`` is taken
-    for the JAX signature: a ``seq`` mesh shards no batch axis, so the
-    batch goes whole to ``device``.  ``multihost=True`` raises (not
-    ported)."""
-    del mesh
-    if multihost:
-        raise _multihost_unported()
+    card) or a device prefetches them onto that device.  ``batch_size`` is
+    the global batch: on a ``mesh`` across processes (or with
+    ``multihost``, which defaults to that) each rank loads the rows of its
+    coordinate along the mesh's batch axes; ``multihost=True`` without
+    such a mesh slices by process (``torch.distributed`` rank and world
+    size), as the JAX package slices by host.  A ``seq`` mesh shards no
+    batch axis, so the batch goes whole to ``device``."""
+    wide = mesh is not None and mesh.across_processes
+    if multihost is None:
+        multihost = wide
+    if not multihost:
+        index, count = 0, 1
+    elif wide:
+        index, count = mesh.batch_coord()
+    else:
+        from blt_vqg_tpu_torch.core.distributed import (process_count,
+                                                        process_index)
+        index, count = process_index(), process_count()
+    if batch_size % count:
+        raise ValueError(f"global batch {batch_size} over {count} batch "
+                         f"shards")
     it = _host_batches(dataset, batch_size, input_mode, shuffle, seed,
-                       drop_remainder, epochs, sample_weights)
+                       drop_remainder, epochs, sample_weights,
+                       process_index=index, process_count=count)
     if device is False:
         return it
     return Prefetcher(it, device="cuda" if device is True else device,

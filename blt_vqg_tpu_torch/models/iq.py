@@ -36,6 +36,7 @@ from blt_vqg_tpu_torch.ops.resnet import EncoderCNN
 from blt_vqg_tpu_torch.ops.sampling import sample_token
 from blt_vqg_tpu_torch.ops.transformer import (TransformerDecoder,
                                                TransformerEncoder)
+from blt_vqg_tpu_torch.parallel import collectives as col
 
 PAD, START, END, UNK = 0, 1, 3, 4  # reserved ids (text/vocabulary.py contract)
 Z_SOURCES = ("prior_sample", "prior_mean", "posterior_sample",
@@ -173,8 +174,8 @@ class IQ(nn.Module):
         if train and latent_mode and rate > 0.0:
             # latent-phase word dropout: <unk> for kept-out words, never at
             # the <start>/injection slot, never at pads
-            keep = torch.rand(shifted.shape, generator=generator,
-                              device=shifted.device) < 1.0 - rate
+            keep = col.draw(torch.rand, shifted.shape, generator,
+                            shifted.device) < 1.0 - rate
             droppable = shifted != PAD
             droppable[:, 0] = False
             shifted = torch.where(droppable & ~keep,

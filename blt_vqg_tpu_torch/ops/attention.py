@@ -15,6 +15,12 @@ the same mask and dropout conditions take the flash-attention kernel
 (``ops/kernels/flash_attention.py``).  Otherwise the einsum path runs,
 whose softmax weights take attention dropout from an explicit
 ``torch.Generator`` (no generator means deterministic).
+
+Under tensor parallelism (``parallel/sharding.py`` ``parallelize``) the
+q/k/v projections hold this rank's heads and ``out_proj`` the matching
+input rows: ``num_heads`` is then the local head count, every path above
+runs on those heads as plain local tensors (the flash kernels included),
+and ``out_proj`` sums the ranks' partial outputs.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ class MultiHeadAttention(nn.Module):
                  ring_impl: str = "xla"):
         super().__init__()
         self.hidden_dim, self.num_heads = hidden_dim, num_heads
+        self.head_dim = hidden_dim // num_heads
         self.dtype, self.causal = dtype, causal
         self.use_pallas, self.dropout_rate = use_pallas, dropout_rate
         self.ring_mesh, self.ring_impl = ring_mesh, ring_impl
@@ -52,22 +59,19 @@ class MultiHeadAttention(nn.Module):
             self.add_module(name, Dense(hidden_dim, hidden_dim, bias=False,
                                         dtype=dtype))
 
-    @property
-    def head_dim(self) -> int:
-        return self.hidden_dim // self.num_heads
-
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
-        return x.reshape(b, t, self.num_heads, self.head_dim)
+        return x.reshape(b, t, -1, self.head_dim)
 
     def _attend(self, q, k, v, mask, tq, generator=None):
         logits = _f32_einsum("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
             logits = logits.masked_fill(mask, MASK_FILL)
         weights = torch.softmax(logits, dim=-1).to(self.dtype)
-        weights = dropout(weights, self.dropout_rate, generator)
+        weights = dropout(weights, self.dropout_rate, generator,
+                          {0: "batch", 1: "model"})
         ctx = torch.einsum("bhqk,bkhd->bqhd", weights, v.to(self.dtype))
-        return self.out_proj(ctx.reshape(q.shape[0], tq, self.hidden_dim))
+        return self.out_proj(ctx.reshape(q.shape[0], tq, -1))
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
@@ -101,7 +105,7 @@ class MultiHeadAttention(nn.Module):
             return self.out_proj(ctx.reshape(b, tq, self.hidden_dim))
         if self.use_pallas and key_pad_only and no_dropout:
             ctx = flash_attention(q, k, v, kv_pad, causal=self.causal)
-            return self.out_proj(ctx.reshape(b, tq, self.hidden_dim))
+            return self.out_proj(ctx.reshape(b, tq, -1))
         if self.causal:
             cm = causal_mask(tk, q_in.device)[:, :, :tq]
             mask = cm if mask is None else (mask | cm)

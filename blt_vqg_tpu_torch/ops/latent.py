@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from blt_vqg_tpu_torch.ops.layers import Dense, dropout
+from blt_vqg_tpu_torch.parallel import collectives as col
 
 
 def gaussian_kld(mu_q, logvar_q, mu_p, logvar_p) -> torch.Tensor:
@@ -74,8 +75,8 @@ class Latent(nn.Module):
         mean_prior = ml_prior[:, :self.latent_dim]
         logvar_prior = ml_prior[:, self.latent_dim:]
         if eps is None:
-            eps = torch.randn(mean_prior.shape, generator=generator,
-                              dtype=torch.float32, device=x.device)
+            eps = col.draw(torch.randn, mean_prior.shape, generator,
+                           x.device, dtype=torch.float32)
         if use_mean:
             eps = torch.zeros_like(eps)
         eps = eps.float()
@@ -89,8 +90,8 @@ class Latent(nn.Module):
         ml_post = self.posterior(torch.cat([x_p, x], dim=-1), drop)
         mean_post = ml_post[:, :self.latent_dim]
         logvar_post = ml_post[:, self.latent_dim:]
-        kld = torch.mean(gaussian_kld(mean_post, logvar_post, mean_prior,
-                                      logvar_prior))
+        kld = col.batch_mean(gaussian_kld(mean_post, logvar_post,
+                                          mean_prior, logvar_prior))
         std = torch.exp(0.5 * logvar_post.float())
         z = eps * std + mean_post.float()
         return kld, z.to(self.dtype), (mean_post, logvar_post)

@@ -16,6 +16,13 @@ Each keeps flax's numerics where they differ from torch's defaults:
 - :func:`dropout` is flax's ``nn.Dropout``: keep with probability 1 - rate,
   scale the kept values by 1 / (1 - rate), in the input dtype.  Its bits come
   from an explicit ``torch.Generator``; no generator means deterministic.
+
+Across processes (``parallel/sharding.py`` ``parallelize``): a ``Dense``
+whose weight is split over a mesh axis takes its ``tp`` mode (Megatron's
+column- or row-split product, or the vocab head whose logits are gathered),
+a train-mode ``BatchNorm`` takes its statistics over the global batch
+(sync batch norm), and a dropout mask is drawn at the global shape and cut
+to the rank's block (``parallel/collectives.py`` ``draw``).
 - ``init_std`` on each layer is the standard deviation of the normal draw
   that seed-made weights use (flax's initializer scale, not its exact draw).
 """
@@ -23,10 +30,25 @@ Each keeps flax's numerics where they differ from torch's defaults:
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from blt_vqg_tpu_torch.parallel import collectives as col
+
+
+class TensorSplit(NamedTuple):
+    """How a ``Dense`` computes with a weight split over ``group``:
+    ``mode`` "col" (output features split; the bias, whole on every rank,
+    is cut at use), "row" (input features split; the partial products are
+    summed, then the bias added) or "vocab" (as "col", the logits gathered
+    before the bias); ``full`` is the whole output width."""
+
+    mode: str
+    group: object
+    full: int
 
 
 class Dense(nn.Module):
@@ -43,11 +65,26 @@ class Dense(nn.Module):
         # flax's default kernel init is LeCun normal: variance 1/fan_in
         self.init_std = (init_std if init_std is not None
                          else 1.0 / math.sqrt(in_features))
+        self.tp: Optional[TensorSplit] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        tp = self.tp
+        if tp is None:
+            b = None if self.bias is None else self.bias.to(dt)
+            return F.linear(x.to(dt), self.weight.to(dt), b)
+        w = self.weight.to(dt)
+        if tp.mode == "col":
+            b = (None if self.bias is None else
+                 col.slice_of(self.bias, tp.group, 0).to(dt))
+            return F.linear(col.copy_to(x, tp.group).to(dt), w, b)
+        if tp.mode == "row":
+            y = col.reduce_from(F.linear(x.to(dt), w), tp.group)
+        else:   # vocab
+            y = col.gather_from(
+                F.linear(col.copy_to(x, tp.group).to(dt), w), tp.group, -1,
+                tp.full)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class Conv(nn.Module):
@@ -116,8 +153,18 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean.float(), self.running_var.float()
         else:
             axes = [0] + list(range(2, x.dim()))
-            mean = x.mean(dim=axes)
-            var = ((x * x).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            if col.batch_group() is None:
+                mean = x.mean(dim=axes)
+                var = ((x * x).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            else:
+                # sync batch norm: the sums over the global batch
+                c = x.shape[1]
+                n = x.numel() // c * col.batch_count()
+                s = col.sync_sum(torch.cat([x.sum(dim=axes),
+                                            (x * x).sum(dim=axes)]),
+                                 col.batch_group())
+                mean = s[:c] / n
+                var = (s[c:] / n - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
@@ -138,15 +185,17 @@ def activation_fn(name: str):
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None,
+            dims: Optional[dict] = None) -> torch.Tensor:
     """flax ``nn.Dropout``; deterministic when ``rate`` is 0 or there is no
-    ``generator``."""
+    ``generator``.  ``dims``: the dimensions of ``x`` split across
+    processes (``collectives.draw``; default: dim 0 over the batch)."""
     if rate == 0.0 or generator is None:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = col.draw(torch.rand, x.shape, generator, x.device, dims) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

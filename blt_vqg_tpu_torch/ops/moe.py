@@ -32,6 +32,16 @@ The parameters keep the JAX names and layouts: ``router`` [D, E],
 ``expert_in`` [E, D, F], ``expert_in_bias`` [E, F], ``expert_out``
 [E, F, D], ``expert_out_bias`` [E, D], all f32, cast to the compute dtype
 at use.
+
+Across processes (``parallel/sharding.py``): the tokens are this rank's
+rows of the global batch, and the routing stays the single-process one,
+replicated: the capacity counts the global tokens, a token's slot counts
+the tokens of earlier batch shards before it (one all-reduce of the
+per-expert counts), and the losses are means over the global tokens.
+Under expert parallelism a rank holds ``E / expert`` experts
+(``expert_split``), computes them over its tokens and the outputs are
+summed over the ``expert`` axis; under tensor parallelism each expert's
+FFN width is split over ``model`` as the dense FFN's is.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from blt_vqg_tpu_torch.ops.layers import activation_fn, dropout
+from blt_vqg_tpu_torch.parallel import collectives as col
 
 ROUTER_STD = 0.02
 
@@ -63,15 +74,33 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return values[:, :k], indices[:, :k]
 
 
+def _shard_counts(idx: torch.Tensor, e: int):
+    """(before, total) [k, E]: per choice and expert, the tokens of the
+    batch shards before this one, and of all shards, that made that
+    choice (None, None outside a sharded step)."""
+    group = col.batch_group()
+    if group is None:
+        return None, None
+    index, count = col.current().batch_coord()
+    mine = torch.stack([F.one_hot(idx[:, j], e).sum(dim=0)
+                        for j in range(idx.shape[1])])          # [k, E]
+    table = mine.new_zeros((count,) + mine.shape)
+    table[index] = mine
+    table = col.all_reduce(table, group)
+    return table[:index].sum(dim=0), table.sum(dim=0)
+
+
 def route_tokens(probs: torch.Tensor, k: int, capacity: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Router probabilities probs [S, E] (f32) -> (dispatch, combine)
     [S, E, C]: the one-hot (expert, slot) assignments and the same scaled by
     each assignment's gate.  Slot j of expert e goes to the j-th token (in
     token order, all first choices before any second choice) that chose e;
-    assignments past ``capacity`` are dropped (zero rows in both)."""
+    assignments past ``capacity`` are dropped (zero rows in both).  In a
+    sharded step the order is that of the global tokens."""
     s, e = probs.shape
     gates, idx = top_k(probs, k)
+    before, total = _shard_counts(idx, e)
     if k > 1:
         gates = gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True),
                                         1e-9)
@@ -83,22 +112,25 @@ def route_tokens(probs: torch.Tensor, k: int, capacity: int
     for j in range(k):
         oh = F.one_hot(idx[:, j], e)                         # [S, E]
         pos = torch.cumsum(oh, dim=0) - oh + counts[None, :]
+        if before is not None:
+            pos = pos + before[j][None, :]
         pos_j = (pos * oh).sum(dim=-1)                       # [S]
         keep = (pos_j < capacity).to(probs.dtype)
         slot = (pos_j[:, None] == slots[None, :]).to(probs.dtype)  # [S, C]
         d_j = (oh.to(probs.dtype) * keep[:, None])[:, :, None] * slot[:, None]
         dispatch = dispatch + d_j
         combine = combine + d_j * gates[:, j][:, None, None]
-        counts = counts + oh.sum(dim=0)
+        counts = counts + (oh.sum(dim=0) if total is None else total[j])
     return dispatch, combine
 
 
 def balance_loss(probs: torch.Tensor, top1: torch.Tensor) -> torch.Tensor:
     """Switch load-balance loss E * sum_e f_e * p_e: 1 at uniform routing;
-    f from the first choices ``top1`` [S], p from the full softmax."""
+    f from the first choices ``top1`` [S], p from the full softmax (means
+    over the global tokens in a sharded step)."""
     e = probs.shape[-1]
-    f = F.one_hot(top1, e).to(probs.dtype).mean(dim=0)
-    return e * torch.sum(f * probs.mean(dim=0))
+    f = col.batch_mean(F.one_hot(top1, e).to(probs.dtype), dim=0)
+    return e * torch.sum(f * col.batch_mean(probs, dim=0))
 
 
 class MoEFeedForward(nn.Module):
@@ -120,6 +152,10 @@ class MoEFeedForward(nn.Module):
         self.capacity_factor, self.dropout_rate = capacity_factor, dropout_rate
         self.compute_dtype, self.activation = dtype, activation
         self.router_noise = router_noise
+        # (expert group, first local expert) and the model group, set by
+        # parallel/sharding.py parallelize; None: every expert, whole
+        self.expert_split: Optional[Tuple[object, int]] = None
+        self.model_group = None
 
     @torch.no_grad()
     def seed_init(self, generator: torch.Generator) -> None:
@@ -144,24 +180,41 @@ class MoEFeedForward(nn.Module):
         tokens = x.reshape(-1, d)
         logits = tokens.float() @ self.router.float()             # [S, E]
         if self.router_noise > 0.0 and generator is not None:
-            logits = logits + self.router_noise * torch.randn(
-                logits.shape, generator=generator, device=logits.device)
+            logits = logits + self.router_noise * col.draw(
+                torch.randn, logits.shape, generator, logits.device)
         probs = torch.softmax(logits, dim=-1)
-        cap = expert_capacity(tokens.shape[0], e, self.top_k,
-                              self.capacity_factor)
+        cap = expert_capacity(tokens.shape[0] * col.batch_count(), e,
+                              self.top_k, self.capacity_factor)
         dispatch, combine = route_tokens(probs, self.top_k, cap)
         if aux is not None:
             aux.append((balance_loss(probs, torch.argmax(probs, dim=-1)),
-                        torch.mean(torch.square(
+                        col.batch_mean(torch.square(
                             torch.logsumexp(logits, dim=-1)))))
 
         dt = self.compute_dtype
         act = activation_fn(self.activation)
+        b_in = self.expert_in_bias
+        egroup = None
+        if self.expert_split is not None:
+            # this rank's experts; the others' gradients come back through
+            # the sums over the expert axis
+            egroup, e0 = self.expert_split
+            el = self.expert_in.shape[0]
+            dispatch = dispatch[:, e0:e0 + el]
+            combine = col.slice_of(combine, egroup, 1)
+            tokens = col.copy_to(tokens, egroup)
         xin = torch.einsum("sec,sd->ecd", dispatch.to(dt), tokens.to(dt))
+        mgroup = self.model_group
+        if mgroup is not None:
+            xin = col.copy_to(xin, mgroup)
+            b_in = col.slice_of(b_in, mgroup, 1)
         h = act(torch.einsum("ecd,edf->ecf", xin, self.expert_in.to(dt))
-                + self.expert_in_bias[:, None, :].to(dt))
-        h = dropout(h, self.dropout_rate, generator)
-        out = (torch.einsum("ecf,efd->ecd", h, self.expert_out.to(dt))
-               + self.expert_out_bias[:, None, :].to(dt))
-        y = torch.einsum("sec,ecd->sd", combine.to(dt), out)
+                + b_in[:, None, :].to(dt))
+        h = dropout(h, self.dropout_rate, generator,
+                    {0: "expert", 2: "model"})
+        out = col.reduce_from(
+            torch.einsum("ecf,efd->ecd", h, self.expert_out.to(dt)), mgroup)
+        out = out + self.expert_out_bias[:, None, :].to(dt)
+        y = col.reduce_from(torch.einsum("sec,ecd->sd", combine.to(dt), out),
+                            egroup)
         return y.reshape(x.shape)

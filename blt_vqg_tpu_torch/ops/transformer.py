@@ -63,7 +63,8 @@ class PositionwiseFeedForward(nn.Module):
         self.act = activation_fn(activation)
 
     def forward(self, x, generator=None, aux=None):
-        h = dropout(self.act(self.ffn_in(x)), self.dropout_rate, generator)
+        h = dropout(self.act(self.ffn_in(x)), self.dropout_rate, generator,
+                    {0: "batch", -1: "model"})
         h = self.ffn_out(h)
         if self.compat_trailing_relu:
             h = dropout(self.act(h), self.dropout_rate, generator)

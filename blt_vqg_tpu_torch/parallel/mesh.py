@@ -1,14 +1,21 @@
-"""The device mesh of the port (counterpart of ``blt_vqg_tpu/parallel/mesh.py``)
+"""The mesh of the port (counterpart of ``blt_vqg_tpu/parallel/mesh.py``)
 and the transport of its ``seq`` ring.
 
 :func:`build_mesh` returns a :class:`Mesh` whose ``shape`` is an ``{axis:
 size}`` mapping, as a ``jax.sharding.Mesh``'s is, so the attention gate can
-read ``mesh.shape.get("seq", 1)``.  In this port only the ``seq`` axis may
-be larger than 1: its n ranks are shards held on one device by one
-process, and :class:`LocalRing` moves their blocks around the ring.  Data,
-tensor and pipeline parallelism across cards, and a transport between
-cards (``torch.distributed`` with NCCL ``isend``/``irecv``), are not ported
-yet (ROADMAP.md queue 1, item 4).
+read ``mesh.shape.get("seq", 1)``.  Two kinds of axes:
+
+- ``data``, ``dcn_data``, ``model`` and ``expert`` span processes, one per
+  card: the mesh lays the ``torch.distributed`` world out row-major over
+  the axes as named (``model`` innermost in the default ``("data",
+  "model")``, as in the JAX package), and builds one process group per
+  axis and per set of axes that a step reduces over (:meth:`Mesh.group`).  ``train/step.py`` and
+  ``parallel/sharding.py`` make the collectives over them.
+- ``seq``: its n ranks are shards held on one device by one process, and
+  :class:`LocalRing` moves their blocks around the ring.  A ``seq`` axis
+  combined with any axis across processes, and a transport between cards
+  for the ring (NCCL ``isend``/``irecv``), are not ported yet (ROADMAP.md
+  queue 1, item 4), nor is the ``pipe`` axis of GPipe.
 
 :class:`LocalRing` keeps the protocol of the TPU ring kernels
 (ops/pallas/ring_attention.py): each :class:`Channel` is a double-buffered
@@ -27,11 +34,15 @@ buffer back while a copy may still use it.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 SEQ = "seq"
+BATCH_AXES = ("dcn_data", "data")   # the batch shards over both, outer first
+TP_AXES = ("model", "expert")       # the weights split over these
 
 
 class Channel:
@@ -159,39 +170,158 @@ def _indexed(device) -> torch.device:
 
 
 class Mesh:
-    """Named axes and their sizes (``shape``), the device that holds every
-    rank, and the ring of the ``seq`` axis."""
+    """Named axes and their sizes (``shape``), the device that holds this
+    process's ranks, and the ring of the ``seq`` axis.  A mesh over
+    processes also knows this rank's coordinates and the process groups of
+    its axes; a mesh of one process has none."""
 
-    def __init__(self, shape: Dict[str, int], device):
+    def __init__(self, shape: Dict[str, int], device,
+                 coords: Optional[Dict[str, int]] = None):
         self.shape = dict(shape)
         self.device = _indexed(device)
         self._rings: Dict[str, LocalRing] = {}
+        self.coords = dict(coords) if coords is not None else None
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        if self.coords is not None:
+            self._build_groups()
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    @property
+    def across_processes(self) -> bool:
+        """True when axes other than ``seq`` span several processes."""
+        return self.coords is not None and self.size > 1
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank() if self.coords is not None else 0
 
     def ring(self, axis: str = SEQ) -> LocalRing:
         if axis not in self._rings:
             self._rings[axis] = LocalRing(self.shape[axis], self.device)
         return self._rings[axis]
 
+    def axis_size(self, *axes: str) -> int:
+        return math.prod(self.shape.get(a, 1) for a in axes)
+
+    def coord(self, *axes: str) -> Tuple[int, int]:
+        """(this rank's index, the count) along ``axes`` taken together,
+        row-major in the mesh's order of the axes (which is the order of
+        the ranks in :meth:`group`; a batch sharded over ``("dcn_data",
+        "data")`` puts ``dcn_data`` outermost, as JAX does)."""
+        index, count = 0, 1
+        for a in sorted(axes, key=lambda a: list(self.shape).index(a)
+                        if a in self.shape else -1):
+            n = self.shape.get(a, 1)
+            c = self.coords.get(a, 0) if self.coords is not None else 0
+            index, count = index * n + c, count * n
+        return index, count
+
+    def batch_coord(self) -> Tuple[int, int]:
+        return self.coord(*BATCH_AXES)
+
+    def group(self, *axes: str):
+        """The process group of the ranks that differ from this one only
+        along ``axes``, or None when those axes hold one rank."""
+        key = tuple(a for a in self.shape if a in axes
+                    and self.shape[a] > 1)
+        return self._groups.get(key) if key else None
+
+    def _build_groups(self):
+        """Every rank calls ``new_group`` for every subgroup in the same
+        order (the collective contract) and keeps its own."""
+        names = list(self.shape)
+        sizes = [self.shape[a] for a in names]
+        ranks = torch.arange(self.size).reshape(sizes)
+        wide = [a for a in names if self.shape[a] > 1]
+        sets = [(a,) for a in wide]
+        for combo in (BATCH_AXES, TP_AXES, tuple(names)):
+            key = tuple(a for a in names if a in combo and a in wide)
+            if len(key) > 1 and key not in sets:
+                sets.append(key)
+        for key in sets:
+            dims = [names.index(a) for a in key]
+            rest = [i for i in range(len(names)) if i not in dims]
+            blocks = ranks.permute(*rest, *dims).reshape(
+                -1, math.prod(sizes[i] for i in dims))
+            for block in blocks.tolist():
+                g = dist.new_group(block)
+                if self.rank in block:
+                    self._groups[key] = g
+
+    def barrier(self) -> None:
+        if self.across_processes:
+            dist.barrier()
+
 
 def build_mesh(mesh_shape: Tuple[int, ...] = (1, 1),
                axis_names: Tuple[str, ...] = ("data", "model"),
                device: Optional[object] = "cuda") -> Mesh:
-    """A mesh of the named axes on one device (the card unless the caller
-    asks for the CPU).  Any axis but ``seq`` above size 1 raises: it needs
-    several cards and a transport between them (ROADMAP.md queue 1, item
-    4)."""
+    """A mesh of the named axes (the card unless the caller asks for the
+    CPU).  With axes other than ``seq`` over 1, the mesh spans the
+    ``torch.distributed`` world (``core/distributed.py``
+    ``initialize_distributed``), whose size must be their product: rank r
+    sits at the row-major coordinates of r.  A ``seq`` axis over 1 stays in
+    this process; combined with another axis over 1 it raises (ROADMAP.md
+    queue 1, item 4)."""
     if len(mesh_shape) != len(axis_names):
         raise ValueError(f"mesh_shape {mesh_shape} and axis_names "
                          f"{axis_names} differ in length")
     for name, size in zip(axis_names, mesh_shape):
         if size < 1:
             raise ValueError(f"axis {name!r} of size {size}")
-        if size > 1 and name != SEQ:
-            raise NotImplementedError(
-                f"mesh axis {name!r} of size {size}: only the {SEQ!r} ring "
-                f"is ported, on one device (ROADMAP.md queue 1, item 4)")
+    shape = dict(zip(axis_names, mesh_shape))
+    wide = [a for a, n in shape.items() if n > 1 and a != SEQ]
+    if wide and shape.get(SEQ, 1) > 1:
+        raise NotImplementedError(
+            f"a {SEQ!r} ring combined with the axes {wide} across processes "
+            f"is not ported yet (ROADMAP.md queue 1, item 4)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} asked for, but torch sees no "
                            f"CUDA card (pass device='cpu' to run on the CPU)")
-    return Mesh(dict(zip(axis_names, mesh_shape)), device)
+    if not wide:
+        return Mesh(shape, device)
+    need = math.prod(shape[a] for a in wide)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"mesh {shape} spans {need} processes, but torch.distributed is "
+            f"not initialised (core/distributed.py initialize_distributed, "
+            f"or launch with torch.distributed.run)")
+    if dist.get_world_size() != need:
+        raise ValueError(f"mesh {shape} needs a world of {need} processes, "
+                         f"not {dist.get_world_size()}")
+    idx = torch.unravel_index(torch.tensor(dist.get_rank()),
+                              tuple(mesh_shape))
+    coords = {a: int(i) for a, i in zip(axis_names, idx)}
+    return Mesh(shape, device, coords)
+
+
+def build_hybrid_mesh(dcn_data: int = 1, ici_data: int = -1, model: int = 1,
+                      device: Optional[object] = "cuda") -> Mesh:
+    """Multi-slice mesh: ``("dcn_data", "data", "model")`` with
+    ``dcn_data`` outermost, so only the once-per-step gradient all-reduce
+    crosses slices (hosts); ``ici_data`` -1 fills the rest of the world."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if ici_data == -1:
+        per_slice = n // dcn_data
+        if per_slice % model:
+            raise ValueError(
+                f"{per_slice} per-slice ranks not divisible by model={model}")
+        ici_data = per_slice // model
+    return build_mesh((dcn_data, ici_data, model),
+                      ("dcn_data", "data", "model"), device=device)
+
+
+def local_mesh(data: int = -1, model: int = 1,
+               device: Optional[object] = "cuda") -> Mesh:
+    """Mesh over the whole world; ``data`` -1 fills what ``model`` does not
+    use."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if data == -1:
+        if n % model:
+            raise ValueError(f"{n} ranks not divisible by model={model}")
+        data = n // model
+    return build_mesh((data, model), device=device)

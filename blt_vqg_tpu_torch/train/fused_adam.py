@@ -19,6 +19,15 @@ second moment (``factored_nu``) of every trainable parameter of two or more
 dimensions.  The factored moment is taken over the port's own layout, in
 which Dense weights are the transpose of the JAX kernels, so its (r, c)
 pair is the JAX pair swapped there (``convert.py`` swaps them back).
+
+Across processes ``update_params`` takes the state's ``placement``
+(``parallel/sharding.py``): the global norm counts every gradient once
+across the tensor-parallel ranks (so the clip fires alike everywhere), and
+under ZeRO-1 or FSDP each rank keeps its ``_zero1_spec`` slice of ``mu``,
+``nu`` (a factored moment's vectors too) and the f32 masters, updates that
+slice of the parameter from the whole (batch-summed) gradient, and
+all-gathers it back into the parameter, or, under FSDP, keeps it sharded.
+Each element's arithmetic is the single-process one.
 """
 
 from __future__ import annotations
@@ -118,16 +127,19 @@ class FusedClipAdam:
     @torch.no_grad()
     def update_params(self, params: Mapping[str, torch.Tensor],
                       grads: Mapping[str, Optional[torch.Tensor]],
-                      state: FusedAdamState, lr: float
+                      state: FusedAdamState, lr: float, placement=None
                       ) -> Tuple[FusedAdamState, torch.Tensor]:
         """One update of ``params`` in place; returns (the new state, the
         global gradient norm over the trainable parameters).  A missing
-        gradient is a zero gradient (a parameter the phase did not use)."""
+        gradient is a zero gradient (a parameter the phase did not use).
+        ``placement``: the state's share across processes, or None."""
         b1, b2, eps, clip = self.b1, self.b2, self.eps, self.grad_clip
         names = list(state.mu)
         gs = {n: (grads.get(n) if grads.get(n) is not None
                   else torch.zeros_like(params[n])) for n in names}
-        g_norm = global_norm(gs, names)
+        pl = placement
+        g_norm = (global_norm(gs, names) if pl is None
+                  else pl.global_norm(gs, names))
         trigger = g_norm < clip
 
         count = state.count + 1 if state.count < INT32_MAX else state.count
@@ -145,27 +157,46 @@ class FusedClipAdam:
             # rounding to bf16 remains
             g = gs[n].float() if mastered or gs[n].dtype != p.dtype else gs[n]
             gc = torch.where(trigger, g, (g / g_norm.to(g.dtype)) * clip)
-            mu32 = (1 - b1) * gc + _weak(b1, mu) * mu
+            gz = gc if pl is None else pl.zero_local(n, gc)
+            mu32 = (1 - b1) * gz + _weak(b1, mu) * mu
             mu_hat = mu32 / bc1
             if isinstance(nu, FactoredNu):
                 g2 = gc.float() ** 2
-                r1 = b2 * nu.r + (1 - b2) * g2.sum(dim=-1)
-                c1 = b2 * nu.c + (1 - b2) * g2.sum(dim=-2)
-                denom = torch.clamp_min(r1.sum(dim=-1)[..., None, None],
+                if pl is None:
+                    r1 = b2 * nu.r + (1 - b2) * g2.sum(dim=-1)
+                    c1 = b2 * nu.c + (1 - b2) * g2.sum(dim=-2)
+                    r1f, c1f = r1, c1
+                else:
+                    # the vectors are whole over the tensor axes and
+                    # ZeRO-sliced: update the slices, gather them whole
+                    rs, cs = pl.factored_sums(n, g2)
+                    sr, sc = pl.vec_spec(rs.shape), pl.vec_spec(cs.shape)
+                    r1 = b2 * nu.r + (1 - b2) * pl.local(rs, sr)
+                    c1 = b2 * nu.c + (1 - b2) * pl.local(cs, sc)
+                    r1f = pl.gather(r1, sr, rs.shape)
+                    c1f = pl.gather(c1, sc, cs.shape)
+                denom = torch.clamp_min(r1f.sum(dim=-1)[..., None, None],
                                         1e-30)
-                nu_hat = r1[..., :, None] * c1[..., None, :] / denom / bc2
+                nu_hat = r1f[..., :, None] * c1f[..., None, :] / denom / bc2
+                if pl is not None:
+                    nu_hat = pl.zero_local(n, pl.tp_block(n, nu_hat))
                 nu1 = FactoredNu(r1, c1)
             else:
-                nu1 = (1 - b2) * (gc ** 2) + _weak(b2, nu) * nu
+                nu1 = (1 - b2) * (gz ** 2) + _weak(b2, nu) * nu
                 nu_hat = nu1 / bc2
             u = mu_hat / (torch.sqrt(nu_hat) + eps)
             step = (lr * u.float()).to(u.dtype)
             if mastered:
                 ms1 = state.master[n] - step
-                p.copy_(ms1.to(p.dtype))
+                new = ms1.to(p.dtype)
                 master_new[n] = ms1
             else:
-                p.copy_((p - step).to(p.dtype))
+                pz = p if pl is None else pl.zero_local(n, p)
+                new = (pz - step).to(p.dtype)
+            if pl is None:
+                p.copy_(new)
+            else:
+                pl.zero_write(n, p, new)
             mu_new[n] = mu32.to(self.mu_dtype)
             nu_new[n] = nu1
         return FusedAdamState(count, mu_new, nu_new, master_new), g_norm

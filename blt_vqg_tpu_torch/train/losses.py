@@ -8,6 +8,10 @@ features and their reconstruction, aux the z-classifier's CE against every
 non-pad target token, kl_weight the tanh anneal
 ``min(tanh(6 * kliter / full_kl_step - 3) + 1, 1)``; ppl = exp(min(rec, 100)).
 Every value is a tensor on the logits' device: nothing syncs with the host.
+In a sharded step (``parallel/collectives.py`` ``active``) every mean is
+over the global batch: a masked mean sums its numerator and its count of
+non-pad tokens over the batch shards before it divides, as the JAX package
+divides by the global count.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch.nn import functional as F
+
+from blt_vqg_tpu_torch.parallel import collectives as col
 
 PAD_ID = 0
 
@@ -36,7 +42,8 @@ class LossOutputs(NamedTuple):
 def _masked_mean(ce: torch.Tensor, targets: torch.Tensor,
                  pad_id: int) -> torch.Tensor:
     mask = (targets != pad_id).float()
-    return (ce * mask).sum() / mask.sum().clamp_min(1.0)
+    return (col.batch_sum((ce * mask).sum())
+            / col.batch_sum(mask.sum()).clamp_min(1.0))
 
 
 def masked_token_ce(logits: torch.Tensor, targets: torch.Tensor,
@@ -75,7 +82,7 @@ def compute_losses(logits: torch.Tensor, targets: torch.Tensor,
                    kl_floor: float = 0.0) -> LossOutputs:
     rec = masked_token_ce(logits, targets)
     feat, recon = image_recon
-    img = torch.mean(torch.square(feat.float() - recon.float()))
+    img = col.batch_mean(torch.square(feat.float() - recon.float()))
     ppl = torch.exp(torch.clamp_max(rec, 100.0))
 
     if not latent_mode:

@@ -21,12 +21,17 @@ bf16 parameter storage and no factored second moment.
 Unlike the JAX package's immutable state, this one is updated in place: a
 train step changes the model's parameters and statistics and returns the
 same object.
+
+Across processes ``placement`` (``parallel/sharding.py``
+``place_state``, which the trainer calls after building, grafting or
+restoring the whole state) holds each rank's share: the model's weights
+cut by the sharding rules, the optimizer state with them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -71,6 +76,7 @@ class TrainState:
     opt_state: FusedAdamState
     tx: FusedClipAdam
     lr_fn: Callable[[int], float]
+    placement: Optional[Any] = None
 
     def trainable(self) -> Dict[str, torch.nn.Parameter]:
         """The parameters the optimizer updates, by ``state_dict`` name."""
@@ -83,14 +89,19 @@ class TrainState:
         returns (self, the global gradient norm)."""
         lr = self.lr_fn(self.step)
         self.opt_state, gnorm = self.tx.update_params(
-            self.trainable(), grads, self.opt_state, lr)
+            self.trainable(), grads, self.opt_state, lr, self.placement)
         self.step += 1
         self.kliter += kliter_inc
         return self, gnorm
 
     def reset_optimizer(self) -> "TrainState":
         """Adam restart at the pretrain -> latent boundary; f32 masters
-        survive it (only the moments reset)."""
+        survive it (only the moments reset).  A placed state gets its
+        fresh moments placed again."""
+        if self.placement is not None:
+            self.opt_state = self.placement.fresh_opt(
+                self.tx, self.model, self.opt_state.master)
+            return self
         new = self.tx.init(dict(self.model.named_parameters()))
         self.opt_state = new._replace(master=self.opt_state.master)
         return self

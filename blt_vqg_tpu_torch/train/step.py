@@ -23,10 +23,21 @@ device tensors: nothing waits for the card, except ``guard_nonfinite``,
 which reads the loss on the host to decide.  :func:`make_multi_step` runs G
 such steps in one call, on batches stacked on a leading axis, as eager
 steps (the JAX package scans them in one program).
+
+On a mesh across processes (``parallel/mesh.py``) each rank's batch is its
+rows of the global batch, and a step is the single-process step over the
+global batch: the model runs its split forms (``parallel/sharding.py``),
+every random draw is the global one cut to the rank's rows
+(``parallel/collectives.py``), every loss is normalised over the global
+batch, and the gradients are summed over the batch axes (one all-reduce)
+before the norm and the update, which the state's placement shares out
+(ZeRO-1, FSDP).  The metrics are the global values on every rank, so
+``guard_nonfinite`` decides alike everywhere.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 from typing import Callable, Dict, Optional
 
@@ -34,6 +45,8 @@ import numpy as np
 import torch
 
 from blt_vqg_tpu_torch.core.config import Config
+from blt_vqg_tpu_torch.parallel import collectives as col
+from blt_vqg_tpu_torch.parallel.mesh import BATCH_AXES
 from blt_vqg_tpu_torch.train.fused_adam import global_norm
 from blt_vqg_tpu_torch.train.losses import compute_losses
 from blt_vqg_tpu_torch.train.state import TrainState
@@ -101,19 +114,54 @@ def collect_moe_losses(losses: list, device):
             sum(z.float() for _, z in losses) / n)
 
 
+def _sharded(mesh):
+    """The mesh a step runs sharded over, or None (one process; a
+    sequence-parallel mesh goes with the model, ``IQ(cfg, vocab, mesh)``)."""
+    return mesh if mesh is not None and mesh.across_processes else None
+
+
+def _unsharded(state):
+    pl = state.placement
+    return contextlib.nullcontext() if pl is None else pl.unsharded(
+        state.model)
+
+
+def reduce_gradients(grads: list, mesh) -> list:
+    """The gradients summed over the mesh's batch axes, in one all-reduce
+    per dtype (the single-process gradient of the global loss)."""
+    group = mesh.group(*BATCH_AXES)
+    if group is None:
+        return grads
+    out = list(grads)
+    by_dtype: Dict = {}
+    for i, g in enumerate(grads):
+        if g is not None:
+            by_dtype.setdefault(g.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = col.all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
+                              group)
+        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+            out[i] = part.view_as(grads[i])
+    return out
+
+
 def make_train_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
     """``step(state, batch, generator, eps=None) -> (state, metrics)``; the
     state is updated in place.  ``eps`` injects the posterior noise
-    [B, latent] in place of a draw from ``generator``.  ``mesh`` is taken
-    for the JAX signature and unused: a sequence-parallel mesh goes with
-    the model (``IQ(cfg, vocab, mesh)``)."""
-    del mesh
+    [B, latent] (this rank's rows) in place of a draw from ``generator``.
+    On a ``mesh`` across processes the step is sharded (module
+    docstring)."""
+    mesh = _sharded(mesh)
     moe = cfg.moe_num_experts > 1
     grad_dtype = {"float32": None, "bfloat16": torch.bfloat16}[cfg.grad_dtype]
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: torch.Generator,
              eps: Optional[torch.Tensor] = None):
+        with col.active(mesh), _unsharded(state):
+            return one_step(state, batch, generator, eps)
+
+    def one_step(state, batch, generator, eps):
         stats = None
         if cfg.guard_nonfinite:
             stats = {n: b.clone() for n, b in state.model.named_buffers()}
@@ -132,6 +180,8 @@ def make_train_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
         params = state.trainable()
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
+        if mesh is not None:
+            grads = reduce_gradients(grads, mesh)
         if grad_dtype is not None:
             # bf16 gradient storage: the norm and the update read the bf16
             # values; the optimizer promotes them back to f32
@@ -145,7 +195,10 @@ def make_train_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
             with torch.no_grad():
                 for n, b in state.model.named_buffers():
                     b.copy_(stats[n])
-            gnorm = global_norm(grads, state.opt_state.mu)
+            gnorm = (global_norm(grads, state.opt_state.mu)
+                     if state.placement is None else
+                     state.placement.global_norm(grads,
+                                                 list(state.opt_state.mu)))
             state.step += 1
             state.kliter += kliter_inc
         else:
@@ -188,8 +241,8 @@ def make_eval_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
     two is required, so the metrics follow from the arguments.  In latent
     mode ``aux_acc`` is the share of rows whose z-head argmax is a
     (non-pad) word of the row's target.  ``mesh``: as in
-    :func:`make_train_step`."""
-    del mesh
+    :func:`make_train_step` (the metrics are the global batch's)."""
+    mesh = _sharded(mesh)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
@@ -197,7 +250,7 @@ def make_eval_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
         if generator is None and eps is None:
             raise ValueError("the eval step needs a generator or eps for "
                              "the posterior noise")
-        with torch.no_grad():
+        with torch.no_grad(), col.active(mesh), _unsharded(state):
             outputs = _forward(state, batch, latent_mode, False, generator,
                                eps)
             metrics = dict(_losses(cfg, state, batch, outputs,
@@ -207,7 +260,7 @@ def make_eval_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
                 za = torch.argmax(z_logit, dim=-1)
                 target = batch["target"]
                 hit = ((za[:, None] == target) & (target != 0)).any(dim=1)
-                metrics["aux_acc"] = hit.float().mean()
+                metrics["aux_acc"] = col.batch_mean(hit.float())
         return metrics
 
     return step

@@ -18,9 +18,21 @@ Every random draw takes a generator from one ``RngStream`` by (step,
 purpose), as the JAX package takes its keys, so a resumed run draws what
 an uninterrupted one would at the same steps.  ``model_family="rnn"``
 trains ``models/iq_rnn.py``'s IQRNN, whose validation report decodes
-greedy (the family has no beam search).  A mesh with an axis other than
-``seq`` over 1 (data, model or expert parallelism) is not ported
-(ROADMAP.md).
+greedy (the family has no beam search).
+
+On a mesh across processes (``data``, ``model``, ``expert`` and
+``dcn_data`` axes; ``parallel/mesh.py``) every rank runs this loop on its
+rows: the state is placed by the sharding rules after it is built,
+grafted and restored (``parallel/sharding.py`` ``place_state``; the Adam
+restart places its fresh moments again), the steps are sharded
+(``train/step.py``), and every decision (validation loss, early stop,
+SIGTERM) is taken on values that are equal on every rank.  Logs, metric
+files and checkpoints are written by rank 0 (checkpoints gathered whole
+first).  The validation report gathers its batch's rows and the whole
+weights to rank 0, which decodes and scores as a single process would
+(the per-layer decode kernels take whole weights).  GPipe
+(``pipeline_stages`` > 1) and a ``seq`` axis combined with axes across
+processes raise (ROADMAP.md queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -41,6 +53,9 @@ from blt_vqg_tpu_torch.core.metrics import MetricWriter
 from blt_vqg_tpu_torch.core.rng import RngStream
 from blt_vqg_tpu_torch.data.augment import make_augment_fn
 from blt_vqg_tpu_torch.models.iq import IQ
+from blt_vqg_tpu_torch.parallel import collectives as col
+from blt_vqg_tpu_torch.parallel.mesh import BATCH_AXES, SEQ
+from blt_vqg_tpu_torch.parallel.sharding import place_state
 from blt_vqg_tpu_torch.serve import check_device
 from blt_vqg_tpu_torch.train.nlg_metrics import NLGEval
 from blt_vqg_tpu_torch.train.state import TrainState, create_train_state
@@ -91,6 +106,13 @@ class EarlyStopping:
         return self.stale >= self.patience
 
 
+class _NoWriter:
+    """The metric writer of a rank other than 0."""
+
+    def write(self, *args, **kwargs) -> None:
+        pass
+
+
 class _Clock:
     """Marks on the device's stream (CUDA events) or the host clock."""
 
@@ -117,11 +139,11 @@ class Trainer:
     def __init__(self, cfg: Config, vocab, mesh=None,
                  profile_dir: Optional[str] = None, device="cuda"):
         wide = [a for a, n in (mesh.shape.items() if mesh is not None
-                               else ()) if n > 1 and a != "seq"]
-        if wide:
-            raise NotImplementedError(
-                f"mesh axes {wide} over 1 (data, model or expert "
-                f"parallelism) are not ported yet (ROADMAP.md queue 1 item 4)")
+                               else ()) if n > 1 and a != SEQ]
+        if wide and not mesh.across_processes:
+            raise ValueError(
+                f"mesh axes {wide} over 1 span processes: build the mesh "
+                f"with parallel.mesh.build_mesh over an initialised world")
         self.cfg = cfg
         self.vocab = vocab
         self.mesh = mesh
@@ -139,7 +161,10 @@ class Trainer:
                                   else None)).to(self.device)
         self.rngs = RngStream(cfg.seed)
         self.nlge = NLGEval(no_glove=True, no_skipthoughts=True)
-        self.writer = MetricWriter(cfg.output_dir)
+        self.wide = bool(wide)
+        self.is_main = mesh is None or mesh.rank == 0
+        self.writer = (MetricWriter(cfg.output_dir) if self.is_main
+                       else _NoWriter())
         self.ckpt = CheckpointManager(
             os.path.join(cfg.output_dir, "checkpoints"),
             backend=cfg.checkpoint_backend)
@@ -154,12 +179,21 @@ class Trainer:
         self._train_steps: Dict = {}
         self._eval_steps = {m: make_eval_step(cfg, latent_mode=m, mesh=mesh)
                             for m in (False, True)}
-        self._decode_steps = {m: make_decode_step(cfg, self.model,
+        # the reports decode on rank 0 with whole weights: a model of its
+        # own when the mesh splits the weights
+        split = self.wide and (cfg.fsdp or any(
+            mesh.shape.get(a, 1) > 1 for a in ("model", "expert")))
+        self.report_model = self.model
+        if split and self.is_main:
+            self.report_model = type(self.model)(cfg, len(vocab)).to(
+                self.device)
+        self._split_weights = split
+        self._decode_steps = {m: make_decode_step(cfg, self.report_model,
                                                   latent_mode=m)
                               for m in (False, True)}
         # cfg.beam_size > 1 switches the validation decode report to beam
         # search (the RNN family has no beam decoder: it stays greedy)
-        self._beam_steps = ({m: make_beam_decode_step(cfg, self.model,
+        self._beam_steps = ({m: make_beam_decode_step(cfg, self.report_model,
                                                       latent_mode=m)
                              for m in (False, True)}
                             if cfg.beam_size > 1
@@ -213,6 +247,9 @@ class Trainer:
         if resume and self.ckpt.latest_step() is not None:
             state = self.ckpt.restore(state)
             log.info("resumed from step %d", state.step)
+        if self.wide:
+            state = place_state(state, self.mesh, fsdp=self.cfg.fsdp,
+                                zero=self.cfg.shard_opt_state)
         return state
 
     def _graft_resnet(self, state: TrainState, path: str) -> TrainState:
@@ -231,10 +268,24 @@ class Trainer:
 
     def _model_batch(self, batch: Dict, step: int, train: bool) -> Dict:
         out = {k: batch[k] for k in ("context", "posterior", "target")}
-        out["images"] = (self.augment_train(batch["images"],
-                                            self._key(_AUG_TRAIN + step))
-                         if train else self.augment_eval(batch["images"]))
+        with col.active(self.mesh):   # the global batch's crop boxes
+            out["images"] = (self.augment_train(batch["images"],
+                                                self._key(_AUG_TRAIN + step))
+                             if train else self.augment_eval(batch["images"]))
         return out
+
+    def _stop(self, flag: bool, step: int, every: int) -> bool:
+        """Whether to stop at ``step``: ``flag`` itself in one process;
+        across processes, at every ``every``-th step (where the loop waits
+        for the card anyway), whether it is on in any rank, since a
+        SIGTERM reaches the ranks at different steps."""
+        if not self.wide:
+            return flag
+        if step % every:
+            return False
+        t = torch.tensor([float(flag)], device=self.device)
+        return bool(col.all_reduce(t, self.mesh.group(*self.mesh.shape),
+                                   torch.distributed.ReduceOp.MAX)[0] > 0)
 
     def _chunk_len(self, step: int, max_steps: int, log_every: int) -> int:
         """Steps to run in one multi-step call: capped so a call never
@@ -260,7 +311,8 @@ class Trainer:
         log_every = 50
         clock = _Clock(self.device)
 
-        # graceful shutdown: SIGTERM/SIGINT finish the current step, save a
+        # graceful shutdown: SIGTERM/SIGINT finish the current step (across
+        # processes, the steps to the next multiple of log_every), save a
         # checkpoint, and return (a resume picks up from there)
         stop_requested = {"flag": False}
 
@@ -288,7 +340,8 @@ class Trainer:
         marks = []
         fit_start = clock.mark()
         try:
-            while step < max_steps and not stop_requested["flag"]:
+            while step < max_steps and not self._stop(
+                    stop_requested["flag"], step, log_every):
                 if not latent and step >= cfg.num_pretraining_steps:
                     latent = True
                     state = state.reset_optimizer()
@@ -358,6 +411,8 @@ class Trainer:
             self.ckpt.save(state, self.cfg, block=True,
                            on_disk_param_dtype=self._disk_dtype())
         self.ckpt.wait()
+        if self.wide:
+            self.mesh.barrier()
         return state
 
     # ------------------------------------------------------------------
@@ -388,6 +443,15 @@ class Trainer:
         means = {k: v / count for k, v in sums.items()}
         self.writer.write(step, means, prefix="val")
 
+        if self.wide:
+            # the batch's rows and the whole weights to rank 0 (every rank
+            # takes part); rank 0 alone decodes and scores
+            first_batch = self._gathered_batch(first_batch)
+            self._load_report_model(state)
+            if not self.is_main:
+                self.timings["validate_ms"].append(
+                    (time.perf_counter() - t0) * 1e3)
+                return dict(means)
         # greedy decode report on the first val batch
         scores = self.decode_report(state, first_batch, latent, step,
                                     print_samples)
@@ -409,6 +473,27 @@ class Trainer:
         print(self.hp_string)
         self.timings["validate_ms"].append((time.perf_counter() - t0) * 1e3)
         return {**means, **{f"nlg_{k}": v for k, v in scores.items()}, **diag}
+
+    def _gathered_batch(self, batch) -> Dict:
+        """The whole global batch from every rank's rows (along the batch
+        axes, in batch order)."""
+        group = self.mesh.group(*BATCH_AXES)
+        _, count = self.mesh.batch_coord()
+        out = {}
+        for k in ("images", "context", "posterior", "target", "image_ids",
+                  "answer_types"):
+            if k in batch:
+                t = torch.as_tensor(batch[k], device=self.device)
+                out[k] = col.gather_dim(t, group, 0, t.shape[0] * count)
+        return out
+
+    def _load_report_model(self, state) -> None:
+        """The whole weights into rank 0's report model (a collective)."""
+        if not self._split_weights:
+            return
+        sd = state.placement.full_state_dict(state.model)
+        if self.is_main:
+            self.report_model.load_state_dict(sd)
 
     def _detok(self, tokens_row) -> str:
         """Token ids -> space-joined words, stopping at <end>, specials
@@ -438,11 +523,11 @@ class Trainer:
         (an oracle); a widening sample-vs-mean gap with a stable oracle is
         the prior-variance decay signature."""
         if self._diag_steps is None:
-            self._diag_steps = {"stats": make_latent_diag_step(self.cfg,
-                                                               self.model)}
+            self._diag_steps = {"stats": make_latent_diag_step(
+                self.cfg, self.report_model)}
             for src in Z_REPORT_SOURCES:
                 self._diag_steps[src] = make_diag_decode_step(
-                    self.cfg, self.model, src)
+                    self.cfg, self.report_model, src)
         images, context = self._decode_inputs(batch)
         posterior = batch["posterior"]
         stats = self._diag_steps["stats"](images, context, posterior)

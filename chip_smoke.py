@@ -156,7 +156,27 @@ only when every phase passed):
    (e) 3 latent steps with ``grad_dtype="bfloat16"`` and 3 with
    ``fused_adam=False`` on the flash path, and a ``fused_adam=False``
    checkpoint saved and restored bit for bit.  The ``kernels`` line's
-   flash and ring rows carry the head-dim-256 readings (``dh256_*``).
+   flash and ring rows carry the head-dim-256 readings (``dh256_*``);
+18. data and tensor parallelism across processes, on its own numpy-made
+   packed data: (a) the flagship through ``python -m
+   torch.distributed.run --standalone --nproc_per_node 1 -m
+   blt_vqg_tpu_torch.cli.train_iq`` (NCCL at world 1), 2 pretrain and 2
+   latent steps on the flash kernels, once with ``--shard_opt_state`` and
+   once with ``--fsdp``: exit 0, NCCL in the log, a finite final
+   validation on the per-layer kernels, the fit loop's flash kernels by
+   the profiler (84 each, no FMA one); the last run's step-4 checkpoint
+   restored bit for bit, written with ``save_sharded`` and read back
+   with ``restore_sharded`` bit-equal; (b) two processes sharing the card,
+   each joined over an explicitly chosen gloo group (NCCL refuses two
+   ranks on one GPU; gloo takes all-reduces of CUDA tensors): the
+   flagship latent step at b64 on data 2 (32 rows a rank), then on model
+   2 (4 heads a rank), each rank against the one-process step on the
+   same weights, batch and generator within ``PAR_LIMITS`` (loss, grad
+   norm, batch-norm statistics, updated parameters, first moments), 24
+   launches of each flash kernel in each rank by counter and profiler,
+   and the step time by events (two processes on one card: no measure of
+   parallelism across cards).  ZeRO-1, FSDP and EP across ranks run only
+   in the CPU tests (tests/test_torch_parallel.py, test_torch_multihost.py).
 
 Phase 1 also prints the compiler's registers, shared memory and spills
 of the ring and flash kernels, of the decode kernels' split-K product
@@ -171,7 +191,9 @@ cores (HMMA or HGMMA instructions, by ``cuobjdump -sass``; HGMMA, the
 warpgroup product, for ``int8_wgmma_kernel``), the flash, cluster and
 int8 kernels without spills.
 
-``--train-cli-only`` builds and runs phase 15 alone; ``--eval-cli-only``
+``--train-cli-only`` builds and runs phase 15 alone; ``--parallel-only``
+phase 18 (``--parallel-seeds N`` takes 18b's readings over N seeds);
+``--eval-cli-only``
 builds, runs the 6-step train CLI run and phase 16; ``--variants-only``
 builds, checks phase 1's machine code and runs phase 17 alone.
 ``--flash-times-only``, ``--ring-times-only`` (the ring functions at the
@@ -3607,6 +3629,353 @@ def variants_phase(dev, card, log, seeds: int = 1):
     return dh256
 
 
+
+# ---------------------------------------------------------------------------
+# data and tensor parallelism across processes (phase 18)
+
+# flash launches of the fit loop of phase 18a: 2 pretrain steps (context
+# encoder 6 + decoder 12 attention calls) and 2 latent steps (24 calls)
+PAR_FIT_FLASH = 2 * 18 + 2 * 24
+# the 2-process step against the 1-process step on the same weights, batch
+# and generator: loss and grad norm relative; batch-norm statistics and
+# updated parameters relative to each tensor's largest magnitude; first
+# moments ((1 - b1) x the gradients) relative to the largest moment.  bf16
+# compute: the rows or heads split change the products' rounding.
+# Readings over 3 seeds (NVIDIA H100 80GB HBM3, 700.00 W), data 2 / model 2:
+# loss 1.06e-4 / 3.49e-5, grad norm 9.64e-4 / 1.41e-3, statistics 6.85e-4 /
+# 0, parameters 0 / 0 (a first Adam step moves each element by about lr,
+# whatever its gradient's size), moments 0.0577 / 0.0448 (the latent nets'
+# and fc's small gradients: 11.6% of the posterior net's own largest).  The
+# one-process step with another generator (other dropout masks) must fail
+# the loss limit.
+PAR_LIMITS = {"loss": 3e-4, "grad_norm": 4e-3, "bn": 2e-3, "params": 1e-3,
+              "mu": 0.15}
+PAR_TIMED_STEPS = 2
+
+
+def parallel_cli_argv(data: dict, out: str, *extra) -> list:
+    """The flagship on the train CLI for 2 pretrain and 2 latent steps on
+    the flash kernels, no validation inside the fit loop, a checkpoint at
+    step 4 and the final validation on the per-layer kernels."""
+    c = serve.flagship_config()
+    return [f"--emb_dim={c.emb_dim}", f"--hidden_dim={c.hidden_dim}",
+            f"--latent_dim={c.latent_dim}", f"--pwffn_dim={c.pwffn_dim}",
+            f"--num_layers={c.num_layers}", f"--num_heads={c.num_heads}",
+            f"--input_mode={c.input_mode}", f"--dtype={c.dtype}",
+            f"--image_size={c.image_size}", f"--batch_size={BATCH}",
+            "--use_pallas_attention", "--attention_dropout=0.0",
+            "--use_pallas_decode", "--num_pretraining_steps=2",
+            "--total_training_steps=4", "--steps_per_dispatch=2",
+            "--val_check_interval=100", "--limit_val_batches=1",
+            "--checkpoint_every=4", "--no_checkpoint_at_end",
+            f"--seed={SEED}", f"--vocab={data['vocab']}",
+            f"--dataset={data['train']}", f"--val_dataset={data['val']}",
+            f"--output_dir={out}", *extra]
+
+
+def _child_env() -> dict:
+    here = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, OMP_NUM_THREADS="4", PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+
+
+def parallel_cli_phase(dev, card, log, data: dict, root: str) -> dict:
+    """Phase 18a: the flagship through ``torch.distributed.run
+    --standalone --nproc_per_node 1 -m blt_vqg_tpu_torch.cli.train_iq``
+    (NCCL at world 1), with ``--shard_opt_state`` and with ``--fsdp``:
+    exit 0, a finite final validation, the flash kernels of the fit loop
+    by profiler, the step-4 checkpoint restored bit for bit and written
+    and read again through ``save_sharded``/``restore_sharded``."""
+    from blt_vqg_tpu_torch.core.checkpoint import (CheckpointManager,
+                                                   flatten_state)
+    from blt_vqg_tpu_torch.core.config import Config
+    out = {}
+    for flag in ("--shard_opt_state", "--fsdp"):
+        run_dir = os.path.join(root, flag.strip("-"))
+        trace_dir = os.path.join(run_dir, "trace")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "blt_vqg_tpu_torch.cli.train_iq",
+               *parallel_cli_argv(data, run_dir, flag,
+                                  f"--profile_dir={trace_dir}")]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, env=_child_env(), capture_output=True,
+                           text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"[18a] train CLI {flag} exited "
+                                 f"{r.returncode}:\n{r.stdout[-3000:]}\n"
+                                 f"{r.stderr[-3000:]}")
+        if "backend nccl" not in r.stderr + r.stdout:
+            raise AssertionError(f"[18a] {flag}: no NCCL world in the log")
+        blocks = validation_blocks(r.stdout)
+        final = blocks.get(4, [{}])[-1]
+        if not final or not all(math.isfinite(v) for v in final.values()):
+            raise AssertionError(f"[18a] {flag}: final validation {final}")
+        kernels = trace_kernels(os.path.join(trace_dir, "trace.json"))
+        fams = {}
+        for name, n in kernels.items():
+            fam = kernel_family(name, FLASH_STEP_KERNELS)
+            fams[fam] = fams.get(fam, 0) + n
+        bad = {k: fams.get(k, 0) for k in FLASH_MMA
+               if not PROFILE_MIN_SHARE * PAR_FIT_FLASH <= fams.get(k, 0)
+               <= PAR_FIT_FLASH}
+        bad.update({k: fams[k] for k in FLASH_FMA if fams.get(k)})
+        if bad:
+            raise AssertionError(f"[18a] {flag}: flash kernels of the fit "
+                                 f"loop {bad}, want {PAR_FIT_FLASH} each")
+        out[flag] = {"wall_s": wall, "loss": final["loss"]}
+        log(f"[18a] {card}: train CLI {flag} under torch.distributed.run "
+            f"(NCCL, world 1): exit 0 in {wall:.1f} s (host clock, process "
+            f"start included); final validation loss {final['loss']:.6g}, "
+            f"Bleu_4 {final.get('Bleu_4', float('nan')):.4g}; fit loop flash "
+            f"kernels " + ", ".join(f"{k} {fams.get(k, 0)}/{PAR_FIT_FLASH}"
+                                    for k in FLASH_MMA))
+    # the last run's rank-0 checkpoint, restored bit for bit, then sharded
+    cfg = Config.load(os.path.join(run_dir, "args.json"))
+    ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"))
+    state = ckpt.restore(create_train_state(
+        cfg, IQ(cfg, serve.FLAGSHIP_VOCAB).to(dev), seed=None))
+    with np.load(os.path.join(run_dir, "checkpoints", "step_4",
+                              "state.npz")) as z:
+        same_entries(flatten_state(state), {k: z[k] for k in z.files},
+                     f"[18a] {flag}: the restored step-4 state")
+    sharded = CheckpointManager(os.path.join(run_dir, "sharded"))
+    t1 = time.perf_counter()
+    sharded.save_sharded(state, cfg)
+    back = sharded.restore_sharded(create_train_state(
+        cfg, IQ(cfg, serve.FLAGSHIP_VOCAB).to(dev), seed=None))
+    shard_s = time.perf_counter() - t1
+    same_entries(flatten_state(back), flatten_state(state),
+                 f"[18a] {flag}: the save_sharded round trip")
+    files = sorted(os.listdir(os.path.join(run_dir, "sharded",
+                                           "step_4")))
+    log(f"[18a] {card}: the {flag} run's step-4 checkpoint restored bit "
+        f"for bit; save_sharded + restore_sharded ({files}) bit-equal in "
+        f"{shard_s:.1f} s (host clock)")
+    del state, back
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rank(out_dir: str, seeds: int = 1) -> None:
+    """One of the two processes of phase 18b on card 0, joined over an
+    explicitly chosen gloo group: the flagship latent step at b64 on a
+    data 2 mesh, then on a model 2 mesh, against the one-process step on
+    the same weights, batch and generator (``seeds`` of them: the worst
+    reading is kept); writes its readings to ``out_dir/rank{r}.json``."""
+    from blt_vqg_tpu_torch.core.distributed import initialize_distributed
+    from blt_vqg_tpu_torch.parallel.sharding import place_state
+    rank = int(os.environ["RANK"])
+    initialize_distributed(device="cuda", backend="gloo", local_rank=0,
+                           timeout_s=300)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    cfg = serve.flagship_config().replace(use_pallas_attention=True,
+                                          attention_dropout=0.0)
+    vocab = serve.FLAGSHIP_VOCAB
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    result = {"rank": rank, "backend": torch.distributed.get_backend()}
+    for tag, shape, seed in [(t, sh, SEED + i) for t, sh in (
+            ("data 2", (2, 1)), ("model 2", (1, 2))) for i in range(seeds)]:
+        batch = make_batch(cfg, vocab, BATCH,
+                           np.random.RandomState(seed + 18), device=dev)
+        mesh = build_mesh(shape, ("data", "model"), device=dev)
+        ref = create_train_state(cfg, IQ(cfg, vocab).to(dev), seed=seed)
+        ref, ref_m = make_train_step(cfg, True)(
+            ref, batch, torch.Generator(dev).manual_seed(seed + 1))
+        state = place_state(create_train_state(
+            cfg, IQ(cfg, vocab).to(dev), seed=seed), mesh)
+        index, count = mesh.batch_coord()
+        n = BATCH // count
+        rows = {k: v[index * n:(index + 1) * n] for k, v in batch.items()}
+        step = make_train_step(cfg, True, mesh)
+        zero_flash_launches()
+        with torch.profiler.profile(activities=acts) as prof:
+            state, m = step(state, rows,
+                            torch.Generator(dev).manual_seed(seed + 1))
+            torch.cuda.synchronize()
+        launches = flash_launches()
+        fams = {}
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                fam = kernel_family(evt.key, FLASH_STEP_KERNELS)
+                fams[fam] = fams.get(fam, 0) + evt.count
+        pl = state.placement
+        want_p = dict(ref.model.named_parameters())
+        par = 0.0
+        for name, p in state.model.named_parameters():
+            w = pl.local(want_p[name].data, pl.store[name]).float()
+            scale = float(w.abs().max()) or 1.0
+            par = max(par, float((p.data.float() - w).abs().max()) / scale)
+        want_b = dict(ref.model.named_buffers())
+        bn = 0.0
+        for name, b in state.model.named_buffers():
+            w = want_b[name].float()
+            scale = float(w.abs().max()) or 1.0
+            bn = max(bn, float((b.float() - w).abs().max()) / scale)
+        # the first moments, (1 - b1) times the gradients, against the
+        # largest of them (a gradient that is 0 in exact arithmetic, the fc
+        # bias before the train-mode batch norm, is rounding noise)
+        want_mu = pl.place_opt(ref.opt_state).mu
+        errs = sorted(((float((v.float() - want_mu[name].float()).abs()
+                              .max()),
+                        float(want_mu[name].float().abs().max()), name)
+                       for name, v in state.opt_state.mu.items()),
+                      reverse=True)
+        top = max(w for _, w, _ in errs)
+        mu = errs[0][0] / top
+        worst_mu = [(n, e / top, e / (w or 1.0)) for e, w, n in errs[:3]]
+
+        def rel(k, want=ref_m):
+            return abs(float(m[k]) - float(want[k])) / abs(float(want[k]))
+
+        # the control: the one-process step with other dropout masks
+        other = create_train_state(cfg, IQ(cfg, vocab).to(dev), seed=seed)
+        _, other_m = make_train_step(cfg, True)(
+            other, batch, torch.Generator(dev).manual_seed(seed + 99))
+        control = rel("loss", other_m)
+        del ref, other
+        torch.cuda.empty_cache()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.distributed.barrier()
+        ev[0].record()
+        for i in range(PAR_TIMED_STEPS):
+            state, _ = step(state, rows,
+                            torch.Generator(dev).manual_seed(seed + 2 + i))
+        ev[1].record()
+        ev[1].synchronize()
+        reading = {
+            "loss": float(m["loss"]), "loss_ref": float(ref_m["loss"]),
+            "loss_rel": rel("loss"), "grad_norm_rel": rel("grad_norm"),
+            "bn_rel": bn, "params_rel": par, "mu_rel": mu,
+            "worst_mu": worst_mu, "control_loss_rel": control,
+            "launches": launches,
+            "profiled": {k: fams.get(k, 0) for k in FLASH_STEP_KERNELS},
+            "step_ms": ev[0].elapsed_time(ev[1]) / PAR_TIMED_STEPS,
+            "rows": n, "heads": state.model.decoder.layers[0].self_attn
+            .num_heads, "seeds": 1}
+        old = result.get(tag)
+        if old is not None:     # the worst reading over the seeds
+            for k in ("loss_rel", "grad_norm_rel", "bn_rel", "params_rel",
+                      "mu_rel", "step_ms"):
+                reading[k] = max(reading[k], old[k])
+            if old["mu_rel"] > mu:
+                reading["worst_mu"] = old["worst_mu"]
+            reading["control_loss_rel"] = min(control,
+                                              old["control_loss_rel"])
+            reading["seeds"] = old["seeds"] + 1
+        result[tag] = reading
+        del state, step
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    torch.distributed.destroy_process_group()
+
+
+def parallel_pair_phase(dev, card, log, root: str, seeds: int = 1) -> dict:
+    """Phase 18b: two processes on the one card (gloo, which takes
+    all-reduces of CUDA tensors; NCCL refuses two ranks on one GPU), each
+    running :func:`parallel_rank`; the flash kernels must run in both
+    ranks and the steps match the one-process step within
+    ``PAR_LIMITS``."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for r in range(2):
+        env = dict(_child_env(), RANK=str(r), WORLD_SIZE="2", LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             root, "--parallel-seeds", str(seeds)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(
+                10.0, 600 - (time.perf_counter() - t0)))[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[18b] rank {r} exited {p.returncode}:\n"
+                                 f"{text[-4000:]}")
+    results = []
+    for r in range(2):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    for tag in ("data 2", "model 2"):
+        for res in results:
+            got = res[tag]
+            want = {"flash_attention_fwd": 24, "flash_attention_bwd_dkdv": 24,
+                    "flash_attention_bwd_dq": 24}
+            prof = got["profiled"]
+            bad = {k: v for k, v in got["launches"].items() if v != want[k]}
+            bad.update({k: prof.get(k, 0) for k in FLASH_MMA
+                        if not PROFILE_MIN_SHARE * 24 <= prof.get(k, 0)
+                        <= 24})
+            bad.update({k: prof[k] for k in FLASH_FMA if prof.get(k)})
+            over = {k: got[f"{k}_rel"] for k in PAR_LIMITS
+                    if not got[f"{k}_rel"] <= PAR_LIMITS[k]}
+            if not got["control_loss_rel"] > PAR_LIMITS["loss"]:
+                over["control (must fail)"] = got["control_loss_rel"]
+            if bad or over:
+                raise AssertionError(f"[18b] {tag} rank {res['rank']}: "
+                                     f"launches {bad}, over limits {over}")
+            log(f"[18b] {card}: {tag} (backend {res['backend']}), rank "
+                f"{res['rank']}, {got['rows']} rows, {got['heads']} heads a "
+                f"rank: loss {got['loss']:.6g} against the one-process "
+                f"{got['loss_ref']:.6g} (relative {got['loss_rel']:.3g}, "
+                f"limit {PAR_LIMITS['loss']}), grad norm relative "
+                f"{got['grad_norm_rel']:.3g} (limit "
+                f"{PAR_LIMITS['grad_norm']}), batch-norm statistics "
+                f"{got['bn_rel']:.3g}, updated parameters "
+                f"{got['params_rel']:.3g} and first moments "
+                f"{got['mu_rel']:.3g} (of each tensor's max; the moments' "
+                f"of the largest moment) (limits "
+                f"{PAR_LIMITS['bn']}, {PAR_LIMITS['params']}, "
+                f"{PAR_LIMITS['mu']}; worst of {got['seeds']} seeds; largest "
+                f"moment errors (name, of the largest moment, of its own "
+                f"max): {got['worst_mu']}); control, the one-process step "
+                f"with other dropout masks: loss relative "
+                f"{got['control_loss_rel']:.3g} (fails, as it must); flash "
+                f"launches {got['launches']}, by profiler "
+                f"{ {k: prof.get(k, 0) for k in FLASH_MMA} }")
+        times = ", ".join(f"{r[tag]['step_ms']:.1f}" for r in results)
+        log(f"[18b] {card}: {tag} step time {times} ms "
+            f"(ranks 0, 1; CUDA events, mean of {PAR_TIMED_STEPS} steps, the "
+            f"slowest seed's): "
+            f"two processes on one card over gloo, which is no measure of "
+            f"data or tensor parallelism across cards")
+    log(f"[18b] both ranks done in {wall:.1f} s (host clock)")
+    return {tag: [r[tag] for r in results] for tag in ("data 2", "model 2")}
+
+
+def parallel_phase(dev, card, log, seeds: int = 1) -> dict:
+    """Phase 18: 18a then 18b, on their own synthetic data."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    try:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(root, "data"))
+        data = cli_data(os.path.join(root, "data"), log, tag="18")
+        cli = parallel_cli_phase(dev, card, log, data, root)
+        pair_dir = os.path.join(root, "pair")
+        os.makedirs(pair_dir)
+        pair = parallel_pair_phase(dev, card, log, pair_dir, seeds)
+        log(f"[18] phase 18 in {time.perf_counter() - t0:.1f} s (host "
+            f"clock)")
+        return {"cli": cli, "pair": pair}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--flash-seeds", type=int, default=3,
@@ -3652,11 +4021,25 @@ def main(argv=None):
                         help="build, run phase 17 (the model variants and "
                         "train-step options, head dim 256) and stop (no "
                         "result line)")
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="build, run phase 18 (data and tensor "
+                        "parallelism across processes) and stop (no result "
+                        "line)")
+    parser.add_argument("--parallel-rank", type=str, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-seeds", type=int, default=1,
+                        help="weight and batch seeds of phase 18b's "
+                        "two-process steps (more seeds take readings for "
+                        "limits)")
     parser.add_argument("--eval-cli-only", action="store_true",
                         help="build, run the 6-step train CLI run phase 16 "
                         "needs, then phase 16 (the evaluation and tune "
                         "CLIs), and stop (no result line)")
     opts = parser.parse_args(argv)
+    if opts.parallel_rank is not None:
+        # one rank of phase 18b, started by the phase itself
+        parallel_rank(opts.parallel_rank, opts.parallel_seeds)
+        return
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -3696,6 +4079,9 @@ def main(argv=None):
         return
     if opts.eval_cli_only:
         eval_cli_only(dev, card, log)
+        return
+    if opts.parallel_only:
+        parallel_phase(dev, card, log, opts.parallel_seeds)
         return
     if opts.variants_only:
         mma_code(lib_path, report)
@@ -4032,6 +4418,8 @@ def main(argv=None):
     # ---- 17. the model variants and the train-step options
     dh_flash, dh_ring, dh_err = variants_phase(dev, card, log,
                                                opts.variant_seeds)
+    # ---- 18. data and tensor parallelism across processes
+    parallel_phase(dev, card, log, opts.parallel_seeds)
 
     # decode kernels in their main-path forms: bf16 stack weights, int8
     # head; one call each (the stack at pos 25).  The flash kernels: the

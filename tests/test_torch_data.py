@@ -116,8 +116,11 @@ def test_prefetcher_hands_over_tensors(datasets):
     inf = make_loader(tds, 8, "cat", device="cpu", prefetch_depth=1)
     next(inf)
     inf.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_loader(tds, 8, multihost=True)
+    # multihost slicing: one process holds the whole batch
+    host = next(make_loader(tds, 8, "cat", device=False, multihost=True))
+    assert len(host["target"]) == 8
+    with pytest.raises(ValueError, match="batch shards"):
+        make_loader(tds, 7, multihost=True, mesh=_FourShards())
 
 
 @pytest.fixture(scope="module")
@@ -246,3 +249,12 @@ def test_nlg_scores_match_jax():
     assert set(got) == set(want) >= {"Bleu_1", "Bleu_4", "METEOR", "ROUGE_L",
                                      "CIDEr"}
     assert got == want
+
+
+class _FourShards:
+    """A stand-in mesh of 4 batch shards (this process the first)."""
+
+    across_processes = True
+
+    def batch_coord(self):
+        return 0, 4

@@ -370,6 +370,8 @@ def test_unported_paths_raise(synthetic, tmp_path):
     vocab = synthetic["vocab"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg.replace(pipeline_stages=2), vocab, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # data parallelism is ported, across processes only: a mesh of one
+    # process that claims 2 data ranks is refused
+    with pytest.raises(ValueError, match="span processes"):
         Trainer(cfg, vocab, mesh=Mesh({"data": 2, "model": 1}, "cpu"),
                 device="cpu")
