@@ -1,5 +1,5 @@
 """Step checkpoints of the train state (counterpart of
-``blt_vqg_tpu/core/checkpoint.py``, its npz backend).
+``blt_vqg_tpu/core/checkpoint.py``, both its backends).
 
 The format is the JAX package's, so a checkpoint written by either package
 restores in the other:
@@ -41,7 +41,22 @@ with its own blocks in the flax layout, keys ``<key>@0`` beside
 files (``restore_sharded`` merges every rank's file and checks that the
 blocks cover each leaf).  Every rank calls ``save``, ``save_sharded`` and
 the restores (they are collectives); ``_barrier`` is ``dist.barrier``.
-The orbax backend is not ported (ROADMAP.md queue 1).
+
+``backend="orbax"`` writes and reads ``step_N/orbax`` in the layout of the
+JAX package's Orbax ``StandardCheckpointHandler``, without Orbax (which
+imports jax): through ``tensorstore`` (imported when the backend is
+chosen), one zarr v2 array per leaf in an OCDBT database
+(``manifest.ocdbt``, ``d/``), named by its tree path joined with dots
+(``params.embed.embedding``, ``opt_state.mu.<path>``,
+``opt_state.nu.<path>.r``, ``opt_state.count``, ``step``, ``kliter``),
+beside ``_METADATA`` (the tree: each leaf's key path and value type) and
+``_CHECKPOINT_METADATA``.  The entries are the npz backend's, so
+the sidecars, step discovery, retention, resume and
+``on_disk_param_dtype`` behave alike.  Orbax writes each process's
+arrays into ``ocdbt.process_<i>`` and merges them into the root database;
+one writer here writes the root database directly, which Orbax reads the
+same way.  Across processes the orbax backend gathers the state and rank
+0 writes it (``save_sharded`` too).
 """
 
 from __future__ import annotations
@@ -70,9 +85,152 @@ FUSED_PREFIX = "opt_state/"
 CHAIN_PREFIX = "opt_state/.inner_states/train/.inner_state/1/"
 
 
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               f"queue 1)")
+ORBAX_DIR = "orbax"
+# the named-tuple fields of the optimizer states (the npz keys prefix them
+# with "."; the Orbax tree paths do not)
+_FIELDS = {"count", "mu", "nu", "master", "inner_states", "inner_state",
+           "r", "c"}
+_HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+            "StandardCheckpointHandler")
+
+
+def _tensorstore():
+    try:
+        import tensorstore
+    except ImportError as err:
+        raise ImportError(
+            "the orbax checkpoint backend reads and writes through "
+            "tensorstore, which is not installed here (use "
+            "backend='npz')") from err
+    return tensorstore
+
+
+def _orbax_path(key: str) -> tuple:
+    """The Orbax tree path of an npz key."""
+    special = {"__step__": ("step",), "__kliter__": ("kliter",)}
+    if key in special:
+        return special[key]
+    return tuple(p[1:] if p.startswith(".") else p for p in key.split("/"))
+
+
+def _npz_key(path) -> str:
+    """The npz key of an Orbax tree path (inverse of :func:`_orbax_path`
+    on the train state's trees)."""
+    special = {("step",): "__step__", ("kliter",): "__kliter__"}
+    if tuple(path) in special:
+        return special[tuple(path)]
+    if path[0] != "opt_state":
+        return "/".join(path)
+    return "/".join([path[0]] + ["." + p if p in _FIELDS else p
+                                 for p in path[1:]])
+
+
+def _ocdbt(directory: str) -> dict:
+    return {"driver": "ocdbt", "base": {"driver": "file",
+                                        "path": os.path.abspath(directory)}}
+
+
+def write_orbax(directory: str, flat: dict) -> None:
+    """Writes npz entries as an Orbax ``StandardCheckpointHandler``
+    checkpoint into ``directory`` (which must not exist)."""
+    import time
+
+    ts = _tensorstore()
+    t0 = time.time_ns()
+    os.makedirs(directory)
+    kv = _ocdbt(directory)
+    kv["config"] = {"max_inline_value_bytes": 1024,
+                    "max_decoded_node_bytes": 100000000,
+                    "manifest_kind": "single"}
+    ctx, txn = ts.Context(), ts.Transaction()
+    tree = {}
+    writes = []
+    for key, arr in flat.items():
+        if key.startswith("__dtype__/"):
+            continue
+        arr = np.asarray(arr)
+        if arr.dtype.kind == "V":
+            arr = arr.view(ts.bfloat16.numpy_dtype)
+        elif key in ("__step__", "__kliter__"):
+            arr = arr.astype(np.int32)
+        path = _orbax_path(key)
+        name = ".".join(path)
+        writes.append((ts.open(
+            {"driver": "zarr", "kvstore": dict(kv, path=name + "/"),
+             "dtype": ts.dtype(arr.dtype).name,
+             "metadata": {"shape": list(arr.shape),
+                          "chunks": list(arr.shape),
+                          "compressor": {"id": "zstd", "level": 1}}},
+            create=True, context=ctx, transaction=txn), arr))
+        value = ({"value_type": "np.ndarray", "skip_deserialize": False}
+                 if key in ("__step__", "__kliter__") else
+                 {"value_type": "jax.Array", "skip_deserialize": False,
+                  "write_shape": list(arr.shape)})
+        tree[str(path)] = {"key_metadata": [
+            {"key": p, "key_type": 1 if p.isdigit() else 2} for p in path],
+            "value_metadata": value}
+    for w in [op.result().write(arr) for op, arr in writes]:
+        w.result()
+    txn.commit_async().result()
+    for path in _masked_paths(flat):
+        tree[str(path)] = {
+            "key_metadata": [{"key": p, "key_type": 1 if p.isdigit() else 2}
+                             for p in path],
+            "value_metadata": {"value_type": "None",
+                               "skip_deserialize": True}}
+    with open(os.path.join(directory, "_METADATA"), "w") as f:
+        json.dump({"tree_metadata": tree, "use_ocdbt": True,
+                   "use_zarr3": False,
+                   "store_array_data_equal_to_fill_value": True,
+                   "custom_metadata": None}, f)
+    with open(os.path.join(directory, "_CHECKPOINT_METADATA"), "w") as f:
+        json.dump({"item_handlers": _HANDLER, "metrics": {},
+                   "performance_metrics": {}, "init_timestamp_nsecs": t0,
+                   "commit_timestamp_nsecs": time.time_ns(),
+                   "custom_metadata": {}}, f)
+
+
+def _masked_paths(flat: dict) -> list:
+    """The tree paths of the optimizer state's ``optax.MaskedNode`` leaves:
+    a moment (or master) field's entry for a parameter it holds nothing
+    of.  Orbax records them, and refuses a restore whose tree lacks them."""
+    base = CHAIN_PREFIX if CHAIN_PREFIX + ".count" in flat else FUSED_PREFIX
+    fields = (".mu", ".nu") + ((".master",) if base == FUSED_PREFIX else ())
+    params = [k[len("params/"):] for k in flat if k.startswith("params/")]
+    out = []
+    for field in fields:
+        for p in params:
+            key = f"{base}{field}/{p}"
+            if key not in flat and key + "/.r" not in flat:
+                out.append(_orbax_path(key))
+    return out
+
+
+def read_orbax(directory: str) -> dict:
+    """The npz entries of an Orbax ``StandardCheckpointHandler``
+    checkpoint (bf16 leaves as 2-byte void values with a dtype record)."""
+    ts = _tensorstore()
+    with open(os.path.join(directory, "_METADATA")) as f:
+        tree = json.load(f)["tree_metadata"]
+    ctx = ts.Context()
+    kv = _ocdbt(directory)
+    opens = {}
+    for entry in tree.values():
+        if entry["value_metadata"].get("skip_deserialize"):
+            continue                     # an optax MaskedNode: no array
+        path = [k["key"] for k in entry["key_metadata"]]
+        opens[_npz_key(path)] = ts.open(
+            {"driver": "zarr", "kvstore": dict(kv, path=".".join(path) + "/")},
+            open=True, context=ctx)
+    reads = {key: op.result().read() for key, op in opens.items()}
+    flat = {}
+    for key, r in reads.items():
+        arr = np.asarray(r.result())
+        if arr.dtype == ts.bfloat16.numpy_dtype:
+            flat["__dtype__/" + key] = np.str_("bfloat16")
+            arr = arr.view(np.dtype("V2"))
+        flat[key] = arr
+    return flat
 
 
 def _layout_name(factored: bool) -> str:
@@ -254,14 +412,14 @@ def restore_flat(state, flat: dict, source: str = "checkpoint"):
 
 
 class CheckpointManager:
-    """``backend="npz"``: the flat-archive format above.  The JAX package's
-    ``"orbax"`` backend raises (not ported)."""
+    """``backend="npz"``: the flat-archive format above; ``"orbax"``: the
+    JAX package's Orbax layout (``step_N/orbax``), through tensorstore."""
 
     def __init__(self, directory: str, keep: int = 5,
                  backend: str = "npz"):
         if backend == "orbax":
-            raise _unported("the orbax checkpoint backend")
-        if backend != "npz":
+            _tensorstore()
+        elif backend != "npz":
             raise ValueError(f"unknown checkpoint backend {backend!r}")
         self.directory = directory
         self.keep = keep
@@ -280,6 +438,7 @@ class CheckpointManager:
             m = _STEP_RE.match(name)
             d = os.path.join(self.directory, name)
             if m and (os.path.exists(os.path.join(d, "state.npz"))
+                      or os.path.isdir(os.path.join(d, ORBAX_DIR))
                       or any(_SHARD_RE.match(f) for f in os.listdir(d))):
                 steps.append(int(m.group(1)))
         return sorted(steps)
@@ -310,8 +469,13 @@ class CheckpointManager:
 
         def write():
             tmp = path + ".tmp"
-            os.makedirs(tmp, exist_ok=True)
-            np.savez(os.path.join(tmp, "state.npz"), **flat)
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            if self.backend == "orbax":
+                write_orbax(os.path.join(tmp, ORBAX_DIR), flat)
+            else:
+                np.savez(os.path.join(tmp, "state.npz"), **flat)
             if cfg_json is not None:
                 with open(os.path.join(tmp, "args.json"), "w") as f:
                     f.write(cfg_json)
@@ -352,6 +516,9 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        if self.backend == "orbax":
+            path = os.path.join(self._step_dir(step), ORBAX_DIR)
+            return restore_flat(state, read_orbax(path), source=path)
         path = os.path.join(self._step_dir(step), "state.npz")
         if not os.path.exists(path):
             return self.restore_sharded(state, step)
@@ -374,7 +541,12 @@ class CheckpointManager:
     def save_sharded(self, state, cfg: Optional[Config] = None) -> str:
         """Each rank writes ``shard_h{rank}.npz``: its own blocks of every
         leaf in the flax layout with their slices; nothing is gathered.
-        Rank 0 writes ``args.json`` and drops old steps."""
+        Rank 0 writes ``args.json`` and drops old steps.  The orbax
+        backend writes one Orbax checkpoint of the gathered state."""
+        if self.backend == "orbax":
+            path = self.save(state, cfg, block=True)
+            self._barrier()
+            return path
         self.wait()
         step = int(state.step)
         path = self._step_dir(step)

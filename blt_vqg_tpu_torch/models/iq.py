@@ -54,7 +54,9 @@ def _add_at_0(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 class IQ(nn.Module):
     """``mesh`` (``parallel.build_mesh`` with a ``seq`` axis) turns on ring
     attention in the encoder and decoder self-attentions when
-    ``cfg.sequence_parallel``, with ``cfg.ring_attention_impl``.
+    ``cfg.sequence_parallel``, with ``cfg.ring_attention_impl``; with a
+    ``pipe`` axis and ``cfg.pipeline_stages`` over 1 the decoder runs as a
+    GPipe pipeline (``parallel/pipeline.py``).
     ``cfg.image_encoder`` "vit_b16" takes the ViT (``ops/vit.py``), any
     other value the ResNet-18, as in the JAX package; with
     ``cfg.moe_num_experts`` > 1 the encoders' and the decoder's FFNs are
@@ -98,7 +100,9 @@ class IQ(nn.Module):
             use_pallas_decode=cfg.use_pallas_decode,
             use_stream_decode=cfg.use_stream_decode,
             stream_weight_dtype=cfg.stream_weight_dtype,
-            pipeline_stages=cfg.pipeline_stages)
+            pipeline_stages=cfg.pipeline_stages,
+            pipeline_microbatches=cfg.pipeline_microbatches,
+            pipeline_mesh=mesh if cfg.pipeline_stages > 1 else None)
         self.output_proj = Dense(d, vocab_size, dtype=torch.float32)
         # tie_output_z: one [hidden, vocab] head serves both roles, and the
         # JAX tree then has no z_classifier entry

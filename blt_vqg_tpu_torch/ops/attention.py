@@ -102,7 +102,7 @@ class MultiHeadAttention(nn.Module):
                            and self.num_heads % names["model"] == 0
                            else None),
                 impl=self.ring_impl)
-            return self.out_proj(ctx.reshape(b, tq, self.hidden_dim))
+            return self.out_proj(ctx.reshape(b, tq, -1))
         if self.use_pallas and key_pad_only and no_dropout:
             ctx = flash_attention(q, k, v, kv_pad, causal=self.causal)
             return self.out_proj(ctx.reshape(b, tq, -1))

@@ -84,20 +84,32 @@ def visits(n: int, step: int, rank: int, causal: bool, bidir: bool):
 
 
 @functools.cache
-def ring_plan(n: int, causal: bool, bidir: bool):
+def ring_plan(n: int, causal: bool, bidir: bool, rank=None):
     """The kernels' launches in both directions: for each step, the ranks
     with a live block there, as (rank, visits, first, last) with the rank's
     visits at that step and whether it is the rank's first and its last
     live step (where a carry starts, and where the forward finalizes it).
-    A step with no live rank launches nothing (its hops still run)."""
+    A step with no live rank launches nothing (its hops still run).
+
+    With ``rank``, the plan of that one rank of a ring across processes,
+    relabelled for a process that holds only that rank: its entries name
+    rank 0 and each visit's source ``src - rank``.  Every use of a rank and
+    a source (here and in the kernels) is a slot index or a difference of
+    sequence offsets, so the relabelled plan computes the same blocks."""
     steps = ring_steps(n, bidir)
     live = [[tuple(visits(n, s, r, causal, bidir)) for r in range(n)]
             for s in range(steps)]
-    return tuple(
+    plan = tuple(
         tuple((r, live[s][r], not any(live[u][r] for u in range(s)),
                not any(live[u][r] for u in range(s + 1, steps)))
               for r in range(n) if live[s][r])
         for s in range(steps))
+    if rank is None:
+        return plan
+    return tuple(
+        tuple((0, tuple((i, src - rank) for i, src in vis), first, last)
+              for r, vis, first, last in entries if r == rank)
+        for entries in plan)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -122,7 +134,8 @@ def _validate(ring, q, k, v, pad):
            f"shards q {tuple(q.shape)}, k {tuple(k.shape)}, v "
            f"{tuple(v.shape)} must share one [n, B, C, H, D] shape")
     n, b, c = q.shape[:3]
-    _check(n == ring.n, f"{n} shards on a ring of {ring.n} ranks")
+    _check(n == ring.held, f"{n} shards on a ring that holds {ring.held} "
+                           f"of its {ring.n} ranks here")
     _check(q.dtype in (torch.float32, torch.bfloat16)
            and k.dtype == q.dtype and v.dtype == q.dtype,
            f"dtypes {q.dtype}, {k.dtype}, {v.dtype}")
@@ -228,14 +241,14 @@ class _PlainBwd:
 # the block arithmetic: the kernels of csrc/ring_attention.cu
 
 @functools.cache
-def _step_tables(n: int, causal: bool, bidir: bool):
+def _step_tables(n: int, causal: bool, bidir: bool, rank=None):
     """Each step's ``RingStep`` (None where no rank is live): the plan's
-    entries, and the (entry, visiting block) pairs of the backward's dK/dV
-    launch."""
+    entries (of ``rank`` alone on a ring across processes), and the
+    (entry, visiting block) pairs of the backward's dK/dV launch."""
     from blt_vqg_tpu_torch.ops.kernels import _build
 
     tables = []
-    for entries in ring_plan(n, causal, bidir):
+    for entries in ring_plan(n, causal, bidir, rank):
         if not entries:
             tables.append(None)
             continue
@@ -262,7 +275,7 @@ class _Kernels:
     """What the forward and the backward kernels share: the checks, the
     library, the stream, the step tables and one counted launch."""
 
-    def __init__(self, q, causal, bidir, counter):
+    def __init__(self, q, ring, causal, bidir, counter):
         from blt_vqg_tpu_torch.ops.kernels import _build
 
         n, b, c, h, d = q.shape
@@ -270,11 +283,14 @@ class _Kernels:
                                       f"{MAX_HEAD_DIM} on the kernels)")
         _check(n <= _build.RING_MAX_RANKS,
                f"{n} ranks (at most {_build.RING_MAX_RANKS} on the kernels)")
-        _check(q.stride(0) == c * h * d, "q must hold the ranks' rows")
+        # the rank stride: one held rank (a ring across processes) has
+        # rows of its own, and a dimension of size 1 any stride
+        self.rs = c * h * d if n == 1 else q.stride(0)
+        _check(self.rs == c * h * d, "q must hold the ranks' rows")
         self._check, self.lib = _build.check, _build.library()
         self.stream = torch.cuda.current_stream(q.device).cuda_stream
         self.counter = counter
-        self.tables = _step_tables(n, causal, bidir)
+        self.tables = _step_tables(ring.n, causal, bidir, ring.rank)
 
     def launch(self, entry: str, args) -> None:
         """One kernel launch on the compute stream, counted."""
@@ -287,10 +303,10 @@ class _KernelFwd(_Kernels):
     """The forward kernels: the argument struct is built once per call; a
     step sets its slots and its table of live ranks and launches once."""
 
-    def __init__(self, q, causal, bidir, counter):
+    def __init__(self, q, ring, causal, bidir, counter):
         from blt_vqg_tpu_torch.ops.kernels import _build
 
-        super().__init__(q, causal, bidir, counter)
+        super().__init__(q, ring, causal, bidir, counter)
         n, b, c, h, d = q.shape
         self.q = q          # the struct points at q and the carry: kept alive
         self.acc = _empty_local(q.shape, torch.float32, q.device)
@@ -299,7 +315,7 @@ class _KernelFwd(_Kernels):
         self.l = torch.empty_like(self.m)
         self.args = _build.RingFwdArgs(
             act_bf16=int(q.dtype == torch.bfloat16), causal=int(causal),
-            batch=b, heads=h, chunk=c, dim=d, rs=q.stride(0),
+            batch=b, heads=h, chunk=c, dim=d, rs=self.rs,
             sb=q.stride(1), slot_rs=b * c * h * d, q=q.data_ptr(),
             acc=self.acc.data_ptr(), m=self.m.data_ptr(),
             l=self.l.data_ptr(), o=self.o.data_ptr())
@@ -324,12 +340,12 @@ class _KernelBwd(_Kernels):
     step sets its slots, its riders and its table and launches the dK/dV
     and the dQ kernel once each; one landing launch ends the call."""
 
-    def __init__(self, q, do, m, l, delta, causal, bidir, counter):
+    def __init__(self, q, do, m, l, delta, ring, causal, bidir, counter):
         from blt_vqg_tpu_torch.ops.kernels import _build
 
-        super().__init__(q, causal, bidir, counter)
+        super().__init__(q, ring, causal, bidir, counter)
         n, b, c, h, d = q.shape
-        rows = (q.stride(0) // d, q.stride(1) // d, h, 1)
+        rows = (self.rs // d, q.stride(1) // d, h, 1)
         _check(_laid_out(do, q.stride()), "dO must be laid out as q")
         _check(all(_laid_out(x, rows) for x in (m, l, delta)),
                "m, l and delta must be laid out as q's rows")
@@ -338,7 +354,7 @@ class _KernelBwd(_Kernels):
         self.dq = _empty_local(q.shape, torch.float32, q.device)
         self.args = _build.RingBwdArgs(
             act_bf16=int(q.dtype == torch.bfloat16), causal=int(causal),
-            ranks=n, batch=b, heads=h, chunk=c, dim=d, rs=q.stride(0),
+            ranks=n, batch=b, heads=h, chunk=c, dim=d, rs=self.rs,
             sb=q.stride(1), slot_rs=b * c * h * d, q=q.data_ptr(),
             dout=do.data_ptr(), m=m.data_ptr(), l=l.data_ptr(),
             delta=delta.data_ptr(), dq=self.dq.data_ptr())
@@ -387,10 +403,9 @@ def _ring_fwd(q, k, v, pad, ring, causal: bool, bidir: bool, kernel: bool,
     """(o, m, l) of every rank: o [n, B, C, H, D] in q's dtype, m and the
     safe l [n, B, C, H] f32."""
     _validate(ring, q, k, v, pad)
-    n = q.shape[0]
     q = _local(q)
-    plan = ring_plan(n, causal, bidir)
-    ops = (_KernelFwd(q, causal, bidir, counter) if kernel
+    plan = ring_plan(ring.n, causal, bidir, ring.rank)
+    ops = (_KernelFwd(q, ring, causal, bidir, counter) if kernel
            else _PlainFwd(q, causal, plan))
     chans = _kv_channels(ring, k, v, pad, bidir)
     steps = len(plan)
@@ -418,9 +433,9 @@ def _ring_bwd(q, k, v, pad, o, m, l, do, ring, causal: bool, bidir: bool,
            f"m and l must be f32 [{n}, {b}, {c}, {h}]")
     q, do, m, l = _local(q), _local(do), _local(m), _local(l)
     delta = _local((do.float() * o.float()).sum(dim=-1))
-    plan = ring_plan(n, causal, bidir)
-    ops = (_KernelBwd(q, do, m, l, delta, causal, bidir, counter) if kernel
-           else _PlainBwd(q, do, m, l, delta, causal, plan))
+    plan = ring_plan(ring.n, causal, bidir, ring.rank)
+    ops = (_KernelBwd(q, do, m, l, delta, ring, causal, bidir, counter)
+           if kernel else _PlainBwd(q, do, m, l, delta, causal, plan))
     chans = _kv_channels(ring, k, v, pad, bidir)
     riders = [ring.channel([((2, b, c, h, d), torch.float32)], ch.direction)
               for ch in chans]
@@ -445,8 +460,8 @@ def _ring_bwd(q, k, v, pad, o, m, l, do, ring, causal: bool, bidir: bool,
             else:
                 rc.send(s, hops=-s, out=[homes[i]])
     ring.join()
-    if not bidir:            # home after n hops, in slot n % 2
-        homes = [riders[0].bufs[0][n % 2]]
+    if not bidir:            # home after a hop per rank of the ring
+        homes = [riders[0].bufs[0][ring.n % 2]]
     return ops.land(homes, q.dtype)
 
 

@@ -25,3 +25,21 @@ def causal_mask(length: int, device=None) -> torch.Tensor:
     upper = torch.ones((length, length), dtype=torch.bool,
                        device=device).triu(1)
     return upper[None, None]
+
+
+def decoder_mask(target_tokens: torch.Tensor,
+                 pad_idx: int = 0) -> torch.Tensor:
+    """[B, 1, T, T] bool: position (i, j) masked where j > i or token j is
+    padding (the causal and key-padding masks combined)."""
+    t = target_tokens.shape[1]
+    return pad_mask(target_tokens, pad_idx) | causal_mask(
+        t, target_tokens.device)
+
+
+def apply_mask(logits: torch.Tensor, mask) -> torch.Tensor:
+    """``logits`` with ``MASK_FILL`` where ``mask`` is True (None: as
+    is)."""
+    if mask is None:
+        return logits
+    return torch.where(mask, torch.tensor(MASK_FILL, dtype=logits.dtype,
+                                          device=logits.device), logits)

@@ -26,8 +26,11 @@ names the batch axis of each layout.  A layer's FFN is a mixture of experts
 exceeds 1; such a stack decodes on the plain step only, and the per-layer
 and streaming steps refuse it, as in the JAX package.  The full-sequence
 forwards take ``aux``, a list that each MoE layer appends its
-(balance, router_z) losses to.  Not ported yet (ROADMAP.md): GPipe; asking
-for it raises.
+(balance, router_z) losses to.  With ``pipeline_stages`` over 1 the
+teacher-forced decoder runs its layers as a GPipe pipeline over the
+``pipe`` axis of ``pipeline_mesh`` (``parallel/pipeline.py``), as in the
+JAX package: training and evaluation forwards only (the decode steps run
+the stack whole), and not with MoE FFNs.
 ``remat`` (the JAX package's activation recompute) is not carried: it
 changes memory, not values.
 """
@@ -94,12 +97,6 @@ def layer_moe(i: int, moe_num_experts=0, moe_top_k=2,
     return dict(num_experts=moe_num_experts, top_k=moe_top_k,
                 capacity_factor=moe_capacity_factor,
                 router_noise=moe_router_noise)
-
-
-def _check_unported(pipeline_stages=1):
-    if pipeline_stages > 1:
-        raise NotImplementedError("GPipe is not ported yet (ROADMAP.md "
-                                  "queue 1 item 4)")
 
 
 class EncoderLayer(nn.Module):
@@ -299,7 +296,7 @@ class TransformerDecoder(nn.Module):
                  moe_num_experts=0, attention_dropout=0.1, relu_dropout=0.1,
                  layer_dropout=0.0, input_dropout=0.0, ring_impl="xla",
                  moe_top_k=2, moe_capacity_factor=1.25, moe_router_noise=0.0,
-                 moe_every=1):
+                 moe_every=1, pipeline_microbatches=2, pipeline_mesh=None):
         super().__init__()
         if moe_num_experts > 1:
             if use_stream_decode:
@@ -314,7 +311,9 @@ class TransformerDecoder(nn.Module):
                     "'moe' sow collection, so the load-balance loss would "
                     "be silently dropped — shard experts over an 'expert' "
                     "mesh axis instead (EP replaces PP's memory win here)")
-        _check_unported(pipeline_stages)
+        self.pipeline_stages = pipeline_stages
+        self.pipeline_microbatches = pipeline_microbatches
+        self.pipeline_mesh = pipeline_mesh
         self.hidden_dim, self.num_layers = hidden_dim, num_layers
         self.num_heads, self.pwffn_dim, self.dtype = num_heads, pwffn_dim, dtype
         self.use_stream_decode = use_stream_decode
@@ -345,9 +344,38 @@ class TransformerDecoder(nn.Module):
         x = dropout(x, self.input_dropout, generator)
         x = x + timing_signal(x.shape[1], self.hidden_dim, dtype=x.dtype,
                               device=x.device)
+        if self.pipeline_stages > 1:
+            return self.final_ln(self._pipelined(x, enc_out, src_mask,
+                                                 trg_mask, generator))
         for layer in self.layers:
             x = layer(x, enc_out, src_mask, trg_mask, generator, aux)
         return self.final_ln(x)
+
+    def _pipelined(self, x, enc_out, src_mask, trg_mask, generator):
+        """GPipe over the ``pipe`` axis of ``pipeline_mesh``
+        (``parallel/pipeline.py``): this process runs its stage's layers
+        on each microbatch.  Dropout draws from a (layer, microbatch)
+        stream, a valid stream but not the sequential one, as in JAX."""
+        from blt_vqg_tpu_torch.parallel.pipeline import PIPE, pipeline_apply
+
+        mesh = self.pipeline_mesh
+        if mesh is None or mesh.shape.get(PIPE, 1) != self.pipeline_stages:
+            raise ValueError(
+                f"pipeline_stages={self.pipeline_stages} needs a mesh with a "
+                f"{PIPE!r} axis of that size (IQ(cfg, vocab, mesh)), not "
+                f"{None if mesh is None else dict(mesh.shape)}")
+        layers = self.layers
+
+        def layer_fn(i, x_mb, bargs, gen):
+            enc, src, trg = bargs
+            return layers[i](x_mb, enc, src, trg, gen, None)
+
+        return pipeline_apply(layer_fn,
+                              [list(layer.parameters()) for layer in layers],
+                              x, mesh,
+                              microbatches=self.pipeline_microbatches,
+                              batch_args=(enc_out, src_mask, trg_mask),
+                              generator=generator)
 
     # ---- decode path ----
     def precompute_cross(self, enc_out) -> List[Tuple[torch.Tensor, torch.Tensor]]:

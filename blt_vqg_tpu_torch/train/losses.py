@@ -67,6 +67,41 @@ def broadcast_token_ce(z_logit: torch.Tensor, targets: torch.Tensor,
     return _masked_mean(lse[:, None] - picked, targets, pad_id)
 
 
+def gaussian_kl_to_unit(mus: torch.Tensor, logvars: torch.Tensor,
+                        eps: float = 1e-8) -> torch.Tensor:
+    """KL to the unit normal, summed and divided by the batch size (plus
+    ``eps``), in f32."""
+    mus, logvars = mus.float(), logvars.float()
+    kld = -0.5 * torch.sum(1.0 + logvars - torch.square(mus)
+                           - torch.exp(logvars))
+    return kld / (mus.shape[0] + eps)
+
+
+def vae_loss(logits: torch.Tensor, targets: torch.Tensor, mus: torch.Tensor,
+             logvars: torch.Tensor, pad_id: int = PAD_ID) -> torch.Tensor:
+    """Token cross-entropy plus the KL to the unit normal."""
+    return masked_token_ce(logits, targets, pad_id) + gaussian_kl_to_unit(
+        mus, logvars)
+
+
+def sequence_lengths(tokens: torch.Tensor,
+                     pad_id: int = PAD_ID) -> torch.Tensor:
+    """The non-pad tokens of each row."""
+    return torch.sum(tokens != pad_id, dim=1)
+
+
+def two_gaussian_kl(mu1: torch.Tensor, logvar1: torch.Tensor,
+                    mu2: torch.Tensor, logvar2: torch.Tensor) -> torch.Tensor:
+    """KL between two diagonal Gaussians with the JAX function's epsilons
+    and its sum-then-divide reduction:
+    ``0.5 * sum(logvar2 - logvar1 + (exp(logvar1) + (mu1 - mu2)^2)
+    / (exp(logvar2) + 1e-8) - 1) / (B + 1e-8)``."""
+    num = torch.exp(logvar1) + torch.square(mu1 - mu2)
+    frac = num / (torch.exp(logvar2) + 1e-8)
+    kl = 0.5 * torch.sum(logvar2 - logvar1 + frac - 1.0)
+    return kl / (mu1.shape[0] + 1e-8)
+
+
 def kl_weight_schedule(kliter: int, full_kl_step: int) -> torch.Tensor:
     """tanh KL anneal, computed in f32."""
     k = torch.tensor(float(kliter), dtype=torch.float32)

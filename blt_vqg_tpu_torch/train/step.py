@@ -20,7 +20,8 @@ package's (``loss``, ``rec``, ``img``, ``ppl``, ``kld``, ``aux``, ``elbo``,
 ``moe_balance`` and ``moe_router_z`` with MoE, ``grad_norm`` with
 ``log_grad_norm``, ``skipped_nonfinite`` with ``guard_nonfinite``), as
 device tensors: nothing waits for the card, except ``guard_nonfinite``,
-which reads the loss on the host to decide.  :func:`make_multi_step` runs G
+which selects the state on the device and then reads its flag back for
+the Adam count (a host int).  :func:`make_multi_step` runs G
 such steps in one call, on batches stacked on a leading axis, as eager
 steps (the JAX package scans them in one program).
 
@@ -31,8 +32,12 @@ every random draw is the global one cut to the rank's rows
 (``parallel/collectives.py``), every loss is normalised over the global
 batch, and the gradients are summed over the batch axes (one all-reduce)
 before the norm and the update, which the state's placement shares out
-(ZeRO-1, FSDP).  The metrics are the global values on every rank, so
-``guard_nonfinite`` decides alike everywhere.
+(ZeRO-1, FSDP).  On a ``seq`` axis the ranks of the ring run the step
+alike and attention over their shards (``ops/ring_attention.py``); on a
+``pipe`` axis the decoder's layers run as a pipeline
+(``parallel/pipeline.py``) and their gradients are summed over ``pipe``.
+The metrics are the global values on every rank, so ``guard_nonfinite``
+decides alike everywhere.
 """
 
 from __future__ import annotations
@@ -45,9 +50,9 @@ import numpy as np
 import torch
 
 from blt_vqg_tpu_torch.core.config import Config
+from blt_vqg_tpu_torch.core.debug import guarded_update
 from blt_vqg_tpu_torch.parallel import collectives as col
-from blt_vqg_tpu_torch.parallel.mesh import BATCH_AXES
-from blt_vqg_tpu_torch.train.fused_adam import global_norm
+from blt_vqg_tpu_torch.parallel.mesh import BATCH_AXES, PIPE
 from blt_vqg_tpu_torch.train.losses import compute_losses
 from blt_vqg_tpu_torch.train.state import TrainState
 
@@ -126,23 +131,67 @@ def _unsharded(state):
         state.model)
 
 
-def reduce_gradients(grads: list, mesh) -> list:
-    """The gradients summed over the mesh's batch axes, in one all-reduce
-    per dtype (the single-process gradient of the global loss)."""
+# the parameters of the pipelined stack (ops/transformer.py _pipelined)
+STAGED = "decoder.layer_"
+
+
+def _all_reduce_by_dtype(grads: list, idx: list, group) -> list:
+    """``grads`` with the entries ``idx`` summed over ``group``, in one
+    all-reduce per dtype (an absent gradient as zeros)."""
+    out = list(grads)
+    by_dtype: Dict = {}
+    for i in idx:
+        by_dtype.setdefault(grads[i].dtype, []).append(i)
+    for ids in by_dtype.values():
+        flat = col.all_reduce(torch.cat([grads[i].reshape(-1) for i in ids]),
+                              group)
+        for i, part in zip(ids, flat.split([grads[i].numel() for i in ids])):
+            out[i] = part.view_as(grads[i])
+    return out
+
+
+def reduce_gradients(grads: list, mesh, params: Dict) -> list:
+    """The gradients of ``params`` (by name, in order) summed over the
+    mesh's batch axes, in one all-reduce per dtype (the single-process
+    gradient of the global loss).  On a mesh with a ``pipe`` axis the
+    pipelined decoder layers' gradients, which are non-zero on their own
+    stage only (absent on the others), are summed over ``pipe`` too."""
+    group = mesh.group(PIPE)
+    if group is not None:
+        staged = [i for i, n in enumerate(params) if n.startswith(STAGED)]
+        grads = [torch.zeros_like(p) if g is None and i in staged else g
+                 for i, (g, p) in enumerate(zip(grads, params.values()))]
+        grads = _all_reduce_by_dtype(grads, staged, group)
     group = mesh.group(*BATCH_AXES)
     if group is None:
         return grads
-    out = list(grads)
-    by_dtype: Dict = {}
-    for i, g in enumerate(grads):
-        if g is not None:
-            by_dtype.setdefault(g.dtype, []).append(i)
-    for idx in by_dtype.values():
-        flat = col.all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
-                              group)
-        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
-            out[i] = part.view_as(grads[i])
-    return out
+    return _all_reduce_by_dtype(grads, [i for i, g in enumerate(grads)
+                                        if g is not None], group)
+
+
+def _guarded_apply(state, grads, kliter_inc, stats, loss, metrics):
+    """The update, then every parameter, moment, master and batch
+    statistic selected on the device between the new and the previous
+    value by whether the loss is finite (``core/debug.py``
+    ``guarded_update``); the step and kliter advance either way.  The Adam
+    count is a host int, like the step: ``guarded_update`` reads the flag
+    back for it once the step is enqueued."""
+    params = state.trainable()
+    old = {"params": {n: p.detach().clone() for n, p in params.items()},
+           "buffers": stats, "opt": state.opt_state}
+    state, gnorm = state.apply_gradients_with_norm(grads, kliter_inc)
+    new = {"params": {n: p.detach() for n, p in params.items()},
+           "buffers": dict(state.model.named_buffers()),
+           "opt": state.opt_state}
+    picked, flags = guarded_update(old, new, {"loss": loss.detach()})
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(picked["params"][n])
+        for n, b in new["buffers"].items():
+            b.copy_(picked["buffers"][n])
+    state.opt_state = picked["opt"]
+    return state, gnorm, dict(metrics, skipped_nonfinite=flags[
+        "skipped_nonfinite"])
 
 
 def make_train_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
@@ -181,33 +230,20 @@ def make_train_step(cfg: Config, latent_mode: bool, mesh=None) -> Callable:
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
         if mesh is not None:
-            grads = reduce_gradients(grads, mesh)
+            grads = reduce_gradients(grads, mesh, params)
         if grad_dtype is not None:
             # bf16 gradient storage: the norm and the update read the bf16
             # values; the optimizer promotes them back to f32
             grads = [None if g is None else g.to(grad_dtype) for g in grads]
         grads = dict(zip(params, grads))
         kliter_inc = 1 if latent_mode else 0
-        skipped = stats is not None and not bool(torch.isfinite(loss))
-        if skipped:
-            # keep the previous parameters, moments and statistics; the
-            # step and kliter still advance
-            with torch.no_grad():
-                for n, b in state.model.named_buffers():
-                    b.copy_(stats[n])
-            gnorm = (global_norm(grads, state.opt_state.mu)
-                     if state.placement is None else
-                     state.placement.global_norm(grads,
-                                                 list(state.opt_state.mu)))
-            state.step += 1
-            state.kliter += kliter_inc
-        else:
+        if stats is None:
             state, gnorm = state.apply_gradients_with_norm(grads, kliter_inc)
+        else:
+            state, gnorm, metrics = _guarded_apply(state, grads, kliter_inc,
+                                                   stats, loss, metrics)
         if cfg.log_grad_norm:
             metrics["grad_norm"] = gnorm
-        if stats is not None:
-            metrics["skipped_nonfinite"] = torch.tensor(
-                float(skipped), device=loss.device)
         return state, metrics
 
     return step

@@ -30,9 +30,10 @@ SIGTERM) is taken on values that are equal on every rank.  Logs, metric
 files and checkpoints are written by rank 0 (checkpoints gathered whole
 first).  The validation report gathers its batch's rows and the whole
 weights to rank 0, which decodes and scores as a single process would
-(the per-layer decode kernels take whole weights).  GPipe
-(``pipeline_stages`` > 1) and a ``seq`` axis combined with axes across
-processes raise (ROADMAP.md queue 1, item 4).
+(the per-layer decode kernels take whole weights).  A ``seq`` axis across
+processes rings attention over the ranks' shards, and a ``pipe`` axis
+(``pipeline_stages`` > 1) runs the decoder as a GPipe pipeline; the model
+gets the mesh for either, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ from blt_vqg_tpu_torch.core.rng import RngStream
 from blt_vqg_tpu_torch.data.augment import make_augment_fn
 from blt_vqg_tpu_torch.models.iq import IQ
 from blt_vqg_tpu_torch.parallel import collectives as col
-from blt_vqg_tpu_torch.parallel.mesh import BATCH_AXES, SEQ
+from blt_vqg_tpu_torch.parallel.mesh import BATCH_AXES, PIPE, SEQ
 from blt_vqg_tpu_torch.parallel.sharding import place_state
 from blt_vqg_tpu_torch.serve import check_device
 from blt_vqg_tpu_torch.train.nlg_metrics import NLGEval
@@ -138,12 +139,20 @@ class Trainer:
 
     def __init__(self, cfg: Config, vocab, mesh=None,
                  profile_dir: Optional[str] = None, device="cuda"):
-        wide = [a for a, n in (mesh.shape.items() if mesh is not None
-                               else ()) if n > 1 and a != SEQ]
-        if wide and not mesh.across_processes:
+        spans = [a for a, n in (mesh.shape.items() if mesh is not None
+                                else ()) if n > 1 and a != SEQ]
+        if spans and not mesh.across_processes:
             raise ValueError(
-                f"mesh axes {wide} over 1 span processes: build the mesh "
+                f"mesh axes {spans} over 1 span processes: build the mesh "
                 f"with parallel.mesh.build_mesh over an initialised world")
+        if cfg.pipeline_stages > 1 and (
+                mesh is None
+                or mesh.shape.get(PIPE, 1) != cfg.pipeline_stages):
+            raise ValueError(
+                f"pipeline_stages={cfg.pipeline_stages} needs a mesh with a "
+                f"{PIPE!r} axis of that size, not "
+                f"{None if mesh is None else dict(mesh.shape)}")
+        self.wide = mesh is not None and mesh.across_processes
         self.cfg = cfg
         self.vocab = vocab
         self.mesh = mesh
@@ -161,7 +170,6 @@ class Trainer:
                                   else None)).to(self.device)
         self.rngs = RngStream(cfg.seed)
         self.nlge = NLGEval(no_glove=True, no_skipthoughts=True)
-        self.wide = bool(wide)
         self.is_main = mesh is None or mesh.rank == 0
         self.writer = (MetricWriter(cfg.output_dir) if self.is_main
                        else _NoWriter())

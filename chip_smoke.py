@@ -177,6 +177,24 @@ only when every phase passed):
    and the step time by events (two processes on one card: no measure of
    parallelism across cards).  ZeRO-1, FSDP and EP across ranks run only
    in the CPU tests (tests/test_torch_parallel.py, test_torch_multihost.py).
+19. the ``seq`` ring and GPipe across two processes sharing the card
+   over gloo (the point-to-point transport stages each hop through pinned
+   host buffers there): (a) the flagship latent step at b64 with
+   ``sequence_parallel`` on ``("data", "model", "seq")`` = (1, 1, 2),
+   each process one rank of the ring (the decoder's T 20 rings, C 10 a
+   rank), against the one-process ``LocalRing`` seq 2 step on the same
+   weights, batch and generator within ``P2P_LIMITS``, with a control
+   (another generator) that must fail; the ring and flash launches of
+   each rank equal to what its plan predicts, by counter and profiler;
+   hop bytes and the step time by events; then the four ring functions
+   on the process ring against their plain versions on the same ring at
+   the training shape and at B 2, T 4096 (phase 12's limits); (b) GPipe,
+   ``pipe`` 2 with 2 microbatches, deterministic (dropouts 0): the
+   latent step against the one-process step within ``PIPE_LIMITS`` (the
+   control: another posterior noise), the flash launches of each rank as
+   the schedule predicts (the encoders whole, the stage's 3 layers x 2
+   attentions x 2 microbatches), the step time by events.  Neither
+   measures anything across cards (one card, gloo through the host).
 
 Phase 1 also prints the compiler's registers, shared memory and spills
 of the ring and flash kernels, of the decode kernels' split-K product
@@ -193,6 +211,7 @@ int8 kernels without spills.
 
 ``--train-cli-only`` builds and runs phase 15 alone; ``--parallel-only``
 phase 18 (``--parallel-seeds N`` takes 18b's readings over N seeds);
+``--p2p-only`` phase 19 (``--p2p-seeds N``, its readings over N seeds);
 ``--eval-cli-only``
 builds, runs the 6-step train CLI run and phase 16; ``--variants-only``
 builds, checks phase 1's machine code and runs phase 17 alone.
@@ -1726,13 +1745,31 @@ def ring_pair(bidir: bool):
 
 def check_ring_case(q, k, v, kv_pad, do, n, causal, what: str):
     """The four ring functions and their plain versions on the same
-    tensors; raises unless every output is within the limits.  Returns
-    ({function: max abs error of its own outputs: o; dq, dk and dv}, worst
-    ulps, worst norm error, worst m/l error, and the backward's own worst
-    ulps and norm error)."""
+    tensors, on a ring of n ranks held by this process
+    (:func:`check_ring_shards`)."""
     ring = build_mesh((n,), ("seq",), q.device).ring()
-    qs, ks, vs, ps, dos = (ring_shards(x, n) for x in (q, k, v, kv_pad, do))
-    errs, worst = {}, [0.0] * 5
+    return check_ring_shards(ring, *(ring_shards(x, n) for x in (
+        q, k, v, kv_pad, do)), causal, what)
+
+
+def check_ring_shards(ring, qs, ks, vs, ps, dos, causal, what: str):
+    """The four ring functions and their plain versions on the same shards
+    of the ranks ``ring`` holds; raises unless every output is within the
+    limits.  Returns ({function: max abs error of its own outputs: o; dq,
+    dk and dv}, worst ulps, worst norm error, worst m/l error, and the
+    backward's own worst ulps and norm error).  On a ring across
+    processes the ranks' outputs are gathered first, so the errors are the
+    whole ring's, as phase 12 reads them.  Every function runs before any
+    limit is read, so the ranks make the same hops whatever one of them
+    reads."""
+    from blt_vqg_tpu_torch.parallel import collectives as col
+
+    def whole(x):
+        if ring.rank is None:
+            return x
+        return col.gather_dim(x.contiguous(), ring.group, 0, ring.n)
+
+    errs, worst, failed = {}, [0.0] * 5, []
     for bidir in (False, True):
         fwd, bwd = ring_pair(bidir)
         got = getattr(ra, fwd)(qs, ks, vs, ps, ring=ring, causal=causal,
@@ -1743,6 +1780,8 @@ def check_ring_case(q, k, v, kv_pad, do, n, causal, what: str):
                                  causal=causal)
         ref = getattr(ra, bwd + "_ref")(qs, ks, vs, ps, o, m, l, dos,
                                         ring=ring, causal=causal)
+        got, (o, m, l), grads, ref = ([whole(x) for x in xs] for xs in (
+            got, (o, m, l), grads, ref))
         ulps_b, norm_b = stack_errors(grads, ref)
         ulps, norm = (max(x, y) for x, y in zip(
             stack_errors([got[0]], [o]), (ulps_b, norm_b)))
@@ -1752,18 +1791,47 @@ def check_ring_case(q, k, v, kv_pad, do, n, causal, what: str):
             ml = math.inf
         if not (ulps <= RING_MAX_ULPS and norm <= RING_REL_NORM
                 and ml <= RING_ML_REL):
-            raise AssertionError(f"ring {what} ({'two' if bidir else 'one'}"
-                                 f"-way): max err {ulps:.3g} bf16 ulps, rel "
-                                 f"norm err {norm:.3g}, m/l rel err {ml:.3g}")
+            failed.append(f"ring {what} ({'two' if bidir else 'one'}-way): "
+                          f"max err {ulps:.3g} bf16 ulps, rel norm err "
+                          f"{norm:.3g}, m/l rel err {ml:.3g}")
         if bool((~live).any()) and not bool(got[0][~live].any()):
-            raise AssertionError(f"ring {what}: dead rows came out zero (the "
-                                 f"ring attends uniformly there)")
+            failed.append(f"ring {what}: dead rows came out zero (the ring "
+                          f"attends uniformly there)")
         abs_err = [float((g.float() - w.float()).abs().max())
                    for g, w in zip([got[0], *grads], [o, *ref])]
         errs[fwd], errs[bwd] = abs_err[0], max(abs_err[1:])
         for i, val in enumerate((ulps, norm, ml, ulps_b, norm_b)):
             worst[i] = max(worst[i], val)
+    if failed:
+        raise AssertionError("; ".join(failed))
     return (errs, *worst)
+
+
+def ring_f32_errors(ring, qs, ks, vs, ps, dos, causal) -> dict:
+    """The two-way kernels (bf16) and their plain version (bf16), each
+    against the plain version in f32 on the same inputs: relative norm
+    errors of o, dq, dk and dv (which of the two rounds further from the
+    f32 result)."""
+    f32 = [x.float() if x.is_floating_point() else x
+           for x in (qs, ks, vs, ps, dos)]
+    want_o, wm, wl = ra.ring_attention_fwd_bidir_shard_ref(
+        *f32[:4], ring=ring, causal=causal)
+    want = [want_o, *ra.ring_attention_bwd_bidir_shard_ref(
+        *f32[:4], want_o, wm, wl, f32[4], ring=ring, causal=causal)]
+    out = {}
+    for tag, fwd, bwd in (
+            ("kernel", ra.ring_attention_fwd_bidir_shard,
+             ra.ring_attention_bwd_bidir_shard),
+            ("plain", ra.ring_attention_fwd_bidir_shard_ref,
+             ra.ring_attention_bwd_bidir_shard_ref)):
+        o, m, l = fwd(qs, ks, vs, ps, ring=ring, causal=causal,
+                      **({"return_lse": True} if tag == "kernel" else {}))
+        got = [o, *bwd(qs, ks, vs, ps, o, m, l, dos, ring=ring,
+                       causal=causal)]
+        out[tag] = {name: float((g.float() - w).norm() / w.norm())
+                    for name, g, w in zip(("o", "dq", "dk", "dv"), got,
+                                          want)}
+    return out
 
 
 def ring_phase(dev, log, seeds: int):
@@ -3758,6 +3826,59 @@ def parallel_cli_phase(dev, card, log, data: dict, root: str) -> dict:
     return out
 
 
+def metric_rel(m: dict, want: dict, key: str) -> float:
+    return abs(float(m[key]) - float(want[key])) / abs(float(want[key]))
+
+
+def state_errors(state, ref, m: dict, ref_m: dict) -> dict:
+    """A step's state and metrics against the one-process step's: loss and
+    grad norm relative; batch-norm statistics and updated parameters
+    relative to each tensor's largest magnitude; first moments relative to
+    the largest moment (a gradient that is 0 in exact arithmetic, the fc
+    bias before the train-mode batch norm, is rounding noise), with the
+    three largest (name, of the largest moment, of its own max)."""
+    pl = state.placement
+    want_p = dict(ref.model.named_parameters())
+    par = 0.0
+    for name, p in state.model.named_parameters():
+        w = pl.local(want_p[name].data, pl.store[name]).float()
+        scale = float(w.abs().max()) or 1.0
+        par = max(par, float((p.data.float() - w).abs().max()) / scale)
+    want_b = dict(ref.model.named_buffers())
+    bn = 0.0
+    for name, b in state.model.named_buffers():
+        w = want_b[name].float()
+        scale = float(w.abs().max()) or 1.0
+        bn = max(bn, float((b.float() - w).abs().max()) / scale)
+    want_mu = pl.place_opt(ref.opt_state).mu
+    errs = sorted(((float((v.float() - want_mu[name].float()).abs().max()),
+                    float(want_mu[name].float().abs().max()), name)
+                   for name, v in state.opt_state.mu.items()), reverse=True)
+    top = max(w for _, w, _ in errs)
+    return {"loss": float(m["loss"]), "loss_ref": float(ref_m["loss"]),
+            "loss_rel": metric_rel(m, ref_m, "loss"),
+            "grad_norm_rel": metric_rel(m, ref_m, "grad_norm"),
+            "bn_rel": bn, "params_rel": par, "mu_rel": errs[0][0] / top,
+            "worst_mu": [(n, e / top, e / (w or 1.0))
+                         for e, w, n in errs[:3]]}
+
+
+def worst_reading(old, reading: dict) -> dict:
+    """``reading``, or where ``old`` (an earlier seed's) is worse, its
+    values: the largest errors and step time, the smallest control."""
+    if old is None:
+        return reading
+    for k in ("loss_rel", "grad_norm_rel", "bn_rel", "params_rel", "mu_rel",
+              "step_ms"):
+        reading[k] = max(reading[k], old[k])
+    if old["mu_rel"] >= reading["mu_rel"]:
+        reading["worst_mu"] = old["worst_mu"]
+    reading["control_loss_rel"] = min(reading["control_loss_rel"],
+                                      old["control_loss_rel"])
+    reading["seeds"] = old["seeds"] + 1
+    return reading
+
+
 def parallel_rank(out_dir: str, seeds: int = 1) -> None:
     """One of the two processes of phase 18b on card 0, joined over an
     explicitly chosen gloo group: the flagship latent step at b64 on a
@@ -3804,40 +3925,12 @@ def parallel_rank(out_dir: str, seeds: int = 1) -> None:
             if evt.device_type == torch.autograd.DeviceType.CUDA:
                 fam = kernel_family(evt.key, FLASH_STEP_KERNELS)
                 fams[fam] = fams.get(fam, 0) + evt.count
-        pl = state.placement
-        want_p = dict(ref.model.named_parameters())
-        par = 0.0
-        for name, p in state.model.named_parameters():
-            w = pl.local(want_p[name].data, pl.store[name]).float()
-            scale = float(w.abs().max()) or 1.0
-            par = max(par, float((p.data.float() - w).abs().max()) / scale)
-        want_b = dict(ref.model.named_buffers())
-        bn = 0.0
-        for name, b in state.model.named_buffers():
-            w = want_b[name].float()
-            scale = float(w.abs().max()) or 1.0
-            bn = max(bn, float((b.float() - w).abs().max()) / scale)
-        # the first moments, (1 - b1) times the gradients, against the
-        # largest of them (a gradient that is 0 in exact arithmetic, the fc
-        # bias before the train-mode batch norm, is rounding noise)
-        want_mu = pl.place_opt(ref.opt_state).mu
-        errs = sorted(((float((v.float() - want_mu[name].float()).abs()
-                              .max()),
-                        float(want_mu[name].float().abs().max()), name)
-                       for name, v in state.opt_state.mu.items()),
-                      reverse=True)
-        top = max(w for _, w, _ in errs)
-        mu = errs[0][0] / top
-        worst_mu = [(n, e / top, e / (w or 1.0)) for e, w, n in errs[:3]]
-
-        def rel(k, want=ref_m):
-            return abs(float(m[k]) - float(want[k])) / abs(float(want[k]))
-
+        errs = state_errors(state, ref, m, ref_m)
         # the control: the one-process step with other dropout masks
         other = create_train_state(cfg, IQ(cfg, vocab).to(dev), seed=seed)
         _, other_m = make_train_step(cfg, True)(
             other, batch, torch.Generator(dev).manual_seed(seed + 99))
-        control = rel("loss", other_m)
+        control = metric_rel(m, other_m, "loss")
         del ref, other
         torch.cuda.empty_cache()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -3849,26 +3942,12 @@ def parallel_rank(out_dir: str, seeds: int = 1) -> None:
         ev[1].record()
         ev[1].synchronize()
         reading = {
-            "loss": float(m["loss"]), "loss_ref": float(ref_m["loss"]),
-            "loss_rel": rel("loss"), "grad_norm_rel": rel("grad_norm"),
-            "bn_rel": bn, "params_rel": par, "mu_rel": mu,
-            "worst_mu": worst_mu, "control_loss_rel": control,
-            "launches": launches,
+            **errs, "control_loss_rel": control, "launches": launches,
             "profiled": {k: fams.get(k, 0) for k in FLASH_STEP_KERNELS},
             "step_ms": ev[0].elapsed_time(ev[1]) / PAR_TIMED_STEPS,
             "rows": n, "heads": state.model.decoder.layers[0].self_attn
             .num_heads, "seeds": 1}
-        old = result.get(tag)
-        if old is not None:     # the worst reading over the seeds
-            for k in ("loss_rel", "grad_norm_rel", "bn_rel", "params_rel",
-                      "mu_rel", "step_ms"):
-                reading[k] = max(reading[k], old[k])
-            if old["mu_rel"] > mu:
-                reading["worst_mu"] = old["worst_mu"]
-            reading["control_loss_rel"] = min(control,
-                                              old["control_loss_rel"])
-            reading["seeds"] = old["seeds"] + 1
-        result[tag] = reading
+        result[tag] = worst_reading(result.get(tag), reading)
         del state, step
         torch.cuda.empty_cache()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -3876,12 +3955,10 @@ def parallel_rank(out_dir: str, seeds: int = 1) -> None:
     torch.distributed.destroy_process_group()
 
 
-def parallel_pair_phase(dev, card, log, root: str, seeds: int = 1) -> dict:
-    """Phase 18b: two processes on the one card (gloo, which takes
-    all-reduces of CUDA tensors; NCCL refuses two ranks on one GPU), each
-    running :func:`parallel_rank`; the flash kernels must run in both
-    ranks and the steps match the one-process step within
-    ``PAR_LIMITS``."""
+def run_pair(args: list, root: str, tag: str, timeout: float = 600):
+    """Starts this script twice with ``args`` as ranks 0 and 1 of a world
+    of 2 on card 0, waits for both (killing both past ``timeout`` s) and
+    returns (their ``root/rank{r}.json`` results, the wall seconds)."""
     import socket
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -3891,27 +3968,38 @@ def parallel_pair_phase(dev, card, log, root: str, seeds: int = 1) -> dict:
         env = dict(_child_env(), RANK=str(r), WORLD_SIZE="2", LOCAL_RANK="0",
                    MASTER_ADDR="localhost", MASTER_PORT=str(port))
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
-             root, "--parallel-seeds", str(seeds)], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+            [sys.executable, os.path.abspath(__file__), *args], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     t0 = time.perf_counter()
     outs = []
     try:
         for p in procs:
             outs.append(p.communicate(timeout=max(
-                10.0, 600 - (time.perf_counter() - t0)))[0])
+                10.0, timeout - (time.perf_counter() - t0)))[0])
     finally:
         for p in procs:
             p.kill()
     wall = time.perf_counter() - t0
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise AssertionError(f"[18b] rank {r} exited {p.returncode}:\n"
-                                 f"{text[-4000:]}")
+    failed = [f"rank {r} exited {p.returncode}:\n{text[-4000:]}"
+              for r, (p, text) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    if failed:
+        raise AssertionError(f"[{tag}] " + "\n".join(failed))
     results = []
     for r in range(2):
         with open(os.path.join(root, f"rank{r}.json")) as f:
             results.append(json.load(f))
+    return results, wall
+
+
+def parallel_pair_phase(dev, card, log, root: str, seeds: int = 1) -> dict:
+    """Phase 18b: two processes on the one card (gloo, which takes
+    all-reduces of CUDA tensors; NCCL refuses two ranks on one GPU), each
+    running :func:`parallel_rank`; the flash kernels must run in both
+    ranks and the steps match the one-process step within
+    ``PAR_LIMITS``."""
+    results, wall = run_pair(["--parallel-rank", root, "--parallel-seeds",
+                              str(seeds)], root, "18b")
     for tag in ("data 2", "model 2"):
         for res in results:
             got = res[tag]
@@ -3976,6 +4064,277 @@ def parallel_phase(dev, card, log, seeds: int = 1) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+# ---------------------------------------------------------------------------
+# the seq ring and GPipe across processes (phase 19)
+
+P2P_SEQ = 2           # the decoder's T 20 rings over 2 processes, C 10 a rank
+# (what, B, ranks, chunk, causal, pads): rows 6a-6d on the process ring,
+# at the training shape and at phase 12's long chunk (1,024), within phase
+# 12's limits; and at chunk 2,048, where the kernels and the plain version
+# are each held against the plain version in f32 (P2P_F32_CASE)
+P2P_RING_CASES = (
+    ("training: T 20 on seq 2, causal, target pads", BATCH, P2P_SEQ, 10,
+     True, "tail"),
+    ("long: T 2048 on seq 2, causal, 10% trailing pads", 2, P2P_SEQ, 1024,
+     True, "long"))
+P2P_F32_CASE = ("longer: T 4096 on seq 2, causal, 10% trailing pads", 2,
+                P2P_SEQ, 2048, True, "long")
+# the 2-process steps against the one-process step on the same weights,
+# batch and generator (state_errors' measures), bf16 compute.  seq 2: the
+# one-process step rings the same shards on a LocalRing.  pipe 2: each
+# microbatch's products run over 32 rows, the one-process step's over 64.
+# Readings over 3 seeds (NVIDIA H100 80GB HBM3, 700.00 W; both ranks
+# alike), seq 2 / pipe 2: loss 0 / 0, grad norm 1.85e-5 / 9.18e-6,
+# statistics 0 / 0, parameters 0 / 0, first moments 4.56e-3 / 4.32e-3 (the
+# gradients of a tensor used by several products sum in another order);
+# the one-process step with another generator reads 5.86e-4 / 1.04e-3 on
+# the loss and must fail its limit.
+P2P_LIMITS = {"loss": 5e-5, "grad_norm": 1e-4, "bn": 1e-4, "params": 1e-4,
+              "mu": 0.02}
+PIPE_LIMITS = dict(P2P_LIMITS)
+# chunk 2,048: each output of the kernels within this factor of the plain
+# version's own relative norm error against the plain version in f32
+# (readings, ranks 0 / 1, kernels against plain: o 2.02e-3 / 2.26e-3
+# against 2.04e-3 / 2.28e-3, dq 1.79e-3 / 1.67e-3 against the same to 3
+# digits, dk and dv alike)
+RING_F32_FACTOR = 1.1
+P2P_TIMED_STEPS = 2
+RING_P2P_KERNELS = RING_MMA + ("ring_land_kernel",)
+
+
+def profiled_counts(prof, families) -> dict:
+    """Launches a profile recorded of each of ``families``."""
+    fams = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            fam = kernel_family(evt.key, families)
+            fams[fam] = fams.get(fam, 0) + evt.count
+    return {k: fams.get(k, 0) for k in families}
+
+
+def p2p_step(cfg, ref_cfg, mesh, ref_mesh, vocab, seed, dev, families):
+    """One flagship latent step on ``mesh`` (this rank's process group)
+    against the one-process step of ``ref_cfg`` on ``ref_mesh``, same
+    weights, batch and generator; the control: the one-process step with
+    another generator.  Returns (the readings, the launch counts and the
+    profiled ones of the step, its state and step function)."""
+    from blt_vqg_tpu_torch.parallel.sharding import place_state
+    batch = make_batch(cfg, vocab, BATCH, np.random.RandomState(seed + 19),
+                       device=dev)
+    ref = create_train_state(ref_cfg, IQ(ref_cfg, vocab, ref_mesh).to(dev),
+                             seed=seed)
+    ref, ref_m = make_train_step(ref_cfg, True)(
+        ref, batch, torch.Generator(dev).manual_seed(seed + 1))
+    state = place_state(create_train_state(
+        cfg, IQ(cfg, vocab, mesh).to(dev), seed=seed), mesh)
+    step = make_train_step(cfg, True, mesh)
+    zero_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, m = step(state, batch,
+                        torch.Generator(dev).manual_seed(seed + 1))
+        torch.cuda.synchronize()
+    launches = ring_counts()
+    errs = state_errors(state, ref, m, ref_m)
+    other = create_train_state(ref_cfg, IQ(ref_cfg, vocab, ref_mesh).to(dev),
+                               seed=seed)
+    _, other_m = make_train_step(ref_cfg, True)(
+        other, batch, torch.Generator(dev).manual_seed(seed + 99))
+    errs["control_loss_rel"] = metric_rel(m, other_m, "loss")
+    del ref, other
+    torch.cuda.empty_cache()
+    return errs, launches, profiled_counts(prof, families), (state, step,
+                                                             batch)
+
+
+def timed_steps(state, step, batch, seed: int) -> float:
+    """ms per step by CUDA events over P2P_TIMED_STEPS steps, both ranks
+    started together."""
+    dev = batch["images"].device
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.distributed.barrier()
+    ev[0].record()
+    for i in range(P2P_TIMED_STEPS):
+        state, _ = step(state, batch,
+                        torch.Generator(dev).manual_seed(seed + 2 + i))
+    ev[1].record()
+    ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1]) / P2P_TIMED_STEPS
+
+
+def p2p_rank(out_dir: str, seeds: int = 1, device="cuda") -> None:
+    """One of the two processes of phase 19 on card 0 (gloo): (a) the
+    ``seq`` 2 latent step against the one-process ``LocalRing`` step, then
+    the ring functions on the process ring against their plain versions;
+    (b) the ``pipe`` 2 latent step against the one-process step; ``seeds``
+    weight and batch seeds (the worst reading is kept).  Writes its
+    readings to ``out_dir/rank{r}.json``."""
+    from blt_vqg_tpu_torch.core.distributed import initialize_distributed
+    from blt_vqg_tpu_torch.parallel.mesh import Mesh
+    rank = int(os.environ["RANK"])
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    initialize_distributed(device=dev.type, backend="gloo", local_rank=0,
+                           timeout_s=300)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    vocab = serve.FLAGSHIP_VOCAB
+    base = serve.flagship_config().replace(use_pallas_attention=True,
+                                           attention_dropout=0.0)
+    result = {"rank": rank, "backend": torch.distributed.get_backend()}
+    # (a) the seq ring: each process one rank
+    scfg = base.replace(sequence_parallel=True, ring_attention_impl="pallas")
+    mesh = build_mesh((1, 1, P2P_SEQ), ("data", "model", "seq"), device=dev)
+    ring = mesh.ring("seq")
+    for i in range(seeds):
+        hop0 = ring.hop_bytes
+        errs, launches, prof, run = p2p_step(
+            scfg, scfg, mesh, Mesh({"seq": P2P_SEQ}, dev), vocab, SEED + i,
+            dev, RING_P2P_KERNELS + FLASH_STEP_KERNELS)
+        hops = ring.hop_bytes - hop0
+        reading = {**errs, "launches": launches, "profiled": prof,
+                   "hop_bytes": hops, "step_ms": timed_steps(*run, SEED + i),
+                   "ring": [type(ring).__name__, ring.rank, ring.n],
+                   "seeds": 1}
+        result["seq 2"] = worst_reading(result.get("seq 2"), reading)
+        del run
+        torch.cuda.empty_cache()
+    rows = {}
+    for case in P2P_RING_CASES + (P2P_F32_CASE,):
+        what, b, n, c, causal, pad = case
+        q, k, v, kv_pad, do = ring_inputs(dev, b, n, c, pad, SEED + 19)
+        own = [x[:, ring.rank * c:(ring.rank + 1) * c][None].contiguous()
+               for x in (q, k, v, kv_pad, do)]
+        if case is P2P_F32_CASE:
+            rows[what] = {"f32": ring_f32_errors(ring, *own, causal)}
+            continue
+        try:
+            errs, *readings = check_ring_shards(ring, *own, causal, what)
+        except AssertionError as e:
+            rows[what] = {"error": str(e)}
+            continue
+        rows[what] = {"err": errs, **dict(zip(
+            ("ulps", "norm", "ml", "bwd_ulps", "bwd_norm"), readings))}
+    result["ring functions"] = rows
+    # (b) GPipe: each process one stage, deterministic
+    pcfg = base.replace(relu_dropout=0.0, pipeline_stages=2,
+                        pipeline_microbatches=2)
+    pmesh = build_mesh((2,), ("pipe",), device=dev)
+    for i in range(seeds):
+        errs, launches, prof, run = p2p_step(
+            pcfg, pcfg.replace(pipeline_stages=1), pmesh, None, vocab,
+            SEED + i, dev, FLASH_STEP_KERNELS)
+        reading = {**errs, "launches": launches, "profiled": prof,
+                   "step_ms": timed_steps(*run, SEED + i), "seeds": 1}
+        result["pipe 2"] = worst_reading(result.get("pipe 2"), reading)
+        del run
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    torch.distributed.destroy_process_group()
+
+
+def p2p_want(rank: int, nl: int) -> tuple:
+    """The launches a rank's latent step asks for: (seq 2, pipe 2).  seq:
+    per decoder self-attention the ring forward launches once per step of
+    the rank's plan with a live block and the backward a dK/dV and a dQ
+    kernel there and one landing kernel; flash takes the context and
+    posterior encoders and the cross-attentions.  pipe: flash takes the
+    encoders whole and the stage's nl / 2 layers' self- and
+    cross-attentions on each of the 2 microbatches."""
+    live = sum(1 for entries in ra.ring_plan(P2P_SEQ, True, True, rank)
+               if entries)
+    flash = {name: 3 * nl for name in FLASH_KERNELS}
+    seq = {name: 0 for name in RING_KERNELS} | flash | {
+        "ring_attention_fwd_bidir_shard": nl * live,
+        "ring_attention_bwd_bidir_shard": nl * (2 * live + 1)}
+    seq_prof = {"ring_fwd_mma_kernel": nl * live,
+                "ring_bwd_dkdv_mma_kernel": nl * live,
+                "ring_bwd_dq_mma_kernel": nl * live,
+                "ring_land_kernel": nl} | dict(zip(FLASH_MMA, [3 * nl] * 3))
+    per = 2 * nl + (nl // 2) * 2 * 2
+    pipe = {name: 0 for name in RING_KERNELS} | {
+        name: per for name in FLASH_KERNELS}
+    return (seq, seq_prof), (pipe, dict(zip(FLASH_MMA, [per] * 3)))
+
+
+def p2p_phase(dev, card, log, seeds: int = 1) -> dict:
+    """Phase 19: two processes on the one card (gloo; NCCL refuses two
+    ranks on one GPU), each running :func:`p2p_rank`; the readings within
+    the limits, the launches as the plans predict, the controls failing."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_p2p_")
+    try:
+        results, wall = run_pair(["--p2p-rank", root, "--p2p-seeds",
+                                  str(seeds)], root, "19")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    nl = serve.flagship_config().num_layers
+    for res in results:
+        r = res["rank"]
+        for tag, limits, (want, want_prof) in zip(
+                ("seq 2", "pipe 2"), (P2P_LIMITS, PIPE_LIMITS),
+                p2p_want(r, nl)):
+            got = res[tag]
+            prof = got["profiled"]
+            bad = {k: v for k, v in got["launches"].items() if v != want[k]}
+            bad.update({k: prof.get(k, 0) for k, n in want_prof.items()
+                        if not PROFILE_MIN_SHARE * n <= prof.get(k, 0) <= n})
+            bad.update({k: prof[k] for k in FLASH_FMA if prof.get(k)})
+            over = {k: got[f"{k}_rel"] for k in limits
+                    if not got[f"{k}_rel"] <= limits[k]}
+            if not got["control_loss_rel"] > limits["loss"]:
+                over["control (must fail)"] = got["control_loss_rel"]
+            extra = (f", ring {got['ring']}, hop bytes {got['hop_bytes']}"
+                     if tag == "seq 2" else "")
+            log(f"[19] {card}: {tag} (backend {res['backend']}), rank {r}: "
+                f"loss {got['loss']:.6g} against the one-process "
+                f"{got['loss_ref']:.6g} (relative {got['loss_rel']:.3g}), "
+                f"grad norm relative {got['grad_norm_rel']:.3g}, batch-norm "
+                f"statistics {got['bn_rel']:.3g}, updated parameters "
+                f"{got['params_rel']:.3g}, first moments {got['mu_rel']:.3g}"
+                f" (limits {limits}; worst of {got['seeds']} seeds; largest "
+                f"moment errors {got['worst_mu']}); control, another "
+                f"generator: loss relative {got['control_loss_rel']:.3g}; "
+                f"launches {got['launches']}, by profiler {prof}{extra}; "
+                f"step {got['step_ms']:.1f} ms (CUDA events, mean of "
+                f"{P2P_TIMED_STEPS} steps, the slowest seed's)")
+            if bad or over:
+                raise AssertionError(f"[19] {tag} rank {r}: launches {bad}, "
+                                     f"over limits {over}")
+        for what, row in res["ring functions"].items():
+            if "f32" in row:
+                k, p = row["f32"]["kernel"], row["f32"]["plain"]
+                log(f"[19] {card}: ring functions on the process ring, rank "
+                    f"{r}, {what} (H 8, Dh 128), two-way, against the plain "
+                    f"version in f32, relative norm errors: the kernels "
+                    f"(bf16) {k}, the plain version (bf16) {p} (limit: the "
+                    f"kernels' within {RING_F32_FACTOR}x the plain "
+                    f"version's)")
+                over = {n: (k[n], p[n]) for n in k
+                        if not k[n] <= RING_F32_FACTOR * p[n]}
+                if over:
+                    raise AssertionError(f"[19] rank {r}, {what}: the "
+                                         f"kernels round further from f32 "
+                                         f"than the plain version: {over}")
+                continue
+            if "error" in row:
+                raise AssertionError(f"[19] rank {r}: {row['error']}")
+            log(f"[19] {card}: ring functions on the process ring, rank {r},"
+                f" {what} (B per case, H 8, Dh 128): max err "
+                f"{row['ulps']:.3g} bf16 ulps, relative norm error "
+                f"{row['norm']:.3g}, m/l {row['ml']:.3g} (limits "
+                f"{RING_MAX_ULPS}, {RING_REL_NORM}, {RING_ML_REL}); max abs "
+                f"err: " + ", ".join(
+                    f"{k.replace('ring_attention_', '')} {v:.3g}"
+                    for k, v in row["err"].items()))
+    log(f"[19] {card}: both ranks done in {wall:.1f} s (host clock); two "
+        f"processes on one card over gloo, whose hops and all-reduces go "
+        f"through the host: no measure of a ring or a pipeline across cards")
+    return {"results": results, "wall_s": wall}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--flash-seeds", type=int, default=3,
@@ -4031,6 +4390,15 @@ def main(argv=None):
                         help="weight and batch seeds of phase 18b's "
                         "two-process steps (more seeds take readings for "
                         "limits)")
+    parser.add_argument("--p2p-only", action="store_true",
+                        help="build, run phase 19 (the seq ring and GPipe "
+                        "across two processes) and stop (no result line)")
+    parser.add_argument("--p2p-rank", type=str, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--p2p-seeds", type=int, default=1,
+                        help="weight and batch seeds of phase 19's "
+                        "two-process steps (more seeds take readings for "
+                        "limits)")
     parser.add_argument("--eval-cli-only", action="store_true",
                         help="build, run the 6-step train CLI run phase 16 "
                         "needs, then phase 16 (the evaluation and tune "
@@ -4039,6 +4407,10 @@ def main(argv=None):
     if opts.parallel_rank is not None:
         # one rank of phase 18b, started by the phase itself
         parallel_rank(opts.parallel_rank, opts.parallel_seeds)
+        return
+    if opts.p2p_rank is not None:
+        # one rank of phase 19, started by the phase itself
+        p2p_rank(opts.p2p_rank, opts.p2p_seeds)
         return
     card = card_line()
     log(f"card: {card}")
@@ -4082,6 +4454,9 @@ def main(argv=None):
         return
     if opts.parallel_only:
         parallel_phase(dev, card, log, opts.parallel_seeds)
+        return
+    if opts.p2p_only:
+        p2p_phase(dev, card, log, opts.p2p_seeds)
         return
     if opts.variants_only:
         mma_code(lib_path, report)
@@ -4420,6 +4795,8 @@ def main(argv=None):
                                                opts.variant_seeds)
     # ---- 18. data and tensor parallelism across processes
     parallel_phase(dev, card, log, opts.parallel_seeds)
+    # ---- 19. the seq ring and GPipe across processes
+    p2p_phase(dev, card, log, opts.p2p_seeds)
 
     # decode kernels in their main-path forms: bf16 stack weights, int8
     # head; one call each (the stack at pos 25).  The flash kernels: the

@@ -1,4 +1,5 @@
-"""The port's ``CheckpointManager`` (npz) against the JAX package's.
+"""The port's ``CheckpointManager`` (npz and orbax) against the JAX
+package's.
 
 - A checkpoint the JAX ``CheckpointManager`` wrote restores into the port's
   train state, and one the port wrote restores into a JAX ``TrainState``
@@ -10,10 +11,13 @@
 - ``on_disk_param_dtype="bfloat16"``: the parameters on disk are bf16
   (void values with a dtype record), the moments are not, and both
   packages restore them, cast back to f32, exactly.
+- The orbax backend (through tensorstore): a JAX Orbax checkpoint restores
+  into the port's train state, and the port's into a JAX template, bit for
+  bit, in the three layouts; the port's has Orbax's files and the sidecars.
 - Retention of the ``keep`` newest steps, asynchronous writes (the host
   copy is taken at the call), the sidecar files, the layout check on
-  ``adam_factored_nu`` (a clear message naming both layouts) and the
-  unported backends.
+  ``adam_factored_nu`` (a clear message naming both layouts), an unknown
+  backend, and the orbax backend's error where tensorstore is missing.
 """
 
 import json
@@ -161,6 +165,12 @@ def test_jax_restores_port_checkpoint(tmp_path, init_shapes, layout):
     got = JaxManager(str(tmp_path)).restore(template)
     want = train_state_to_flax(state, masked=optax.MaskedNode(),
                                factored=jfa.FactoredNu)
+    _assert_jax_equals(got, want)
+
+
+def _assert_jax_equals(got, want):
+    """A restored JAX ``TrainState`` equals ``train_state_to_flax``'s
+    trees, leaf by leaf."""
     assert (int(got.step), int(got.kliter), int(got.opt_state.count)) == (
         want["step"], want["kliter"], want["count"])
     is_leaf = lambda x: isinstance(x, (optax.MaskedNode, jfa.FactoredNu))
@@ -244,9 +254,47 @@ def test_optimizer_layout_mismatch_fails_clearly(tmp_path, saved, restored):
             and "adam_factored_nu=False" in msg), msg
 
 
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_port_restores_jax_orbax_checkpoint(tmp_path, init_shapes, layout):
+    jstate = _jax_state(init_shapes, layout, seed=1)
+    JaxManager(str(tmp_path), backend="orbax").save(jstate,
+                                                    JaxConfig(**TINY))
+    mgr = CheckpointManager(str(tmp_path), backend="orbax")
+    assert mgr.all_steps() == [7]
+    got = mgr.restore(_port_state(layout))
+    want = load_train_state(_port_state(layout), jstate)
+    _assert_states_equal(got, want)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_jax_restores_port_orbax_checkpoint(tmp_path, init_shapes, layout):
+    state = _fill_port(_port_state(layout), seed=2)
+    mgr = CheckpointManager(str(tmp_path), backend="orbax", keep=1)
+    mgr.save(state, Config(**TINY), extra={"step": 7}, block=False)
+    mgr.wait()
+    d = tmp_path / "step_7"
+    assert {"args.json", "extra.json", "orbax"} <= set(os.listdir(d))
+    assert {"_METADATA", "_CHECKPOINT_METADATA", "manifest.ocdbt",
+            "d"} <= set(os.listdir(d / "orbax"))
+    template = _jax_state(init_shapes, layout, seed=3)
+    got = JaxManager(str(tmp_path), backend="orbax").restore(template)
+    want = train_state_to_flax(state, masked=optax.MaskedNode(),
+                               factored=jfa.FactoredNu)
+    _assert_jax_equals(got, want)
+    # and the port reads its own back, bit for bit
+    _assert_states_equal(mgr.restore(_port_state(layout)), state)
+
+
 def test_unported_backends_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CheckpointManager(str(tmp_path), backend="orbax")
+    from blt_vqg_tpu_torch.core import checkpoint as ck
+    with pytest.raises(ValueError, match="unknown checkpoint backend"):
+        CheckpointManager(str(tmp_path), backend="msgpack")
+    # the orbax backend names what it needs where tensorstore is missing
+    real = ck._tensorstore
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(__import__("sys").modules, "tensorstore", None)
+        with pytest.raises(ImportError, match="tensorstore"):
+            real()
     mgr = CheckpointManager(str(tmp_path))
     # the sharded save is ported (tests/test_torch_multihost.py): with no
     # checkpoint there is nothing to restore

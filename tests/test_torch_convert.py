@@ -230,7 +230,8 @@ def test_train_state_round_trip(jax_variables, factored):
 def test_imports_without_jax():
     code = (
         "import sys, importlib, pkgutil\n"
-        "for name in ('jax', 'flax', 'blt_vqg_tpu', 'h5py'):\n"
+        "for name in ('jax', 'flax', 'blt_vqg_tpu', 'h5py', 'orbax',\n"
+        "             'tensorstore'):\n"
         "    sys.modules[name] = None\n"
         "import blt_vqg_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
@@ -246,4 +247,6 @@ def test_imports_without_jax():
     names = set(out.stdout.split())
     assert len(names) >= 15
     assert {f"blt_vqg_tpu_torch.{m}" for m in (
-        "ops.moe", "ops.vit", "ops.rnn", "models.iq_rnn")} <= names
+        "ops.moe", "ops.vit", "ops.rnn", "models.iq_rnn",
+        "parallel.mesh", "parallel.pipeline", "core.checkpoint",
+        "core.debug")} <= names

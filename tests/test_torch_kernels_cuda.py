@@ -786,6 +786,43 @@ def test_ring_attention_kernels(dev, dt, case, bidir):
         assert bool(dead.any()) and bool(got[0][dead].any())
 
 
+def test_ring_kernels_on_process_ranks(dev, tmp_path):
+    """Rows 6a-6d on a ring of 2 processes sharing the card over gloo (each
+    process one rank, its shard and its own entries of the plan; the hops
+    staged through pinned host buffers): the kernels within this file's
+    limits of their plain versions on the same process ring, f32 and bf16,
+    one-way and two-way, and each call's launches as the rank's plan
+    predicts (forward: its live steps; backward: a dK/dV and a dQ launch
+    per live step and one landing launch)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_p2p_worker as worker
+    import torch_parallel_worker as pw
+    out = str(tmp_path)
+    runs = pw.join(pw.start(out, [], 2, args=[
+        os.path.abspath(worker.__file__), out, "cuda_ring"]), 300)
+    for r, (rc, text) in enumerate(runs):
+        assert rc == 0, f"rank {r}:\n{text[-3000:]}"
+    for r in range(2):
+        import json
+        with open(os.path.join(out, f"cuda_ring.r{r}.json")) as f:
+            res = json.load(f)
+        live = dict(zip(("one", "two"), res["live"]))
+        for tag, got in res["launches"].items():
+            n = live[tag.rsplit("/", 1)[1]]
+            assert got == [n, 2 * n + 1], (r, tag, got)
+        with np.load(os.path.join(out, f"cuda_ring.r{r}.npz")) as z:
+            for key in z.files:
+                if key.endswith("/got"):
+                    name = key[:-4]
+                    dt = (torch.bfloat16 if "/bfloat16/" in name
+                          else torch.float32)
+                    _close(torch.from_numpy(z[key]),
+                           torch.from_numpy(z[name + "/want"]), dt,
+                           f"rank {r} {name}")
+
+
 # (ranks, batch, chunk, heads, head_dim, causal, pad): the forward's chunk
 # lengths (1, 3, 5, 7 and 10 take the short-chunk tiling; 64, 65 and 1,024
 # the 64-row tiles: one full, one ragged, many key tiles) at head dims 64,

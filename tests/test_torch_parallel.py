@@ -27,8 +27,10 @@ against the single-process port and against the JAX package.
   statistics within rtol 2e-4 / atol 1e-5 (statistics atol 1e-6), as JAX
   tests/test_parallel.py holds its sharded step; every parameter and
   moment within the port-vs-JAX limits of tests/test_torch_train_step.py.
-- What stays refused: GPipe, a ``seq`` axis with axes across processes,
-  the orbax backend; and ``core/utils.py`` held equal to the JAX file.
+- What stays refused, with its reason (GPipe without a ``pipe`` axis,
+  ``pipe`` beside a weight axis, a ring beside ``expert``, a mesh across
+  processes without a world); and ``core/utils.py`` held equal to the JAX
+  file.
 """
 
 import os
@@ -322,14 +324,27 @@ def _flat(tree, prefix=()):
 # what stays refused, and the copied module
 
 def test_unported_parallelism_still_raises(tmp_path):
+    """Every path of the JAX package is ported (tests/test_torch_p2p.py);
+    what stays refused says why: GPipe without a 'pipe' axis, 'pipe'
+    beside a weight axis, a ring beside 'expert', a mesh across processes
+    without a world."""
     from blt_vqg_tpu_torch.core.checkpoint import CheckpointManager
     from blt_vqg_tpu_torch.parallel.mesh import build_mesh
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IQ(Config(**worker.TINY, pipeline_stages=2), worker.VOCAB)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = Config(**worker.TINY, pipeline_stages=2)
+    model = IQ(cfg, worker.VOCAB)
+    batch = make_batch(cfg, worker.VOCAB, 2, np.random.RandomState(0),
+                       device="cpu")
+    with pytest.raises(ValueError, match="'pipe' axis"):
+        model(batch["images"], batch["context"], batch["posterior"],
+              batch["target"], latent_mode=False, train=False)
+    with pytest.raises(ValueError, match="batch axes"):
+        build_mesh((2, 2), ("model", "pipe"), device="cpu")
+    with pytest.raises(ValueError, match="expert"):
+        build_mesh((1, 2, 2), ("data", "seq", "expert"), device="cpu")
+    with pytest.raises(RuntimeError, match="not initialised"):
         build_mesh((2, 1, 2), ("data", "model", "seq"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CheckpointManager(str(tmp_path), backend="orbax")
+    assert CheckpointManager(str(tmp_path), backend="orbax").backend == \
+        "orbax"
 
 
 def test_dict2obj_is_the_jax_module():

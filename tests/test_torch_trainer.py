@@ -18,7 +18,8 @@
   ``cli.train_iq.main`` trains against a synthetic hdf5 and against its
   packed form (multi-step dispatch, validation with the latent report),
   and a resumed CLI run starts from the checkpoint bit for bit.
-- What is not ported raises and names ROADMAP.md.
+- What the trainer refuses says what it needs: GPipe without a 'pipe'
+  axis, and a mesh of one process that claims data ranks.
 """
 
 import argparse
@@ -368,7 +369,8 @@ def test_init_state_grafts_resnet18(synthetic, tmp_path):
 def test_unported_paths_raise(synthetic, tmp_path):
     cfg = Config(**E2E, output_dir=str(tmp_path))
     vocab = synthetic["vocab"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # GPipe is ported, over a mesh with a 'pipe' axis of the stage count
+    with pytest.raises(ValueError, match="'pipe' axis"):
         Trainer(cfg.replace(pipeline_stages=2), vocab, device="cpu")
     # data parallelism is ported, across processes only: a mesh of one
     # process that claims 2 data ranks is refused
