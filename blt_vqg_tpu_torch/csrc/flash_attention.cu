@@ -41,9 +41,11 @@
 //    cp.async stages when there is more than one tile; the head dim is
 //    zero-padded to 16.  The tiling (`FlashGeom`) is computed on the host
 //    (ops/kernels/flash_attention.py `mma_geom`) and checked here.  Head
-//    dims 136-256 run a second instantiation whose blocks split the
-//    accumulators' columns in two halves (`FmCols`); the kernels up to 128
-//    are the ones measured below, unchanged.
+//    dims 136-256 run a second instantiation (DMAX 256): the forward gives
+//    each 16-row tile a pair of warps of one block, one for each half of
+//    o's columns (flash_fwd_mma_kernel<256>); the backward kernels' blocks
+//    split the accumulators' columns in two halves (`FmCols`).  The kernels
+//    up to 128 are the ones measured below, unchanged.
 //
 // Bound on this card: the bytes of the operands once each at 3.35 TB/s, or
 // the operations of the visible (query, key) pairs at 989 TF/s (bf16);
@@ -88,7 +90,9 @@ struct FaTile {
 // queries, length Tq); "walked" rows are the other side's, which the block
 // walks in tiles.
 struct FlashGeom {
-  int wq;      // warps per (b, h): 1, 2 or 4, each owning 16 rows
+  int wq;      // warps per (b, h): 1, 2 or 4, each owning 16 rows (the forward
+               // above head dim 128: row tiles of 16 per (b, h), 1 or 2, each
+               // owned by a pair of warps)
   int groups;  // (b, h) per block, FM_WARPS / wq
   int kt;      // rows of a walked tile: the walked length rounded up to 16, at most
                // 64, less where a block would not fit twice on an SM
@@ -96,7 +100,8 @@ struct FlashGeom {
   int lds;     // shared row stride in elements, dp + 8: the 8 rows an ldmatrix
                // reads fall 16 bytes apart modulo 128, on distinct banks
   int fixed;   // bytes a group holds for the whole launch (dK/dV: its K and V;
-               // the forward: its q rows in f32, rows of dp + 4)
+               // the forward: its q rows in f32, rows of dp + 4; above head dim
+               // 128 also its p rows in f32, rows of kt + 8, and 2 f32 a row)
   int stage;   // bytes of one stage of the walked rows, per group
   int nst;     // stages: 2 when the walked length spans more than one tile
   int smem;    // dynamic shared bytes of a block, groups * (fixed + nst * stage)
@@ -433,12 +438,14 @@ constexpr int FM_KTMAX = 64;         // rows of a walked tile, at most
 
 // Head dims up to 128 take the kernels instantiated with DMAX 128: a warp
 // holds its 16 rows' accumulators over every column (16 rows x 128 in
-// registers).  Head dims 136-256 take DMAX 256, which splits the columns of
-// the accumulators (o, dk and dv, dq) between two blocks, grid dimension z
-// (`fm_cols`): each block computes the products that contract over the head
-// dim (S and dP) whole and accumulates its own 128 columns, so a thread's
-// accumulators stay those of DMAX 128.  The blocks of a pair recompute the
-// same S, the price of the split.
+// registers).  Head dims 136-256 take DMAX 256.  Its backward kernels split
+// the columns of the accumulators (dk and dv, dq) between two blocks, grid
+// dimension z (`fm_cols`): each block computes the products that contract
+// over the head dim (S and dP) whole and accumulates its own 128 columns,
+// so a thread's accumulators stay those of DMAX 128; the blocks of a pair
+// recompute the same S and dP, the price of the split.  Its forward splits
+// o's columns between two warps of one block instead and computes S once
+// (flash_fwd_mma_kernel<256>, below the DMAX 128 forward).
 struct FmCols {
   int c0;  // the block's first column
   int dp;  // its columns, zero-padded: min(geom dp - c0, 128)
@@ -487,13 +494,15 @@ __device__ __forceinline__ void flash_stage_kv(const FlashArgs& a, const FlashGe
   }
 }
 
-// S for 2 query rows (qa, qb: f32, shared memory) and 4 keys (k[]: bf16
-// rows, shared memory): s[x][y][e] += q_y . k_{2x+e} as f32 FMA chains
-// over d = 0 .. D - 1 in order, the order of the plain version's f32
-// product (and of the FMA kernel's dot_rows)
-__device__ __forceinline__ void fwd_scores_fma(float (&s)[2][2][2], const float* qa,
+// S for 2 query rows (qa, qb: f32, shared memory) and 2 NC keys (k[]:
+// bf16 rows, shared memory; NC columns of two): s[x][y][e] += q_y .
+// k_{2x+e} as f32 FMA chains over d = 0 .. D - 1 in order, the order of the
+// plain version's f32 product (and of the FMA kernel's dot_rows)
+template <int NC>
+__device__ __forceinline__ void fwd_scores_fma(float (&s)[NC][2][2], const float* qa,
                                                const float* qb,
-                                               const __nv_bfloat16* const (&k)[4], int D) {
+                                               const __nv_bfloat16* const (&k)[2 * NC],
+                                               int D) {
 #pragma unroll 2
   for (int d0 = 0; d0 < D; d0 += 8) {
     float q[2][8];
@@ -502,7 +511,7 @@ __device__ __forceinline__ void fwd_scores_fma(float (&s)[2][2][2], const float*
     *reinterpret_cast<float4*>(&q[1][0]) = *reinterpret_cast<const float4*>(qb + d0);
     *reinterpret_cast<float4*>(&q[1][4]) = *reinterpret_cast<const float4*>(qb + d0 + 4);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < 2 * NC; ++j) {
       const uint4 raw = *reinterpret_cast<const uint4*>(k[j] + d0);
       const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -731,6 +740,235 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
                         : __floats2bfloat162_rn(acc[n][2 * y] / safe, acc[n][2 * y + 1] / safe);
     }
     if (tq4 == 0 && cols.c0 == 0) {
+      a.m[(size_t)bh * Tq + i] = mr[y];
+      a.l[(size_t)bh * Tq + i] = dead ? 1.f : safe;
+    }
+  }
+}
+
+// Forward at head dims 136-256 (DMAX 256), the same contract.  At the
+// training shapes (hidden 1024 over 4 heads: B*H 256, Dh 256) it is bound by
+// bytes like the kernel above, and what costs is latency: the FMA chains of
+// S and each block's few loads.  A warp holding 16 rows x 256 columns of o
+// needs 128 accumulator registers, so each 16-row tile is served by a PAIR
+// of warps of one block (warp 2 rt + half), and the block's 4 warps are two
+// row tiles: one (b, h) and 32 query rows (wq 2), or two (b, h) of 16 rows
+// each (wq 1).  Grid z is 1: S is computed once.
+//  - S: the pair splits the tile's keys in columns of 8, half + 2 i, and
+//    each warp runs the f32 FMA chains of its own columns over all D depths
+//    in order (fwd_scores_fma): every element sums exactly as in the kernel
+//    above, so m does too (a split over depth would change the sums and
+//    break the 4e-7 limit on m and l).
+//  - The halves' row maxima meet in shared memory (`red`) at the pair's
+//    named barrier; each warp writes its p (f32) into the tile's p rows, and
+//    after a second barrier both warps read the whole row: l sums it in the
+//    order of the kernel above (per lane: 16-key slices, their 8-key
+//    halves, the lane's two keys; then the quad), and each warp feeds it,
+//    rounded to bf16, as the A operand of o += p v over its own columns
+//    (pair_cols: 128 of Dh 256, 80 + 64 of Dh 136).  So S, m and p are
+//    the DMAX 128 arithmetic's, bit for bit; l adds the same f32 p in the
+//    same order, read back from shared memory (on the card it came within
+//    one f32 ulp of the column-split kernel this one replaced).
+//  - K, V and the pads are staged once per group and read by all its
+//    warps; q stays in f32 (33 KB for 32 rows), which keeps the chains'
+//    loads as they are.  A block holds about 71 KB at 21 x 21 and 70 KB at
+//    3 x 3 (one stage: a training shape walks one key tile), so 2 blocks
+//    share an SM (3 by shared memory, 2 by registers) and a call is one
+//    wave (256 or 128 blocks).
+//  - A block with more than one key tile walks them twice, as above; its
+//    tiles shrink (mma_geom) until 2 blocks fit an SM.
+// The block's row tiles work apart: only the stage loads meet at
+// __syncthreads.  Warp `half` 0 writes m and l.
+template <>
+__global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
+    flash_fwd_mma_kernel<256>(const __grid_constant__ FlashArgs a,
+                              const __grid_constant__ FlashGeom g) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char fm_smem[];
+  const int D = a.dim, H = a.heads, Tq = a.tq, Tk = a.tk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq4 = lane % 4;
+  const int rt = warp / 2, half = warp % 2;        // the warp's row tile and column half
+  const int grp = rt / g.wq;
+  const int gtid = threadIdx.x - grp * 64 * g.wq, gthreads = 64 * g.wq;
+  const int bh = blockIdx.x * g.groups + grp;
+  const bool active = bh < a.batch * H;            // the last block's groups may be idle
+  const int b = active ? bh / H : 0, h = active ? bh % H : 0;
+  const int own = 16 * g.wq;
+  const int qb = blockIdx.y * own;                 // the group's first query row
+  const int rw = 16 * (rt % g.wq);                 // the tile's first row in the group
+  const int r0 = qb + rw;
+  const bool live = active && r0 < Tq;             // the tile has a row to own
+  const int qlast = min(Tq, qb + own) - 1;         // the block's last row
+  const int ntk = (Tk + g.kt - 1) / g.kt, qld = g.dp + 4, pld = g.kt + 8;
+  const PairCols cols = pair_cols(g.dp, half);
+  unsigned char* gsm = fm_smem + (size_t)grp * (g.fixed + g.nst * g.stage);
+  float* qs = reinterpret_cast<float*>(gsm);       // [own][qld] q, f32
+  float* pf = qs + own * qld;                      // [own][pld] p, f32
+  float* red = pf + own * pld;                     // [own][2] the halves' row maxima
+  unsigned char* stg = gsm + g.fixed;
+
+  // the group's q rows in f32, zero past Tq (rows of 16 bytes a thread)
+  if (active) {
+    const int nd = D / 8;
+    for (int c = gtid; c < own * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, i = qb + r;
+      const uint4 raw =
+          load16(static_cast<const T*>(a.q) + (i < Tq ? fa_at(b, i, h, Tq, H, D) + d0 : 0),
+                 i < Tq ? 8 : 0);
+      const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float2 v0 = __bfloat1622float2(q2[0]), v1 = __bfloat1622float2(q2[1]);
+      const float2 v2 = __bfloat1622float2(q2[2]), v3 = __bfloat1622float2(q2[3]);
+      *reinterpret_cast<float4*>(qs + r * qld + d0) = make_float4(v0.x, v0.y, v1.x, v1.y);
+      *reinterpret_cast<float4*>(qs + r * qld + d0 + 4) = make_float4(v2.x, v2.y, v3.x, v3.y);
+    }
+  }
+
+  // causal: key tiles wholly after the block's last row are skipped; the
+  // tile computes its 16-key slices up to its last visible key
+  const int nt = a.causal ? min(ntk, qlast / g.kt + 1) : ntk;
+  const int klast = a.causal ? min(Tk, r0 + 16) - 1 : Tk - 1;
+  // steps: npre tiles for the max alone (none for a one-tile block), then
+  // the nt tiles of the online pass
+  const int npre = nt > 1 ? nt : 0, nsteps = npre + nt;
+  auto load = [&](int u, int st) {
+    if (active)
+      flash_stage_kv(a, g, stg + (size_t)st * g.stage, b, h, (u < npre ? u : u - npre) * g.kt,
+                     u >= npre, gtid, gthreads);
+  };
+
+  // the rows r0 + gr + 8y: running max, sum of p, and o over the warp's
+  // columns (acc[n][2y + c] is column cols.c0 + 8n + 2 tq4 + c)
+  float mr[2] = {FA_NEG_INF, FA_NEG_INF}, lr[2] = {0.f, 0.f}, acc[MMA_DT][4];
+#pragma unroll
+  for (int n = 0; n < MMA_DT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  load(0, 0);
+  rf_commit();
+  for (int u = 0, st = 0; u < nsteps; ++u, st ^= 1) {
+    if (u + 1 < nsteps) load(u + 1, st ^ 1);
+    rf_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // step u's tile has landed
+    __syncthreads();  // (and, at u = 0, the q rows are stored)
+
+    const int k0 = (u < npre ? u : u - npre) * g.kt;
+    // the tile's 16-key slices (the same for both warps of the pair)
+    const int nsl = live && klast >= k0 ? min(g.kt / 16, (klast - k0) / 16 + 1) : 0;
+    if (nsl > 0) {
+      const T* ks = reinterpret_cast<const T*>(stg + (size_t)st * g.stage);
+      const T* vs = ks + g.kt * g.lds;
+      const unsigned char* ps = reinterpret_cast<const unsigned char*>(vs + g.kt * g.lds);
+      // S over the warp's key columns half + 2 i (i < nsl), in the
+      // accumulator layout of mma.m16n8k16 (s[i][c]: row gr + 8 (c >> 1),
+      // key 8 (half + 2 i) + 2 tq4 + (c & 1))
+      const float* qa = qs + (rw + gr) * qld;
+      auto key = [&](int i, int e) { return ks + (8 * (half + 2 * i) + 2 * tq4 + e) * g.lds; };
+      float s[FM_KTMAX / 16][4];
+#pragma unroll
+      for (int i = 0; i < FM_KTMAX / 16; i += 2) {
+        if (i + 1 < nsl) {
+          float t[2][2][2] = {};
+          const T* const kr[4] = {key(i, 0), key(i, 1), key(i + 1, 0), key(i + 1, 1)};
+          fwd_scores_fma(t, qa, qa + 8 * qld, kr, D);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[i][c] = t[0][c >> 1][c & 1];
+            s[i + 1][c] = t[1][c >> 1][c & 1];
+          }
+        } else if (i < nsl) {
+          float t[1][2][2] = {};
+          const T* const kr[2] = {key(i, 0), key(i, 1)};
+          fwd_scores_fma(t, qa, qa + 8 * qld, kr, D);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[i][c] = t[0][c >> 1][c & 1];
+        }
+      }
+      // masked logits take NEG_INF, as above
+      const int kn = 16 * nsl;
+      const bool edge = __any_sync(0xffffffffu, (lane < kn && ps[lane]) ||
+                                                    (lane + 32 < kn && ps[lane + 32])) ||
+                        (a.causal && k0 + kn - 1 > r0);
+      float mx[2] = {FA_NEG_INF, FA_NEG_INF};
+#pragma unroll
+      for (int i = 0; i < FM_KTMAX / 16; ++i) {
+        if (i < nsl) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int col = 8 * (half + 2 * i) + 2 * tq4 + (c & 1), r = r0 + gr + 8 * (c >> 1);
+            if (edge && (ps[col] || (a.causal && k0 + col > r))) s[i][c] = FA_NEG_INF;
+            mx[c >> 1] = fmaxf(mx[c >> 1], s[i][c]);
+          }
+        }
+      }
+      float tmax[2];  // the tile's row maxima over both halves
+      pair_row_max(tmax, mx, red + 2 * rw, gr, tq4, half, rt);
+      if (u < npre) {
+#pragma unroll
+        for (int y = 0; y < 2; ++y) mr[y] = fmaxf(mr[y], tmax[y]);
+      } else {
+        // the online update; p from the unrounded logits into the p rows
+        float alpha[2];
+#pragma unroll
+        for (int y = 0; y < 2; ++y) {
+          const float m_new = fmaxf(mr[y], tmax[y]);
+          alpha[y] = expf(mr[y] - m_new);
+          mr[y] = m_new;
+        }
+#pragma unroll
+        for (int i = 0; i < FM_KTMAX / 16; ++i) {
+          if (i < nsl) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) s[i][c] = expf(s[i][c] - mr[c >> 1]);
+            float* p0 = pf + (rw + gr) * pld + 8 * (half + 2 * i) + 2 * tq4;
+            *reinterpret_cast<float2*>(p0) = make_float2(s[i][0], s[i][1]);
+            *reinterpret_cast<float2*>(p0 + 8 * pld) = make_float2(s[i][2], s[i][3]);
+          }
+        }
+        pair_sync(rt);
+#pragma unroll
+        for (int n = 0; n < MMA_DT; ++n) {
+          acc[n][0] *= alpha[0];
+          acc[n][1] *= alpha[0];
+          acc[n][2] *= alpha[1];
+          acc[n][3] *= alpha[1];
+        }
+        // the whole rows' p: l sums them in the order of the kernel above,
+        // and o += p v over the warp's columns, p rounded to bf16 as the A
+        // operand, keys 16 jp .. + 15
+        float psum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int jp = 0; jp < FM_KTMAX / 16; ++jp) {
+          if (jp < nsl) {
+            uint32_t pa[4];
+            pair_p_slice(pa, psum, pf + (rw + gr) * pld, pld, jp, tq4);
+            rf_mma_tile_t(acc, pa, vs + 16 * jp * g.lds + cols.c0, g.lds, cols.cw, lane);
+          }
+        }
+#pragma unroll
+        for (int y = 0; y < 2; ++y) lr[y] = lr[y] * alpha[y] + quad_sum(psum[y]);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st and the p rows
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  // a dead row writes o = 0, l = 1; a live row o = acc / safe-l in bf16
+  if (!active) return;
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int i = r0 + gr + 8 * y;
+    if (i >= Tq) continue;
+    const bool dead = mr[y] <= 0.5f * FA_NEG_INF;
+    const float safe = lr[y] == 0.f ? 1.f : lr[y];
+    __nv_bfloat162* o =
+        reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(a.o) + fa_at(b, i, h, Tq, H, D));
+#pragma unroll
+    for (int n = 0; n < MMA_DT; ++n) {
+      const int d = cols.c0 + 8 * n + 2 * tq4;
+      if (8 * n < cols.cw && d < D)
+        o[d / 2] = dead ? __floats2bfloat162_rn(0.f, 0.f)
+                        : __floats2bfloat162_rn(acc[n][2 * y] / safe, acc[n][2 * y + 1] / safe);
+    }
+    if (tq4 == 0 && half == 0) {
       a.m[(size_t)bh * Tq + i] = mr[y];
       a.l[(size_t)bh * Tq + i] = dead ? 1.f : safe;
     }
@@ -1081,26 +1319,30 @@ static size_t flash_smem(FlashKernel which, int D) {
 // steps, stages large enough, every (b, h) and owned row covered
 static bool flash_geom_ok(const FlashArgs& a, const FlashGeom& g, FlashKernel which) {
   const bool dkdv = which == FA_DKDV;
+  const bool pair = which == FA_FWD && g.dp > 128;  // flash_fwd_mma_kernel<256>
   const int owned = dkdv ? a.tk : a.tq, walked = dkdv ? a.tq : a.tk;
-  const int tile = g.kt * g.lds * 2;
+  const int tile = g.kt * g.lds * 2, own = 16 * g.wq;
   const int need = dkdv ? 2 * tile + 3 * g.kt * 4 : 2 * tile + g.kt;
-  return (g.wq == 1 || g.wq == 2 || g.wq == 4) && g.groups * g.wq == FM_WARPS &&
+  return (g.wq == 1 || g.wq == 2 || (g.wq == 4 && !pair)) &&
+         g.groups * g.wq * (pair ? 2 : 1) == FM_WARPS &&
          g.kt >= 16 && g.kt <= 64 && g.kt % 16 == 0 && g.dp >= a.dim && g.dp <= FA_DMAX &&
          g.dp % 16 == 0 && g.lds == g.dp + 8 && g.stage % 16 == 0 && g.stage >= need &&
-         g.fixed == (dkdv            ? 2 * 16 * g.wq * g.lds * 2
-                     : which == FA_FWD ? 16 * g.wq * (g.dp + 4) * 4
+         g.fixed == (dkdv              ? 2 * own * g.lds * 2
+                     : pair            ? own * (g.dp + 4) * 4 + own * (g.kt + 8) * 4 + own * 8
+                     : which == FA_FWD ? own * (g.dp + 4) * 4
                                        : 0) &&
          (g.nst == 2 || (g.nst == 1 && walked <= g.kt)) &&
          g.smem == g.groups * (g.fixed + g.nst * g.stage) && g.smem <= FM_SMEM_MAX &&
          (long)g.grid_x * g.groups >= (long)a.batch * a.heads && g.grid_y * 16 * g.wq >= owned;
 }
 
-// the DMAX instantiation of each kernel; above 128, two blocks per tile of
-// rows, one for each half of the head dim's columns (grid z)
+// the DMAX instantiation of each kernel; above 128, the backward kernels
+// take two blocks per tile of rows, one for each half of the head dim's
+// columns (grid z), and the forward one
 template <int DMAX>
 static cudaError_t flash_mma_launch(const FlashArgs& a, const FlashGeom& g, FlashKernel which,
                                     cudaStream_t s) {
-  const dim3 grid(g.grid_x, g.grid_y, DMAX / 128);
+  const dim3 grid(g.grid_x, g.grid_y, which == FA_FWD ? 1 : DMAX / 128);
   const cudaFuncAttribute smem = cudaFuncAttributeMaxDynamicSharedMemorySize;
   if (which == FA_FWD) {
     BVQ_TRY(cudaFuncSetAttribute(flash_fwd_mma_kernel<DMAX>, smem, g.smem));

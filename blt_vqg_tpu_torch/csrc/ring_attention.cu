@@ -119,8 +119,10 @@
 // Head dims 129-256 (the reference tune space's hidden 1024 over 4 heads)
 // run instantiations of the same kernels with `DMAX` 256: the f32 FMA tiles
 // hold 32 rows, the bf16 backward kernels split the accumulators' columns
-// between two blocks (`rb_cols`) and the bf16 forward holds 16 rows x 256 a
-// warp.  The instantiations up to 128 are the ones measured above, unchanged.
+// between two blocks (`rb_cols`), and the bf16 forward splits the carry's
+// columns between the two warps of a pair, which share S's keys
+// (ring_fwd_mma_kernel<256>).  The instantiations up to 128 are the ones
+// measured above, unchanged.
 #include "mma.cuh"
 
 namespace bvq {
@@ -403,15 +405,19 @@ __host__ __device__ __forceinline__ RfGeom rf_geom(int C, int D) {
 // blocks run in schedule order through two shared stages per group: the
 // load of the next tile is issued before the products of this one.
 //
-// Head dims up to 128 take the DMAX 128 instantiation, registers capped for
-// 3 blocks per SM; 136-256 take DMAX 256, whose q fragments and carry (16
-// rows x 256) hold a warp's registers twice over: it is capped for one
-// block per SM, which is all its shared memory allows.  (The backward
-// kernels split the columns between blocks instead; here both blocks of a
-// pair would read and write the same carried m and l.)
+// Head dims up to 128 take this DMAX 128 kernel, registers capped for 3
+// blocks per SM; 136-256 take the DMAX 256 kernel below, which splits the
+// carry's columns between the two warps of a pair.  The template is only
+// declared: each head-dim bound is an explicit specialization with launch
+// bounds or a register cap of its own (a specialization would inherit the
+// primary template's, and __launch_bounds__ and __maxnreg__ do not mix).
 template <int DMAX>
-__global__ void __launch_bounds__(RF_THREADS, DMAX > 128 ? 1 : RF_BLOCKS_PER_SM)
-    ring_fwd_mma_kernel(const __grid_constant__ RingFwdArgs a) {
+__global__ void ring_fwd_mma_kernel(const __grid_constant__ RingFwdArgs a);
+
+template <>
+__global__ void __launch_bounds__(RF_THREADS, RF_BLOCKS_PER_SM)
+    ring_fwd_mma_kernel<128>(const __grid_constant__ RingFwdArgs a) {
+  constexpr int DMAX = 128;
   constexpr int RF_DT = DMAX / 8;  // head-dim columns of 8
   using T = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char rf_smem[];
@@ -653,6 +659,337 @@ __global__ void __launch_bounds__(RF_THREADS, DMAX > 128 ? 1 : RF_BLOCKS_PER_SM)
       }
     }
     if (tq == 0) {
+      x.m[ri] = mr[y];
+      x.l[ri] = l;
+    }
+  }
+}
+
+// ---- head dims 136-256: ring_fwd_mma_kernel<256>
+// At DMAX 256 the kernel above would hold q's fragments and the carry of 16
+// rows x 256 a warp: twice a warp's registers, so it would spill and hold
+// an SM alone.  Here each 16-row tile is served by a PAIR of warps of one block
+// (warp 2 rt + half), one for each half of the carry's columns
+// (pair_cols: 128 each at Dh 256).  A block of 4 warps holds two row tiles:
+// two (b, h) of 16 rows each (C <= 16) or one (b, h) and 32 rows (C <= 32);
+// longer chunks take blocks of 8 warps, one (b, h) and 64 rows, so that a
+// key tile serves as many rows as in the kernel above.
+//  - q stays in shared memory in bf16; each 16-deep slice's A fragment is
+//    read there by ldmatrix, not held in registers.
+//  - S: the pair splits the tile's keys in columns of 8, half + 2 i, and
+//    each warp sums its columns over every 16-deep slice of the head dim,
+//    each slice from zero on the tensor cores, added in f32 in order: every
+//    S element sums as in the kernel above, and so m does.
+//  - The halves' row maxima meet in shared memory at the pair's named
+//    barrier; each warp writes its p (f32) into the tile's p rows, and
+//    after a second barrier both warps read the whole rows: l sums them in
+//    the order of the kernel above, and each warp rounds them to bf16 as
+//    the A operand of acc += p v over its own columns.  So o (or the
+//    carry), m and l are the arithmetic of the kernel above, bit for bit.
+//  - The carried m and l: warp `half` 0 alone reads them from device
+//    memory (into `red`, which its partner reads after a block barrier)
+//    and alone writes them, after the tile loop's last block barrier.  Each
+//    warp reads and writes its own columns of the acc carry.  (Two blocks
+//    splitting the columns, as the backward does, would both read and
+//    write the same m and l.)
+//  - A group holds q, the p rows, the row maxima and its first stage; the
+//    second stages follow all groups and are allocated only when an entry
+//    of the step walks more than one tile (ring_fwd_kernels).  At C 5:
+//    43,936 bytes a group, so a one-way step (one tile an entry) fits 3
+//    blocks an SM (4 by shared memory, 3 by registers) and a two-way step
+//    2; at C 21, 2; from C 33 on (48- and 64-key tiles), one 8-warp block.
+//  - Key tiles of C rounded up to 16, at most 64, as above (the tile sets
+//    the points where p is rounded against the running max).
+//  - Registers are capped at 168 a thread, so that 3 blocks of 4 warps
+//    share an SM (__maxnreg__: the 8-warp blocks need launch bounds of 256
+//    threads, which alone would cap them at 255).
+constexpr int RS_MAX_REGS = 168;
+
+struct RsGeom {
+  int wq;      // row tiles of 16 per (b, h) in a block, each a pair of warps: 1, 2 or 4
+  int tiles;   // row tiles of a block: 2, or 4 (wq 4: blocks of 8 warps)
+  int groups;  // (b, h) per block, tiles / wq
+  int own;     // query rows of a group, 16 * wq
+  int kt, dp, lds, stage;  // as RfGeom
+  int pld;     // row stride of the f32 p rows, kt + 8
+  int gbytes;  // bytes of a group: q (bf16), p (f32), 2 f32 a row, one stage
+};
+
+__host__ __device__ __forceinline__ RsGeom rs_geom(int C, int D) {
+  const RfGeom f = rf_geom(C, D);
+  RsGeom g;
+  g.wq = C <= 16 ? 1 : C <= 32 ? 2 : 4;
+  g.tiles = g.wq == 4 ? 4 : 2;
+  g.groups = g.tiles / g.wq;
+  g.own = 16 * g.wq;
+  g.kt = f.kt;
+  g.dp = f.dp;
+  g.lds = f.lds;
+  g.stage = f.stage;
+  g.pld = g.kt + 8;
+  g.gbytes = g.own * g.lds * 2 + g.own * g.pld * 4 + g.own * 8 + g.stage;
+  return g;
+}
+
+template <>
+__global__ void __maxnreg__(RS_MAX_REGS)
+    ring_fwd_mma_kernel<256>(const __grid_constant__ RingFwdArgs a) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char rf_smem[];
+  const int C = a.chunk, D = a.dim, H = a.heads, e = blockIdx.z;
+  const RsGeom g = rs_geom(C, D);
+  const RfLocal<T> x = rf_local<T>(a, e);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
+  const int rt = warp / 2, half = warp % 2;        // the warp's row tile and column half
+  const int grp = rt / g.wq;
+  const int gtid = threadIdx.x - grp * 64 * g.wq, gthreads = 64 * g.wq;
+  const int bh = blockIdx.x * g.groups + grp;
+  const bool active = bh < a.batch * H;  // the last block's groups may be idle
+  const int b = active ? bh / H : 0, h = active ? bh % H : 0;
+  const int qb = blockIdx.y * g.own;               // the group's first query row
+  const int rw = 16 * (rt % g.wq);                 // the tile's first row in the group
+  const int r0 = qb + rw;
+  const int qlast = min(C, qb + g.own) - 1;        // the block's last row in the chunk
+  const int nd = g.dp / 8, ntk = (C + g.kt - 1) / g.kt, nt = x.nblk * ntk;
+  const long sbk = (long)C * H * D, sr = a.sb / D;
+  const PairCols cols = pair_cols(g.dp, half);
+  unsigned char* gsm = rf_smem + (size_t)grp * g.gbytes;
+  T* qs = reinterpret_cast<T*>(gsm);                          // [own][lds] q, bf16
+  float* pf = reinterpret_cast<float*>(qs + g.own * g.lds);   // [own][pld] p, f32
+  float* red = pf + g.own * g.pld;                            // [own][2]
+  unsigned char* stg0 = reinterpret_cast<unsigned char*>(red + 2 * g.own);
+  unsigned char* stg1 = rf_smem + (size_t)g.groups * g.gbytes + (size_t)grp * g.stage;
+  const int mi = lane / 8, lr8 = lane % 8;         // ldmatrix: matrix and row
+  const T zero = __float2bfloat16_rn(0.f);
+
+  // the group's q rows, zeros past the chunk and the dim (in the first
+  // tile's cp.async group)
+  if (active) {
+    for (int c = gtid; c < g.own * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, i = qb + r;
+      const int valid = i < C ? max(0, min(8, D - d0)) : 0;
+      rf_load16(qs + r * g.lds + d0, x.q + (i < C ? ra_at(a.sb, b, i, h, H, D) + d0 : 0), valid,
+                zero);
+    }
+  }
+
+  // the carry of rows r0 + gr + 8y over the warp's columns: acc[n][2y + c]
+  // is column cols.c0 + 8n + 2tq + c; m and l through `red`
+  float mr[2], lr[2], acc[MMA_DT][4];
+#pragma unroll
+  for (int n = 0; n < MMA_DT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int i = r0 + gr + 8 * y;
+    const bool carried = !x.first && active && i < C;
+    const size_t ri = (size_t)b * sr + (size_t)i * H + h, oi = ra_at(a.sb, b, i, h, H, D);
+    if (half == 0 && tq == 0) {
+      red[(rw + gr + 8 * y) * 2] = carried ? x.m[ri] : RA_NEG_INF;
+      red[(rw + gr + 8 * y) * 2 + 1] = carried ? x.l[ri] : 0.f;
+    }
+    if (carried) {
+#pragma unroll
+      for (int n = 0; n < MMA_DT; ++n) {
+        const int d = cols.c0 + 8 * n + 2 * tq;
+        if (8 * n < cols.cw) {
+          if (d < D) acc[n][2 * y] = x.acc[oi + d];
+          if (d + 1 < D) acc[n][2 * y + 1] = x.acc[oi + d + 1];
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    mr[y] = red[(rw + gr + 8 * y) * 2];
+    lr[y] = red[(rw + gr + 8 * y) * 2 + 1];
+  }
+
+  // tile t: key tile t % ntk of visiting block t / ntk, into stage st
+  auto load = [&](int t, int st) {
+    if (!active) return;
+    const int k0 = (t % ntk) * g.kt;
+    const RfBlock<T> kb = rf_block<T>(a, e, t / ntk);
+    T* ks = reinterpret_cast<T*>((st ? stg1 : stg0));
+    T* vs = ks + g.kt * g.lds;
+    unsigned char* ps = reinterpret_cast<unsigned char*>(vs + g.kt * g.lds);
+    for (int c = gtid; c < g.kt * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, kj = k0 + r;
+      const int valid = kj < C ? max(0, min(8, D - d0)) : 0;  // zeros past the edges
+      const size_t off = kj < C ? ra_at(sbk, b, kj, h, H, D) + d0 : 0;
+      rf_load16(ks + r * g.lds + d0, kb.k + off, valid, zero);
+      rf_load16(vs + r * g.lds + d0, kb.v + off, valid, zero);
+    }
+    // the keys' pad bytes, 1 past the chunk's edge
+    for (int c = gtid; c < g.kt / 16; c += gthreads) {
+      const int kj = k0 + 16 * c;
+      rf_load16(ps + 16 * c, kb.pad + (size_t)b * C + kj, max(0, min(16, C - kj)),
+                (unsigned char)1);
+    }
+  };
+  // every key of tile t lies after every query row of the block
+  auto future = [&](int t) {
+    return a.causal && a.step.src[2 * e + t / ntk] * C + (t % ntk) * g.kt > x.q_off + qlast;
+  };
+
+  load(0, 0);
+  rf_commit();
+  bool all_live = false;  // every row of the block has seen a visible key
+  for (int t = 0, st = 0; t < nt; st ^= 1) {
+    // a tile in the future of every row would add p = 0 once all are live
+    int tn = t + 1;
+    while (tn < nt && all_live && future(tn)) ++tn;
+    if (tn < nt) load(tn, st ^ 1);
+    rf_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile t (and q) landed
+    __syncthreads();
+
+    if (active) {
+      const int k0 = (t % ntk) * g.kt;
+      const int k_off = a.step.src[2 * e + t / ntk] * C;
+      const T* ks = reinterpret_cast<const T*>((st ? stg1 : stg0));
+      const T* vs = ks + g.kt * g.lds;
+      const unsigned char* ps = reinterpret_cast<const unsigned char*>(vs + g.kt * g.lds);
+      // S = q k^T over the warp's key columns half + 2 i (s[i][c]: row gr +
+      // 8 (c >> 1), key 8 (half + 2 i) + 2 tq + (c & 1)); each 16-deep
+      // slice from zero, added in f32 in order, as above
+      float s[RF_NT / 2][4];
+#pragma unroll
+      for (int i = 0; i < RF_NT / 2; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < RA_DMAX / 16; ++kk) {
+        if (kk < g.dp / 16) {
+          uint32_t qa[4];
+          rf_ldsm(qa, qs + (rw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
+#pragma unroll
+          for (int i = 0; i < RF_NT / 2; ++i) {
+            if (i < g.kt / 16) {
+              uint32_t kf[2];
+              rf_ldsm2(kf, ks + (8 * (half + 2 * i) + lr8) * g.lds + 16 * kk + 8 * (mi & 1));
+              float s0[4] = {0.f, 0.f, 0.f, 0.f};
+              rf_mma(s0, qa, kf[0], kf[1]);
+#pragma unroll
+              for (int c = 0; c < 4; ++c) s[i][c] += s0[c];
+            }
+          }
+        }
+      }
+      // masked logits take NEG_INF; keys past the chunk stay out of the max
+      const bool edge =
+          __any_sync(0xffffffffu, (lane < g.kt && ps[lane]) ||
+                                      (lane + 32 < g.kt && ps[lane + 32])) ||
+          (a.causal && k_off + k0 + g.kt - 1 > x.q_off + r0);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < RF_NT / 2; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = 8 * (half + 2 * i) + 2 * tq + (c & 1), kj = k0 + col;
+          const int r = r0 + gr + 8 * (c >> 1);
+          if (i < g.kt / 16 && kj < C) {
+            if (edge && (ps[col] || (a.causal && k_off + kj > x.q_off + r)))
+              s[i][c] = RA_NEG_INF;
+            mx[c >> 1] = fmaxf(mx[c >> 1], s[i][c]);
+          }
+        }
+      }
+      float tmax[2], alpha[2];  // the tile's row maxima over both halves
+      pair_row_max(tmax, mx, red + 2 * rw, gr, tq, half, rt);
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        const float m_new = fmaxf(mr[y], tmax[y]);
+        alpha[y] = expf(mr[y] - m_new);
+        mr[y] = m_new;
+      }
+      // p (0 past the chunk) into the tile's p rows, f32
+#pragma unroll
+      for (int i = 0; i < RF_NT / 2; ++i) {
+        if (i < g.kt / 16) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int kj = k0 + 8 * (half + 2 * i) + 2 * tq + (c & 1);
+            s[i][c] = kj < C ? expf(s[i][c] - mr[c >> 1]) : 0.f;
+          }
+          float* p0 = pf + (rw + gr) * g.pld + 8 * (half + 2 * i) + 2 * tq;
+          *reinterpret_cast<float2*>(p0) = make_float2(s[i][0], s[i][1]);
+          *reinterpret_cast<float2*>(p0 + 8 * g.pld) = make_float2(s[i][2], s[i][3]);
+        }
+      }
+      pair_sync(rt);
+#pragma unroll
+      for (int n = 0; n < MMA_DT; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+      // the whole rows' p: l sums them in the order of the kernel above (per
+      // lane: key columns of 8, the lane's two keys; then the quad), and
+      // acc += p v over the warp's columns, p rounded to bf16 as the A
+      // operand, keys 16 kp .. + 15
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kp = 0; kp < RF_NT / 2; ++kp) {
+        if (kp < g.kt / 16) {
+          uint32_t pa[4];
+          pair_p_slice(pa, psum, pf + (rw + gr) * g.pld, g.pld, kp, tq);
+#pragma unroll
+          for (int np = 0; np < MMA_DT / 2; ++np) {
+            if (16 * np < cols.cw) {
+              uint32_t vf[4];
+              rf_ldsm_t(vf, vs + (16 * kp + 8 * (mi & 1) + lr8) * g.lds + cols.c0 + 16 * np +
+                                8 * (mi >> 1));
+              rf_mma(acc[2 * np], pa, vf[0], vf[1]);
+              rf_mma(acc[2 * np + 1], pa, vf[2], vf[3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int y = 0; y < 2; ++y) lr[y] = lr[y] * alpha[y] + ra_quad_sum(psum[y]);
+    }
+
+    bool live = true;
+#pragma unroll
+    for (int y = 0; y < 2; ++y)
+      live = live && (!active || r0 + gr + 8 * y >= C || mr[y] > RA_NEG_INF);
+    // also: every warp is done with stage st and the p rows before they are refilled
+    all_live = __syncthreads_and(live);
+    t = tn;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  if (!active) return;
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int i = r0 + gr + 8 * y;
+    if (i >= C) continue;  // rows past the chunk belong to the next rank
+    const size_t ri = (size_t)b * sr + (size_t)i * H + h, oi = ra_at(a.sb, b, i, h, H, D);
+    float l = lr[y];
+    if (x.last) {  // o = acc / safe-l in bf16, l := safe-l
+      l = l == 0.f ? 1.f : l;
+#pragma unroll
+      for (int n = 0; n < MMA_DT; ++n) {
+        const int d = cols.c0 + 8 * n + 2 * tq;
+        if (8 * n >= cols.cw) continue;
+        if (d + 1 < D && D % 2 == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(x.o + oi + d) =
+              __floats2bfloat162_rn(acc[n][2 * y] / l, acc[n][2 * y + 1] / l);
+        } else {
+          if (d < D) x.o[oi + d] = __float2bfloat16_rn(acc[n][2 * y] / l);
+          if (d + 1 < D) x.o[oi + d + 1] = __float2bfloat16_rn(acc[n][2 * y + 1] / l);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < MMA_DT; ++n) {
+        const int d = cols.c0 + 8 * n + 2 * tq;
+        if (8 * n >= cols.cw) continue;
+        if (d < D) x.acc[oi + d] = acc[n][2 * y];
+        if (d + 1 < D) x.acc[oi + d + 1] = acc[n][2 * y + 1];
+      }
+    }
+    if (tq == 0 && half == 0) {
       x.m[ri] = mr[y];
       x.l[ri] = l;
     }
@@ -1394,11 +1731,24 @@ template <int DMAX>
 static cudaError_t ring_fwd_kernels(const RingFwdArgs& a, cudaStream_t s) {
   const int C = a.chunk, D = a.dim, n = a.step.nent, bh = a.batch * a.heads;
   if (a.act_bf16) {
-    const RfGeom g = rf_geom(C, D);
-    const size_t smem = (size_t)g.groups * 2 * g.stage;
+    size_t smem;
+    dim3 grid;
+    int threads = RF_THREADS;
+    if constexpr (DMAX > 128) {
+      // the groups, then their second stages where an entry walks two tiles
+      const RsGeom g = rs_geom(C, D);
+      int walk = 0;
+      for (int e = 0; e < n; ++e) walk = max(walk, (a.step.info[e] & 3) * cdiv(C, g.kt));
+      smem = (size_t)g.groups * (g.gbytes + (walk > 1 ? g.stage : 0));
+      grid = dim3(cdiv(bh, g.groups), cdiv(C, g.own), n);
+      threads = 64 * g.tiles;
+    } else {
+      const RfGeom g = rf_geom(C, D);
+      smem = (size_t)g.groups * 2 * g.stage;
+      grid = dim3(cdiv(bh, g.groups), cdiv(C, 16 * g.wq), n);
+    }
     BVQ_TRY(rf_allow_smem(ring_fwd_mma_kernel<DMAX>, rs_slot<DMAX>(RS_FWD_MMA), smem));
-    const dim3 grid(cdiv(bh, g.groups), cdiv(C, 16 * g.wq), n);
-    ring_fwd_mma_kernel<DMAX><<<grid, RF_THREADS, smem, s>>>(a);
+    ring_fwd_mma_kernel<DMAX><<<grid, threads, smem, s>>>(a);
   } else {
     using F = RaTile<DMAX>;
     const size_t tr = ra_tile_rows<F::T>(C);

@@ -122,20 +122,32 @@ def mma_geom(kernel: str, tq: int, tk: int, dim: int, batch_heads: int):
     group, ``fixed`` bytes hold the dK/dV kernel's K and V or the
     forward's q rows (f32, rows of dp + 4), and a stage holds the walked q
     and dO (and the rows' m, l, delta) or K and V (and the keys' pad
-    bytes)."""
+    bytes).
+
+    The forward above head dim 128 (``flash_fwd_mma_kernel<256>``) gives
+    each 16 query rows a pair of warps, one for each half of o's columns:
+    ``wq`` counts a (b, h)'s row tiles in a block, 1 for Tq up to 16 and 2
+    above (32 rows a block), ``groups`` = 2 / wq, and ``fixed`` also holds
+    the group's p rows (f32, rows of kt + 8) and two f32 a row (the
+    halves' row maxima)."""
     from blt_vqg_tpu_torch.ops.kernels import _build
 
     _check(kernel in MMA_KERNELS, f"no tensor-core kernel {kernel!r}")
     dkdv = kernel == "dkdv"
     own_len, walked = (tk, tq) if dkdv else (tq, tk)
-    wq = 1 if own_len <= 16 else 2 if own_len <= 32 else MMA_WARPS
-    groups = MMA_WARPS // wq
     dp = _up(dim, 16)
+    pair = kernel == "fwd" and dp > 128
+    wq = (1 if own_len <= 16 else 2 if own_len <= 32 or pair
+          else MMA_WARPS)
+    groups = MMA_WARPS // (wq * (2 if pair else 1))
+    own = 16 * wq
     lds = dp + 8
-    fixed = (2 * 16 * wq * lds * 2 if dkdv else
-             16 * wq * (dp + 4) * 4 if kernel == "fwd" else 0)
     budget = SM_SMEM // MMA_BLOCKS_PER_SM - BLOCK_RESERVED
     for kt in range(min(_up(walked, 16), 64), 0, -16):   # 16 at the least
+        fixed = (2 * own * lds * 2 if dkdv else
+                 own * (dp + 4) * 4 if kernel == "fwd" else 0)
+        if pair:
+            fixed += own * (kt + 8) * 4 + own * 8
         stage = _up(2 * kt * lds * 2 + (3 * kt * 4 if dkdv else kt), 16)
         nst = 2 if walked > kt else 1
         if groups * (fixed + nst * stage) <= budget:

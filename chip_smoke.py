@@ -136,18 +136,25 @@ only when every phase passed):
 17. the model variants and train-step options at the flagship's widths
    (seed-made weights, ``make_batch`` data, the launch counts of each
    path read around it and its time by CUDA events): (a) head dim 256
-   (hidden 1024 over 4 heads): the three flash kernels against their plain
+   (hidden 1024 over 4 heads): the compiler's registers and spills of the
+   two head-dim-256 forwards, the three flash kernels against their plain
    versions at the four training shapes and B 8, T 512 causal, the one-
-   and two-way ring at the training shape on seq 4, each timed with its
-   bound and SDPA, one latent train step on the flash path against the
-   einsum path within phase 7's limits, and a ``cli.tune`` trial child of
-   that trial with ``use_pallas_attention``; (b) ViT-B/16 (BASELINE config
+   and two-way ring at the training shape on seq 4 and at B 2, T 4096,
+   each timed at those shapes with its bound and SDPA, one latent train
+   step on the flash path against the einsum path within phase 7's
+   limits, the ``<256>`` forwards' launches and device time in a latent
+   step on the flash path and on the seq 4 ring path (by profiler), and a
+   ``cli.tune`` trial child of that trial with ``use_pallas_attention``;
+   (b) ViT-B/16 (BASELINE config
    4): the train CLI with ``--image_encoder vit_b16`` for 2 pretrain and
    2 latent steps on the flash kernels and one validation on the
    per-layer kernels (exact launch counts), then the directory served at
    b64 on the stream path with int8 stack weights and the fused head (51
    stack and head launches); (c) MoE (8 experts, top 2, capacity 1.25,
-   every layer): a latent step on the flash path against the einsum path
+   every layer): the tokens per router call whose top-2 experts differ
+   between the flash and einsum paths, and the flash path's step with
+   every router call pinned to the einsum path's choice within phase 7's
+   limits; a latent step on the flash path against the einsum path
    (limits of its own, set from readings: the router turns the paths'
    rounding into other experts for tokens near a tie), the balance and
    router-z losses finite and in the loss, greedy b64 on
@@ -216,13 +223,14 @@ phase 18 (``--parallel-seeds N`` takes 18b's readings over N seeds);
 builds, runs the 6-step train CLI run and phase 16; ``--variants-only``
 builds, checks phase 1's machine code and runs phase 17 alone.
 ``--flash-times-only``, ``--ring-times-only`` (the ring functions at the
-training shape, phase 14), ``--decode-times-only`` and ``--int8-times-only``
-build, take only the flash kernels' (phase 7), the decode kernels' (the
-stack step, the fused head, also with a cold L2, ``self_attn_step`` and
-``cross_ffn_step``) or ``int8_matmul``'s times at both of its shapes (by
-events, host clock and profiler) and stop without a result line: to
-compare two trees on one card, run the same script from each tree in
-turns.
+training shape, phase 14), ``--dh256-times-only`` (phase 17a's times),
+``--decode-times-only`` and ``--int8-times-only`` build, take only the
+flash kernels' (phase 7), the ring functions', the head-dim-256 kernels',
+the decode kernels' (the stack step, the fused head, also with a cold L2,
+``self_attn_step`` and ``cross_ffn_step``) or ``int8_matmul``'s times at
+both of its shapes (by events, host clock and profiler) and stop without a
+result line; several of them run in one process: to compare two trees on
+one card, run the same script from each tree in turns.
 
 TF32 is off for matmuls and cuDNN throughout.  The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
@@ -345,8 +353,11 @@ FLASH_MMA = ("flash_fwd_mma_kernel", "flash_bwd_dkdv_mma_kernel",
 FLASH_FMA = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
              "flash_bwd_dq_kernel")
 FLASH_STEP_KERNELS = FLASH_MMA + FLASH_FMA
-# the mangled-name mark of a kernel's head-dim-256 instantiation (DMAX 256)
+# the mangled-name mark of a kernel's head-dim-256 instantiation (DMAX 256),
+# and the two forwards whose DMAX 256 instantiations split the output's
+# columns between the two warps of a pair (they must not spill)
 DMAX256 = "ILi256E"
+FWD256 = ("flash_fwd_mma_kernel", "ring_fwd_mma_kernel")
 # o, dq, dk, dv are bf16: the kernel and the plain version round p and every
 # output to bf16 after f32 sums taken in other orders.  Readings over 8
 # seeds x 6 cases (48; NVIDIA H100 80GB HBM3, 700 W): max error up to 1
@@ -2188,6 +2199,15 @@ def ring_timings(dev, card, log, cfg, kstate, ecfg, estate, batch):
     return rows
 
 
+def ptxas_entries(report: str):
+    """(kernel, its "Used N registers" match, its spill stores match) for
+    each entry function of a ``ptxas -v`` report (None where absent)."""
+    for entry in report.split("Compiling entry function")[1:]:
+        yield (entry.split("'")[1],
+               re.search(r"Used (\d+) registers[^\n]*", entry),
+               re.search(r"(\d+) bytes spill stores", entry))
+
+
 def mma_code(lib_path: str, report: str) -> None:
     """Phase 1: the compiler's registers and spills of the ring and flash
     kernels, of the decode kernels' split-K product and fused residual
@@ -2198,22 +2218,22 @@ def mma_code(lib_path: str, report: str) -> None:
     tensor-core products (HMMA or HGMMA; HGMMA for INT8_KERNEL), and unless
     ptxas reports no spills for the flash (head dims up to 128: the
     ``DMAX`` 128 instantiations the training shapes run), cluster and int8
-    kernels (the ring forward's registers are capped for 3 blocks per SM,
-    and it spills a few bytes by design; the head-dim-256 instantiations'
-    spills are printed, not refused)."""
+    kernels and the two head-dim-256 forwards (the ring forward's DMAX 128
+    registers are capped for 3 blocks per SM, and it spills a few bytes by
+    design; the head-dim-256 backward kernels' spills are printed, not
+    refused)."""
     kernels = RING_MMA + FLASH_MMA + CLUSTER_MMA + (INT8_KERNEL,)
     watched = ("ring_", "flash_", "gemm_partial_kernel", "residual_ln_kernel",
                *CLUSTER_MMA, *CLUSTER_OTHER, INT8_KERNEL)
-    for entry in report.split("Compiling entry function")[1:]:
-        name = entry.split("'")[1]
+    for name, used, spill in ptxas_entries(report):
         if any(w in name for w in watched):
-            used = re.search(r"Used (\d+) registers[^\n]*", entry)
-            spill = re.search(r"(\d+) bytes spill stores", entry)
             log(f"    ptxas {name}: {used.group(0) if used else '?'}; "
                 f"spill stores {spill.group(1) if spill else '?'} bytes")
-            if (any(k in name for k in FLASH_MMA + CLUSTER_MMA
-                    + (INT8_KERNEL,)) and DMAX256 not in name
-                    and not (spill and spill.group(1) == "0")):
+            kept = (DMAX256 in name and any(k in name for k in FWD256)) or (
+                DMAX256 not in name and any(
+                    k in name for k in FLASH_MMA + CLUSTER_MMA
+                    + (INT8_KERNEL,)))
+            if kept and not (spill and spill.group(1) == "0"):
                 raise AssertionError(f"{name} spills (or ptxas did not say)")
     for w_i8 in (False, True):
         log(f"    cluster product, {'int8' if w_i8 else 'bf16'} weights: "
@@ -3367,12 +3387,59 @@ def compare_seeds(dev, card, log, tag: str, over: dict, seeds: int, limits):
     return out
 
 
+def fwd256_ptxas(log) -> None:
+    """The compiler's registers, barriers and spills of the two head-dim-256
+    forwards, from the build log (phase 1 refuses their spills)."""
+    with open(_build.library_path() + ".log") as f:
+        report = f.read()
+    for name, used, spill in ptxas_entries(report):
+        if DMAX256 in name and any(k in name for k in FWD256):
+            log(f"[17a] ptxas {name}: {used.group(0) if used else '?'}; "
+                f"spill stores {spill.group(1) if spill else '?'} bytes")
+
+
+def dh256_times(dev, card, log):
+    """17a's times at head dim 256 (H 4): the flash kernels over a latent
+    step's 24 calls and one call at DH256_EXTRA, the ring functions at the
+    training and the long shape.  Returns (flash totals, ring times per
+    call at the training shape)."""
+    ftot = flash_timings(dev, card, log, DH256_HEADS, DH256_DIM, "17a",
+                         multi=False)
+    what, (b, h, d, tq, tk, causal), pad = DH256_EXTRA
+    t, bounds = flash_shape_times(dev, b, h, d, tq, tk, causal, pad, 10)
+    log(flash_shape_line(card, f"Dh 256 {what} (B {b}, H {h})", t, "17a")
+        + "; bounds: " + ", ".join(
+            f"{name} {bound(*nb)[0] * 1e3:.2f} us ({bound(*nb)[1]})"
+            for name, nb in bounds.items()))
+    rtimes = ring_case_times(dev, card, log, "training", RING_TRAIN_CASE,
+                             DH256_HEADS, DH256_DIM, "17a")
+    ring_case_times(dev, card, log, "long", RING_LONG_CASE, DH256_HEADS,
+                    DH256_DIM, "17a")
+    return ftot, rtimes
+
+
+def fwd256_launches(fn):
+    """{forward: (launches, device ms)} of the two head-dim-256 forwards
+    (their ILi256E instantiations, which the profiler names demangled:
+    ``bvq::flash_fwd_mma_kernel<256>(...)``) in one call of ``fn``, by
+    profiler."""
+    out = {k: (0.0, 0.0) for k in FWD256}
+    for name, (n, t) in profile_groups(fn, 1).items():
+        for k in FWD256:
+            if f"{k}<256>" in name or (k in name and DMAX256 in name):
+                out[k] = (out[k][0] + n, out[k][1] + t)
+    return out
+
+
 def dh256_phase(dev, card, log, data: dict, seeds: int):
     """17(a): the flash and ring kernels at head dim 256 against their
-    plain versions and timed; the flagship at hidden 1024 over 4 heads
-    trained on the flash path against the einsum path; a ``cli.tune``
-    child of that trial.  Returns (flash totals, ring times per call,
-    worst errors by function)."""
+    plain versions (the ring also at the long shape) and timed; the
+    flagship at hidden 1024 over 4 heads trained on the flash path against
+    the einsum path, and the head-dim-256 forwards' launches in a latent
+    step on the flash path and on the seq 4 ring path, by profiler; a
+    ``cli.tune`` child of that trial.  Returns (flash totals, ring times
+    per call, worst errors by function)."""
+    fwd256_ptxas(log)
     worst = dict.fromkeys(FLASH_KERNELS + RING_KERNELS, 0.0)
     cases = [(f"{what} Tq {tq} Tk {tk}{' causal' if causal else ''}",
               (BATCH, DH256_HEADS, DH256_DIM, tq, tk, causal), "tail")
@@ -3388,25 +3455,54 @@ def dh256_phase(dev, card, log, data: dict, seeds: int):
             f"bf16 ulps, relative norm error {norm:.3g}, m/l relative error "
             f"{ml:.3g} (limits {FLASH_MAX_ULPS}, {FLASH_REL_NORM}, "
             f"{FLASH_ML_REL})")
-    what, b, n, c, causal, pad = RING_TRAIN_CASE
-    q, k, v, kv_pad, do = ring_inputs(dev, b, n, c, pad, SEED + 17,
-                                      DH256_DIM, DH256_HEADS)
-    errs, ulps, norm, ml, _, _ = check_ring_case(q, k, v, kv_pad, do, n,
-                                                 causal, f"Dh 256 {what}")
-    for name, val in errs.items():
-        worst[name] = max(worst[name], val)
-    log(f"[17a] ring Dh 256 {what} (B {b}, H {DH256_HEADS}), one-way and "
-        f"two-way: max err {ulps:.3g} bf16 ulps, relative norm error "
-        f"{norm:.3g}, m/l relative error {ml:.3g} (limits {RING_MAX_ULPS}, "
-        f"{RING_REL_NORM}, {RING_ML_REL})")
-    del q, k, v, kv_pad, do
-    ftot = flash_timings(dev, card, log, DH256_HEADS, DH256_DIM, "17a",
-                         multi=False)
-    rtimes = ring_case_times(dev, card, log, "training", RING_TRAIN_CASE,
-                             DH256_HEADS, DH256_DIM, "17a")
+    for what, b, n, c, causal, pad in (RING_TRAIN_CASE, RING_LONG_CASE):
+        q, k, v, kv_pad, do = ring_inputs(dev, b, n, c, pad, SEED + 17,
+                                          DH256_DIM, DH256_HEADS)
+        errs, ulps, norm, ml, _, _ = check_ring_case(q, k, v, kv_pad, do, n,
+                                                     causal, f"Dh 256 {what}")
+        for name, val in errs.items():
+            worst[name] = max(worst[name], val)
+        log(f"[17a] ring Dh 256 {what} (B {b}, H {DH256_HEADS}), one-way and "
+            f"two-way: max err {ulps:.3g} bf16 ulps, relative norm error "
+            f"{norm:.3g}, m/l relative error {ml:.3g} (limits "
+            f"{RING_MAX_ULPS}, {RING_REL_NORM}, {RING_ML_REL})")
+        del q, k, v, kv_pad, do
+    ftot, rtimes = dh256_times(dev, card, log)
 
-    compare_seeds(dev, card, log, "17a", dict(num_heads=DH256_HEADS), seeds,
-                  (TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_PARAM_REL))
+    _, kstate, batch = compare_seeds(dev, card, log, "17a",
+                                     dict(num_heads=DH256_HEADS), seeds,
+                                     (TRAIN_LOSS_REL, TRAIN_GNORM_REL,
+                                      TRAIN_PARAM_REL))
+    # the head-dim-256 forwards of a latent step, by profiler: on the flash
+    # path, then with the decoder's self-attentions on the seq 4 ring
+    cfg = kstate.model.cfg
+    gen = torch.Generator(dev).manual_seed(SEED + 18)
+    step = make_train_step(cfg, True)
+    got = fwd256_launches(lambda: step(kstate, batch, gen))
+    scfg = cfg.replace(sequence_parallel=True, ring_attention_impl="pallas")
+    mesh = build_mesh((RING_SEQ,), ("seq",), dev)
+    smodel = IQ(scfg, serve.FLAGSHIP_VOCAB, mesh).to(dev)
+    smodel.load_state_dict(kstate.model.state_dict())
+    sstate = create_train_state(scfg, smodel, seed=None)
+    sstep = make_train_step(scfg, True, mesh)
+    metrics = {}
+    sp = fwd256_launches(lambda: metrics.update(
+        sstep(sstate, batch, gen)[1]))
+    nl = cfg.num_layers
+    want = {"flash": {FWD256[0]: STEP_FLASH, FWD256[1]: 0},
+            "seq 4": {FWD256[0]: STEP_FLASH - nl,
+                      FWD256[1]: nl * ring_launch_counts(RING_SEQ, True)[0]}}
+    for path, counts in (("flash", got), ("seq 4", sp)):
+        log(f"[17a] {card}: latent step b{BATCH} on the {path} path, the "
+            f"{DMAX256} forwards by profiler: " + ", ".join(
+                f"{k}<256> {n:.0f} launches, {t * 1e3:.1f} us device"
+                for k, (n, t) in counts.items()))
+        if {k: round(n) for k, (n, _) in counts.items()} != want[path]:
+            raise AssertionError(f"[17a] {path} path: {DMAX256} forward "
+                                 f"launches {counts}, want {want[path]}")
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"[17a] seq 4 latent step: {metrics}")
+    del kstate, sstate, smodel, batch
     torch.cuda.empty_cache()
 
     # a cli.tune trial child on that trial: the flagship widths over 4 heads
@@ -3521,14 +3617,88 @@ def vit_phase(dev, card, log, data: dict):
     torch.cuda.empty_cache()
 
 
+def moe_routing(dev, card, log, seed: int) -> None:
+    """17(c), routing: one latent step of the MoE flagship on the flash and
+    the einsum paths from the same weights, batch and generator seeds;
+    counts, for each router call (a layer's forward), the tokens whose
+    top-2 experts differ between the paths.  Then the flash path's step
+    again from the same fresh state with every router call pinned to the
+    einsum path's choice (``ops.moe.top_k`` patched here: each call returns
+    the einsum call's experts, gated by this path's own probabilities), held
+    to phase 7's dense limits (loss, grad_norm)."""
+    from blt_vqg_tpu_torch.ops import moe
+
+    cfg, kstate, ecfg, estate = flagship_states(dev, MOE, seed)
+    batch = make_batch(cfg, serve.FLAGSHIP_VOCAB, BATCH,
+                       np.random.RandomState(seed + 200), dev)
+    top_k = moe.top_k
+    chosen = {"einsum": [], "flash": []}
+
+    def recorder(into):
+        def rec(x, k):
+            out = top_k(x, k)
+            into.append(out[1].clone())
+            return out
+        return rec
+
+    def step(c, state, router):
+        moe.top_k = router
+        try:
+            m = make_train_step(c, True)(
+                state, batch, torch.Generator(dev).manual_seed(seed + 300))[1]
+        finally:
+            moe.top_k = top_k
+        return {n: float(v) for n, v in m.items()}
+
+    me = step(ecfg, estate, recorder(chosen["einsum"]))
+    mk = step(cfg, kstate, recorder(chosen["flash"]))
+    del estate, kstate
+    calls = len(chosen["einsum"])
+    if len(chosen["flash"]) != calls or not calls:
+        raise AssertionError(f"[17c] router calls: einsum {calls}, flash "
+                             f"{len(chosen['flash'])}")
+    flips = [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+             for a, b in zip(chosen["einsum"], chosen["flash"])]
+    pins = iter(chosen["einsum"])
+
+    def pinned(x, k):
+        idx = next(pins)
+        return torch.gather(x, 1, idx), idx
+
+    fresh = flagship_states(dev, MOE, seed, einsum=False)[1]
+    mp = step(cfg, fresh, pinned)
+    del fresh
+    if next(pins, None) is not None:
+        raise AssertionError("[17c] the pinned step made fewer router calls")
+    rel = {tag: (abs(m["loss"] - me["loss"]) / abs(me["loss"]),
+                 abs(m["grad_norm"] - me["grad_norm"]) / me["grad_norm"])
+           for tag, m in (("free", mk), ("pinned", mp))}
+    tokens = sorted({c.shape[0] for c in chosen["einsum"]})
+    log(f"[17c] {card}: MoE routing, flash against einsum path (seed {seed}, "
+        f"one latent step): tokens whose top-2 experts differ, per router "
+        f"call ({calls} calls of {'/'.join(map(str, tokens))} tokens): "
+        f"{flips} ({sum(flips)} in all); routed freely: loss "
+        f"{rel['free'][0]:.3g}, grad_norm {rel['free'][1]:.3g}; routing "
+        f"pinned to the einsum path's choice: loss {rel['pinned'][0]:.3g}, "
+        f"grad_norm {rel['pinned'][1]:.3g} (phase 7's limits "
+        f"{TRAIN_LOSS_REL}, {TRAIN_GNORM_REL})")
+    if not (rel["pinned"][0] <= TRAIN_LOSS_REL
+            and rel["pinned"][1] <= TRAIN_GNORM_REL):
+        raise AssertionError(f"[17c] MoE with pinned routing against the "
+                             f"einsum path: {rel['pinned']}")
+    torch.cuda.empty_cache()
+
+
 def moe_phase(dev, card, log, seeds: int):
-    """17(c): MoE FFNs (8 experts, top 2, capacity 1.25, every layer): a
+    """17(c): MoE FFNs (8 experts, top 2, capacity 1.25, every layer): the
+    routing flips and the routing-pinned step (:func:`moe_routing`), a
     latent step on the flash path against the einsum path, the balance
     and router-z losses finite and in the loss, greedy b64 on the plain
     decode path, and the kernel decode paths' refusals."""
     from blt_vqg_tpu_torch.train.step import (_forward, _losses,
                                               collect_moe_losses)
 
+    moe_routing(dev, card, log, SEED)
     _, kstate, batch = compare_seeds(dev, card, log, "17c", MOE, seeds,
                                      (MOE_LOSS_REL, MOE_GNORM_REL,
                                       TRAIN_PARAM_REL))
@@ -4363,6 +4533,14 @@ def main(argv=None):
                         "the training shape and stop (no result line): to "
                         "compare two trees' kernels on one card, run in "
                         "turns from each tree")
+    parser.add_argument("--dh256-times-only", action="store_true",
+                        help="build, take phase 17a's head-dim-256 kernel "
+                        "times (the flash kernels at the training shapes and "
+                        "the multi-tile shape, the ring functions at the "
+                        "training and the long shape) and stop (no result "
+                        "line); the --*-times-only options combine in one "
+                        "process, in this order: flash, ring, dh256, decode, "
+                        "int8")
     parser.add_argument("--decode-times-only", action="store_true",
                         help="build, time the decode stack step, the fused "
                         "head (also with a cold L2), self_attn_step and "
@@ -4434,17 +4612,16 @@ def main(argv=None):
         if m.group(1) != "0" or m.group(2) != "0"]
     log(f"    ptxas: {report.count('Used ')} kernels reported, spilling: "
         f"{spills or 'none'}")
-    if opts.flash_times_only:
-        flash_timings(dev, card, log)
-        return
-    if opts.ring_times_only:
-        ring_case_times(dev, card, log, "training", RING_TRAIN_CASE)
-        return
-    if opts.decode_times_only:
-        decode_times(dev, card, log)
-        return
-    if opts.int8_times_only:
-        int8_times(dev, card, log)
+    times = [fn for on, fn in (
+        (opts.flash_times_only, lambda: flash_timings(dev, card, log)),
+        (opts.ring_times_only, lambda: ring_case_times(
+            dev, card, log, "training", RING_TRAIN_CASE)),
+        (opts.dh256_times_only, lambda: dh256_times(dev, card, log)),
+        (opts.decode_times_only, lambda: decode_times(dev, card, log)),
+        (opts.int8_times_only, lambda: int8_times(dev, card, log))) if on]
+    if times:
+        for fn in times:
+            fn()
         return
     if opts.train_cli_only:
         train_cli_phase(dev, card, log)

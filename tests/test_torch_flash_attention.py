@@ -167,14 +167,18 @@ GEOM_DIMS = (8, 16, 40, 64, 80, 128)
 TRAIN_SHAPES = ((3, 3), (21, 21), (20, 20), (20, 3))   # (Tq, Tk)
 
 
-def _writes(g, n_bh, length):
+def _writes(g, n_bh, length, pair=False):
     """How often each (b, h) and owned row is written by the grid of
     ``g``: block (x, y), warp w, lane row r writes (b, h) x * groups +
     w // wq, row 16 wq y + 16 (w % wq) + r, where both lie in range (the
-    kernels' test before a store; idle groups and rows store nothing)."""
+    kernels' test before a store; idle groups and rows store nothing).
+    With ``pair`` (the forward above head dim 128), warp w serves row tile
+    w // 2 in place of w."""
     x, y, w, r = np.meshgrid(np.arange(g.grid_x), np.arange(g.grid_y),
                              np.arange(tfa.MMA_WARPS), np.arange(16),
                              indexing="ij")
+    if pair:
+        w = w // 2
     bh = x * g.groups + w // g.wq
     row = y * 16 * g.wq + 16 * (w % g.wq) + r
     ok = (bh < n_bh) & (row < length)
@@ -187,7 +191,10 @@ def _writes(g, n_bh, length):
 def test_bwd_geom_covers_every_row_once(kernel):
     """Every (b, h) and owned row, for owned lengths 1-130 and B*H counts
     that leave the last block's groups idle, is written exactly once; only
-    the last block along each grid axis holds idle groups or rows."""
+    the last block along each grid axis holds idle groups or rows.  The
+    forward above head dim 128 gives each 16 rows a pair of warps (warp w:
+    row tile w // 2, column half w % 2): each row is written once by each
+    half."""
     for length in range(1, 131):
         for n_bh in (1, 3, 5, 6):
             tq, tk = (7, length) if kernel == "dkdv" else (length, 7)
@@ -197,6 +204,12 @@ def test_bwd_geom_covers_every_row_once(kernel):
             assert g.grid_x * g.groups - n_bh < g.groups
             assert g.grid_y * 16 * g.wq - length < 16 * g.wq
             assert g.wq == (1 if length <= 16 else 2 if length <= 32 else 4)
+            if kernel == "fwd" and n_bh != 6:
+                g = tfa.mma_geom(kernel, tq, tk, 200, n_bh)
+                counts, _, _ = _writes(g, n_bh, length, pair=True)
+                assert (counts == 2).all(), (length, n_bh)
+                assert g.grid_x * g.groups - n_bh < g.groups
+                assert g.wq == (1 if length <= 16 else 2)
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
@@ -261,6 +274,18 @@ def test_bwd_geom_fits_shared_memory():
                                        "dq": 0}[kernel]
                     assert g.smem == g.groups * (g.fixed + g.nst * g.stage)
                     worst = max(worst, g.smem)
+    # the forward above head dim 128 also holds its p rows (f32, kt + 8
+    # wide) and the halves' row maxima; a group holds 16 or 32 rows
+    for tq in range(1, 131, 3):
+        for tk in range(1, 131, 3):
+            for d in (136, 200, 256):
+                g = tfa.mma_geom("fwd", tq, tk, d, 5)
+                own = 16 * g.wq
+                assert g.fixed == (own * (g.dp + 4) * 4
+                                   + own * (g.kt + 8) * 4 + own * 8)
+                assert g.nst == (2 if tk > g.kt else 1) and g.kt <= 64
+                assert g.smem == g.groups * (g.fixed + g.nst * g.stage)
+                worst = max(worst, g.smem)
     assert worst <= budget <= 232_448   # what a block may take on sm_90
 
 
@@ -269,7 +294,8 @@ def test_bwd_geom_training_shapes(tq, tk):
     """At the flagship's training shapes (B*H 512, Dh 128) 2 or more
     blocks of each kernel share an SM, and a call fits in one wave of the
     card's 132 SMs; 21 x 21 takes 256 blocks, 3 x 3 128.  The forward walks
-    one key tile, so it makes one pass over K and V."""
+    one key tile, so it makes one pass over K and V; so does its head-dim-
+    256 form at the same shapes over 4 heads, 2 or more blocks an SM."""
     for kernel in tfa.MMA_KERNELS:
         g = tfa.mma_geom(kernel, tq, tk, 128, 512)
         per_sm = tfa.SM_SMEM // (g.smem + tfa.BLOCK_RESERVED)
@@ -281,6 +307,12 @@ def test_bwd_geom_training_shapes(tq, tk):
             assert g.grid_x * g.grid_y == 128
     g = tfa.mma_geom("fwd", tq, tk, 128, 512)
     assert g.nst == 1 and g.kt >= tk
+    # hidden 1024 over 4 heads (B*H 256, Dh 256): the forward's pairs of
+    # warps fit 2 or more blocks an SM in one wave, with one pass over K, V
+    g = tfa.mma_geom("fwd", tq, tk, 256, 256)
+    assert g.groups * g.wq * 2 == tfa.MMA_WARPS
+    assert tfa.SM_SMEM // (g.smem + tfa.BLOCK_RESERVED) >= 2, g.smem
+    assert g.grid_x * g.grid_y <= 132 * 2 and g.nst == 1 and g.kt >= tk
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],

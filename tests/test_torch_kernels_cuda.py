@@ -38,15 +38,16 @@ The four ring-attention functions (o, m, l, dq, dk, dv, one-way and
 two-way, on rings of 2, 3 and 4 ranks with ragged chunks) take the flash
 limits; their dead rows attend uniformly and must not come out zero.  The
 forward and the backward functions are also held alone at chunks of 1 to
-1,024 rows and head dims 64, 80, 128, 136 and 256, with their launches
-per call (the flash kernels also at head dims 136 and 256);
+1,024 rows and head dims 64, 80, 128, 136, 200 and 256, with their launches
+per call (the flash kernels also at head dims 136, 200 and 256);
 the backward's cases include dead rows at a 130-row chunk, whose dv needs
 the query tiles before a causal key tile.
 ``int8_matmul`` runs its bf16 calls whose strides TMA can load on one
 ``int8_wgmma_kernel`` launch (checked by profiler at the flagship shapes;
 a ragged N takes the split-K product's two kernels), also at ragged M and
 N edges.  Repeated calls on the same inputs (the bf16 ``self_attn_step``
-and ``head_argmax`` on the cluster product, ``int8_matmul``) must give the
+and ``head_argmax`` on the cluster product, ``int8_matmul``, the bf16
+forwards of flash and ring attention above head dim 128) must give the
 same bits each time: every kernel sums in a fixed order, so a difference
 is a race.
 """
@@ -465,7 +466,13 @@ def test_flash_attention_kernels(dev, dt, case):
 # (two stages, 16-key tiles walked twice: the max, then the online pass);
 # one key; head dims 8 and 80 (causal 130 x 70: blocks of one and of two
 # key tiles); a dead batch row; head dim 256 at a training shape and at
-# 1,024 keys
+# 1,024 keys; then the paired-warp forward above head dim 128 (each 16 rows
+# a pair of warps, one for each half of o's columns): the four training
+# shapes at B 64, H 4, Dh 256, a causal multi-tile shape with scattered
+# pads, dead batch rows, and head dims 136 and 200, whose halves split off a
+# 128-column boundary (80 + 64, 112 + 96).  Those cases also repeat the call
+# 50 times and must get the same bits (the pair exchanges its row maxima
+# and p through shared memory: a difference is a race)
 FWD_MAX_ULPS, FWD_REL_NORM, FWD_ML_REL = 2.0, 2e-3, 4e-7
 FWD_CASES = [
     (64, 3, 3, 8, 128, False, "tail"),
@@ -478,6 +485,15 @@ FWD_CASES = [
     (5, 70, 37, 3, 80, False, "dead"),
     (64, 21, 21, 4, 256, False, "tail"),
     (8, 16, 1024, 4, 256, False, "tail"),
+    (64, 3, 3, 4, 256, False, "tail"),
+    (64, 20, 20, 4, 256, True, "tail"),
+    (64, 20, 3, 4, 256, False, "tail"),
+    (8, 512, 512, 4, 256, True, "random"),
+    (16, 20, 20, 4, 256, False, "dead"),
+    (5, 70, 37, 3, 136, False, "dead"),
+    (6, 33, 65, 2, 136, True, "random"),
+    (4, 21, 21, 4, 200, False, "tail"),
+    (3, 130, 130, 2, 200, True, "random"),
 ]
 
 
@@ -506,6 +522,9 @@ def test_flash_forward_mma_kernel(dev, case):
     assert bool((l[~live] == 1).all())
     if case[-1] == "dead":
         assert bool((o[1] == 0).all())
+    if case[4] > 128:
+        _repeat_bit_equal(lambda: tfa.flash_attention_fwd(q, k, v, kv_pad,
+                                                          causal))
 
 
 def test_flash_attention_autograd(dev):
@@ -827,7 +846,13 @@ def test_ring_kernels_on_process_ranks(dev, tmp_path):
 # lengths (1, 3, 5, 7 and 10 take the short-chunk tiling; 64, 65 and 1,024
 # the 64-row tiles: one full, one ragged, many key tiles) at head dims 64,
 # 80 and 128, with dead rows on odd and even rings; then head dims 256 and
-# 136 (the DMAX 256 instantiations) short, ragged and long
+# 136 (the DMAX 256 instantiations) short, ragged and long; then the paired
+# warps of the DMAX 256 forward at the training chunks (C 5 at B 64, H 4;
+# C 7 and 21), dead rows (which attend uniformly) at head dims 200 and 136,
+# whose column halves split off a 128-column boundary, and a causal chunk of
+# three key tiles with scattered pads.  The bf16 forward cases above head
+# dim 128 repeat the call 50 times and must get the same bits (one warp of
+# a pair reads and writes the carried m and l: a difference is a race)
 RING_FWD_CASES = [
     (4, 2, 1, 2, 64, True, "dead"),
     (3, 3, 3, 2, 80, False, "dead"),
@@ -840,6 +865,12 @@ RING_FWD_CASES = [
     (4, 3, 5, 2, 256, True, "tail"),
     (3, 2, 65, 2, 256, True, "dead"),
     (2, 1, 300, 2, 136, True, "random"),
+    (2, 64, 5, 4, 256, True, "tail"),
+    (3, 8, 7, 4, 256, False, "tail"),
+    (3, 4, 21, 4, 256, False, "tail"),
+    (4, 3, 5, 2, 200, True, "dead"),
+    (3, 2, 21, 2, 136, True, "dead"),
+    (4, 2, 130, 2, 256, True, "random"),
 ]
 
 
@@ -871,6 +902,9 @@ def test_ring_forward_kernels(dev, dt, case, bidir):
     assert torch.equal(got[1][dead], want[1][dead])
     if case[-1] == "dead":
         assert bool(dead.any()) and bool(got[0][dead].any())
+    if dt == torch.bfloat16 and case[4] > 128:
+        _repeat_bit_equal(lambda: fwd(q, k, v, kv_pad, ring=ring,
+                                      causal=causal, return_lse=True))
 
 
 # the forward's cases, and dead rows on an even ring at a chunk of three
