@@ -41,6 +41,14 @@ def open_dataset(path, vocab, cat2name=None, max_examples=None):
     return cls(path, vocab, cat2name, max_examples=max_examples)
 
 
+def _say(line: str) -> None:
+    """``line`` to standard output in one write: trials running side by
+    side share that output, and ``print`` writes the line and its newline
+    apart, so without a buffer (``PYTHONUNBUFFERED``) their lines mix."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
 def _train_trial(cfg, stop_at_step: int, max_examples=None,
                  device="cuda") -> float:
     """Train (or resume) one trial to ``stop_at_step``; returns val loss."""
@@ -52,7 +60,7 @@ def _train_trial(cfg, stop_at_step: int, max_examples=None,
     device = check_device(device)
     name = (f" ({torch.cuda.get_device_name(device)})"
             if device.type == "cuda" else "")
-    print(f"tune trial {cfg.output_dir}: device {device}{name}", flush=True)
+    _say(f"tune trial {cfg.output_dir}: device {device}{name}")
     vocab = load_vocab(cfg.vocab)
     cat2name = cfg.cat2name if os.path.exists(cfg.cat2name) else None
     train_ds = open_dataset(cfg.dataset, vocab, cat2name, max_examples)
@@ -106,9 +114,8 @@ def _run_trial_child(argv) -> int:
                           args.device)
     with open(result_path(args.trial_dir, args.stop_at_step), "w") as f:
         json.dump({"metric": metric, "step": args.stop_at_step}, f)
-    print(f"tune trial {cfg.output_dir} to step {args.stop_at_step}: val "
-          f"loss {metric:.6g} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    _say(f"tune trial {cfg.output_dir} to step {args.stop_at_step}: val "
+         f"loss {metric:.6g} in {time.perf_counter() - t0:.1f} s")
     return 0
 
 

@@ -765,10 +765,13 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
 //    order of the kernel above (per lane: 16-key slices, their 8-key
 //    halves, the lane's two keys; then the quad), and each warp feeds it,
 //    rounded to bf16, as the A operand of o += p v over its own columns
-//    (pair_cols: 128 of Dh 256, 80 + 64 of Dh 136).  So S, m and p are
-//    the DMAX 128 arithmetic's, bit for bit; l adds the same f32 p in the
-//    same order, read back from shared memory (on the card it came within
-//    one f32 ulp of the column-split kernel this one replaced).
+//    (pair_cols: 128 of Dh 256, 80 + 64 of Dh 136).  S and m follow the
+//    DMAX 128 arithmetic, and on the card m equals the column-split kernel
+//    this one replaced bit for bit.  l, summed in the same order from p
+//    read back from shared memory, does not: it came within one f32 ulp
+//    of that kernel's in some rows (and o within one bf16 ulp in a few
+//    elements), perhaps because that kernel's compiler folded the sum into
+//    its expf; the cause is not verified.
 //  - K, V and the pads are staged once per group and read by all its
 //    warps; q stays in f32 (33 KB for 32 rows), which keeps the chains'
 //    loads as they are.  A block holds about 71 KB at 21 x 21 and 70 KB at

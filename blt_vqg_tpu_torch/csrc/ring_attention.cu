@@ -694,10 +694,11 @@ __global__ void __launch_bounds__(RF_THREADS, RF_BLOCKS_PER_SM)
 //    write the same m and l.)
 //  - A group holds q, the p rows, the row maxima and its first stage; the
 //    second stages follow all groups and are allocated only when an entry
-//    of the step walks more than one tile (ring_fwd_kernels).  At C 5:
-//    43,936 bytes a group, so a one-way step (one tile an entry) fits 3
-//    blocks an SM (4 by shared memory, 3 by registers) and a two-way step
-//    2; at C 21, 2; from C 33 on (48- and 64-key tiles), one 8-warp block.
+//    of the step walks more than one tile (ring_fwd_kernels).  At C 5 a
+//    group takes 27,024 bytes with one stage and 43,936 with two, so a
+//    one-way step (one tile an entry) fits 3 blocks an SM (4 by shared
+//    memory, 3 by registers) and a two-way step 2; at C 21, 2; from C 33
+//    on (48- and 64-key tiles), one 8-warp block.
 //  - Key tiles of C rounded up to 16, at most 64, as above (the tile sets
 //    the points where p is rounded against the running max).
 //  - Registers are capped at 168 a thread, so that 3 blocks of 4 warps

@@ -43,12 +43,12 @@ def _inputs(dev, b, tq, tk, seed, scattered):
     return q, k, v, pad.contiguous()
 
 
-def save(path: str, device: str = "cuda") -> None:
+def save(path: str) -> None:
     from blt_vqg_tpu_torch.ops.kernels import flash_attention as fa
     from blt_vqg_tpu_torch.ops.kernels import ring_attention as ra
     from blt_vqg_tpu_torch.parallel import build_mesh
 
-    dev = torch.device(device)
+    dev = torch.device("cuda")
     out = {}
     for i, (b, tq, tk, causal) in enumerate(FLASH):
         q, k, v, pad = _inputs(dev, b, tq, tk, 100 + i, tq > 64)
@@ -93,14 +93,12 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
     sv = sub.add_parser("save")
     sv.add_argument("path")
-    sv.add_argument("--device", default="cuda",
-                    help="the card by default; cpu runs the plain versions")
     cmp = sub.add_parser("compare")
     cmp.add_argument("a")
     cmp.add_argument("b")
     opts = parser.parse_args(argv)
     if opts.cmd == "save":
-        save(opts.path, opts.device)
+        save(opts.path)
         return 0
     return compare(opts.a, opts.b)
 
