@@ -27,10 +27,11 @@ __device__ __forceinline__ void rf_ldsm2(uint32_t (&r)[2], const void* p) {
                : "memory");
 }
 
-// The head-dim-256 forwards (flash_fwd_mma_kernel<256>, ring_fwd_mma_kernel
-// <256>) give each 16-row tile two warps, one for each half of the output's
-// columns; the pair meets at a named barrier of its own (id 1 + the block's
-// row tile, up to 4 tiles; 0 is __syncthreads).  Constant ids: ptxas then
+// The head-dim-256 kernels (flash_fwd_mma_kernel<256>, ring_fwd_mma_kernel
+// <256>, ring_bwd_dkdv_mma_kernel<256>, ring_bwd_dq_mma_kernel<256>) give
+// each 16-row tile two warps, one for each half of the output's columns;
+// the pair meets at a named barrier of its own (id 1 + the block's row
+// tile, up to 4 tiles; 0 is __syncthreads).  Constant ids: ptxas then
 // reserves only the barriers used, not all 16.
 __device__ __forceinline__ void pair_sync(int tile) {
   switch (tile) {
@@ -103,6 +104,55 @@ __device__ __forceinline__ void rb_split(const float (&x)[2][4], uint32_t (&hi)[
   }
 }
 
+// The ring backward's pairs (csrc/ring_attention.cu) split a 16 x 16 tile
+// of f32 values (S^T and dP^T, or S and dP) by 8-wide column slices: warp
+// `half` computes slice `half` as one m16n8 accumulator x.  Its words of
+// the tile's A operand, hi and lo, by rb_split's arithmetic: {hi, hi, lo,
+// lo} of rows gr and gr + 8 (the tile's words 2 half and 2 half + 1).
+__device__ __forceinline__ uint4 rb_split8(const float (&x)[4]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x[2 * r], x[2 * r + 1]);
+    w[r] = *reinterpret_cast<const uint32_t*>(&v);
+    w[2 + r] = rf_pack(x[2 * r] - __low2float(v), x[2 * r + 1] - __high2float(v));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The pair's exchange of such words: each warp puts its N words a lane
+// into its half of xb ([2 halves][N][32 lanes]), and the pair meets at its
+// barrier; then pair_theirs reads the partner's word n.  The caller
+// alternates two such buffers, so a warp refills one only after a later
+// barrier, which its partner reaches after its reads.
+template <int N>
+__device__ __forceinline__ void pair_put(uint4* xb, const uint4 (&w)[N], int half, int lane,
+                                         int tile) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) xb[(half * N + n) * 32 + lane] = w[n];
+  pair_sync(tile);
+}
+
+template <int N>
+__device__ __forceinline__ uint4 pair_theirs(const uint4* xb, int n, int half, int lane) {
+  return xb[((1 - half) * N + n) * 32 + lane];
+}
+
+// the whole tile's A operands hi and lo, rb_split's words, from the
+// warp's own rb_split8 words and its partner's
+__device__ __forceinline__ void pair_tile_a(uint32_t (&hi)[4], uint32_t (&lo)[4], uint4 mine,
+                                            uint4 theirs, int half) {
+  const uint4 s0 = half ? theirs : mine, s1 = half ? mine : theirs;
+  hi[0] = s0.x;
+  hi[1] = s0.y;
+  hi[2] = s1.x;
+  hi[3] = s1.y;
+  lo[0] = s0.z;
+  lo[1] = s0.w;
+  lo[2] = s1.z;
+  lo[3] = s1.w;
+}
+
 // acc[2n], acc[2n + 1] += a x the 16 x 16 tile at p (rows: the
 // contraction; read transposed), for every 16 columns n of the head dim,
 // each 16-deep sum from zero
@@ -167,6 +217,18 @@ __device__ __forceinline__ void rb_scores(float (&s)[2][4], const uint32_t (&a)[
     s[0][c] += t0[c];
     s[1][c] += t1[c];
   }
+}
+
+// s += a x rows 0 .. 7 of the tile at p: one 8-column half of rb_scores,
+// the same sum
+__device__ __forceinline__ void rb_scores8(float (&s)[4], const uint32_t (&a)[4],
+                                           const __nv_bfloat16* p, int lds, int lane) {
+  uint32_t bf[2];
+  rf_ldsm2(bf, p + (lane % 8) * lds + 8 * ((lane / 8) & 1));
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  rf_mma(t, a, bf[0], bf[1]);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) s[c] += t[c];
 }
 
 }  // namespace bvq

@@ -109,7 +109,8 @@
 // backward's five products about 217 us per call): there the tensor-core
 // tiles, the overlapped loads and the skipped tiles do the work; the
 // backward computes S and dP in both of its kernels and runs its last
-// three products twice (hi and lo), about twice the bound's operations.
+// three products twice (hi and lo), about twice the bound's operations
+// (at head dim 256 as at 128: each pair computes S and dP once).
 // The hop bytes (slots and riders) are counted apart by the ring
 // (`LocalRing.hop_bytes`) and are not part of the bound.  Left for later
 // work: wgmma (warpgroup products from shared memory, fed by TMA), the
@@ -118,10 +119,11 @@
 //
 // Head dims 129-256 (the reference tune space's hidden 1024 over 4 heads)
 // run instantiations of the same kernels with `DMAX` 256: the f32 FMA tiles
-// hold 32 rows, the bf16 backward kernels split the accumulators' columns
-// between two blocks (`rb_cols`), and the bf16 forward splits the carry's
-// columns between the two warps of a pair, which share S's keys
-// (ring_fwd_mma_kernel<256>).  The instantiations up to 128 are the ones
+// hold 32 rows, and each bf16 kernel splits its accumulators' columns (the
+// forward's carry, dk and dv, dq) between the two warps of a pair, which
+// compute S (and dP) once and split it by columns of the walked tile
+// (ring_fwd_mma_kernel<256>, ring_bwd_dkdv_mma_kernel<256>,
+// ring_bwd_dq_mma_kernel<256>).  The instantiations up to 128 are the ones
 // measured above, unchanged.
 #include "mma.cuh"
 
@@ -1253,25 +1255,21 @@ constexpr int RB_WARPS = 4;
 constexpr int RB_THREADS = 32 * RB_WARPS;
 constexpr int RB_BLOCKS_PER_SM = 2;
 
-// Head dims up to 128 take the kernels instantiated with DMAX 128; 136-256
-// take DMAX 256, which splits the columns of the accumulators (dk and dv,
-// dq) between two blocks: grid dimension y runs over (tile of owned rows,
-// half), and each block computes S and dP over the whole head dim and
-// accumulates its own 128 columns (`rb_cols`), so a thread's accumulators
-// stay those of DMAX 128.  The halves write disjoint columns of the riders
-// and the dq carry.
+// Head dims up to 128 take the DMAX 128 kernels below; 136-256 take the
+// DMAX 256 ones after them, which give each 16 owned rows a pair of warps,
+// one for each half of the accumulators' columns.  Each kernel is an
+// explicit specialization of a bare declaration, with launch bounds or a
+// register cap of its own (__launch_bounds__ and __maxnreg__ do not mix).
+// The DMAX 128 kernels' block: its tile of owned rows (grid y) and all dp
+// columns.
 struct RbCols {
   int yb;  // the block's tile of owned rows
   int c0;  // its first column
-  int dp;  // its columns, zero-padded: min(geom dp - c0, 128)
+  int dp;  // its columns, zero-padded
 };
 
 template <int DMAX>
 __device__ __forceinline__ RbCols rb_cols(int dp) {
-  if (DMAX > 128) {
-    const int c0 = 128 * (blockIdx.y % 2);
-    return RbCols{(int)blockIdx.y / 2, c0, min(dp - c0, 128)};
-  }
   return RbCols{(int)blockIdx.y, 0, dp};
 }
 
@@ -1321,8 +1319,12 @@ __host__ __device__ __forceinline__ RbGeom rb_geom(int C, int D, bool dkdv) {
 // at every masked key of a live block): they are skipped up to the first
 // tile that holds a dead row of any of the block's (b, h).
 template <int DMAX>
+__global__ void ring_bwd_dkdv_mma_kernel(const __grid_constant__ RingBwdArgs a);
+
+template <>
 __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
-    ring_bwd_dkdv_mma_kernel(const __grid_constant__ RingBwdArgs a) {
+    ring_bwd_dkdv_mma_kernel<128>(const __grid_constant__ RingBwdArgs a) {
+  constexpr int DMAX = 128;
   using T = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char rb_smem[];
   __shared__ int first_dead;
@@ -1522,8 +1524,12 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
 // stages.  Key tiles wholly after the block's last row add nothing (ds = 0
 // at masked logits) and are not walked.
 template <int DMAX>
+__global__ void ring_bwd_dq_mma_kernel(const __grid_constant__ RingBwdArgs a);
+
+template <>
 __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
-    ring_bwd_dq_mma_kernel(const __grid_constant__ RingBwdArgs a) {
+    ring_bwd_dq_mma_kernel<128>(const __grid_constant__ RingBwdArgs a) {
+  constexpr int DMAX = 128;
   using T = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char rb_smem[];
   const int C = a.chunk, D = a.dim, H = a.heads, e = blockIdx.z;
@@ -1681,6 +1687,433 @@ __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
   }
 }
 
+// ---- head dims 136-256: ring_bwd_dkdv_mma_kernel<256>, ring_bwd_dq_mma_kernel<256>
+// The kernels above, at DMAX 256, would hold 16 rows x 256 columns of
+// accumulators a warp.  Here each 16 owned rows (dK/dV: keys; dQ: query
+// rows) are served by a PAIR of warps of one block (warp 2 rt + half), one
+// for each half of the accumulators' columns (pair_cols: 128 each at Dh
+// 256), as the forward does.  A block of 4 warps holds two row tiles: two
+// (b, h) of 16 rows (C <= 16) or one (b, h) and 32 rows (C <= 32); longer
+// chunks take blocks of 8 warps, one (b, h) and 64 rows.
+//  - The owned rows (dK/dV: K and V; dQ: q and dO) and each walked stage
+//    are loaded once per group, for both halves; q and dO are read by
+//    ldmatrix, not held as fragments.
+//  - S^T and dP^T (dQ: S and dP) are computed once per pair: warp `half`
+//    takes the 8-wide column slices half + 2 i of the walked tile, each
+//    element summed over every 16-deep slice of the head dim, each slice
+//    from zero on the tensor cores, added in f32 in order, as above.
+//  - Each warp turns its slice into p^T and ds^T (ds), rounds it to the hi
+//    and lo bf16 words of the A operand (rb_split8), and the pair swaps
+//    them through shared memory at its named barrier (pair_put, two
+//    buffers used in turn); each warp then runs the products of the whole
+//    16 x 16 tile over its own columns, as above (rb_mma_pair).  So dk, dv
+//    and dq are the arithmetic of the kernels above, bit for bit.
+//  - A group holds its owned rows, its pairs' exchange buffers and its
+//    first stage; the second stages follow all groups and are allocated
+//    only when a launch may walk more than one tile (ring_bwd_kernels).
+//    At C 5 a group takes 38,080 bytes (dK/dV) or 35,856 (dQ, one stage),
+//    room for 3 blocks an SM, and 2 for a dQ launch with two stages (52,768
+//    bytes); from C 33 on, one 8-warp block an SM.
+//  - dQ's registers are capped at 168 a thread, so that 3 blocks of 4
+//    warps share an SM (__maxnreg__: the 8-warp blocks need 256 threads);
+//    it uses 151.  dK/dV holds 128 f32 accumulators a thread (dk and dv):
+//    capped at 168 it spilled 112 bytes, uncapped it takes 213 registers
+//    and spills none, so it runs uncapped, 2 blocks of 4 warps an SM (ptxas
+//    on the card, NVIDIA H100 80GB HBM3).
+constexpr int RBS_DQ_MAX_REGS = 168;
+
+struct RbsGeom {
+  int wq;      // row tiles of 16 per (b, h) in a block, each a pair of warps: 1, 2 or 4
+  int tiles;   // row tiles of a block: 2, or 4 (wq 4: blocks of 8 warps)
+  int groups;  // (b, h) per block, tiles / wq
+  int own;     // rows a group owns, 16 * wq
+  int kt, dp, lds, stage;  // as RbGeom
+  int fixed;   // bytes of the owned rows: two bf16 tiles (dK/dV: K, V; dQ: q, dO)
+  int xch;     // bytes of the group's exchange buffers: 2 per pair, [2][N][32] uint4
+  int gbytes;  // bytes of a group: fixed, xch, one stage
+};
+
+__host__ __device__ __forceinline__ RbsGeom rbs_geom(int C, int D, bool dkdv) {
+  const RbGeom f = rb_geom(C, D, dkdv);
+  RbsGeom g;
+  g.wq = C <= 16 ? 1 : C <= 32 ? 2 : 4;
+  g.tiles = g.wq == 4 ? 4 : 2;
+  g.groups = g.tiles / g.wq;
+  g.own = 16 * g.wq;
+  g.kt = f.kt;
+  g.dp = f.dp;
+  g.lds = f.lds;
+  g.stage = f.stage;
+  g.fixed = 2 * g.own * g.lds * 2;
+  g.xch = g.wq * 2 * 2 * (dkdv ? 2 : 1) * 32 * 16;  // dK/dV swaps p^T and ds^T, dQ ds
+  g.gbytes = g.fixed + g.xch + g.stage;
+  return g;
+}
+
+template <>
+__global__ void ring_bwd_dkdv_mma_kernel<256>(const __grid_constant__ RingBwdArgs a) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char rb_smem[];
+  __shared__ int first_dead;
+  const int C = a.chunk, D = a.dim, H = a.heads;
+  const RbsGeom g = rbs_geom(C, D, true);
+  const int pr = a.step.pair[blockIdx.z];
+  const RbLocal<T> x = rb_local<T>(a, pr >> 1);
+  const RbBlock<T> kb = rb_block<T>(a, pr >> 1, pr & 1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
+  const int rt = warp / 2, half = warp % 2;     // the warp's tile of 16 keys and column half
+  const int grp = rt / g.wq;
+  const int gtid = threadIdx.x - grp * 64 * g.wq, gthreads = 64 * g.wq;
+  const int bh = blockIdx.x * g.groups + grp;
+  const bool active = bh < a.batch * H;  // the last block's groups may be idle
+  const int b = active ? bh / H : 0, h = active ? bh % H : 0;
+  const int kb0 = blockIdx.y * g.own;           // the block's first key
+  const int kw = 16 * (rt % g.wq);              // the tile's keys in the owned rows
+  const int nd = g.dp / 8, ntq = (C + g.kt - 1) / g.kt;
+  const long sbk = (long)C * H * D, sr = a.sb / D;
+  const PairCols cols = pair_cols(g.dp, half);
+  unsigned char* gsm = rb_smem + (size_t)grp * g.gbytes;
+  T* ks = reinterpret_cast<T*>(gsm);
+  T* vs = ks + g.own * g.lds;
+  uint4* xb = reinterpret_cast<uint4*>(gsm + g.fixed) + (rt % g.wq) * 2 * 2 * 2 * 32;
+  unsigned char* stg0 = gsm + g.fixed + g.xch;
+  unsigned char* stg1 = rb_smem + (size_t)g.groups * g.gbytes + (size_t)grp * g.stage;
+  const int mi = lane / 8, lr8 = lane % 8;
+  const T zero = __float2bfloat16_rn(0.f);
+
+  // the owned K and V, zeros past the chunk and the dim
+  if (active) {
+    for (int c = gtid; c < g.own * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, kj = kb0 + r;
+      const int valid = kj < C ? max(0, min(8, D - d0)) : 0;
+      const size_t off = kj < C ? ra_at(sbk, b, kj, h, H, D) + d0 : 0;
+      rf_load16(ks + r * g.lds + d0, kb.k + off, valid, zero);
+      rf_load16(vs + r * g.lds + d0, kb.v + off, valid, zero);
+    }
+  }
+  rf_commit();
+  // the tile's keys kb0 + kw + gr + 8y: in the chunk, and padded
+  bool kin[2], kpad[2];
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int kj = kb0 + kw + gr + 8 * y;
+    kin[y] = active && kj < C;
+    kpad[y] = kin[y] && kb.pad[(size_t)b * C + kj];
+  }
+
+  // causal: query rows i < lim see none of the block's keys (as above)
+  int qstart = 0;
+  if (a.causal) {
+    const int lim = kb.k_off + kb0 - x.q_off;
+    const int blind = lim >= C ? ntq : max(0, lim / g.kt);  // tiles wholly before
+    if (blind > 0) {
+      if (threadIdx.x == 0) first_dead = blind * g.kt;
+      __syncthreads();
+      const int rows = min(C, blind * g.kt);
+      int fd = rows;
+      if (active) {
+        for (int i = gtid; i < rows; i += gthreads)
+          if (x.m[(size_t)b * sr + (size_t)i * H + h] <= 0.5f * RA_NEG_INF) {
+            fd = i;
+            break;
+          }
+      }
+      if (fd < rows) atomicMin(&first_dead, fd);
+      __syncthreads();
+      qstart = first_dead / g.kt;
+    }
+  }
+
+  // query tile t into stage st: q and dO rows, and the rows' m, l, delta
+  // (l = 1 and the rest 0 past the chunk)
+  auto load = [&](int t, int st) {
+    if (!active) return;
+    const int q0 = t * g.kt;
+    T* qs = reinterpret_cast<T*>(st ? stg1 : stg0);
+    T* os = qs + g.kt * g.lds;
+    float* rm = reinterpret_cast<float*>(os + g.kt * g.lds);
+    for (int c = gtid; c < g.kt * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, i = q0 + r;
+      const int valid = i < C ? max(0, min(8, D - d0)) : 0;
+      const size_t off = i < C ? ra_at(a.sb, b, i, h, H, D) + d0 : 0;
+      rf_load16(qs + r * g.lds + d0, x.q + off, valid, zero);
+      rf_load16(os + r * g.lds + d0, x.dout + off, valid, zero);
+    }
+    for (int r = gtid; r < g.kt; r += gthreads) {
+      const int i = q0 + r;
+      if (i < C) {
+        const size_t ri = (size_t)b * sr + (size_t)i * H + h;
+        rb_load4(rm + r, x.m + ri);
+        rb_load4(rm + g.kt + r, x.l + ri);
+        rb_load4(rm + 2 * g.kt + r, x.delta + ri);
+      } else {
+        rm[r] = 0.f;
+        rm[g.kt + r] = 1.f;
+        rm[2 * g.kt + r] = 0.f;
+      }
+    }
+  };
+
+  // dk and dv of keys kb0 + kw + gr + 8y over the warp's columns:
+  // dk[n][2y + c] is column cols.c0 + 8n + 2tq + c
+  float dk[MMA_DT][4], dv[MMA_DT][4];
+#pragma unroll
+  for (int n = 0; n < MMA_DT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
+
+  if (qstart < ntq) load(qstart, 0);
+  rf_commit();
+  for (int t = qstart, st = 0; t < ntq; ++t, st ^= 1) {
+    if (t + 1 < ntq) load(t + 1, st ^ 1);
+    rf_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile t (and K, V) landed
+    __syncthreads();
+
+    if (active) {
+      const int q0 = t * g.kt;
+      const T* qs = reinterpret_cast<const T*>(st ? stg1 : stg0);
+      const T* os = qs + g.kt * g.lds;
+      const float* rm = reinterpret_cast<const float*>(os + g.kt * g.lds);
+      const float* rl = rm + g.kt;
+      const float* rd = rl + g.kt;
+#pragma unroll 1
+      for (int qc = 0; qc < g.kt / 16 && q0 + 16 * qc < C; ++qc) {
+        // S^T and dP^T: the tile's 16 keys x the warp's 8 queries qw ..
+        const int qw = 16 * qc + 8 * half;
+        float s[4] = {0.f, 0.f, 0.f, 0.f}, dpv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < RA_DMAX / 16; ++kk) {
+          if (kk < g.dp / 16) {
+            uint32_t af[4];
+            rf_ldsm(af, ks + (kw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
+            rb_scores8(s, af, qs + qw * g.lds + 16 * kk, g.lds, lane);
+            rf_ldsm(af, vs + (kw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
+            rb_scores8(dpv, af, os + qw * g.lds + 16 * kk, g.lds, lane);
+          }
+        }
+        // p^T and ds^T: key kb0 + kw + gr + 8 (c >> 1), query column ii
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int y = c >> 1, kj = kb0 + kw + gr + 8 * y;
+          const int ii = qw + 2 * tq + (c & 1), i = q0 + ii;
+          float p = 0.f, ds = 0.f;
+          if (kin[y] && i < C) {
+            const bool masked = kpad[y] || (a.causal && kb.k_off + kj > x.q_off + i);
+            p = expf((masked ? RA_NEG_INF : s[c]) - rm[ii]) * (1.f / rl[ii]);
+            if (!masked) ds = p * (dpv[c] - rd[ii]);
+          }
+          s[c] = p;
+          dpv[c] = ds;
+        }
+        // the pair swaps its slices; dV += p^T dO and dK += ds^T q over the
+        // warp's columns, the whole 16 x 16 tile as A
+        const uint4 mine[2] = {rb_split8(s), rb_split8(dpv)};
+        uint4* xp = xb + (qc & 1) * 2 * 2 * 32;
+        pair_put<2>(xp, mine, half, lane, rt);
+        uint32_t hi[4], lo[4];
+        pair_tile_a(hi, lo, mine[0], pair_theirs<2>(xp, 0, half, lane), half);
+        rb_mma_pair(dv, hi, lo, os + 16 * qc * g.lds + cols.c0, g.lds, cols.cw, lane);
+        pair_tile_a(hi, lo, mine[1], pair_theirs<2>(xp, 1, half, lane), half);
+        rb_mma_pair(dk, hi, lo, qs + 16 * qc * g.lds + cols.c0, g.lds, cols.cw, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st and the exchange before refills
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  // add to the rider over the warp's columns (one block owns these keys)
+  float* rk = kb.rider;
+  float* rv = rk + (size_t)a.batch * sbk;
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    if (!kin[y]) continue;
+    const size_t off = ra_at(sbk, b, kb0 + kw + gr + 8 * y, h, H, D);
+#pragma unroll
+    for (int n = 0; n < MMA_DT; ++n) {
+      const int d = cols.c0 + 8 * n + 2 * tq;
+      if (8 * n >= cols.cw) continue;
+      if (d + 1 < D && D % 2 == 0) {
+        float2* pk = reinterpret_cast<float2*>(rk + off + d);
+        float2* pv = reinterpret_cast<float2*>(rv + off + d);
+        const float2 ok = *pk, ov = *pv;
+        *pk = make_float2(ok.x + dk[n][2 * y], ok.y + dk[n][2 * y + 1]);
+        *pv = make_float2(ov.x + dv[n][2 * y], ov.y + dv[n][2 * y + 1]);
+      } else {
+        if (d < D) {
+          rk[off + d] += dk[n][2 * y];
+          rv[off + d] += dv[n][2 * y];
+        }
+        if (d + 1 < D) {
+          rk[off + d + 1] += dk[n][2 * y + 1];
+          rv[off + d + 1] += dv[n][2 * y + 1];
+        }
+      }
+    }
+  }
+}
+
+template <>
+__global__ void __maxnreg__(RBS_DQ_MAX_REGS)
+    ring_bwd_dq_mma_kernel<256>(const __grid_constant__ RingBwdArgs a) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char rb_smem[];
+  const int C = a.chunk, D = a.dim, H = a.heads, e = blockIdx.z;
+  const RbsGeom g = rbs_geom(C, D, false);
+  const RbLocal<T> x = rb_local<T>(a, e);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
+  const int rt = warp / 2, half = warp % 2;     // the warp's row tile and column half
+  const int grp = rt / g.wq;
+  const int gtid = threadIdx.x - grp * 64 * g.wq, gthreads = 64 * g.wq;
+  const int bh = blockIdx.x * g.groups + grp;
+  const bool active = bh < a.batch * H;
+  const int b = active ? bh / H : 0, h = active ? bh % H : 0;
+  const int qb = blockIdx.y * g.own;               // the group's first query row
+  const int rw = 16 * (rt % g.wq);                 // the tile's first row in the group
+  const int r0 = qb + rw;
+  const int qlast = min(C, qb + g.own) - 1;        // the block's last row in the chunk
+  const int nd = g.dp / 8, ntk = (C + g.kt - 1) / g.kt;
+  const long sbk = (long)C * H * D, sr = a.sb / D;
+  const PairCols cols = pair_cols(g.dp, half);
+  unsigned char* gsm = rb_smem + (size_t)grp * g.gbytes;
+  T* qs = reinterpret_cast<T*>(gsm);                          // [own][lds] q
+  T* os = qs + g.own * g.lds;                                 // [own][lds] dO
+  uint4* xb = reinterpret_cast<uint4*>(gsm + g.fixed) + (rt % g.wq) * 2 * 2 * 32;
+  unsigned char* stg0 = gsm + g.fixed + g.xch;
+  unsigned char* stg1 = rb_smem + (size_t)g.groups * g.gbytes + (size_t)grp * g.stage;
+  const int mi = lane / 8, lr8 = lane % 8;
+  const T zero = __float2bfloat16_rn(0.f);
+
+  // the group's q and dO rows, zeros past the chunk and the dim (in the
+  // first tile's cp.async group)
+  if (active) {
+    for (int c = gtid; c < g.own * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, i = qb + r;
+      const int valid = i < C ? max(0, min(8, D - d0)) : 0;
+      const size_t off = i < C ? ra_at(a.sb, b, i, h, H, D) + d0 : 0;
+      rf_load16(qs + r * g.lds + d0, x.q + off, valid, zero);
+      rf_load16(os + r * g.lds + d0, x.dout + off, valid, zero);
+    }
+  }
+  // the rows' m, 1 / l and delta
+  float mrow[2], lrow[2], drow[2];
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int i = r0 + gr + 8 * y;
+    mrow[y] = lrow[y] = drow[y] = 0.f;
+    if (active && i < C) {
+      const size_t ri = (size_t)b * sr + (size_t)i * H + h;
+      mrow[y] = x.m[ri];
+      lrow[y] = 1.f / x.l[ri];
+      drow[y] = x.delta[ri];
+    }
+  }
+
+  // the key tiles of block j that are not wholly after the block's rows
+  auto live = [&](int j) {
+    if (!a.causal) return ntk;
+    const int lim = x.q_off + qlast - a.step.src[2 * e + j] * C;
+    return lim < 0 ? 0 : min(ntk, lim / g.kt + 1);
+  };
+  const int n0 = live(0), nt = n0 + (x.nblk > 1 ? live(1) : 0);
+
+  // tile t (block t < n0 ? 0 : 1) into stage st: K, V and the keys' pad
+  // bytes (1 past the chunk's edge)
+  auto load = [&](int t, int st) {
+    if (!active) return;
+    const int j = t < n0 ? 0 : 1, k0 = (t < n0 ? t : t - n0) * g.kt;
+    const RbBlock<T> kb = rb_block<T>(a, e, j);
+    T* ks = reinterpret_cast<T*>(st ? stg1 : stg0);
+    T* vs = ks + g.kt * g.lds;
+    unsigned char* ps = reinterpret_cast<unsigned char*>(vs + g.kt * g.lds);
+    for (int c = gtid; c < g.kt * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, kj = k0 + r;
+      const int valid = kj < C ? max(0, min(8, D - d0)) : 0;
+      const size_t off = kj < C ? ra_at(sbk, b, kj, h, H, D) + d0 : 0;
+      rf_load16(ks + r * g.lds + d0, kb.k + off, valid, zero);
+      rf_load16(vs + r * g.lds + d0, kb.v + off, valid, zero);
+    }
+    for (int c = gtid; c < g.kt / 16; c += gthreads) {
+      const int kj = k0 + 16 * c;
+      rf_load16(ps + 16 * c, kb.pad + (size_t)b * C + kj, max(0, min(16, C - kj)),
+                (unsigned char)1);
+    }
+  };
+
+  // dq of rows r0 + gr + 8y over the warp's columns: dq[n][2y + c] is
+  // column cols.c0 + 8n + 2tq + c
+  float dq[MMA_DT][4];
+#pragma unroll
+  for (int n = 0; n < MMA_DT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  if (nt > 0) load(0, 0);
+  rf_commit();
+  for (int t = 0, st = 0; t < nt; ++t, st ^= 1) {
+    if (t + 1 < nt) load(t + 1, st ^ 1);
+    rf_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile t (and q, dO) landed
+    __syncthreads();
+
+    if (active) {
+      const int k0 = (t < n0 ? t : t - n0) * g.kt;
+      const int k_off = a.step.src[2 * e + (t < n0 ? 0 : 1)] * C;
+      const T* ks = reinterpret_cast<const T*>(st ? stg1 : stg0);
+      const T* vs = ks + g.kt * g.lds;
+      const unsigned char* ps = reinterpret_cast<const unsigned char*>(vs + g.kt * g.lds);
+#pragma unroll 1
+      for (int kc = 0; kc < g.kt / 16 && k0 + 16 * kc < C; ++kc) {
+        // S and dP: the tile's 16 rows x the warp's 8 keys kw ..
+        const int kw = 16 * kc + 8 * half;
+        float s[4] = {0.f, 0.f, 0.f, 0.f}, dpv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < RA_DMAX / 16; ++kk) {
+          if (kk < g.dp / 16) {
+            uint32_t af[4];
+            rf_ldsm(af, qs + (rw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
+            rb_scores8(s, af, ks + kw * g.lds + 16 * kk, g.lds, lane);
+            rf_ldsm(af, os + (rw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
+            rb_scores8(dpv, af, vs + kw * g.lds + 16 * kk, g.lds, lane);
+          }
+        }
+        // ds: row r0 + gr + 8 (c >> 1), key column jj
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int y = c >> 1, i = r0 + gr + 8 * y;
+          const int jj = kw + 2 * tq + (c & 1), kj = k0 + jj;
+          float ds = 0.f;
+          if (kj < C && i < C && !ps[jj] && !(a.causal && k_off + kj > x.q_off + i))
+            ds = expf(s[c] - mrow[y]) * lrow[y] * (dpv[c] - drow[y]);
+          s[c] = ds;
+        }
+        // the pair swaps its slices; dQ += ds k over the warp's columns
+        const uint4 mine[1] = {rb_split8(s)};
+        uint4* xp = xb + (kc & 1) * 2 * 32;
+        pair_put<1>(xp, mine, half, lane, rt);
+        uint32_t hi[4], lo[4];
+        pair_tile_a(hi, lo, mine[0], pair_theirs<1>(xp, 0, half, lane), half);
+        rb_mma_pair(dq, hi, lo, ks + 16 * kc * g.lds + cols.c0, g.lds, cols.cw, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st and the exchange before refills
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  if (!active) return;
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int i = r0 + gr + 8 * y;
+    if (i >= C) continue;  // rows past the chunk belong to the next rank
+    float* p = x.dq + ra_at(a.sb, b, i, h, H, D);
+#pragma unroll
+    for (int n = 0; n < MMA_DT; ++n) {
+      const int d = cols.c0 + 8 * n + 2 * tq;
+      if (8 * n >= cols.cw) continue;
+      if (d < D) p[d] = x.first ? dq[n][2 * y] : p[d] + dq[n][2 * y];
+      if (d + 1 < D) p[d + 1] = x.first ? dq[n][2 * y + 1] : p[d + 1] + dq[n][2 * y + 1];
+    }
+  }
+}
+
 // dq, dk and dv of every rank in T from the f32 dq carry and the landed
 // riders (the two-way ring sums clockwise + counter-clockwise, in that
 // order), one thread per element
@@ -1782,16 +2215,32 @@ static cudaError_t ring_bwd_kernels(const RingBwdArgs& a, RingBwdKernel which, c
   const int C = a.chunk, D = a.dim;
   const int bh = a.batch * a.heads, z = which == RB_DKDV ? a.step.npair : a.step.nent;
   if (a.act_bf16) {
-    const RbGeom g = rb_geom(C, D, which == RB_DKDV);
-    const size_t smem = (size_t)g.groups * (g.fixed + g.nst * g.stage);
-    // grid y: the tiles of owned rows, times the column halves (rb_cols)
-    const dim3 grid(cdiv(bh, g.groups), cdiv(C, g.own) * (DMAX / 128), z);
+    size_t smem;
+    dim3 grid;
+    int threads = RB_THREADS;
+    if constexpr (DMAX > 128) {
+      // the groups, then their second stages where a block may walk two
+      // tiles: dK/dV the rank's query tiles, dQ the key tiles of an entry's
+      // visiting blocks
+      const RbsGeom g = rbs_geom(C, D, which == RB_DKDV);
+      const int tiles = cdiv(C, g.kt);
+      int walk = tiles;
+      if (which == RB_DQ)
+        for (int e = 0; e < a.step.nent; ++e) walk = max(walk, (a.step.info[e] & 3) * tiles);
+      smem = (size_t)g.groups * (g.gbytes + (walk > 1 ? g.stage : 0));
+      grid = dim3(cdiv(bh, g.groups), cdiv(C, g.own), z);
+      threads = 64 * g.tiles;
+    } else {
+      const RbGeom g = rb_geom(C, D, which == RB_DKDV);
+      smem = (size_t)g.groups * (g.fixed + g.nst * g.stage);
+      grid = dim3(cdiv(bh, g.groups), cdiv(C, g.own), z);
+    }
     if (which == RB_DKDV) {
       BVQ_TRY(rf_allow_smem(ring_bwd_dkdv_mma_kernel<DMAX>, rs_slot<DMAX>(RS_DKDV_MMA), smem));
-      ring_bwd_dkdv_mma_kernel<DMAX><<<grid, RB_THREADS, smem, s>>>(a);
+      ring_bwd_dkdv_mma_kernel<DMAX><<<grid, threads, smem, s>>>(a);
     } else {
       BVQ_TRY(rf_allow_smem(ring_bwd_dq_mma_kernel<DMAX>, rs_slot<DMAX>(RS_DQ_MMA), smem));
-      ring_bwd_dq_mma_kernel<DMAX><<<grid, RB_THREADS, smem, s>>>(a);
+      ring_bwd_dq_mma_kernel<DMAX><<<grid, threads, smem, s>>>(a);
     }
   } else {
     using F = RaTile<DMAX>;

@@ -137,13 +137,15 @@ only when every phase passed):
    (seed-made weights, ``make_batch`` data, the launch counts of each
    path read around it and its time by CUDA events): (a) head dim 256
    (hidden 1024 over 4 heads): the compiler's registers and spills of the
-   two head-dim-256 forwards, the three flash kernels against their plain
+   four head-dim-256 pair kernels (the two forwards, the ring's dK/dV and
+   dQ), the three flash kernels against their plain
    versions at the four training shapes and B 8, T 512 causal, the one-
    and two-way ring at the training shape on seq 4 and at B 2, T 4096,
    each timed at those shapes with its bound and SDPA, one latent train
    step on the flash path against the einsum path within phase 7's
-   limits, the ``<256>`` forwards' launches and device time in a latent
-   step on the flash path and on the seq 4 ring path (by profiler), and a
+   limits, the ``<256>`` pair kernels' launches and device time in a
+   latent step on the flash path and on the seq 4 ring path (by profiler;
+   exact counts), and a
    ``cli.tune`` trial child of that trial with ``use_pallas_attention``;
    (b) ViT-B/16 (BASELINE config
    4): the train CLI with ``--image_encoder vit_b16`` for 2 pretrain and
@@ -354,10 +356,12 @@ FLASH_FMA = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
              "flash_bwd_dq_kernel")
 FLASH_STEP_KERNELS = FLASH_MMA + FLASH_FMA
 # the mangled-name mark of a kernel's head-dim-256 instantiation (DMAX 256),
-# and the two forwards whose DMAX 256 instantiations split the output's
-# columns between the two warps of a pair (they must not spill)
+# and the kernels whose DMAX 256 instantiations split the accumulators'
+# columns between the two warps of a pair (they must not spill): the two
+# forwards and the ring's two backward kernels
 DMAX256 = "ILi256E"
 FWD256 = ("flash_fwd_mma_kernel", "ring_fwd_mma_kernel")
+PAIR256 = FWD256 + ("ring_bwd_dkdv_mma_kernel", "ring_bwd_dq_mma_kernel")
 # o, dq, dk, dv are bf16: the kernel and the plain version round p and every
 # output to bf16 after f32 sums taken in other orders.  Readings over 8
 # seeds x 6 cases (48; NVIDIA H100 80GB HBM3, 700 W): max error up to 1
@@ -2218,9 +2222,10 @@ def mma_code(lib_path: str, report: str) -> None:
     tensor-core products (HMMA or HGMMA; HGMMA for INT8_KERNEL), and unless
     ptxas reports no spills for the flash (head dims up to 128: the
     ``DMAX`` 128 instantiations the training shapes run), cluster and int8
-    kernels and the two head-dim-256 forwards (the ring forward's DMAX 128
+    kernels and the four head-dim-256 pair kernels (PAIR256: the two
+    forwards and the ring's dK/dV and dQ; the ring forward's DMAX 128
     registers are capped for 3 blocks per SM, and it spills a few bytes by
-    design; the head-dim-256 backward kernels' spills are printed, not
+    design; the flash backward's head-dim-256 spills are printed, not
     refused)."""
     kernels = RING_MMA + FLASH_MMA + CLUSTER_MMA + (INT8_KERNEL,)
     watched = ("ring_", "flash_", "gemm_partial_kernel", "residual_ln_kernel",
@@ -2229,7 +2234,7 @@ def mma_code(lib_path: str, report: str) -> None:
         if any(w in name for w in watched):
             log(f"    ptxas {name}: {used.group(0) if used else '?'}; "
                 f"spill stores {spill.group(1) if spill else '?'} bytes")
-            kept = (DMAX256 in name and any(k in name for k in FWD256)) or (
+            kept = (DMAX256 in name and any(k in name for k in PAIR256)) or (
                 DMAX256 not in name and any(
                     k in name for k in FLASH_MMA + CLUSTER_MMA
                     + (INT8_KERNEL,)))
@@ -3387,13 +3392,14 @@ def compare_seeds(dev, card, log, tag: str, over: dict, seeds: int, limits):
     return out
 
 
-def fwd256_ptxas(log) -> None:
-    """The compiler's registers, barriers and spills of the two head-dim-256
-    forwards, from the build log (phase 1 refuses their spills)."""
+def pair256_ptxas(log) -> None:
+    """The compiler's registers, barriers and spills of the four
+    head-dim-256 pair kernels (PAIR256), from the build log (phase 1
+    refuses their spills)."""
     with open(_build.library_path() + ".log") as f:
         report = f.read()
     for name, used, spill in ptxas_entries(report):
-        if DMAX256 in name and any(k in name for k in FWD256):
+        if DMAX256 in name and any(k in name for k in PAIR256):
             log(f"[17a] ptxas {name}: {used.group(0) if used else '?'}; "
                 f"spill stores {spill.group(1) if spill else '?'} bytes")
 
@@ -3418,14 +3424,14 @@ def dh256_times(dev, card, log):
     return ftot, rtimes
 
 
-def fwd256_launches(fn):
-    """{forward: (launches, device ms)} of the two head-dim-256 forwards
-    (their ILi256E instantiations, which the profiler names demangled:
-    ``bvq::flash_fwd_mma_kernel<256>(...)``) in one call of ``fn``, by
-    profiler."""
-    out = {k: (0.0, 0.0) for k in FWD256}
+def pair256_launches(fn):
+    """{kernel: (launches, device ms)} of the four head-dim-256 pair
+    kernels (PAIR256: their ILi256E instantiations, which the profiler names
+    demangled: ``bvq::flash_fwd_mma_kernel<256>(...)``) in one call of
+    ``fn``, by profiler."""
+    out = {k: (0.0, 0.0) for k in PAIR256}
     for name, (n, t) in profile_groups(fn, 1).items():
-        for k in FWD256:
+        for k in PAIR256:
             if f"{k}<256>" in name or (k in name and DMAX256 in name):
                 out[k] = (out[k][0] + n, out[k][1] + t)
     return out
@@ -3435,11 +3441,11 @@ def dh256_phase(dev, card, log, data: dict, seeds: int):
     """17(a): the flash and ring kernels at head dim 256 against their
     plain versions (the ring also at the long shape) and timed; the
     flagship at hidden 1024 over 4 heads trained on the flash path against
-    the einsum path, and the head-dim-256 forwards' launches in a latent
-    step on the flash path and on the seq 4 ring path, by profiler; a
+    the einsum path, and the head-dim-256 pair kernels' launches in a
+    latent step on the flash path and on the seq 4 ring path, by profiler; a
     ``cli.tune`` child of that trial.  Returns (flash totals, ring times
     per call, worst errors by function)."""
-    fwd256_ptxas(log)
+    pair256_ptxas(log)
     worst = dict.fromkeys(FLASH_KERNELS + RING_KERNELS, 0.0)
     cases = [(f"{what} Tq {tq} Tk {tk}{' causal' if causal else ''}",
               (BATCH, DH256_HEADS, DH256_DIM, tq, tk, causal), "tail")
@@ -3473,12 +3479,12 @@ def dh256_phase(dev, card, log, data: dict, seeds: int):
                                      dict(num_heads=DH256_HEADS), seeds,
                                      (TRAIN_LOSS_REL, TRAIN_GNORM_REL,
                                       TRAIN_PARAM_REL))
-    # the head-dim-256 forwards of a latent step, by profiler: on the flash
-    # path, then with the decoder's self-attentions on the seq 4 ring
+    # the head-dim-256 pair kernels of a latent step, by profiler: on the
+    # flash path, then with the decoder's self-attentions on the seq 4 ring
     cfg = kstate.model.cfg
     gen = torch.Generator(dev).manual_seed(SEED + 18)
     step = make_train_step(cfg, True)
-    got = fwd256_launches(lambda: step(kstate, batch, gen))
+    got = pair256_launches(lambda: step(kstate, batch, gen))
     scfg = cfg.replace(sequence_parallel=True, ring_attention_impl="pallas")
     mesh = build_mesh((RING_SEQ,), ("seq",), dev)
     smodel = IQ(scfg, serve.FLAGSHIP_VOCAB, mesh).to(dev)
@@ -3486,20 +3492,25 @@ def dh256_phase(dev, card, log, data: dict, seeds: int):
     sstate = create_train_state(scfg, smodel, seed=None)
     sstep = make_train_step(scfg, True, mesh)
     metrics = {}
-    sp = fwd256_launches(lambda: metrics.update(
+    sp = pair256_launches(lambda: metrics.update(
         sstep(sstate, batch, gen)[1]))
     nl = cfg.num_layers
-    want = {"flash": {FWD256[0]: STEP_FLASH, FWD256[1]: 0},
+    # a seq 4 ring call launches the forward, the dK/dV and the dQ kernel
+    # once per ring step with a live rank
+    steps = ring_launch_counts(RING_SEQ, True)[0]
+    want = {"flash": {FWD256[0]: STEP_FLASH,
+                      **dict.fromkeys(PAIR256[1:], 0)},
             "seq 4": {FWD256[0]: STEP_FLASH - nl,
-                      FWD256[1]: nl * ring_launch_counts(RING_SEQ, True)[0]}}
+                      **dict.fromkeys(PAIR256[1:], nl * steps)}}
     for path, counts in (("flash", got), ("seq 4", sp)):
         log(f"[17a] {card}: latent step b{BATCH} on the {path} path, the "
-            f"{DMAX256} forwards by profiler: " + ", ".join(
+            f"{DMAX256} pair kernels by profiler: " + ", ".join(
                 f"{k}<256> {n:.0f} launches, {t * 1e3:.1f} us device"
                 for k, (n, t) in counts.items()))
         if {k: round(n) for k, (n, _) in counts.items()} != want[path]:
-            raise AssertionError(f"[17a] {path} path: {DMAX256} forward "
-                                 f"launches {counts}, want {want[path]}")
+            raise AssertionError(f"[17a] {path} path: {DMAX256} pair "
+                                 f"kernel launches {counts}, want "
+                                 f"{want[path]}")
     if not all(math.isfinite(float(v)) for v in metrics.values()):
         raise AssertionError(f"[17a] seq 4 latent step: {metrics}")
     del kstate, sstate, smodel, batch

@@ -47,9 +47,9 @@ the query tiles before a causal key tile.
 a ragged N takes the split-K product's two kernels), also at ragged M and
 N edges.  Repeated calls on the same inputs (the bf16 ``self_attn_step``
 and ``head_argmax`` on the cluster product, ``int8_matmul``, the bf16
-forwards of flash and ring attention above head dim 128) must give the
-same bits each time: every kernel sums in a fixed order, so a difference
-is a race.
+forwards of flash and ring attention and the ring backward above head dim
+128) must give the same bits each time: every kernel sums in a fixed
+order, so a difference is a race.
 """
 
 import numpy as np
@@ -158,40 +158,51 @@ def test_decode_stack_step_kernel(dev, dt, case):
         assert float(err.norm() / wv.norm()) <= rel_norm_tol, name
 
 
-def _kernels_per_call(fn, calls: int = 4) -> dict:
-    """{device kernel name: records per call} of ``calls`` calls of ``fn``
-    by profiler, after a warm-up call (taken again, up to twice, if the
-    profiler recorded nothing)."""
+def _profile_per_call(fn, calls: int = 4):
+    """({device kernel name: records per call}, {CPU-side event name:
+    records per call}, tries) of ``calls`` calls of ``fn`` by profiler,
+    after a warm-up call; taken again, up to 3 tries in all, while the
+    profiler records no device kernel."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
-    out = {}
-    for _ in range(3):
+    for tries in range(1, 4):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        out = {e.key: e.count / calls for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
-        if out:
+        per_call = {kind: {e.key: e.count / calls
+                           for e in prof.key_averages()
+                           if e.device_type == kind}
+                    for kind in (torch.autograd.DeviceType.CUDA,
+                                 torch.autograd.DeviceType.CPU)}
+        if per_call[torch.autograd.DeviceType.CUDA]:
             break
-    return out
+    return (per_call[torch.autograd.DeviceType.CUDA],
+            per_call[torch.autograd.DeviceType.CPU], tries)
 
 
 def _runs_sequence(fn, want: dict) -> None:
     """Each call of ``fn`` runs the kernels ``want`` ({name: launches per
     call}, matched as whole identifiers) and nothing else; the profiler may
-    drop records, never add them."""
+    drop records, never add them.  Where it records no device kernel at
+    all, the message names its tries and the CPU-side events it did record
+    (launch calls there and no kernel: a window the profiler dropped; no
+    launch call: a launch that never happened)."""
     import re
 
+    kernels, host, tries = _profile_per_call(fn)
     got = {}
-    for name, n in _kernels_per_call(fn).items():
+    for name, n in kernels.items():
         fam = next((k for k in want
                     if re.search(rf"(?<![A-Za-z0-9_]){k}(?![A-Za-z0-9_])",
                                  name)), name)
         got[fam] = got.get(fam, 0.0) + n
-    assert got, "the profiler recorded no device kernel"
+    assert got, (f"the profiler recorded no device kernel in {tries} tries; "
+                 f"CPU-side events a call in the last: "
+                 + (", ".join(f"{k} {n:g}" for k, n in sorted(host.items()))
+                    or "none"))
     for fam, n in got.items():
         assert n <= want.get(fam, 0) + 1e-6, got
 
@@ -738,8 +749,8 @@ def test_int8_matmul_path(dev, m, k, n, kernels):
 
     x, w8, scale = _int8_inputs(dev, torch.bfloat16, m, k, n)
     got = {}
-    for name, calls in _kernels_per_call(
-            lambda: tim.int8_matmul(x, w8, scale)).items():
+    for name, calls in _profile_per_call(
+            lambda: tim.int8_matmul(x, w8, scale))[0].items():
         fam = next((f for f in kernels if re.search(
             rf"(?<![A-Za-z0-9_]){f}(?![A-Za-z0-9_])", name)), name)
         got[fam] = got.get(fam, 0.0) + calls
@@ -909,8 +920,15 @@ def test_ring_forward_kernels(dev, dt, case, bidir):
 
 # the forward's cases, and dead rows on an even ring at a chunk of three
 # tiles: each causal diagonal block has key tiles in the future of query
-# tile 0, whose dead rows still add to their dv
-RING_BWD_CASES = RING_FWD_CASES + [(4, 2, 130, 2, 64, True, "dead")]
+# tile 0, whose dead rows still add to their dv; then the paired warps of
+# the DMAX 256 backward on an 8-warp block with one walked tile of 48 rows
+# (C 33-64), and dead rows at head dim 200 (column halves of 112 and 96)
+# over two tiles.  The bf16 cases above head dim 128 repeat the call 50
+# times and must get the same bits (the pairs swap p and ds through shared
+# memory: a difference is a race)
+RING_BWD_CASES = RING_FWD_CASES + [(4, 2, 130, 2, 64, True, "dead"),
+                                   (3, 3, 48, 2, 256, True, "random"),
+                                   (4, 2, 100, 2, 200, True, "dead")]
 
 
 @pytest.mark.parametrize("bidir", [False, True], ids=["one_way", "two_way"])
@@ -943,6 +961,9 @@ def test_ring_backward_kernels(dev, dt, case, bidir):
         _close(g, w, dt, name)
     if case[-1] == "dead":
         assert bool((m <= 0.5 * tra.NEG_INF).any())
+    if dt == torch.bfloat16 and case[4] > 128:
+        _repeat_bit_equal(lambda: bwd(q, k, v, kv_pad, o, m, l, do,
+                                      ring=ring, causal=causal))
 
 
 def test_ring_attention_autograd(dev):

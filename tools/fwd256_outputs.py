@@ -1,8 +1,9 @@
-"""Saves, or compares, the outputs of the two head-dim-256 bf16 forwards on
+"""Saves, or compares, the outputs of the head-dim-256 bf16 kernels on
 seed-made inputs: ``flash_attention_fwd`` (o, m, l) at the four training
 shapes (B 64, H 4, Dh 256: Tq x Tk 3 x 3, 21 x 21, 20 x 20 causal, 20 x 3,
 trailing key pads) and at B 8, T 512 causal with scattered pads, and the
-one-way and two-way ring forwards (o, m, l) at B 64, T 20 on seq 4 and at
+one-way and two-way ring forwards (o, m, l) and backwards (dq, dk, dv, on
+the forward's o, m and l and a seed-made dO) at B 64, T 20 on seq 4 and at
 B 2, T 4096 on seq 4 (causal).  To hold two trees' kernels to each other,
 run ``save`` with each tree's package, then ``compare``; it prints, per
 output, whether the two are equal bit for bit, and the largest difference
@@ -60,12 +61,20 @@ def save(path: str) -> None:
         ring = build_mesh((n,), ("seq",), dev).ring()
         shards = [x.view(b, n, c, *x.shape[2:]).transpose(0, 1)
                   for x in (q, k, v, pad)]
+        g = torch.Generator(dev).manual_seed(300 + i)
+        do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+        do = do.view(b, n, c, H, D).transpose(0, 1)
         for fwd in ("ring_attention_fwd_shard",
                     "ring_attention_fwd_bidir_shard"):
             got = getattr(ra, fwd)(*shards, ring=ring, causal=True,
                                    return_lse=True)
             for name, t in zip("oml", got):
                 out[f"{fwd} B{b} C{c} {name}"] = t.cpu()
+            bwd = fwd.replace("_fwd_", "_bwd_")
+            grads = getattr(ra, bwd)(*shards, *got, do, ring=ring,
+                                     causal=True)
+            for name, t in zip(("dq", "dk", "dv"), grads):
+                out[f"{bwd} B{b} C{c} {name}"] = t.cpu()
     torch.save(out, path)
     print(f"saved {len(out)} outputs to {path}")
 
