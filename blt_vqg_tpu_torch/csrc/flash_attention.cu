@@ -41,11 +41,11 @@
 //    cp.async stages when there is more than one tile; the head dim is
 //    zero-padded to 16.  The tiling (`FlashGeom`) is computed on the host
 //    (ops/kernels/flash_attention.py `mma_geom`) and checked here.  Head
-//    dims 136-256 run a second instantiation (DMAX 256): the forward gives
-//    each 16-row tile a pair of warps of one block, one for each half of
-//    o's columns (flash_fwd_mma_kernel<256>); the backward kernels' blocks
-//    split the accumulators' columns in two halves (`FmCols`).  The kernels
-//    up to 128 are the ones measured below, unchanged.
+//    dims 136-256 run explicit DMAX 256 specializations of all three: each
+//    16-row tile is a pair of warps of one block, one for each half of the
+//    accumulators' columns (o; dk and dv; dq), S (and dP) computed once a
+//    pair; the backward's blocks of 64 rows take 8 warps.  The kernels up
+//    to 128 are the ones measured below, unchanged.
 //
 // Bound on this card: the bytes of the operands once each at 3.35 TB/s, or
 // the operations of the visible (query, key) pairs at 989 TF/s (bf16);
@@ -438,25 +438,21 @@ constexpr int FM_KTMAX = 64;         // rows of a walked tile, at most
 
 // Head dims up to 128 take the kernels instantiated with DMAX 128: a warp
 // holds its 16 rows' accumulators over every column (16 rows x 128 in
-// registers).  Head dims 136-256 take DMAX 256.  Its backward kernels split
-// the columns of the accumulators (dk and dv, dq) between two blocks, grid
-// dimension z (`fm_cols`): each block computes the products that contract
-// over the head dim (S and dP) whole and accumulates its own 128 columns,
-// so a thread's accumulators stay those of DMAX 128; the blocks of a pair
-// recompute the same S and dP, the price of the split.  Its forward splits
-// o's columns between two warps of one block instead and computes S once
-// (flash_fwd_mma_kernel<256>, below the DMAX 128 forward).
+// registers).  Head dims 136-256 take the DMAX 256 kernels, explicit
+// specializations that give each 16-row tile a pair of warps of one block,
+// one for each half of the accumulators' columns (pair_cols), and compute
+// S (and dP) once a pair (flash_fwd_mma_kernel<256> below the DMAX 128
+// forward, the backward's after the DMAX 128 backward kernels).  Only the
+// DMAX 128 bodies take `fm_cols`, whose block owns every column: it once
+// split the DMAX 256 backward's columns between two blocks (grid z), and
+// is kept so that those bodies, and their machine code, stay as measured.
 struct FmCols {
-  int c0;  // the block's first column
-  int dp;  // its columns, zero-padded: min(geom dp - c0, 128)
+  int c0;  // the block's first column: 0
+  int dp;  // its columns, zero-padded: the geometry's dp
 };
 
 template <int DMAX>
 __device__ __forceinline__ FmCols fm_cols(int dp) {
-  if (DMAX > 128) {
-    const int c0 = 128 * blockIdx.z;
-    return FmCols{c0, min(dp - c0, 128)};
-  }
   return FmCols{0, dp};
 }
 
@@ -989,11 +985,17 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
 // block walks the query tiles (q, dO, m, l, delta) through the stages.  It
 // computes S^T = k q^T and dP^T = v dO^T, so p^T and ds^T come out of the
 // accumulators as the A operands of dV += p^T dO and dK += ds^T q (dO and
-// q read by ldmatrix.trans).
+// q read by ldmatrix.trans).  This body serves head dims up to 128; the
+// <256> specialization follows the dQ kernel.
 template <int DMAX>
+__global__ void flash_bwd_dkdv_mma_kernel(const __grid_constant__ FlashArgs a,
+                                          const __grid_constant__ FlashGeom g);
+
+template <>
 __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
-    flash_bwd_dkdv_mma_kernel(const __grid_constant__ FlashArgs a,
-                              const __grid_constant__ FlashGeom g) {
+    flash_bwd_dkdv_mma_kernel<128>(const __grid_constant__ FlashArgs a,
+                                   const __grid_constant__ FlashGeom g) {
+  constexpr int DMAX = 128;
   using T = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char fm_smem[];
   const int D = a.dim, H = a.heads, Tq = a.tq, Tk = a.tk;
@@ -1166,11 +1168,17 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
 // short tiles.  Warp w owns query rows r0 .. r0 + 15 of its group's (b, h):
 // q and dO as A fragments and dq (16 rows x D) in registers; the block
 // walks the key tiles (K, V and the keys' pad bytes) through the stages and
-// computes S = q k^T, dP = dO v^T and dQ += ds k.
+// computes S = q k^T, dP = dO v^T and dQ += ds k.  This body serves head
+// dims up to 128; the <256> specialization follows.
 template <int DMAX>
+__global__ void flash_bwd_dq_mma_kernel(const __grid_constant__ FlashArgs a,
+                                        const __grid_constant__ FlashGeom g);
+
+template <>
 __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
-    flash_bwd_dq_mma_kernel(const __grid_constant__ FlashArgs a,
-                            const __grid_constant__ FlashGeom g) {
+    flash_bwd_dq_mma_kernel<128>(const __grid_constant__ FlashArgs a,
+                                 const __grid_constant__ FlashGeom g) {
+  constexpr int DMAX = 128;
   using T = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char fm_smem[];
   const int D = a.dim, H = a.heads, Tq = a.tq, Tk = a.tk;
@@ -1303,6 +1311,358 @@ __global__ void __launch_bounds__(FM_THREADS, FM_BLOCKS_PER_SM)
   }
 }
 
+// ---- head dims 136-256: flash_bwd_dkdv_mma_kernel<256>, flash_bwd_dq_mma_kernel<256>
+// The kernels above, at DMAX 256, would hold 16 rows x 256 columns of
+// accumulators a warp.  Here each 16 owned rows (dK/dV: keys; dQ: query
+// rows) are served by a PAIR of warps of one block (warp 2 rt + half), one
+// for each half of the accumulators' columns (pair_cols: 128 each at Dh
+// 256, 80 + 64 at Dh 136), as the ring's backward kernels of the same head
+// dims do (csrc/ring_attention.cu).  Grid z is 1.  A block of 4 warps holds
+// two row tiles: two (b, h) of 16 rows (owned length <= 16) or one (b, h)
+// and 32 rows (<= 32); longer owned lengths take blocks of 8 warps, one
+// (b, h) and 64 rows (`mma_geom`).
+//  - The owned rows (dK/dV: K and V; dQ: q and dO) and each walked stage
+//    are loaded once per group, for both halves; dQ reads q and dO by
+//    ldmatrix, not held as fragments.
+//  - S^T and dP^T (dQ: S and dP) are computed once per pair: warp `half`
+//    takes the 8-wide column slices half + 2 i of the walked tile, each
+//    element summed over every 16-deep slice of the head dim, each slice
+//    from zero on the tensor cores, added in f32 in order, as above.
+//  - Each warp turns its slice into p^T and ds^T (ds) with the masking
+//    above, rounds it to the hi and lo bf16 words of the A operand
+//    (rb_split8), and the pair swaps them through shared memory at its
+//    named barrier (pair_put, two buffers used in turn); each warp then runs
+//    the products of the whole 16 x 16 tile over its own columns, as above
+//    (rb_mma_pair).  So dk, dv and dq are the arithmetic of the kernels
+//    above, bit for bit: a column's sum does not depend on who owns it.
+//  - A group holds its owned rows, then its pairs' exchange buffers
+//    (`fixed`), then its stages.  At the training shapes (B*H 256) a group
+//    walks one tile: dK/dV takes 76,160 bytes a block at 21 x 21 and at 3 x
+//    3, dQ 71,712.
+//  - The causal skips are the kernels' above, the same for both warps of a
+//    pair: dK/dV skips the query tiles wholly before the block's keys and
+//    16 queries wholly before the tile's keys; dQ stops at the key tiles
+//    after the block's last row and at 16 keys after the tile's rows.
+//    Dead rows are zeroed, so no tile needs a vote.
+//  - dQ's registers are capped at FMP_DQ_MAX_REGS a thread, so that 3
+//    blocks of 4 warps share an SM (__maxnreg__: the 8-warp blocks need
+//    256 threads); it uses 134.  dK/dV holds 128 f32 accumulators a thread
+//    (dk and dv) and runs uncapped, as the ring's does (capped at 168 that
+//    one spilled): 205 registers, 2 blocks of 4 warps an SM.  Neither
+//    spills (ptxas on the card, NVIDIA H100 80GB HBM3).
+constexpr int FMP_DQ_MAX_REGS = 168;
+
+template <>
+__global__ void flash_bwd_dkdv_mma_kernel<256>(const __grid_constant__ FlashArgs a,
+                                               const __grid_constant__ FlashGeom g) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char fm_smem[];
+  const int D = a.dim, H = a.heads, Tq = a.tq, Tk = a.tk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq4 = lane % 4;
+  const int rt = warp / 2, half = warp % 2;      // the warp's tile of 16 keys and column half
+  const int grp = rt / g.wq;
+  const int gtid = threadIdx.x - grp * 64 * g.wq, gthreads = 64 * g.wq;
+  const int bh = blockIdx.x * g.groups + grp;
+  const bool active = bh < a.batch * H;          // the last block's groups may be idle
+  const int b = active ? bh / H : 0, h = active ? bh % H : 0;
+  const int own = 16 * g.wq;
+  const int kb0 = blockIdx.y * own;              // the block's first key
+  const int kw = 16 * (rt % g.wq);               // the tile's keys in the owned rows
+  const bool live = active && kb0 + kw < Tk;     // the tile has a key to own
+  const int nd = g.dp / 8, ntq = (Tq + g.kt - 1) / g.kt;
+  const PairCols cols = pair_cols(g.dp, half);
+  const T* q = static_cast<const T*>(a.q);
+  const T* dout = static_cast<const T*>(a.dout);
+  unsigned char* gsm = fm_smem + (size_t)grp * (g.fixed + g.nst * g.stage);
+  T* ks = reinterpret_cast<T*>(gsm);
+  T* vs = ks + own * g.lds;
+  uint4* xb = reinterpret_cast<uint4*>(vs + own * g.lds) + (rt % g.wq) * 2 * 2 * 2 * 32;
+  unsigned char* stg = gsm + g.fixed;
+  const int mi = lane / 8, lr8 = lane % 8;
+  const T zero = __float2bfloat16_rn(0.f);
+
+  // the owned K and V, zeros past Tk and the dim
+  if (active) {
+    for (int c = gtid; c < own * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, kj = kb0 + r;
+      const int valid = kj < Tk ? max(0, min(8, D - d0)) : 0;
+      const size_t off = kj < Tk ? fa_at(b, kj, h, Tk, H, D) + d0 : 0;
+      rf_load16(ks + r * g.lds + d0, static_cast<const T*>(a.k) + off, valid, zero);
+      rf_load16(vs + r * g.lds + d0, static_cast<const T*>(a.v) + off, valid, zero);
+    }
+  }
+  rf_commit();
+  // the tile's keys kb0 + kw + gr + 8y: in the sequence, and masked for
+  // every query (past Tk or padded)
+  bool kin[2], kmask[2];
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int kj = kb0 + kw + gr + 8 * y;
+    kin[y] = active && kj < Tk;
+    kmask[y] = !kin[y] || (a.kv_pad && a.kv_pad[(size_t)b * Tk + kj]);
+  }
+
+  // causal: the query tiles wholly before kb0 add nothing (as above)
+  const int qstart = a.causal ? min(ntq, kb0 / g.kt) : 0;
+
+  // query tile t into stage st: q and dO rows, and the rows' m, l, delta
+  auto load = [&](int t, int st) {
+    if (!active) return;
+    const int q0 = t * g.kt;
+    T* qs = reinterpret_cast<T*>(stg + (size_t)st * g.stage);
+    T* os = qs + g.kt * g.lds;
+    float* rm = reinterpret_cast<float*>(os + g.kt * g.lds);
+    for (int c = gtid; c < g.kt * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, i = q0 + r;
+      const int valid = i < Tq ? max(0, min(8, D - d0)) : 0;
+      const size_t off = i < Tq ? fa_at(b, i, h, Tq, H, D) + d0 : 0;
+      rf_load16(qs + r * g.lds + d0, q + off, valid, zero);
+      rf_load16(os + r * g.lds + d0, dout + off, valid, zero);
+    }
+    const size_t rows = (size_t)bh * Tq;
+    for (int r = gtid; r < g.kt; r += gthreads) {
+      const int i = q0 + r;
+      if (i < Tq) {
+        rb_load4(rm + r, a.m + rows + i);
+        rb_load4(rm + g.kt + r, a.l + rows + i);
+        rb_load4(rm + 2 * g.kt + r, a.delta + rows + i);
+      } else {
+        rm[r] = FA_NEG_INF;
+        rm[g.kt + r] = 1.f;
+        rm[2 * g.kt + r] = 0.f;
+      }
+    }
+  };
+
+  // dk and dv of keys kb0 + kw + gr + 8y over the warp's columns:
+  // dk[n][2y + c] is column cols.c0 + 8n + 2 tq4 + c
+  float dk[MMA_DT][4], dv[MMA_DT][4];
+#pragma unroll
+  for (int n = 0; n < MMA_DT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
+
+  if (qstart < ntq) load(qstart, 0);
+  rf_commit();
+  for (int t = qstart, st = 0; t < ntq; ++t, st ^= 1) {
+    if (t + 1 < ntq) load(t + 1, st ^ 1);
+    rf_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile t (and K, V) landed
+    __syncthreads();
+
+    if (live) {
+      const int q0 = t * g.kt;
+      const T* qs = reinterpret_cast<const T*>(stg + (size_t)st * g.stage);
+      const T* os = qs + g.kt * g.lds;
+      const float* rm = reinterpret_cast<const float*>(os + g.kt * g.lds);
+      const float* rl = rm + g.kt;
+      const float* rd = rl + g.kt;
+#pragma unroll 1
+      for (int qc = 0; qc < g.kt / 16 && q0 + 16 * qc < Tq; ++qc) {
+        // causal: 16 queries wholly before the tile's keys add nothing
+        if (a.causal && q0 + 16 * qc + 15 < kb0 + kw) continue;
+        // S^T and dP^T: the tile's 16 keys x the warp's 8 queries qw ..
+        const int qw = 16 * qc + 8 * half;
+        float s[4] = {0.f, 0.f, 0.f, 0.f}, dpv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < FA_DMAX / 16; ++kk) {
+          if (kk < g.dp / 16) {
+            uint32_t af[4];
+            rf_ldsm(af, ks + (kw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
+            rb_scores8(s, af, qs + qw * g.lds + 16 * kk, g.lds, lane);
+            rf_ldsm(af, vs + (kw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
+            rb_scores8(dpv, af, os + qw * g.lds + 16 * kk, g.lds, lane);
+          }
+        }
+        // p^T and ds^T: key kb0 + kw + gr + 8 (c >> 1), query column ii
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int y = c >> 1, kj = kb0 + kw + gr + 8 * y;
+          const int ii = qw + 2 * tq4 + (c & 1);
+          const float m = rm[ii];
+          float p = 0.f, ds = 0.f;
+          if (!kmask[y] && !(a.causal && kj > q0 + ii) && m > 0.5f * FA_NEG_INF) {
+            p = expf(s[c] - m) * (1.f / rl[ii]);
+            ds = p * (dpv[c] - rd[ii]);
+          }
+          s[c] = p;
+          dpv[c] = ds;
+        }
+        // the pair swaps its slices; dV += p^T dO and dK += ds^T q over the
+        // warp's columns, the whole 16 x 16 tile as A
+        const uint4 mine[2] = {rb_split8(s), rb_split8(dpv)};
+        uint4* xp = xb + (qc & 1) * 2 * 2 * 32;
+        pair_put<2>(xp, mine, half, lane, rt);
+        uint32_t hi[4], lo[4];
+        pair_tile_a(hi, lo, mine[0], pair_theirs<2>(xp, 0, half, lane), half);
+        rb_mma_pair(dv, hi, lo, os + 16 * qc * g.lds + cols.c0, g.lds, cols.cw, lane);
+        pair_tile_a(hi, lo, mine[1], pair_theirs<2>(xp, 1, half, lane), half);
+        rb_mma_pair(dk, hi, lo, qs + 16 * qc * g.lds + cols.c0, g.lds, cols.cw, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st and the exchange before refills
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  // dk and dv in bf16 over the warp's columns
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    if (!kin[y]) continue;
+    const size_t off = fa_at(b, kb0 + kw + gr + 8 * y, h, Tk, H, D);
+    __nv_bfloat162* dkp = reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(a.dk) + off);
+    __nv_bfloat162* dvp = reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(a.dv) + off);
+#pragma unroll
+    for (int n = 0; n < MMA_DT; ++n) {
+      const int d = cols.c0 + 8 * n + 2 * tq4;
+      if (8 * n < cols.cw && d < D) {
+        dkp[d / 2] = __floats2bfloat162_rn(dk[n][2 * y], dk[n][2 * y + 1]);
+        dvp[d / 2] = __floats2bfloat162_rn(dv[n][2 * y], dv[n][2 * y + 1]);
+      }
+    }
+  }
+}
+
+template <>
+__global__ void __maxnreg__(FMP_DQ_MAX_REGS)
+    flash_bwd_dq_mma_kernel<256>(const __grid_constant__ FlashArgs a,
+                                 const __grid_constant__ FlashGeom g) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char fm_smem[];
+  const int D = a.dim, H = a.heads, Tq = a.tq, Tk = a.tk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq4 = lane % 4;
+  const int rt = warp / 2, half = warp % 2;      // the warp's row tile and column half
+  const int grp = rt / g.wq;
+  const int gtid = threadIdx.x - grp * 64 * g.wq, gthreads = 64 * g.wq;
+  const int bh = blockIdx.x * g.groups + grp;
+  const bool active = bh < a.batch * H;
+  const int b = active ? bh / H : 0, h = active ? bh % H : 0;
+  const int own = 16 * g.wq;
+  const int qb = blockIdx.y * own;               // the group's first query row
+  const int rw = 16 * (rt % g.wq);               // the tile's first row in the group
+  const int r0 = qb + rw;
+  const bool live = active && r0 < Tq;           // the tile has a row to own
+  const int qlast = min(Tq, qb + own) - 1;       // the block's last row
+  const int nd = g.dp / 8, ntk = (Tk + g.kt - 1) / g.kt;
+  const PairCols cols = pair_cols(g.dp, half);
+  unsigned char* gsm = fm_smem + (size_t)grp * (g.fixed + g.nst * g.stage);
+  T* qs = reinterpret_cast<T*>(gsm);             // [own][lds] q
+  T* os = qs + own * g.lds;                      // [own][lds] dO
+  uint4* xb = reinterpret_cast<uint4*>(os + own * g.lds) + (rt % g.wq) * 2 * 2 * 32;
+  unsigned char* stg = gsm + g.fixed;
+  const int mi = lane / 8, lr8 = lane % 8;
+  const T zero = __float2bfloat16_rn(0.f);
+
+  // the group's q and dO rows, zeros past Tq and the dim (in the first
+  // tile's cp.async group)
+  if (active) {
+    for (int c = gtid; c < own * nd; c += gthreads) {
+      const int r = c / nd, d0 = (c % nd) * 8, i = qb + r;
+      const int valid = i < Tq ? max(0, min(8, D - d0)) : 0;
+      const size_t off = i < Tq ? fa_at(b, i, h, Tq, H, D) + d0 : 0;
+      rf_load16(qs + r * g.lds + d0, static_cast<const T*>(a.q) + off, valid, zero);
+      rf_load16(os + r * g.lds + d0, static_cast<const T*>(a.dout) + off, valid, zero);
+    }
+  }
+  // the rows' m, 1 / l and delta; a row past Tq is a dead row
+  float mrow[2], lrow[2], drow[2];
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int i = r0 + gr + 8 * y;
+    mrow[y] = FA_NEG_INF;
+    lrow[y] = 1.f;
+    drow[y] = 0.f;
+    if (active && i < Tq) {
+      const size_t ri = (size_t)bh * Tq + i;
+      mrow[y] = a.m[ri];
+      lrow[y] = 1.f / a.l[ri];
+      drow[y] = a.delta[ri];
+    }
+  }
+
+  // causal: key tiles wholly after the block's last row are not walked
+  const int nt = a.causal ? min(ntk, qlast / g.kt + 1) : ntk;
+
+  // key tile t into stage st: K, V and the keys' pad bytes
+  auto load = [&](int t, int st) {
+    if (active)
+      flash_stage_kv(a, g, stg + (size_t)st * g.stage, b, h, t * g.kt, true, gtid, gthreads);
+  };
+
+  // dq of rows r0 + gr + 8y over the warp's columns: dq[n][2y + c] is
+  // column cols.c0 + 8n + 2 tq4 + c
+  float dq[MMA_DT][4];
+#pragma unroll
+  for (int n = 0; n < MMA_DT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  load(0, 0);
+  rf_commit();
+  for (int t = 0, st = 0; t < nt; ++t, st ^= 1) {
+    if (t + 1 < nt) load(t + 1, st ^ 1);
+    rf_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile t (and q, dO) landed
+    __syncthreads();
+
+    if (live) {
+      const int k0 = t * g.kt;
+      const T* ks = reinterpret_cast<const T*>(stg + (size_t)st * g.stage);
+      const T* vs = ks + g.kt * g.lds;
+      const unsigned char* ps = reinterpret_cast<const unsigned char*>(vs + g.kt * g.lds);
+#pragma unroll 1
+      for (int kc = 0; kc < g.kt / 16 && k0 + 16 * kc < Tk; ++kc) {
+        // causal: 16 keys wholly after the tile's rows add nothing
+        if (a.causal && k0 + 16 * kc > r0 + 15) break;
+        // S and dP: the tile's 16 rows x the warp's 8 keys kw ..
+        const int kw = 16 * kc + 8 * half;
+        float s[4] = {0.f, 0.f, 0.f, 0.f}, dpv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < FA_DMAX / 16; ++kk) {
+          if (kk < g.dp / 16) {
+            uint32_t af[4];
+            rf_ldsm(af, qs + (rw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
+            rb_scores8(s, af, ks + kw * g.lds + 16 * kk, g.lds, lane);
+            rf_ldsm(af, os + (rw + 8 * (mi & 1) + lr8) * g.lds + 16 * kk + 8 * (mi >> 1));
+            rb_scores8(dpv, af, vs + kw * g.lds + 16 * kk, g.lds, lane);
+          }
+        }
+        // ds: row r0 + gr + 8 (c >> 1), key column jj
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int y = c >> 1, i = r0 + gr + 8 * y;
+          const int jj = kw + 2 * tq4 + (c & 1);
+          float ds = 0.f;
+          if (!ps[jj] && !(a.causal && k0 + jj > i) && mrow[y] > 0.5f * FA_NEG_INF)
+            ds = expf(s[c] - mrow[y]) * lrow[y] * (dpv[c] - drow[y]);
+          s[c] = ds;
+        }
+        // the pair swaps its slices; dQ += ds k over the warp's columns
+        const uint4 mine[1] = {rb_split8(s)};
+        uint4* xp = xb + (kc & 1) * 2 * 32;
+        pair_put<1>(xp, mine, half, lane, rt);
+        uint32_t hi[4], lo[4];
+        pair_tile_a(hi, lo, mine[0], pair_theirs<1>(xp, 0, half, lane), half);
+        rb_mma_pair(dq, hi, lo, ks + 16 * kc * g.lds + cols.c0, g.lds, cols.cw, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st and the exchange before refills
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  if (!active) return;
+#pragma unroll
+  for (int y = 0; y < 2; ++y) {
+    const int i = r0 + gr + 8 * y;
+    if (i >= Tq) continue;
+    __nv_bfloat162* p =
+        reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(a.dq) + fa_at(b, i, h, Tq, H, D));
+#pragma unroll
+    for (int n = 0; n < MMA_DT; ++n) {
+      const int d = cols.c0 + 8 * n + 2 * tq4;
+      if (8 * n < cols.cw && d < D)
+        p[d / 2] = __floats2bfloat162_rn(dq[n][2 * y], dq[n][2 * y + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 enum FlashKernel { FA_FWD, FA_DKDV, FA_DQ };
 
@@ -1319,43 +1679,51 @@ static size_t flash_smem(FlashKernel which, int D) {
 }
 
 // the host's tiling of a bf16 kernel is one it can run: whole 16-row
-// steps, stages large enough, every (b, h) and owned row covered
+// steps, stages large enough, every (b, h) and owned row covered.  Above
+// head dim 128 (the DMAX 256 kernels) each row tile is a pair of warps:
+// the forward's blocks hold 2 tiles, the backward's 2, or 4 (8 warps) for
+// 64 rows of one (b, h); a backward group's fixed bytes are its owned rows
+// and its pairs' exchange buffers, [2 buffers][2 halves][N][32 lanes] of 16
+// bytes a tile (N: dK/dV 2, dQ 1).
 static bool flash_geom_ok(const FlashArgs& a, const FlashGeom& g, FlashKernel which) {
-  const bool dkdv = which == FA_DKDV;
-  const bool pair = which == FA_FWD && g.dp > 128;  // flash_fwd_mma_kernel<256>
+  const bool dkdv = which == FA_DKDV, fwd = which == FA_FWD;
+  const bool pair = g.dp > 128;
   const int owned = dkdv ? a.tk : a.tq, walked = dkdv ? a.tq : a.tk;
   const int tile = g.kt * g.lds * 2, own = 16 * g.wq;
   const int need = dkdv ? 2 * tile + 3 * g.kt * 4 : 2 * tile + g.kt;
-  return (g.wq == 1 || g.wq == 2 || (g.wq == 4 && !pair)) &&
-         g.groups * g.wq * (pair ? 2 : 1) == FM_WARPS &&
+  const int xch = g.wq * 2 * 2 * (dkdv ? 2 : 1) * 32 * 16;
+  const int fixed = fwd ? own * (g.dp + 4) * 4 + (pair ? own * (g.kt + 8) * 4 + own * 8 : 0)
+                    : pair ? 2 * own * g.lds * 2 + xch
+                    : dkdv ? 2 * own * g.lds * 2
+                           : 0;
+  const int warps = pair && g.wq == 4 ? 2 * FM_WARPS : FM_WARPS;
+  return (g.wq == 1 || g.wq == 2 || (g.wq == 4 && !(pair && fwd))) &&
+         g.groups * g.wq * (pair ? 2 : 1) == warps &&
          g.kt >= 16 && g.kt <= 64 && g.kt % 16 == 0 && g.dp >= a.dim && g.dp <= FA_DMAX &&
          g.dp % 16 == 0 && g.lds == g.dp + 8 && g.stage % 16 == 0 && g.stage >= need &&
-         g.fixed == (dkdv              ? 2 * own * g.lds * 2
-                     : pair            ? own * (g.dp + 4) * 4 + own * (g.kt + 8) * 4 + own * 8
-                     : which == FA_FWD ? own * (g.dp + 4) * 4
-                                       : 0) &&
-         (g.nst == 2 || (g.nst == 1 && walked <= g.kt)) &&
+         g.fixed == fixed && (g.nst == 2 || (g.nst == 1 && walked <= g.kt)) &&
          g.smem == g.groups * (g.fixed + g.nst * g.stage) && g.smem <= FM_SMEM_MAX &&
          (long)g.grid_x * g.groups >= (long)a.batch * a.heads && g.grid_y * 16 * g.wq >= owned;
 }
 
-// the DMAX instantiation of each kernel; above 128, the backward kernels
-// take two blocks per tile of rows, one for each half of the head dim's
-// columns (grid z), and the forward one
+// the DMAX instantiation of each kernel, one block per (b, h) group and
+// tile of owned rows (grid z 1): 4 warps, or above head dim 128 two a row
+// tile (8 for the backward's 64-row tiles)
 template <int DMAX>
 static cudaError_t flash_mma_launch(const FlashArgs& a, const FlashGeom& g, FlashKernel which,
                                     cudaStream_t s) {
-  const dim3 grid(g.grid_x, g.grid_y, which == FA_FWD ? 1 : DMAX / 128);
+  const dim3 grid(g.grid_x, g.grid_y);
+  const int threads = DMAX > 128 ? 64 * g.groups * g.wq : FM_THREADS;
   const cudaFuncAttribute smem = cudaFuncAttributeMaxDynamicSharedMemorySize;
   if (which == FA_FWD) {
     BVQ_TRY(cudaFuncSetAttribute(flash_fwd_mma_kernel<DMAX>, smem, g.smem));
-    flash_fwd_mma_kernel<DMAX><<<grid, FM_THREADS, g.smem, s>>>(a, g);
+    flash_fwd_mma_kernel<DMAX><<<grid, threads, g.smem, s>>>(a, g);
   } else if (which == FA_DKDV) {
     BVQ_TRY(cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<DMAX>, smem, g.smem));
-    flash_bwd_dkdv_mma_kernel<DMAX><<<grid, FM_THREADS, g.smem, s>>>(a, g);
+    flash_bwd_dkdv_mma_kernel<DMAX><<<grid, threads, g.smem, s>>>(a, g);
   } else {
     BVQ_TRY(cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<DMAX>, smem, g.smem));
-    flash_bwd_dq_mma_kernel<DMAX><<<grid, FM_THREADS, g.smem, s>>>(a, g);
+    flash_bwd_dq_mma_kernel<DMAX><<<grid, threads, g.smem, s>>>(a, g);
   }
   return cudaGetLastError();
 }

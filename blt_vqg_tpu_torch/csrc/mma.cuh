@@ -27,9 +27,10 @@ __device__ __forceinline__ void rf_ldsm2(uint32_t (&r)[2], const void* p) {
                : "memory");
 }
 
-// The head-dim-256 kernels (flash_fwd_mma_kernel<256>, ring_fwd_mma_kernel
-// <256>, ring_bwd_dkdv_mma_kernel<256>, ring_bwd_dq_mma_kernel<256>) give
-// each 16-row tile two warps, one for each half of the output's columns;
+// The head-dim-256 kernels (the <256> specializations of
+// flash_fwd_mma_kernel, flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel,
+// ring_fwd_mma_kernel, ring_bwd_dkdv_mma_kernel and ring_bwd_dq_mma_kernel)
+// give each 16-row tile two warps, one for each half of the output's columns;
 // the pair meets at a named barrier of its own (id 1 + the block's row
 // tile, up to 4 tiles; 0 is __syncthreads).  Constant ids: ptxas then
 // reserves only the barriers used, not all 16.
@@ -104,11 +105,12 @@ __device__ __forceinline__ void rb_split(const float (&x)[2][4], uint32_t (&hi)[
   }
 }
 
-// The ring backward's pairs (csrc/ring_attention.cu) split a 16 x 16 tile
-// of f32 values (S^T and dP^T, or S and dP) by 8-wide column slices: warp
-// `half` computes slice `half` as one m16n8 accumulator x.  Its words of
-// the tile's A operand, hi and lo, by rb_split's arithmetic: {hi, hi, lo,
-// lo} of rows gr and gr + 8 (the tile's words 2 half and 2 half + 1).
+// The backward's pairs (csrc/ring_attention.cu, csrc/flash_attention.cu)
+// split a 16 x 16 tile of f32 values (S^T and dP^T, or S and dP) by 8-wide
+// column slices: warp `half` computes slice `half` as one m16n8
+// accumulator x.  Its words of the tile's A operand, hi and lo, by
+// rb_split's arithmetic: {hi, hi, lo, lo} of rows gr and gr + 8 (the
+// tile's words 2 half and 2 half + 1).
 __device__ __forceinline__ uint4 rb_split8(const float (&x)[4]) {
   uint32_t w[4];
 #pragma unroll

@@ -36,10 +36,12 @@ import torch
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256         # as the decode kernels (decode_layer.py)
-MMA_WARPS = 4              # warps of a tensor-core kernel's block
+MMA_WARPS = 4              # warps of a tensor-core kernel's block (but
+                           # 8 for the pair backward's 64 rows: mma_geom)
 SM_SMEM = 233_472          # shared memory of an H100 SM (228 KB)
 BLOCK_RESERVED = 1_024     # shared memory the card reserves per block
 MMA_BLOCKS_PER_SM = 2      # FM_BLOCKS_PER_SM: the kernels' register cap
+PAIR_DQ_BLOCKS_PER_SM = 3  # the dQ pair kernel's (FMP_DQ_MAX_REGS, 4 warps)
 MMA_KERNELS = ("fwd", "dkdv", "dq")
 
 
@@ -102,6 +104,20 @@ def _up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def mma_blocks_per_sm(kernel: str, dim: int, warps: int) -> int:
+    """The blocks of ``warps`` warps that the registers of ``kernel``'s
+    instantiation for head dim ``dim`` let an SM hold: the kernels up to
+    head dim 128 and the forward above it are bounded for 2 blocks of 4
+    warps; above it the dQ kernel is capped for 3 and the dK/dV kernel
+    (uncapped, over 128 registers a thread) holds 2; an 8-warp block
+    holds the SM alone."""
+    if warps > MMA_WARPS:
+        return 1
+    if _up(dim, 16) > 128 and kernel == "dq":
+        return PAIR_DQ_BLOCKS_PER_SM
+    return MMA_BLOCKS_PER_SM
+
+
 def mma_geom(kernel: str, tq: int, tk: int, dim: int, batch_heads: int):
     """The tiling of a bf16 tensor-core kernel (``bvq::FlashGeom``):
     ``kernel`` is "fwd", "dkdv" or "dq".
@@ -114,40 +130,52 @@ def mma_geom(kernel: str, tq: int, tk: int, dim: int, batch_heads: int):
     (b, h) ``x * groups`` .. + groups - 1 (those past B*H idle) and owned
     rows ``16 wq y`` .. + 16 wq - 1 (warp w: 16 (w % wq) on).  The other
     side's rows are walked in tiles of ``kt`` rows (their length rounded
-    up to 16, at most 64, and less where the block would not fit twice on
-    an SM: a short owned side with a long walked one), through two stages
-    when there is more than one tile (above head dim 128 even 16-row
-    tiles may leave a block the SM alone).  The head dim is zero-padded to
-    ``dp`` (a multiple of 16) in rows of ``lds`` = dp + 8 elements.  Per
-    group, ``fixed`` bytes hold the dK/dV kernel's K and V or the
-    forward's q rows (f32, rows of dp + 4), and a stage holds the walked q
-    and dO (and the rows' m, l, delta) or K and V (and the keys' pad
-    bytes).
+    up to 16, at most 64, and less where the block would not fit on an SM
+    as often as its registers allow (`mma_blocks_per_sm`): a short owned
+    side with a long walked one), through two stages when there is more
+    than one tile (above head dim 128 even 16-row tiles may leave a block
+    fewer SM places).  The head dim is zero-padded to ``dp`` (a multiple
+    of 16) in rows of ``lds`` = dp + 8 elements.  Per group, ``fixed``
+    bytes hold the dK/dV kernel's K and V or the forward's q rows (f32,
+    rows of dp + 4), and a stage holds the walked q and dO (and the rows'
+    m, l, delta) or K and V (and the keys' pad bytes).
 
-    The forward above head dim 128 (``flash_fwd_mma_kernel<256>``) gives
-    each 16 query rows a pair of warps, one for each half of o's columns:
-    ``wq`` counts a (b, h)'s row tiles in a block, 1 for Tq up to 16 and 2
-    above (32 rows a block), ``groups`` = 2 / wq, and ``fixed`` also holds
-    the group's p rows (f32, rows of kt + 8) and two f32 a row (the
-    halves' row maxima)."""
+    Above head dim 128 all three kernels give each 16 owned rows a pair of
+    warps, one for each half of the accumulators' columns: ``wq`` counts a
+    (b, h)'s row tiles of 16 in a block and a block holds 2 tiles
+    (``groups`` = 2 / wq), or, in the backward kernels at an owned length
+    above 32, 4 tiles of one (b, h) on 8 warps (``wq`` 4, ``groups`` 1);
+    the forward's ``wq`` is 1 for Tq up to 16 and 2 above.  The forward's
+    ``fixed`` also holds the group's p rows (f32, rows of kt + 8) and two
+    f32 a row (the halves' row maxima); the backward's holds the owned rows
+    (dK/dV: K and V; dQ: q and dO) and its pairs' exchange buffers, 2 x 2
+    x N x 32 words of 16 bytes a tile (N: dK/dV 2, dQ 1)."""
     from blt_vqg_tpu_torch.ops.kernels import _build
 
     _check(kernel in MMA_KERNELS, f"no tensor-core kernel {kernel!r}")
     dkdv = kernel == "dkdv"
     own_len, walked = (tk, tq) if dkdv else (tq, tk)
     dp = _up(dim, 16)
-    pair = kernel == "fwd" and dp > 128
-    wq = (1 if own_len <= 16 else 2 if own_len <= 32 or pair
-          else MMA_WARPS)
-    groups = MMA_WARPS // (wq * (2 if pair else 1))
+    pair = dp > 128
+    wq = (1 if own_len <= 16 else 2 if own_len <= 32
+          or (pair and kernel == "fwd") else 4)
+    warps = 2 * MMA_WARPS if pair and wq == 4 else MMA_WARPS
+    groups = warps // (wq * (2 if pair else 1))
     own = 16 * wq
     lds = dp + 8
-    budget = SM_SMEM // MMA_BLOCKS_PER_SM - BLOCK_RESERVED
+    budget = (SM_SMEM // mma_blocks_per_sm(kernel, dim, warps)
+              - BLOCK_RESERVED)
     for kt in range(min(_up(walked, 16), 64), 0, -16):   # 16 at the least
-        fixed = (2 * own * lds * 2 if dkdv else
-                 own * (dp + 4) * 4 if kernel == "fwd" else 0)
-        if pair:
-            fixed += own * (kt + 8) * 4 + own * 8
+        if kernel == "fwd":
+            fixed = own * (dp + 4) * 4
+            if pair:
+                fixed += own * (kt + 8) * 4 + own * 8
+        elif dkdv or pair:
+            fixed = 2 * own * lds * 2
+            if pair:
+                fixed += wq * 2 * 2 * (2 if dkdv else 1) * 32 * 16
+        else:
+            fixed = 0
         stage = _up(2 * kt * lds * 2 + (3 * kt * 4 if dkdv else kt), 16)
         nst = 2 if walked > kt else 1
         if groups * (fixed + nst * stage) <= budget:

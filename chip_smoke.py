@@ -137,8 +137,8 @@ only when every phase passed):
    (seed-made weights, ``make_batch`` data, the launch counts of each
    path read around it and its time by CUDA events): (a) head dim 256
    (hidden 1024 over 4 heads): the compiler's registers and spills of the
-   four head-dim-256 pair kernels (the two forwards, the ring's dK/dV and
-   dQ), the three flash kernels against their plain
+   six head-dim-256 pair kernels (the two forwards, the flash and the
+   ring dK/dV and dQ), the three flash kernels against their plain
    versions at the four training shapes and B 8, T 512 causal, the one-
    and two-way ring at the training shape on seq 4 and at B 2, T 4096,
    each timed at those shapes with its bound and SDPA, one latent train
@@ -216,7 +216,15 @@ dK/dV and dQ), of the three bf16 flash kernels (forward, dK/dV, dQ), of the
 three cluster kernels and of ``int8_wgmma_kernel`` runs on the tensor
 cores (HMMA or HGMMA instructions, by ``cuobjdump -sass``; HGMMA, the
 warpgroup product, for ``int8_wgmma_kernel``), the flash, cluster and
-int8 kernels without spills.
+int8 kernels and the six head-dim-256 pair kernels without spills, and
+that the flash kernels' registers above head dim 128 fit the blocks an
+SM that their host tiling assumes.
+
+Every device time by profiler (``device_ms``, and the ring functions'
+times) comes from two profiler windows that each record every device kernel any window of the same
+function recorded; a function whose windows keep missing one fails the
+run.  The summary prints how many windows were taken and how many missed
+a kernel.
 
 ``--train-cli-only`` builds and runs phase 15 alone; ``--parallel-only``
 phase 18 (``--parallel-seeds N`` takes 18b's readings over N seeds);
@@ -358,10 +366,12 @@ FLASH_STEP_KERNELS = FLASH_MMA + FLASH_FMA
 # the mangled-name mark of a kernel's head-dim-256 instantiation (DMAX 256),
 # and the kernels whose DMAX 256 instantiations split the accumulators'
 # columns between the two warps of a pair (they must not spill): the two
-# forwards and the ring's two backward kernels
+# forwards, the flash backward's two kernels and the ring's two
 DMAX256 = "ILi256E"
 FWD256 = ("flash_fwd_mma_kernel", "ring_fwd_mma_kernel")
-PAIR256 = FWD256 + ("ring_bwd_dkdv_mma_kernel", "ring_bwd_dq_mma_kernel")
+FLASH_BWD256 = ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel")
+RING_BWD256 = ("ring_bwd_dkdv_mma_kernel", "ring_bwd_dq_mma_kernel")
+PAIR256 = FWD256 + FLASH_BWD256 + RING_BWD256
 # o, dq, dk, dv are bf16: the kernel and the plain version round p and every
 # output to bf16 after f32 sums taken in other orders.  Readings over 8
 # seeds x 6 cases (48; NVIDIA H100 80GB HBM3, 700 W): max error up to 1
@@ -881,21 +891,74 @@ def flash_phase(dev, log, seeds: int):
     return worst
 
 
+# profiler windows taken by whole_windows, those among them that missed a
+# device kernel another window of the same function recorded, and the spin
+# kernels that every profiler window runs before its calls and after them:
+# doubled (up to 4096) after each window that missed a kernel, and kept
+# for the rest of the run (the summary prints all three)
+PROFILE_WINDOWS = {"taken": 0, "incomplete": 0, "fill": 64}
+SPIN = "spin_kernel"        # torch.cuda._sleep's kernel
+
+
+def whole_windows(fn, calls: int, keys=None, tries: int = 10) -> list:
+    """The groups of two profiler windows of ``calls`` calls of ``fn``
+    (``profile_window``'s, after one warm-up call) that each record every
+    group that any window of ``fn`` recorded.  After a window of thousands
+    of kernels (a profiled train step or decode), every later window of
+    the process loses a few records at its edge, more after each such
+    window (``tools/profiler_drops.py``: one a window after one train step,
+    two after three; a full run lost every record of 3- and 16-call
+    windows), so each window runs spin kernels on either side of the
+    calls, and their number doubles after each window that missed a
+    kernel; windows are taken until two are whole, up to ``tries``.
+    Raises if no two are: a device time that misses a kernel never
+    reaches a total."""
+    fn()
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(tries):
+        before = sum(all_launches().values())
+        groups, host = profile_window(fn, calls, keys)
+        counted = sum(all_launches().values()) - before
+        windows.append(groups)
+        PROFILE_WINDOWS["taken"] += 1
+        seen = set().union(*windows)
+        if not groups or set(groups) != seen:
+            PROFILE_WINDOWS["fill"] = min(2 * PROFILE_WINDOWS["fill"], 4096)
+        whole = [w for w in windows if seen and set(w) == seen]
+        if len(whole) >= 2:
+            PROFILE_WINDOWS["incomplete"] += len(windows) - len(whole)
+            return whole
+    PROFILE_WINDOWS["incomplete"] += len(windows)
+    raise AssertionError(
+        f"device time: no two of {tries} profiler windows recorded every "
+        f"device kernel ({sorted(seen) or 'none'}); kernels a window: "
+        f"{[len(w) for w in windows]}, the last between "
+        f"{PROFILE_WINDOWS['fill']} spin kernels on either side; in the last,"
+        f" the kernel wrappers counted {counted} launches and the CPU-side "
+        f"events a call (the spin kernels' launches among them) were "
+        + (", ".join(f"{k} {n:g}" for k, n in sorted(host.items()))
+           or "none"))
+
+
+def mean_groups(windows: list) -> dict:
+    """{group: (launches, device ms)} per call, the mean over ``windows``
+    (each with the same groups)."""
+    return {k: tuple(sum(w[k][i] for w in windows) / len(windows)
+                     for i in (0, 1)) for k in windows[0]}
+
+
 def device_ms(fn, calls: int) -> float:
-    """Device time per call of ``fn`` by profiler: for each of its device
-    kernels, the mean time of a recorded launch times its launches per
-    call.  The profiler may drop the records of some launches (a full run
-    once recorded one of three multi-tile calls), so the launches per call
-    are the records per call rounded up: every call of ``fn`` launches the
-    same kernels.  It may also record none of them (a full run once read
-    0 us for the 3 x 3 forward); a call that launches a kernel takes
-    device time, so such a reading is taken again, up to twice more."""
-    for _ in range(3):
-        ms = sum(t / n * math.ceil(n - 1e-6)
-                 for n, t in profile_groups(fn, calls).values() if n)
-        if ms > 0.0:
-            break
-    return ms
+    """Device time per call of ``fn`` by profiler, the mean over two whole
+    windows (``whole_windows``): for each of its device kernels, the mean
+    time of a recorded launch times its launches per call.  The profiler
+    may also drop the records of some launches (a full run once recorded
+    one of three multi-tile calls), so the launches per call are the
+    records per call rounded up: every call of ``fn`` launches the same
+    kernels."""
+    windows = whole_windows(fn, calls)
+    return sum(t / n * math.ceil(n - 1e-6)
+               for w in windows for n, t in w.values()) / len(windows)
 
 
 def kernel_family(name: str, families) -> str:
@@ -1143,22 +1206,29 @@ def train_compare(dev, seed: int, log):
     return launches, worst, (cfg, kstate, ecfg, estate, batch)
 
 
-def profile_groups(fn, calls: int, keys=None) -> dict:
-    """{group: (launches, device ms)} per call of ``fn``, by profiler over
-    ``calls`` calls after one warm-up call: the device kernels whose names
-    contain each of ``keys``, and the rest as "other" (without ``keys``,
-    each kernel name is a group)."""
-    fn()
-    torch.cuda.synchronize()
+def profile_window(fn, calls: int, keys=None):
+    """({group: (launches, device ms)}, {CPU-side event: records}) per call
+    of ``fn`` over ``calls`` calls in one profiler window, between
+    ``PROFILE_WINDOWS["fill"]`` spin kernels on either side (their records
+    are left out): the device kernels whose names contain each of
+    ``keys``, and the rest as "other" (without ``keys``, each kernel name
+    is a group)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(PROFILE_WINDOWS["fill"]):
+            torch.cuda._sleep(100)
         for _ in range(calls):
             fn()
+        for _ in range(PROFILE_WINDOWS["fill"]):
+            torch.cuda._sleep(100)
         torch.cuda.synchronize()
-    groups = {}
+    groups, host = {}, {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            host[evt.key] = host.get(evt.key, 0.0) + evt.count / calls
+            continue
+        if SPIN in evt.key:
             continue
         us = (getattr(evt, "self_device_time_total", 0.0)
               or getattr(evt, "self_cuda_time_total", 0.0))
@@ -1166,7 +1236,15 @@ def profile_groups(fn, calls: int, keys=None) -> dict:
                next((k for k in keys if k in evt.key), "other"))
         n, t = groups.get(key, (0, 0.0))
         groups[key] = (n + evt.count / calls, t + us / 1e3 / calls)
-    return groups
+    return groups, host
+
+
+def profile_groups(fn, calls: int, keys=None) -> dict:
+    """{group: (launches, device ms)} per call of ``fn``, by profiler over
+    ``calls`` calls after one warm-up call (``profile_window``'s groups)."""
+    fn()
+    torch.cuda.synchronize()
+    return profile_window(fn, calls, keys)[0]
 
 
 def train_times(dev, card, log, cfg, kstate, ecfg, estate, batch):
@@ -2122,16 +2200,15 @@ def ring_case_times(dev, card, log, label, case, h: int = 8, d: int = 128,
                        max(2, iters // 4))
         # device time per call: the ring kernels (by kernel), and the
         # rest (hop and seed copies, layout copies, delta)
-        # (a profile that recorded no ring kernel is taken again, up to
-        # twice more: every call launches them)
-        for _ in range(3):
-            groups = profile_groups(lambda: fn(*args, ring=ring,
-                                               causal=causal), 3,
-                                    RING_KERNEL_NAMES)
-            kn, kdev = (sum(groups.get(k, (0, 0.0))[i]
-                            for k in RING_KERNEL_NAMES) for i in (0, 1))
-            if kn:
-                break
+        # (two profiler windows that record every group: whole_windows)
+        groups = mean_groups(whole_windows(
+            lambda: fn(*args, ring=ring, causal=causal), 3,
+            RING_KERNEL_NAMES))
+        kn, kdev = (sum(groups.get(k, (0, 0.0))[i]
+                        for k in RING_KERNEL_NAMES) for i in (0, 1))
+        if not kn:
+            raise AssertionError(f"{name}: the profiler recorded no ring "
+                                 f"kernel")
         on, odev = groups.get("other", (0, 0.0))
         nbytes, flops = bounds[name]
         b_ms, b_by = bound(nbytes, flops)
@@ -2222,11 +2299,12 @@ def mma_code(lib_path: str, report: str) -> None:
     tensor-core products (HMMA or HGMMA; HGMMA for INT8_KERNEL), and unless
     ptxas reports no spills for the flash (head dims up to 128: the
     ``DMAX`` 128 instantiations the training shapes run), cluster and int8
-    kernels and the four head-dim-256 pair kernels (PAIR256: the two
-    forwards and the ring's dK/dV and dQ; the ring forward's DMAX 128
-    registers are capped for 3 blocks per SM, and it spills a few bytes by
-    design; the flash backward's head-dim-256 spills are printed, not
-    refused)."""
+    kernels and the six head-dim-256 pair kernels (PAIR256: the two
+    forwards and the flash and ring dK/dV and dQ; the ring forward's DMAX
+    128 registers are capped for 3 blocks per SM, and it spills a few bytes
+    by design), and unless the registers of the three flash kernels above
+    head dim 128 let an SM hold the blocks that ``mma_blocks_per_sm``
+    gives the host tiling."""
     kernels = RING_MMA + FLASH_MMA + CLUSTER_MMA + (INT8_KERNEL,)
     watched = ("ring_", "flash_", "gemm_partial_kernel", "residual_ln_kernel",
                *CLUSTER_MMA, *CLUSTER_OTHER, INT8_KERNEL)
@@ -2240,6 +2318,24 @@ def mma_code(lib_path: str, report: str) -> None:
                     + (INT8_KERNEL,)))
             if kept and not (spill and spill.group(1) == "0"):
                 raise AssertionError(f"{name} spills (or ptxas did not say)")
+    # the blocks an SM that the host tiling assumes for the flash kernels
+    # above head dim 128 (mma_geom sizes its walked stages by them) must fit
+    # the SM's 65,536 registers at ptxas' count, allotted 8 a thread at a time
+    regs = {name: int(used.group(1))
+            for name, used, _ in ptxas_entries(report) if used}
+    for kernel, kind in zip(FLASH_MMA, fa.MMA_KERNELS):
+        name = next((n for n in regs if kernel in n and DMAX256 in n), None)
+        if name is None:
+            raise AssertionError(f"ptxas reported no {kernel}<256>")
+        for warps in (fa.MMA_WARPS, 2 * fa.MMA_WARPS):
+            blocks = fa.mma_blocks_per_sm(kind, 256, warps)
+            need = blocks * warps * 32 * -(-regs[name] // 8) * 8
+            log(f"    {kernel}<256>, {warps} warps: {regs[name]} registers "
+                f"a thread; the host tiling puts {blocks} such blocks on an "
+                f"SM: {need} of 65536 registers")
+            if need > 65536:
+                raise AssertionError(f"{kernel}<256>: {blocks} blocks of "
+                                     f"{warps} warps do not fit an SM")
     for w_i8 in (False, True):
         log(f"    cluster product, {'int8' if w_i8 else 'bf16'} weights: "
             f"{decode_stream.cluster_smem(w_i8)} bytes of dynamic shared "
@@ -3393,7 +3489,7 @@ def compare_seeds(dev, card, log, tag: str, over: dict, seeds: int, limits):
 
 
 def pair256_ptxas(log) -> None:
-    """The compiler's registers, barriers and spills of the four
+    """The compiler's registers, barriers and spills of the six
     head-dim-256 pair kernels (PAIR256), from the build log (phase 1
     refuses their spills)."""
     with open(_build.library_path() + ".log") as f:
@@ -3425,7 +3521,7 @@ def dh256_times(dev, card, log):
 
 
 def pair256_launches(fn):
-    """{kernel: (launches, device ms)} of the four head-dim-256 pair
+    """{kernel: (launches, device ms)} of the six head-dim-256 pair
     kernels (PAIR256: their ILi256E instantiations, which the profiler names
     demangled: ``bvq::flash_fwd_mma_kernel<256>(...)``) in one call of
     ``fn``, by profiler."""
@@ -3498,10 +3594,11 @@ def dh256_phase(dev, card, log, data: dict, seeds: int):
     # a seq 4 ring call launches the forward, the dK/dV and the dQ kernel
     # once per ring step with a live rank
     steps = ring_launch_counts(RING_SEQ, True)[0]
-    want = {"flash": {FWD256[0]: STEP_FLASH,
-                      **dict.fromkeys(PAIR256[1:], 0)},
-            "seq 4": {FWD256[0]: STEP_FLASH - nl,
-                      **dict.fromkeys(PAIR256[1:], nl * steps)}}
+    flash, ring = (FWD256[0],) + FLASH_BWD256, (FWD256[1],) + RING_BWD256
+    want = {"flash": {**dict.fromkeys(flash, STEP_FLASH),
+                      **dict.fromkeys(ring, 0)},
+            "seq 4": {**dict.fromkeys(flash, STEP_FLASH - nl),
+                      **dict.fromkeys(ring, nl * steps)}}
     for path, counts in (("flash", got), ("seq 4", sp)):
         log(f"[17a] {card}: latent step b{BATCH} on the {path} path, the "
             f"{DMAX256} pair kernels by profiler: " + ", ".join(
@@ -5068,6 +5165,11 @@ def main(argv=None):
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}, dh256_max_abs_err=dh_err[name])
         kernels.append(row)
+    log(f"profiler windows of device times: {PROFILE_WINDOWS['taken']} "
+        f"taken, {PROFILE_WINDOWS['incomplete']} of them missing a device "
+        f"kernel that another window of the same function recorded; "
+        f"{PROFILE_WINDOWS['fill']} spin kernels on either side of a window "
+        f"at the end of the run")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

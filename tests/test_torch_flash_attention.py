@@ -164,6 +164,8 @@ def test_cpu_takes_the_plain_version():
 # ("fwd") owns queries and walks key tiles, as dQ does.
 
 GEOM_DIMS = (8, 16, 40, 64, 80, 128)
+PAIR_DIMS = (136, 200, 256)     # the pair kernels' (column halves 80 + 64,
+                                # 112 + 96, 128 + 128)
 TRAIN_SHAPES = ((3, 3), (21, 21), (20, 20), (20, 3))   # (Tq, Tk)
 
 
@@ -172,10 +174,13 @@ def _writes(g, n_bh, length, pair=False):
     ``g``: block (x, y), warp w, lane row r writes (b, h) x * groups +
     w // wq, row 16 wq y + 16 (w % wq) + r, where both lie in range (the
     kernels' test before a store; idle groups and rows store nothing).
-    With ``pair`` (the forward above head dim 128), warp w serves row tile
-    w // 2 in place of w."""
+    With ``pair`` (the kernels above head dim 128), warp w serves row tile
+    w // 2 in place of w, and a block has 2 warps a row tile."""
+    warps = g.groups * g.wq * (2 if pair else 1)
+    assert warps in ((tfa.MMA_WARPS, 2 * tfa.MMA_WARPS) if pair
+                     else (tfa.MMA_WARPS,))
     x, y, w, r = np.meshgrid(np.arange(g.grid_x), np.arange(g.grid_y),
-                             np.arange(tfa.MMA_WARPS), np.arange(16),
+                             np.arange(warps), np.arange(16),
                              indexing="ij")
     if pair:
         w = w // 2
@@ -191,10 +196,11 @@ def _writes(g, n_bh, length, pair=False):
 def test_bwd_geom_covers_every_row_once(kernel):
     """Every (b, h) and owned row, for owned lengths 1-130 and B*H counts
     that leave the last block's groups idle, is written exactly once; only
-    the last block along each grid axis holds idle groups or rows.  The
-    forward above head dim 128 gives each 16 rows a pair of warps (warp w:
-    row tile w // 2, column half w % 2): each row is written once by each
-    half."""
+    the last block along each grid axis holds idle groups or rows.  Above
+    head dim 128 (136, 200 and 256 in turn) each 16 rows get a pair of
+    warps (warp w: row tile w // 2, column half w % 2): each row is written
+    once by each half; the backward kernels take 8-warp blocks of 64 rows
+    of one (b, h) above an owned length of 32, the forward stays at 32."""
     for length in range(1, 131):
         for n_bh in (1, 3, 5, 6):
             tq, tk = (7, length) if kernel == "dkdv" else (length, 7)
@@ -204,12 +210,17 @@ def test_bwd_geom_covers_every_row_once(kernel):
             assert g.grid_x * g.groups - n_bh < g.groups
             assert g.grid_y * 16 * g.wq - length < 16 * g.wq
             assert g.wq == (1 if length <= 16 else 2 if length <= 32 else 4)
-            if kernel == "fwd" and n_bh != 6:
-                g = tfa.mma_geom(kernel, tq, tk, 200, n_bh)
+            if n_bh != 6:
+                d = PAIR_DIMS[(length + n_bh) % len(PAIR_DIMS)]
+                g = tfa.mma_geom(kernel, tq, tk, d, n_bh)
                 counts, _, _ = _writes(g, n_bh, length, pair=True)
-                assert (counts == 2).all(), (length, n_bh)
+                assert (counts == 2).all(), (length, n_bh, d)
                 assert g.grid_x * g.groups - n_bh < g.groups
-                assert g.wq == (1 if length <= 16 else 2)
+                assert g.grid_y * 16 * g.wq - length < 16 * g.wq
+                top = 2 if kernel == "fwd" else 4
+                assert g.wq == (1 if length <= 16 else 2 if length <= 32
+                                else top)
+                assert g.groups == (1 if g.wq == 4 else 2 // g.wq)
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
@@ -219,29 +230,31 @@ def test_bwd_walk_reaches_every_visible_pair(causal):
     the warp's keys; forward and dQ: key tiles wholly after the block's
     last row, and 16 keys wholly after the warp's rows), cover every
     (query, key) pair that is not causally masked, for Tq and Tk in
-    1-130."""
+    1-130, at head dim 64 and in the pair kernels' tiling above 128 (a
+    pair's two warps skip together: they share their 16 rows)."""
     for tq in range(1, 131, 3):
         for tk in range(1, 131, 4):
             i, j = np.meshgrid(np.arange(tq), np.arange(tk), indexing="ij")
             vis = ~(causal & (j > i))
-            g = tfa.mma_geom("dkdv", tq, tk, 64, 1)     # keys owned
-            kb0 = j // (16 * g.wq) * 16 * g.wq
-            kw = j % (16 * g.wq) // 16 * 16
-            walked = i < -(-tq // g.kt) * g.kt
-            if causal:
-                walked &= (i // g.kt >= kb0 // g.kt) & (i // 16 * 16 + 15
-                                                        >= kb0 + kw)
-            assert walked[vis].all(), ("dkdv", tq, tk)
-            for kernel in ("dq", "fwd"):                # queries owned
-                g = tfa.mma_geom(kernel, tq, tk, 64, 1)
-                qlast = np.minimum(tq, i // (16 * g.wq) * 16 * g.wq
-                                   + 16 * g.wq) - 1
-                r0 = i // 16 * 16
-                walked = j < -(-tk // g.kt) * g.kt
+            for d in (64, PAIR_DIMS[(tq + tk) % len(PAIR_DIMS)]):
+                g = tfa.mma_geom("dkdv", tq, tk, d, 1)      # keys owned
+                kb0 = j // (16 * g.wq) * 16 * g.wq
+                kw = j % (16 * g.wq) // 16 * 16
+                walked = i < -(-tq // g.kt) * g.kt
                 if causal:
-                    walked &= (j // g.kt <= qlast // g.kt) & (j // 16 * 16
-                                                              <= r0 + 15)
-                assert walked[vis].all(), (kernel, tq, tk)
+                    walked &= (i // g.kt >= kb0 // g.kt) & (
+                        i // 16 * 16 + 15 >= kb0 + kw)
+                assert walked[vis].all(), ("dkdv", tq, tk, d)
+                for kernel in ("dq", "fwd"):                # queries owned
+                    g = tfa.mma_geom(kernel, tq, tk, d, 1)
+                    qlast = np.minimum(tq, i // (16 * g.wq) * 16 * g.wq
+                                       + 16 * g.wq) - 1
+                    r0 = i // 16 * 16
+                    walked = j < -(-tk // g.kt) * g.kt
+                    if causal:
+                        walked &= (j // g.kt <= qlast // g.kt) & (
+                            j // 16 * 16 <= r0 + 15)
+                    assert walked[vis].all(), (kernel, tq, tk, d)
 
 
 def test_bwd_geom_fits_shared_memory():
@@ -278,7 +291,7 @@ def test_bwd_geom_fits_shared_memory():
     # wide) and the halves' row maxima; a group holds 16 or 32 rows
     for tq in range(1, 131, 3):
         for tk in range(1, 131, 3):
-            for d in (136, 200, 256):
+            for d in PAIR_DIMS:
                 g = tfa.mma_geom("fwd", tq, tk, d, 5)
                 own = 16 * g.wq
                 assert g.fixed == (own * (g.dp + 4) * 4
@@ -287,6 +300,35 @@ def test_bwd_geom_fits_shared_memory():
                 assert g.smem == g.groups * (g.fixed + g.nst * g.stage)
                 worst = max(worst, g.smem)
     assert worst <= budget <= 232_448   # what a block may take on sm_90
+    # the backward above head dim 128: a group holds its owned rows (dK/dV:
+    # K and V; dQ: q and dO) and its pairs' exchange buffers (two buffers
+    # of [2 halves][N][32 lanes] words of 16 bytes a row tile; N: dK/dV 2,
+    # dQ 1).  A 4-warp block fits on an SM as often as its registers allow
+    # (dK/dV 2, dQ 3) unless even 16-row tiles leave it fewer places, and
+    # then twice; an 8-warp block fits once
+    for kernel, n in (("dkdv", 2), ("dq", 1)):
+        dkdv = kernel == "dkdv"
+        for tq in range(1, 131, 3):
+            for tk in range(1, 131, 3):
+                walked = tq if dkdv else tk
+                for d in PAIR_DIMS:
+                    g = tfa.mma_geom(kernel, tq, tk, d, 5)
+                    own = 16 * g.wq
+                    need = 2 * g.kt * g.lds * 2 + (3 * g.kt * 4 if dkdv
+                                                   else g.kt)
+                    assert g.dp == -(-d // 16) * 16 and g.lds == g.dp + 8
+                    assert need <= g.stage < need + 16
+                    assert g.kt % 16 == 0 and 16 <= g.kt <= min(
+                        -(-walked // 16) * 16, 64)
+                    assert g.fixed == (2 * own * g.lds * 2
+                                       + g.wq * 2 * 2 * n * 32 * 16)
+                    assert g.nst == (2 if walked > g.kt else 1)
+                    assert g.smem == g.groups * (g.fixed + g.nst * g.stage)
+                    warps = 2 * g.groups * g.wq
+                    per_sm = tfa.SM_SMEM // (g.smem + tfa.BLOCK_RESERVED)
+                    regs = tfa.mma_blocks_per_sm(kernel, d, warps)
+                    assert per_sm >= (regs if g.kt > 16 else min(regs, 2))
+                    assert g.smem <= 232_448
 
 
 @pytest.mark.parametrize("tq,tk", TRAIN_SHAPES)
@@ -294,8 +336,9 @@ def test_bwd_geom_training_shapes(tq, tk):
     """At the flagship's training shapes (B*H 512, Dh 128) 2 or more
     blocks of each kernel share an SM, and a call fits in one wave of the
     card's 132 SMs; 21 x 21 takes 256 blocks, 3 x 3 128.  The forward walks
-    one key tile, so it makes one pass over K and V; so does its head-dim-
-    256 form at the same shapes over 4 heads, 2 or more blocks an SM."""
+    one key tile, so it makes one pass over K and V.  At the same shapes
+    over 4 heads (head dim 256) each kernel's pair form fits 2 or more
+    blocks an SM (dQ 3) in one wave, walking one tile."""
     for kernel in tfa.MMA_KERNELS:
         g = tfa.mma_geom(kernel, tq, tk, 128, 512)
         per_sm = tfa.SM_SMEM // (g.smem + tfa.BLOCK_RESERVED)
@@ -307,12 +350,19 @@ def test_bwd_geom_training_shapes(tq, tk):
             assert g.grid_x * g.grid_y == 128
     g = tfa.mma_geom("fwd", tq, tk, 128, 512)
     assert g.nst == 1 and g.kt >= tk
-    # hidden 1024 over 4 heads (B*H 256, Dh 256): the forward's pairs of
-    # warps fit 2 or more blocks an SM in one wave, with one pass over K, V
-    g = tfa.mma_geom("fwd", tq, tk, 256, 256)
-    assert g.groups * g.wq * 2 == tfa.MMA_WARPS
-    assert tfa.SM_SMEM // (g.smem + tfa.BLOCK_RESERVED) >= 2, g.smem
-    assert g.grid_x * g.grid_y <= 132 * 2 and g.nst == 1 and g.kt >= tk
+    # hidden 1024 over 4 heads (B*H 256, Dh 256): the three kernels' pairs
+    # of warps in 4-warp blocks, 2 or more blocks an SM (dQ 3), in one wave,
+    # each block walking one tile
+    for kernel in tfa.MMA_KERNELS:
+        g = tfa.mma_geom(kernel, tq, tk, 256, 256)
+        walked = tq if kernel == "dkdv" else tk
+        assert g.groups * g.wq * 2 == tfa.MMA_WARPS, kernel
+        per_sm = tfa.mma_blocks_per_sm(kernel, 256, tfa.MMA_WARPS)
+        assert per_sm == (3 if kernel == "dq" else 2)
+        assert tfa.SM_SMEM // (g.smem + tfa.BLOCK_RESERVED) >= per_sm, (
+            kernel, g.smem)
+        assert g.grid_x * g.grid_y <= 132 * per_sm, kernel
+        assert g.nst == 1 and g.kt >= walked, kernel
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],

@@ -1,10 +1,12 @@
 """Saves, or compares, the outputs of the head-dim-256 bf16 kernels on
-seed-made inputs: ``flash_attention_fwd`` (o, m, l) at the four training
-shapes (B 64, H 4, Dh 256: Tq x Tk 3 x 3, 21 x 21, 20 x 20 causal, 20 x 3,
-trailing key pads) and at B 8, T 512 causal with scattered pads, and the
-one-way and two-way ring forwards (o, m, l) and backwards (dq, dk, dv, on
-the forward's o, m and l and a seed-made dO) at B 64, T 20 on seq 4 and at
-B 2, T 4096 on seq 4 (causal).  To hold two trees' kernels to each other,
+seed-made inputs: ``flash_attention_fwd`` (o, m, l) and
+``flash_attention_bwd`` (dq, dk, dv, on the plain forward's o, m and l and a
+seed-made dO) at the four training shapes (B 64, H 4, Dh 256: Tq x Tk 3 x
+3, 21 x 21, 20 x 20 causal, 20 x 3, trailing key pads) and at B 8, T 512
+causal with scattered pads, and the one-way and two-way ring forwards (o,
+m, l) and backwards (dq, dk, dv, on the forward's o, m and l and a
+seed-made dO) at B 64, T 20 on seq 4 and at B 2, T 4096 on seq 4
+(causal).  To hold two trees' kernels to each other,
 run ``save`` with each tree's package, then ``compare``; it prints, per
 output, whether the two are equal bit for bit, and the largest difference
 where they are not.  Run on a machine with the card and nvcc:
@@ -56,6 +58,12 @@ def save(path: str) -> None:
         for name, t in zip("oml", fa.flash_attention_fwd(q, k, v, pad,
                                                          causal)):
             out[f"flash B{b} {tq}x{tk} {name}"] = t.cpu()
+        o, m, l = fa.flash_attention_fwd_ref(q, k, v, pad, causal)
+        g = torch.Generator(dev).manual_seed(400 + i)
+        do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+        grads = fa.flash_attention_bwd(q, k, v, pad, o, m, l, do, causal)
+        for name, t in zip(("dq", "dk", "dv"), grads):
+            out[f"flash_bwd B{b} {tq}x{tk} {name}"] = t.cpu()
     for i, (b, n, c) in enumerate(RING):
         q, k, v, pad = _inputs(dev, b, n * c, n * c, 200 + i, False)
         ring = build_mesh((n,), ("seq",), dev).ring()
